@@ -1,0 +1,356 @@
+"""Scan primitives for quasiseparable linear algebra, forward only.
+
+Counterpart of ``tinygp_tpu/solvers/quasisep/scan.py``. Two first-order
+recurrences over the data axis carry every O(N) operation:
+
+1. the **affine** recurrence ``g_k = A_k g_prev + B_k``;
+2. the **Riccati** covariance flow ``F' = a F a^T + u u^T / c2`` with
+   ``u = q - a F p`` and ``c2 = d - p^T F p``, composed in parallel as a
+   linear-fractional (Möbius) map on the triple ``(A, F, G)``.
+
+Operands are *stacked*: an ``(N, m, k)`` array is one ``(m*k, N)`` tensor
+with the components on the second-to-last axis and the data axis last, so
+any leading axes (the blocked scan's step axis) broadcast through the m×m
+algebra, which is written out as elementwise products of rows.
+
+:func:`monoid_scan` is the JAX package's blocked strategy on the CPU,
+with the same ``_BLOCK``, ``_SEQ_CUTOFF`` and ``_ASSOC_CUTOFF`` and the
+same block scaling, so that in float64 its association order is the one
+the JAX CPU route uses. The TPU-only associative-scan level and the
+Pallas branch are not part of the port; on the card the whole
+log-likelihood runs in one CUDA kernel
+(:mod:`tinygp_tpu_torch.solvers.quasisep.cuda_loglik`). The congruence
+scan and the hand-written VJPs come with the gradient slice (ROADMAP item
+N1).
+"""
+
+from __future__ import annotations
+
+__all__ = ["monoid_scan"]
+
+from collections.abc import Callable
+
+import torch
+
+# Sequential steps per level of the blocked scan.
+_BLOCK = 64
+# Below this length a single sequential scan is used.
+_SEQ_CUTOFF = 128
+# The block grows until the totals level has at most this many entries,
+# keeping the depth at block + log(N / block) levels for any N.
+_ASSOC_CUTOFF = 8192
+
+Tree = tuple[torch.Tensor, ...]
+
+
+def monoid_scan(
+    combine: Callable[[Tree, Tree], Tree],
+    identity: Tree,
+    elems: Tree,
+    *,
+    reverse: bool = False,
+) -> Tree:
+    """Exclusive scan of an associative ``combine`` along the LAST axis.
+
+    Args:
+        combine: ``combine(earlier, later) -> composed``, associative in
+            index order, broadcasting over any leading axes.
+        identity: The identity element; each leaf carries a singleton lane
+            axis (e.g. ``(m*m, 1)``) so it broadcasts against any width.
+        elems: A tuple of tensors, all with the scan axis last (length N).
+        reverse: Scan right-to-left.
+
+    Returns:
+        A tuple like ``elems``: at lane k, the composition of all elements
+        strictly before (after, if ``reverse``) k.
+
+    Strategy: split the lane axis into blocks of ``_BLOCK``; phase 1 runs
+    the block-local exclusive scan sequentially over the block position,
+    batched across blocks on the lane axis; phase 2 recurses on the block
+    totals; phase 3 folds each block's prefix into its local states.
+    """
+    n = elems[0].shape[-1]
+
+    def seq(front: Tree) -> tuple[Tree, Tree]:
+        """Sequential exclusive scan over leading-axis-stacked elements."""
+        carry = tuple(
+            torch.broadcast_to(i, e.shape[1:]) for e, i in zip(front, identity)
+        )
+        steps = front[0].shape[0]
+        excl: list[Tree] = [()] * steps
+        for k in range(steps - 1, -1, -1) if reverse else range(steps):
+            elem = tuple(e[k] for e in front)
+            excl[k] = carry
+            carry = combine(elem, carry) if reverse else combine(carry, elem)
+        stacked = tuple(
+            torch.stack([x[j] for x in excl]) for j in range(len(front))
+        )
+        return stacked, carry
+
+    if n <= _SEQ_CUTOFF:
+        # Move the lane axis to the step position, keeping a singleton lane
+        # axis so the combine's lane-major contraction stays valid.
+        front = tuple(torch.movedim(x, -1, 0)[..., None] for x in elems)
+        excl, _ = seq(front)
+        return tuple(torch.movedim(x[..., 0], 0, -1) for x in excl)
+
+    block = _BLOCK
+    while n > block * _ASSOC_CUTOFF:
+        block *= 2
+    num_blocks = -(-n // block)
+    pad = num_blocks * block - n
+
+    def pad_and_fill(x: torch.Tensor, ident: torch.Tensor) -> torch.Tensor:
+        if pad:
+            fill = torch.broadcast_to(ident, x.shape[:-1] + (pad,))
+            x = torch.cat([fill, x] if reverse else [x, fill], dim=-1)
+        # (..., nb*c) -> (c, ..., nb): the block index stays on lanes.
+        x = x.reshape(x.shape[:-1] + (num_blocks, block))
+        return torch.movedim(x, -1, 0)
+
+    blocked = tuple(pad_and_fill(x, i) for x, i in zip(elems, identity))
+
+    # Phase 1: block-local exclusive scan, batched over blocks on lanes.
+    local_excl, totals = seq(blocked)
+    # Phase 2: recurse on the per-block totals (lane axis = num_blocks).
+    block_prefix = monoid_scan(combine, identity, totals, reverse=reverse)
+    # Phase 3: fold each block's prefix into its local states.
+    out = (
+        combine(local_excl, block_prefix)
+        if reverse
+        else combine(block_prefix, local_excl)
+    )
+
+    def unblock(x: torch.Tensor) -> torch.Tensor:
+        x = torch.movedim(x, 0, -1)  # (..., nb, c)
+        x = x.reshape(x.shape[:-2] + (num_blocks * block,))
+        return x[..., pad:] if (reverse and pad) else x[..., :n]
+
+    return tuple(unblock(x) for x in out)
+
+
+# ---------------------------------------------------------------------------
+# Stacked m×m algebra: (..., m*k, N) tensors, components at axis -2.
+# ---------------------------------------------------------------------------
+
+
+def _smm(A, B, m, k, r):
+    """Stacked matmul: (..., m*k, N) x (..., k*r, N) -> (..., m*r, N)."""
+    rows = []
+    for i in range(m):
+        for j in range(r):
+            acc = A[..., i * k, :] * B[..., j, :]
+            for l in range(1, k):
+                acc = acc + A[..., i * k + l, :] * B[..., l * r + j, :]
+            rows.append(acc)
+    return torch.stack(rows, dim=-2)
+
+
+def _smm_t(A, B, m, k, r):
+    """Stacked ``A @ B^T``: (..., m*k, N) x (..., r*k, N) -> (..., m*r, N)."""
+    rows = []
+    for i in range(m):
+        for j in range(r):
+            acc = A[..., i * k, :] * B[..., j * k, :]
+            for l in range(1, k):
+                acc = acc + A[..., i * k + l, :] * B[..., j * k + l, :]
+            rows.append(acc)
+    return torch.stack(rows, dim=-2)
+
+
+def _st(A, m, k):
+    """Stacked transpose: (..., m*k, N) -> (..., k*m, N)."""
+    return torch.stack(
+        [A[..., i * k + j, :] for j in range(k) for i in range(m)], dim=-2
+    )
+
+
+def _sadd_eye(X, m):
+    """Add the m x m identity to a stacked (..., m*m, N) matrix."""
+    return torch.stack(
+        [
+            X[..., c, :] + 1.0 if c % (m + 1) == 0 else X[..., c, :]
+            for c in range(m * m)
+        ],
+        dim=-2,
+    )
+
+
+def _smv(M, v, m, k):
+    """Stacked matvec: (..., m*k, N) x (..., k, N) -> (..., m, N)."""
+    rows = []
+    for i in range(m):
+        acc = M[..., i * k, :] * v[..., 0, :]
+        for l in range(1, k):
+            acc = acc + M[..., i * k + l, :] * v[..., l, :]
+        rows.append(acc)
+    return torch.stack(rows, dim=-2)
+
+
+def _souter(u, v):
+    """Stacked outer: (..., m, N) x (..., r, N) -> (..., m*r, N)."""
+    m, r = u.shape[-2], v.shape[-2]
+    return torch.stack(
+        [u[..., i, :] * v[..., j, :] for i in range(m) for j in range(r)],
+        dim=-2,
+    )
+
+
+def _seye(m: int, like: torch.Tensor) -> torch.Tensor:
+    """Stacked identity with a broadcastable singleton lane axis."""
+    return torch.eye(m, dtype=like.dtype, device=like.device).reshape(m * m, 1)
+
+
+def _inv4_components(Mc):
+    """Closed-form 4x4 inverse as 16 components, via block-Schur on 2x2s.
+
+    With ``M = [[P, Q], [R, S]]`` in 2x2 blocks and ``T = S - R P^-1 Q``::
+
+        M^-1 = [[P^-1 + P^-1 Q T^-1 R P^-1,  -P^-1 Q T^-1],
+                [-T^-1 R P^-1,                T^-1        ]]
+
+    The scan merges' ``M = I + F G`` operands are near the identity, so the
+    pivot-free block elimination is safe there.
+    """
+
+    def inv2(x):
+        a, b, c, d = x
+        idet = 1.0 / (a * d - b * c)
+        return [d * idet, -b * idet, -c * idet, a * idet]
+
+    def mul2(x, y):
+        a, b, c, d = x
+        e, f, g, h = y
+        return [a * e + b * g, a * f + b * h, c * e + d * g, c * f + d * h]
+
+    p = [Mc[0], Mc[1], Mc[4], Mc[5]]
+    q = [Mc[2], Mc[3], Mc[6], Mc[7]]
+    r_ = [Mc[8], Mc[9], Mc[12], Mc[13]]
+    s = [Mc[10], Mc[11], Mc[14], Mc[15]]
+    pinv = inv2(p)
+    rpinv = mul2(r_, pinv)
+    t = [si - xi for si, xi in zip(s, mul2(rpinv, q))]
+    tinv = inv2(t)
+    pinvq = mul2(pinv, q)
+    tl = mul2(tinv, rpinv)  # T^-1 R P^-1
+    tr = mul2(pinvq, tinv)  # P^-1 Q T^-1
+    topleft = [pi + xi for pi, xi in zip(pinv, mul2(tr, rpinv))]
+    out = [None] * 16
+    out[0], out[1], out[4], out[5] = topleft
+    out[2], out[3], out[6], out[7] = [-x for x in tr]
+    out[8], out[9], out[12], out[13] = [-x for x in tl]
+    out[10], out[11], out[14], out[15] = tinv
+    return out
+
+
+def _ssolve(M, B, m, r):
+    """Stacked ``solve(M, B)`` with closed-form inverses for m <= 4."""
+    if m == 1:
+        return B / M[..., :1, :]
+    if m == 2:
+        a, b = M[..., 0, :], M[..., 1, :]
+        c, d = M[..., 2, :], M[..., 3, :]
+        inv_det = 1.0 / (a * d - b * c)
+        inv = torch.stack([d, -b, -c, a], dim=-2) * inv_det[..., None, :]
+        return _smm(inv, B, m, m, r)
+    if m == 3:
+        a, b, c = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+        d, e, f = M[..., 3, :], M[..., 4, :], M[..., 5, :]
+        g, h, i = M[..., 6, :], M[..., 7, :], M[..., 8, :]
+        A = e * i - f * h
+        Bc = -(d * i - f * g)
+        C = d * h - e * g
+        D = -(b * i - c * h)
+        E = a * i - c * g
+        F = -(a * h - b * g)
+        G = b * f - c * e
+        H = -(a * f - c * d)
+        I = a * e - b * d
+        inv_det = 1.0 / (a * A + b * Bc + c * C)
+        inv = (
+            torch.stack([A, D, G, Bc, E, H, C, F, I], dim=-2)
+            * inv_det[..., None, :]
+        )
+        return _smm(inv, B, m, m, r)
+    if m == 4:
+        comps = [M[..., k, :] for k in range(16)]
+        inv = torch.stack(_inv4_components(comps), dim=-2)
+        return _smm(inv, B, m, m, r)
+    # General case: unstack to batched matrices for an LU solve.
+    Mb = torch.movedim(M.reshape(M.shape[:-2] + (m, m, M.shape[-1])), -1, -3)
+    Bb = torch.movedim(B.reshape(B.shape[:-2] + (m, r, B.shape[-1])), -1, -3)
+    out = torch.movedim(torch.linalg.solve(Mb, Bb), -3, -1)
+    return out.reshape(out.shape[:-3] + (m * r, out.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# The recurrences.
+# ---------------------------------------------------------------------------
+
+
+def _affine_scan_s(As, Bs, m, r, *, reverse: bool, exclusive: bool):
+    """Stacked affine scan: As (m*m, N), Bs (m*r, N) -> the states."""
+
+    def combine(earlier, later):
+        A_e, B_e = earlier
+        A_l, B_l = later
+        if reverse:
+            # Suffix composition: the earlier map applies on the outside.
+            return (
+                _smm(A_e, A_l, m, m, m),
+                _smm(A_e, B_l, m, m, r) + B_e,
+            )
+        return (
+            _smm(A_l, A_e, m, m, m),
+            _smm(A_l, B_e, m, m, r) + B_l,
+        )
+
+    identity = (_seye(m, As), Bs.new_zeros((m * r, 1)))
+    excl = monoid_scan(combine, identity, (As, Bs), reverse=reverse)
+    if exclusive:
+        return excl[1]
+    pair = (As, Bs)
+    incl = combine(pair, excl) if reverse else combine(excl, pair)
+    return incl[1]
+
+
+def _riccati_scan_s(d, ps, qs, as_, m):
+    """Stacked Riccati flow: the exclusive prefix F (m*m, N) from F_0 = 0.
+
+    Each step is the linear-fractional map encoded by ``(A, F, G)``::
+
+        A_k = a_k - q_k p_k^T / d_k,  F_k = q_k q_k^T / d_k,
+        G_k = -p_k p_k^T / d_k,
+
+    and two maps merge through ``M = I + F_e G_l``::
+
+        A = A_l M^-1 A_e
+        F = F_l + A_l M^-1 F_e A_l^T
+        G = G_e + A_e^T M^-T G_l A_e
+    """
+    inv_d = 1.0 / d
+    A0 = as_ - _souter(qs, ps) * inv_d
+    F0 = _souter(qs, qs) * inv_d
+    G0 = -_souter(ps, ps) * inv_d
+
+    def combine(earlier, later):
+        A_e, F_e, G_e = earlier
+        A_l, F_l, G_l = later
+        M = _sadd_eye(_smm(F_e, G_l, m, m, m), m)
+        A = _smm(A_l, _ssolve(M, A_e, m, m), m, m, m)
+        F = F_l + _smm_t(
+            _smm(A_l, _ssolve(M, F_e, m, m), m, m, m), A_l, m, m, m
+        )
+        G = G_e + _smm(
+            _smm(_st(A_e, m, m), _ssolve(_st(M, m, m), G_l, m, m), m, m, m),
+            A_e,
+            m,
+            m,
+            m,
+        )
+        return A, F, G
+
+    zeros = ps.new_zeros((m * m, 1))
+    identity = (_seye(m, ps), zeros, zeros)
+    _, F, _ = monoid_scan(combine, identity, (A0, F0, G0))
+    return F
