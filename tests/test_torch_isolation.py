@@ -1,5 +1,5 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX
-package, whose name ``tinygp_tpu`` is a prefix of the port's own."""
+"""The port stands alone: it imports no JAX, no optax and nothing of the
+JAX package, whose name ``tinygp_tpu`` is a prefix of the port's own."""
 
 import ast
 import pathlib
@@ -19,21 +19,21 @@ def forbidden(module: str) -> bool:
     submodule; ``tinygp_tpu_torch`` is neither)."""
     return any(
         module == name or module.startswith(name + ".")
-        for name in ("jax", "jaxlib", "tinygp_tpu")
+        for name in ("jax", "jaxlib", "optax", "tinygp_tpu")
     )
 
 
 def test_forbidden_matches_names_not_prefixes():
-    assert forbidden("jax.numpy") and forbidden("tinygp_tpu.gp")
+    assert forbidden("jax.numpy") and forbidden("tinygp_tpu.gp") and forbidden("optax")
     assert not forbidden("tinygp_tpu_torch") and not forbidden("jaxtyping_x")
 
 
 def test_import_loads_no_jax():
     code = (
         "import sys, tinygp_tpu_torch, tinygp_tpu_torch.convert, "
-        "tinygp_tpu_torch.cuda_build\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'tinygp_tpu')"
-        " or m.startswith(('jax.', 'jaxlib.', 'tinygp_tpu.'))]\n"
+        "tinygp_tpu_torch.cuda_build, tinygp_tpu_torch.fit\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'tinygp_tpu')"
+        " or m.startswith(('jax.', 'jaxlib.', 'optax.', 'tinygp_tpu.'))]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -1,11 +1,12 @@
 """tinygp-tpu's port to PyTorch and CUDA for one NVIDIA H100.
 
 A second package beside the JAX reference ``tinygp_tpu``, ported one slice
-at a time (see ROADMAP.md). This slice carries the O(N) quasiseparable GP
-marginal log-likelihood end to end: the quasiseparable kernels,
-``GaussianProcess`` with ``log_probability``, and the fused log-likelihood
-as a hand-written CUDA kernel for Hopper. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+at a time (see ROADMAP.md). It carries the O(N) quasiseparable GP
+marginal log-likelihood and its gradient end to end: the quasiseparable
+kernels, ``GaussianProcess`` with ``log_probability``, the fused
+log-likelihood and its backward as hand-written CUDA kernels for Hopper,
+and ``fit_map``, which fits hyperparameters with them. Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -16,4 +17,5 @@ from tinygp_tpu_torch import (
     noise as noise,
     solvers as solvers,
 )
+from tinygp_tpu_torch.fit import FitResult as FitResult, fit_map as fit_map
 from tinygp_tpu_torch.gp import GaussianProcess as GaussianProcess

@@ -1,12 +1,19 @@
-// Quasiseparable GP log-likelihood terms on Hopper (sm_90a).
+// Quasiseparable GP log-likelihood terms on Hopper (sm_90a): kernels B1 and
+// B1r.
 //
 // Replaces the TPU kernel tinygp_tpu/solvers/quasisep/pallas_loglik.py:
-// _loglik_kernel (line 86), launched by _call_kernel (line 275) with
-// residuals=False. For K = diag(d) + tril(p, q, a) + tril(p, q, a)^T with
-// an m x m state it returns (quad, logdet) = (sum alpha^2, sum log c):
+// _loglik_kernel (line 86), launched by _call_kernel (line 275): with
+// residuals=False as B1 (entries qsl_loglik_*), with residuals=True (from
+// _fused_fwd, line 409) as B1r (entries qsl_loglik_res_*). For
+// K = diag(d) + tril(p, q, a) + tril(p, q, a)^T with an m x m state it
+// returns (quad, logdet) = (sum alpha^2, sum log c):
 // the Riccati covariance flow F, the Cholesky emissions
 // c = sqrt(d - p^T F p) and w = (q - a F p) / c, the whitening affine scan
 // e with A = a - (w / c) p^T and B = (w / c) y, and alpha = (y - p^T e) / c.
+// B1r also writes, for each element k, the residuals that the backward
+// kernel (quasisep_loglik_bwd.cu) reads: the exclusive Riccati state F_k
+// (m*m, n), the exclusive whitening state e_k (m, n) and 1/c_k (n), in the
+// operands' type.
 //
 // Operands are stacked as in the JAX package: d, y of length n; ps, qs of
 // shape (m, n); as of shape (m*m, n), row i*m+j holding a[i, j]; all
@@ -22,7 +29,8 @@
 //
 // What bounds it: bytes. The function must read (m*m + 2m + 2) values per
 // element once and writes two scalars: 40 MB at n = 1e6, m = 2 in float32,
-// 11.9 us at 3.35 TB/s. The sequential algorithm's arithmetic, about 100
+// 11.9 us at 3.35 TB/s. B1r writes (m*m + m + 1) values per element more:
+// 68 MB and 20.3 us. The sequential algorithm's arithmetic, about 100
 // flops per element for m = 2, would take 1.4 us at the float32 peak.
 //
 // Design. The TPU kernel carries the scan state from one grid step to the
@@ -44,8 +52,9 @@
 //                   folding them into a chunk total; block scan as in 1.
 //   4. scan_totals: the affine block totals.
 //   5. finish:      each thread starts from its stored F and its e prefix,
-//                   re-runs its chunk for alpha and log c, and the block
-//                   writes its partial sums.
+//                   re-runs its chunk for alpha and log c (B1r: and writes
+//                   each element's F, e and 1/c), and the block writes its
+//                   partial sums.
 //   6. reduce:      one block sums the partials in a fixed order, so the
 //                   result is deterministic (no float atomics).
 //
@@ -57,250 +66,9 @@
 // call is six launches. Coalescing through shared memory and a single pass
 // with a decoupled look-back are later work.
 
-#include <cuda_runtime.h>
-
-extern __shared__ __align__(16) unsigned char qsl_smem[];
+#include "quasisep_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 64;  // threads per block of the chunk passes
-constexpr int kChunk = 8;     // consecutive elements per thread
-constexpr int kScanThreads = 256;
-constexpr int kSharedLimit = 48 * 1024;
-
-using Acc = double;  // the arithmetic type of every scan (see Precision)
-
-// ---------------------------------------------------------------- m x m algebra
-
-template <typename T, int M>
-__device__ __forceinline__ void mm(const T* a, const T* b, T* out) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T acc = a[i * M] * b[j];
-#pragma unroll
-      for (int l = 1; l < M; ++l) acc += a[i * M + l] * b[l * M + j];
-      out[i * M + j] = acc;
-    }
-}
-
-// a @ b^T
-template <typename T, int M>
-__device__ __forceinline__ void mm_nt(const T* a, const T* b, T* out) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T acc = a[i * M] * b[j * M];
-#pragma unroll
-      for (int l = 1; l < M; ++l) acc += a[i * M + l] * b[j * M + l];
-      out[i * M + j] = acc;
-    }
-}
-
-// a^T @ b
-template <typename T, int M>
-__device__ __forceinline__ void mm_tn(const T* a, const T* b, T* out) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T acc = a[i] * b[j];
-#pragma unroll
-      for (int l = 1; l < M; ++l) acc += a[l * M + i] * b[l * M + j];
-      out[i * M + j] = acc;
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void inv2(const T* x, T* out) {
-  const T idet = T(1) / (x[0] * x[3] - x[1] * x[2]);
-  out[0] = x[3] * idet;
-  out[1] = -x[1] * idet;
-  out[2] = -x[2] * idet;
-  out[3] = x[0] * idet;
-}
-
-template <typename T>
-__device__ __forceinline__ void mul2(const T* x, const T* y, T* out) {
-  out[0] = x[0] * y[0] + x[1] * y[2];
-  out[1] = x[0] * y[1] + x[1] * y[3];
-  out[2] = x[2] * y[0] + x[3] * y[2];
-  out[3] = x[2] * y[1] + x[3] * y[3];
-}
-
-// Closed-form inverses: adjugates for m <= 3 and the block-Schur form of
-// scan.py:_inv4_components for m = 4. The scan merges invert I + F G,
-// which is near the identity, so no pivoting is needed.
-template <typename T, int M>
-__device__ __forceinline__ void inverse(const T* x, T* out) {
-  if constexpr (M == 1) {
-    out[0] = T(1) / x[0];
-  } else if constexpr (M == 2) {
-    inv2(x, out);
-  } else if constexpr (M == 3) {
-    const T a = x[0], b = x[1], c = x[2], d = x[3], e = x[4], f = x[5],
-            g = x[6], h = x[7], i = x[8];
-    const T A = e * i - f * h, B = -(d * i - f * g), C = d * h - e * g;
-    const T D = -(b * i - c * h), E = a * i - c * g, F = -(a * h - b * g);
-    const T G = b * f - c * e, H = -(a * f - c * d), I = a * e - b * d;
-    const T idet = T(1) / (a * A + b * B + c * C);
-    out[0] = A * idet; out[1] = D * idet; out[2] = G * idet;
-    out[3] = B * idet; out[4] = E * idet; out[5] = H * idet;
-    out[6] = C * idet; out[7] = F * idet; out[8] = I * idet;
-  } else {
-    static_assert(M == 4, "m must be 1..4");
-    const T p[4] = {x[0], x[1], x[4], x[5]};
-    const T q[4] = {x[2], x[3], x[6], x[7]};
-    const T r[4] = {x[8], x[9], x[12], x[13]};
-    const T s[4] = {x[10], x[11], x[14], x[15]};
-    T pinv[4], rpinv[4], tmp[4], t[4], tinv[4], pinvq[4], tl[4], tr[4];
-    inv2(p, pinv);
-    mul2(r, pinv, rpinv);
-    mul2(rpinv, q, tmp);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) t[k] = s[k] - tmp[k];
-    inv2(t, tinv);
-    mul2(pinv, q, pinvq);
-    mul2(tinv, rpinv, tl);  // T^-1 R P^-1
-    mul2(pinvq, tinv, tr);  // P^-1 Q T^-1
-    mul2(tr, rpinv, tmp);
-    out[0] = pinv[0] + tmp[0]; out[1] = pinv[1] + tmp[1];
-    out[4] = pinv[2] + tmp[2]; out[5] = pinv[3] + tmp[3];
-    out[2] = -tr[0]; out[3] = -tr[1]; out[6] = -tr[2]; out[7] = -tr[3];
-    out[8] = -tl[0]; out[9] = -tl[1]; out[12] = -tl[2]; out[13] = -tl[3];
-    out[10] = tinv[0]; out[11] = tinv[1]; out[14] = tinv[2]; out[15] = tinv[3];
-  }
-}
-
-// -------------------------------------------------------------------- monoids
-
-// The Riccati flow as a Moebius map (A, F, G), flattened [A | F | G].
-template <typename T, int M>
-struct Ric {
-  static constexpr int MM = M * M;
-  static constexpr int S = 3 * MM;
-  T v[S];
-
-  __device__ static Ric identity() {
-    Ric r;
-#pragma unroll
-    for (int c = 0; c < S; ++c) r.v[c] = (c < MM && c % (M + 1) == 0) ? T(1) : T(0);
-    return r;
-  }
-
-  // M = I + F_e G_l;  A = A_l M^-1 A_e;  F = F_l + A_l M^-1 F_e A_l^T;
-  // G = G_e + A_e^T M^-T G_l A_e.
-  __device__ static Ric combine(const Ric& e, const Ric& l) {
-    const T* Ae = e.v; const T* Fe = e.v + MM; const T* Ge = e.v + 2 * MM;
-    const T* Al = l.v; const T* Fl = l.v + MM; const T* Gl = l.v + 2 * MM;
-    T mat[MM], minv[MM], t1[MM], t2[MM];
-    mm<T, M>(Fe, Gl, mat);
-#pragma unroll
-    for (int i = 0; i < M; ++i) mat[i * (M + 1)] += T(1);
-    inverse<T, M>(mat, minv);
-    Ric out;
-    mm<T, M>(minv, Ae, t1);
-    mm<T, M>(Al, t1, out.v);
-    mm<T, M>(minv, Fe, t1);
-    mm<T, M>(Al, t1, t2);
-    mm_nt<T, M>(t2, Al, t1);
-#pragma unroll
-    for (int c = 0; c < MM; ++c) out.v[MM + c] = Fl[c] + t1[c];
-    mm_tn<T, M>(minv, Gl, t1);
-    mm<T, M>(t1, Ae, t2);
-    mm_tn<T, M>(Ae, t2, t1);
-#pragma unroll
-    for (int c = 0; c < MM; ++c) out.v[2 * MM + c] = Ge[c] + t1[c];
-    return out;
-  }
-};
-
-// The affine recurrence g' = A g + B, flattened [A | B].
-template <typename T, int M>
-struct Aff {
-  static constexpr int MM = M * M;
-  static constexpr int S = MM + M;
-  T v[S];
-
-  __device__ static Aff identity() {
-    Aff r;
-#pragma unroll
-    for (int c = 0; c < S; ++c) r.v[c] = (c < MM && c % (M + 1) == 0) ? T(1) : T(0);
-    return r;
-  }
-
-  // (A_l A_e, A_l B_e + B_l)
-  __device__ static Aff combine(const Aff& e, const Aff& l) {
-    Aff out;
-    mm<T, M>(l.v, e.v, out.v);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      T acc = l.v[MM + i];
-#pragma unroll
-      for (int j = 0; j < M; ++j) acc += l.v[i * M + j] * e.v[MM + j];
-      out.v[MM + i] = acc;
-    }
-    return out;
-  }
-};
-
-template <class V, typename T>
-__device__ __forceinline__ V load(const T* src, long long idx) {
-  V x;
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) x.v[c] = src[idx * V::S + c];
-  return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ void store(T* dst, long long idx, const V& x) {
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) dst[idx * V::S + c] = x.v[c];
-}
-
-// Shared memory holds one value per thread and component, component-major
-// (sm[c * nt + t]) so that neighbouring threads hit neighbouring banks.
-template <class V, typename T>
-__device__ __forceinline__ V sm_load(const T* sm, int t, int nt) {
-  V x;
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) x.v[c] = sm[c * nt + t];
-  return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ void sm_store(T* sm, int t, int nt, const V& x) {
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) sm[c * nt + t] = x.v[c];
-}
-
-// Kogge-Stone inclusive scan over the block's threads. On return the
-// shared array holds every thread's inclusive value.
-template <class V, typename T>
-__device__ V block_inclusive_scan(V x, T* sm) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  sm_store<V>(sm, t, nt, x);
-  __syncthreads();
-  for (int off = 1; off < nt; off <<= 1) {
-    V y = x;
-    if (t >= off) y = V::combine(sm_load<V>(sm, t - off, nt), x);
-    __syncthreads();
-    if (t >= off) {
-      x = y;
-      sm_store<V>(sm, t, nt, x);
-    }
-    __syncthreads();
-  }
-  return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ V block_exclusive(const T* sm) {
-  const int t = threadIdx.x;
-  return t == 0 ? V::identity() : sm_load<V>(sm, t - 1, blockDim.x);
-}
 
 // ------------------------------------------------------------ per-element math
 
@@ -414,24 +182,6 @@ ric_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
   if (threadIdx.x == kThreads - 1) store(ric_block, blockIdx.x, incl);
 }
 
-// Exclusive scan of `nb` block totals, in place, by one block.
-template <class V, typename T>
-__global__ void scan_totals(int nb, T* tot) {
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int per = (nb + nt - 1) / nt;
-  const int lo = min(t * per, nb), hi = min(lo + per, nb);
-  V acc = V::identity();
-  for (int i = lo; i < hi; ++i) acc = V::combine(acc, load<V>(tot, i));
-  block_inclusive_scan<V>(acc, sm);
-  V pre = block_exclusive<V>(sm);
-  for (int i = lo; i < hi; ++i) {
-    const V x = load<V>(tot, i);
-    store(tot, i, pre);
-    pre = V::combine(pre, x);
-  }
-}
-
 template <typename S, int M>
 __global__ void __launch_bounds__(kThreads)
 aff_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
@@ -467,11 +217,12 @@ aff_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
   if (threadIdx.x == kThreads - 1) store(aff_block, blockIdx.x, incl);
 }
 
-template <typename S, int M>
+// kRes: also write each element's residuals F_k, e_k and 1/c_k (B1r).
+template <typename S, int M, bool kRes>
 __global__ void __launch_bounds__(kThreads)
 finish_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
              const S* y, const Acc* f_start, const Acc* aff_local,
-             const Acc* aff_block, Acc* partials) {
+             const Acc* aff_block, Acc* partials, S* Fs, S* es, S* ics) {
   using T = Acc;
   using A = Aff<T, M>;
   constexpr int MM = M * M;
@@ -501,6 +252,13 @@ finish_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
     T u[M];
     const T c2 = el.emit(F, u);
     const T c = sqrt(c2);
+    if constexpr (kRes) {
+#pragma unroll
+      for (int r = 0; r < MM; ++r) Fs[r * n + k] = S(F[r]);
+#pragma unroll
+      for (int i = 0; i < M; ++i) es[i * n + k] = S(e[i]);
+      ics[k] = S(T(1) / c);
+    }
     T pe = T(0);
 #pragma unroll
     for (int i = 0; i < M; ++i) pe += el.p[i] * e[i];
@@ -566,10 +324,6 @@ __global__ void reduce_partials(int nb, const Acc* partials, S* out) {
 
 // ------------------------------------------------------------------- host side
 
-long long num_blocks(long long n) {
-  return (n + (long long)kThreads * kChunk - 1) / ((long long)kThreads * kChunk);
-}
-
 // Workspace layout, in elements of Acc.
 template <int M>
 struct Layout {
@@ -599,17 +353,11 @@ long long workspace_elems(int m, long long n) {
   }
 }
 
-// Threads of a single-block scan: as many as fit the default shared limit.
-template <class V, typename T>
-int scan_threads() {
-  int nt = kScanThreads;
-  while (nt > 32 && (long long)nt * V::S * sizeof(T) > kSharedLimit) nt /= 2;
-  return nt;
-}
-
+// Fs, es, ics: B1r's residual outputs, or null for B1.
 template <typename S, int M>
 cudaError_t run(long long n, const S* d, const S* ps, const S* qs,
-                const S* as, const S* y, S* out, Acc* work, cudaStream_t s) {
+                const S* as, const S* y, S* out, S* Fs, S* es, S* ics,
+                Acc* work, cudaStream_t s) {
   using T = Acc;
   using R = Ric<T, M>;
   using A = Aff<T, M>;
@@ -630,8 +378,14 @@ cudaError_t run(long long n, const S* d, const S* ps, const S* qs,
       n, d, ps, qs, as, y, ric_local, ric_block, f_start, aff_local,
       aff_block);
   scan_totals<A, T><<<1, at, at * A::S * sizeof(T), s>>>(nb, aff_block);
-  finish_chunk<S, M><<<nb, kThreads, 2 * kThreads * sizeof(T), s>>>(
-      n, d, ps, qs, as, y, f_start, aff_local, aff_block, partials);
+  if (Fs)
+    finish_chunk<S, M, true><<<nb, kThreads, 2 * kThreads * sizeof(T), s>>>(
+        n, d, ps, qs, as, y, f_start, aff_local, aff_block, partials, Fs, es,
+        ics);
+  else
+    finish_chunk<S, M, false><<<nb, kThreads, 2 * kThreads * sizeof(T), s>>>(
+        n, d, ps, qs, as, y, f_start, aff_local, aff_block, partials, Fs, es,
+        ics);
   reduce_partials<S><<<1, kScanThreads, 2 * kScanThreads * sizeof(T), s>>>(
       nb, partials, out);
   return cudaGetLastError();
@@ -639,17 +393,17 @@ cudaError_t run(long long n, const S* d, const S* ps, const S* qs,
 
 template <typename S>
 int loglik(int m, long long n, const S* d, const S* ps, const S* qs,
-           const S* as, const S* y, S* out, Acc* work, long long work_elems,
-           void* stream) {
+           const S* as, const S* y, S* out, S* Fs, S* es, S* ics, Acc* work,
+           long long work_elems, void* stream) {
   if (n < 1 || num_blocks(n) > 0x7fffffffLL || workspace_elems(m, n) < 0 ||
       work_elems < workspace_elems(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return (int)run<S, 1>(n, d, ps, qs, as, y, out, work, s);
-    case 2: return (int)run<S, 2>(n, d, ps, qs, as, y, out, work, s);
-    case 3: return (int)run<S, 3>(n, d, ps, qs, as, y, out, work, s);
-    default: return (int)run<S, 4>(n, d, ps, qs, as, y, out, work, s);
+    case 1: return (int)run<S, 1>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
+    case 2: return (int)run<S, 2>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
+    case 3: return (int)run<S, 3>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
+    default: return (int)run<S, 4>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
   }
 }
 
@@ -666,14 +420,34 @@ int qsl_loglik_f32(int m, int n, const float* d, const float* ps,
                    const float* qs, const float* as, const float* y,
                    float* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<float>(m, n, d, ps, qs, as, y, out, work, work_elems, stream);
+  return loglik<float>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
+                       work, work_elems, stream);
 }
 
 int qsl_loglik_f64(int m, int n, const double* d, const double* ps,
                    const double* qs, const double* as, const double* y,
                    double* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<double>(m, n, d, ps, qs, as, y, out, work, work_elems, stream);
+  return loglik<double>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
+                        work, work_elems, stream);
+}
+
+// B1r: (quad, logdet) as above, and the residuals F (m*m, n), e (m, n) and
+// 1/c (n), in the operands' type. The same workspace as B1.
+int qsl_loglik_res_f32(int m, int n, const float* d, const float* ps,
+                       const float* qs, const float* as, const float* y,
+                       float* out, float* Fs, float* es, float* ics,
+                       double* work, long long work_elems, void* stream) {
+  return loglik<float>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
+                       work_elems, stream);
+}
+
+int qsl_loglik_res_f64(int m, int n, const double* d, const double* ps,
+                       const double* qs, const double* as, const double* y,
+                       double* out, double* Fs, double* es, double* ics,
+                       double* work, long long work_elems, void* stream) {
+  return loglik<double>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
+                        work_elems, stream);
 }
 
 const char* qsl_error_string(int code) {

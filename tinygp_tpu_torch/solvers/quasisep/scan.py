@@ -1,10 +1,12 @@
-"""Scan primitives for quasiseparable linear algebra, forward only.
+"""Scan primitives for quasiseparable linear algebra and their adjoints.
 
 Counterpart of ``tinygp_tpu/solvers/quasisep/scan.py``. Two first-order
 recurrences over the data axis carry every O(N) operation:
 
 1. the **affine** recurrence ``g_k = A_k g_prev + B_k``;
-2. the **Riccati** covariance flow ``F' = a F a^T + u u^T / c2`` with
+2. the **congruence** recurrence ``g_k = A_k g_prev A_k^T + B_k``, which
+   carries the Riccati flow's adjoint;
+3. the **Riccati** covariance flow ``F' = a F a^T + u u^T / c2`` with
    ``u = q - a F p`` and ``c2 = d - p^T F p``, composed in parallel as a
    linear-fractional (Möbius) map on the triple ``(A, F, G)``.
 
@@ -18,10 +20,11 @@ with the same ``_BLOCK``, ``_SEQ_CUTOFF`` and ``_ASSOC_CUTOFF`` and the
 same block scaling, so that in float64 its association order is the one
 the JAX CPU route uses. The TPU-only associative-scan level and the
 Pallas branch are not part of the port; on the card the whole
-log-likelihood runs in one CUDA kernel
-(:mod:`tinygp_tpu_torch.solvers.quasisep.cuda_loglik`). The congruence
-scan and the hand-written VJPs come with the gradient slice (ROADMAP item
-N1).
+log-likelihood and its gradient run in CUDA kernels
+(:mod:`tinygp_tpu_torch.solvers.quasisep.cuda_loglik`). The hand-written
+adjoints (:func:`_affine_bwd_s`, :func:`_riccati_bwd_s`) are the two
+reverse scans of the backward kernel's plain version
+(``cuda_loglik.plain_loglik_bwd``).
 """
 
 from __future__ import annotations
@@ -354,3 +357,96 @@ def _riccati_scan_s(d, ps, qs, as_, m):
     identity = (_seye(m, ps), zeros, zeros)
     _, F, _ = monoid_scan(combine, identity, (A0, F0, G0))
     return F
+
+
+def _sshift_lane(X, fill, reverse: bool):
+    """Shift stacked leaves one step along the lane axis, filling the end."""
+    fill = torch.broadcast_to(fill, X.shape[:-1] + (1,))
+    if reverse:
+        return torch.cat([fill, X[..., :-1]], dim=-1)
+    return torch.cat([X[..., 1:], fill], dim=-1)
+
+
+def _affine_bwd_s(As, es, ebar_s, m, r, *, reverse: bool, exclusive: bool):
+    """Stacked cotangents ``(Abar, Bbar)`` of :func:`_affine_scan_s`.
+
+    The adjoint of a linear recurrence is one opposite-direction affine
+    scan with the transposed transitions, plus outer products (indices of
+    the forward scan; reverse mirrors)::
+
+        gbar_k = A_{k+1}^T gbar_{k+1} + ebar_{k(+1)}
+        Bbar_k = gbar_k
+        Abar_k = gbar_k g_{k-1}^T
+
+    ``es`` are the scan's outputs for the same ``reverse``/``exclusive``.
+    """
+    At = _st(As, m, m)
+    if not exclusive:
+        # The inclusive scan's adjoint consumes transitions shifted by one
+        # step (identity fill) and pairs gbar with the exclusive outputs.
+        At = _sshift_lane(At, _seye(m, At), reverse)
+        es = _sshift_lane(es, es.new_zeros(()), not reverse)
+    gbar = _affine_scan_s(At, ebar_s, m, r, reverse=not reverse, exclusive=exclusive)
+    return _smm_t(gbar, es, m, r, m), gbar
+
+
+def _congruence_scan_s(As, Bs, m, *, reverse: bool):
+    """Stacked congruence scan: the exclusive prefix of
+    ``g = A g A^T + B`` from ``g = 0``; As, Bs (m*m, N)."""
+
+    def combine(earlier, later):
+        A_e, B_e = earlier
+        A_l, B_l = later
+        if reverse:
+            return (
+                _smm(A_e, A_l, m, m, m),
+                _smm_t(_smm(A_e, B_l, m, m, m), A_e, m, m, m) + B_e,
+            )
+        return (
+            _smm(A_l, A_e, m, m, m),
+            _smm_t(_smm(A_l, B_e, m, m, m), A_l, m, m, m) + B_l,
+        )
+
+    identity = (_seye(m, As), Bs.new_zeros((m * m, 1)))
+    return monoid_scan(combine, identity, (As, Bs), reverse=reverse)[1]
+
+
+def _riccati_bwd_s(res, Ybar_s, inv_c2=None):
+    """Adjoint of the Riccati flow via a reverse congruence scan.
+
+    ``res = (d, ps, qs, as_, Fs)`` with ``Fs`` the flow's exclusive prefix;
+    ``Ybar_s`` (m*m, N) is the cotangent of ``Fs``. ``inv_c2``, where
+    given, is ``1 / c2`` as the caller already has it (``d`` is then not
+    read). Linearising
+    ``phi(F) = a F a^T + u u^T / c2`` (``u = q - a F p``,
+    ``c2 = d - p^T F p``) gives ``(dphi/dF)^T [G] = A~^T G A~`` with
+    ``A~ = a - u p^T / c2``, so the state adjoint
+    ``Fbar_k = Ybar_k + A~_k^T Fbar_{k+1} A~_k`` is a reverse congruence
+    scan. With ``Gbar_k = Fbar_{k+1}`` and ``S = Gbar + Gbar^T``::
+
+        qbar = S u / c2
+        dbar = -(u . S u) / (2 c2^2)
+        pbar = -F a^T S u / c2 + (u . S u) / c2^2 * F p
+        abar = S a F - S u (F p)^T / c2
+
+    Returns ``(dbar, pbar, qbar, abar)``.
+    """
+    d, ps, qs, as_, Fs = res
+    m = ps.shape[0]
+    Fp = _smv(Fs, ps, m, m)
+    if inv_c2 is None:
+        inv_c2 = 1.0 / (d - torch.sum(ps * Fp, dim=0))
+    u = qs - _smv(as_, Fp, m, m)
+    atil = as_ - _souter(u, ps) * inv_c2
+
+    Gbar = _congruence_scan_s(_st(atil, m, m), Ybar_s, m, reverse=True)
+    S = Gbar + _st(Gbar, m, m)
+    Su = _smv(S, u, m, m)
+    uSu = torch.sum(u * Su, dim=0)
+
+    qbar = Su * inv_c2
+    dbar = -0.5 * uSu * inv_c2**2
+    aTSu = _smv(_st(as_, m, m), Su, m, m)
+    pbar = -_smv(Fs, aTSu, m, m) * inv_c2 + (uSu * inv_c2**2) * Fp
+    abar = _smm(_smm(S, as_, m, m, m), Fs, m, m, m) - _souter(Su, Fp) * inv_c2
+    return dbar, pbar, qbar, abar
