@@ -29,9 +29,29 @@ Phases, each printing its numbers on lines of its own:
    forward and backward, of B1r, of B2 and of their plain versions;
 6. the trainer: 20 Adam steps of ``fit_map`` on the Matern32 model's log
    hyperparameters at N = 1e5 and 1e6 in float32, with one B1r and one B2
-   launch per step.
+   launch per step;
+7. kernel B3, the generic monoid scan, against its plain version on random
+   operands for every monoid (affine forward and reverse, exclusive and
+   inclusive, with 1 and 8 columns; congruence forward and reverse; the
+   Riccati flow; the coupling forward and reverse), m = 1..4 at N = 17,161
+   in float64 and float32 and m = 2 at N = 1e6;
+8. conditioning at the light-curve example's size
+   (``examples/quasisep_lightcurve.py:23-77``): ``condition(y)`` and
+   ``predict(y, t_test)`` of ``1.0 * SHO(omega=2.1, quality=2.0)`` on the
+   example's data thinned to N = 5000, in float32 (finite, positive
+   variances) and in float64 against a dense numpy/scipy posterior built
+   from SHO's closed form;
+9. the conditioning main path at ``bench.py``'s headline data
+   (Matern32, N = 1e5, float32): ``condition(y)``, ``predict(y, X_test)``
+   at 1000 points and ``sample(generator, (16,))``, with B3's launches by
+   monoid counted over the run and no plain scan on the card; the log
+   probability against B1's; the float64 variance on the card against the
+   float64 plain version on the CPU; CUDA-event times of each entry point,
+   and of B3 per monoid at the path's shapes beside its bound and its
+   plain version.
 
-The line before the last is a JSON record of every kernel; the last line
+The line before the last is a JSON record of every kernel (B3 with one
+record per monoid and shape of the conditioning path); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -136,9 +156,12 @@ def stream_errors(got, want):
 
 
 def reset_counts():
-    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+    """Set every kernel's launch count to 0: B1, B1r, B2 and B3's."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan
 
     cuda_loglik.LAUNCHES = cuda_loglik.LAUNCHES_RES = cuda_loglik.LAUNCHES_BWD = 0
+    for monoid in cuda_scan.LAUNCHES:
+        cuda_scan.LAUNCHES[monoid] = 0
 
 
 def read_counts():
@@ -432,7 +455,7 @@ def phase_main_path():
                 return gp.log_probability(y)
 
             # The main path, once, with the launch count read around it.
-            cuda_loglik.LAUNCHES = 0
+            reset_counts()
             value = log_probability()
             torch.cuda.synchronize()
             launches = cuda_loglik.LAUNCHES
@@ -746,6 +769,365 @@ def phase_trainer():
             raise AssertionError(f"trainer failed at N={X.shape[0]}")
     return total
 
+# ---------------------------------------------------------------------------
+# Kernel B3 and the conditioning path.
+# ---------------------------------------------------------------------------
+
+# (monoid, reverse, inclusive, columns): every direction and output of B3.
+SCAN_VARIANTS = [
+    ("aff", False, False, 1),
+    ("aff", True, False, 1),
+    ("aff", False, True, 1),
+    ("aff", True, True, 1),
+    ("aff", False, False, 8),
+    ("aff", True, False, 8),
+    ("aff", False, True, 8),
+    ("aff", True, True, 8),
+    ("cong", False, False, 1),
+    ("cong", True, False, 1),
+    ("ric", False, False, 1),
+    ("cpl", False, False, 1),
+    ("cpl", True, False, 1),
+]
+
+
+def scan_operands(monoid, m, n, r, dtype, seed):
+    """B3's operands for one monoid on the card: contracting transitions
+    from ``random_qsm_operands`` and normal loads."""
+    import torch
+
+    from tinygp_tpu_torch.test_utils import random_qsm_operands
+
+    d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    if monoid == "aff":
+        arrays = (as_, rng.normal(size=(m * r, n)))
+    elif monoid == "cong":
+        arrays = (as_, rng.normal(size=(m * m, n)))
+    elif monoid == "ric":
+        arrays = (d, ps, qs, as_)
+    else:
+        arrays = (as_, random_qsm_operands(m, n, seed + 2)[3], rng.normal(size=(m * m, n)))
+    return [torch.as_tensor(x, dtype=dtype, device="cuda") for x in arrays]
+
+
+def scan_kernel(monoid, m, r, reverse, inclusive, operands):
+    """B3 through its wrapper."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    if monoid == "aff":
+        return cuda_scan.affine(*operands, m, r, reverse=reverse, exclusive=not inclusive)
+    if monoid == "cong":
+        return cuda_scan.congruence(*operands, m, reverse=reverse)
+    if monoid == "ric":
+        return cuda_scan.riccati(*operands)
+    return cuda_scan.coupling(*operands, m, m, reverse=reverse, exclusive=not inclusive)
+
+
+def scan_plain(monoid, m, r, reverse, inclusive, operands):
+    """B3's plain version, the stacked scans of ``scan.py``, on the same
+    tensors."""
+    from tinygp_tpu_torch.solvers.quasisep import scan
+
+    if monoid == "aff":
+        return scan._affine_scan_s(*operands, m, r, reverse=reverse, exclusive=not inclusive)
+    if monoid == "cong":
+        return scan._congruence_scan_s(*operands, m, reverse=reverse)
+    if monoid == "ric":
+        return scan._riccati_scan_s(*operands, m)
+    return scan._coupling_scan_s(
+        *operands, m, m, reverse=reverse, exclusive=not inclusive
+    )
+
+
+def scan_bound_ms(monoid, m, r, n, itemsize):
+    """Least time for one B3 scan: read each operand and write the state
+    once, or do the sequential recurrence's operations (per element:
+    A g + B, 2m^2 + m per column; A g A^T + B, 4m^3 + m^2; the Riccati
+    step, 4m^3 + 6m^2 + 3m + 2; A g B^T + C, 4m^3 + m^2)."""
+    values, flops = {
+        "aff": (m * m + 2 * m * r, (2 * m * m + m) * r),
+        "cong": (3 * m * m, 4 * m**3 + m * m),
+        "ric": (1 + 2 * m + 2 * m * m, 4 * m**3 + 6 * m * m + 3 * m + 2),
+        "cpl": (4 * m * m, 4 * m**3 + m * m),
+    }[monoid]
+    return bound_ms(values * n * itemsize, flops * n)
+
+
+def phase_scan_vs_plain():
+    import torch
+
+    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4)]
+    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
+    cases += [(2, 1_000_000, torch.float64, 1e-8), (2, 1_000_000, torch.float32, 5e-4)]
+    failures = []
+    for m, n, dtype, rtol in cases:
+        parts = []
+        for monoid, reverse, inclusive, r in SCAN_VARIANTS:
+            operands = scan_operands(monoid, m, n, r, dtype, seed=10 * m)
+            got = scan_kernel(monoid, m, r, reverse, inclusive, operands)
+            want = scan_plain(monoid, m, r, reverse, inclusive, operands)
+            (err, _), = stream_errors([got], [want])
+            ok = err <= rtol and bool(torch.isfinite(got).all())
+            tag = f"{monoid}{'-rev' if reverse else ''}{'-incl' if inclusive else ''}-r{r}"
+            parts.append(f"{tag} {err:.2e}{'' if ok else ' FAIL'}")
+            if not ok:
+                failures.append((tag, m, n, dtype))
+        log(
+            f"kernel-vs-plain B3 m={m} N={n} {str(dtype)[6:]}: rel err per stream "
+            f"(rtol {rtol:g}): {', '.join(parts)}"
+        )
+    if failures:
+        raise AssertionError(f"B3 disagrees with its plain version: {failures}")
+
+
+def sho_closed_form(tau, omega, quality):
+    """SHO's kernel for quality > 1/2 (celerite's underdamped term)."""
+    eta = math.sqrt(1.0 - 1.0 / (4.0 * quality**2))
+    arg = eta * omega * tau
+    return np.exp(-omega * tau / (2.0 * quality)) * (
+        np.cos(arg) + np.sin(arg) / (2.0 * eta * quality)
+    )
+
+
+def example_data():
+    """``examples/quasisep_lightcurve.py``'s draws at full size, thinned as
+    its conditioning thins them: t, y of N = 5000 in float32."""
+    rng = np.random.default_rng(11)
+    n = 100_000
+    t = np.sort(rng.uniform(0, 100, n)).astype(np.float32)
+    y = (np.sin(2.1 * t) * np.exp(-0.01 * t) + 0.5 * rng.normal(size=n)).astype(np.float32)
+    return t[::20], y[::20]
+
+
+def dense_posterior(t, y, t_test, kernel, diag, post_jitter):
+    """The log probability, the posterior mean at t and t_test and the
+    posterior variance at t, by dense float64 linear algebra."""
+    import scipy.linalg
+
+    K = kernel(np.abs(t[:, None] - t[None, :]))
+    n = t.shape[0]
+    L = np.linalg.cholesky(K + diag * np.eye(n))
+    alpha = scipy.linalg.cho_solve((L, True), y)
+    logp = -0.5 * y @ alpha - np.sum(np.log(np.diag(L))) - 0.5 * n * math.log(2 * math.pi)
+    V = scipy.linalg.solve_triangular(L, K, lower=True)
+    var = np.diag(K) + post_jitter - np.sum(V * V, axis=0)
+    mu_test = kernel(np.abs(t_test[:, None] - t[None, :])) @ alpha
+    return logp, K @ alpha, var, mu_test
+
+
+def rel_max(got, want):
+    """Largest error relative to the reference's largest magnitude."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300))
+
+
+def phase_example_condition():
+    """The light-curve example's conditioning at its size."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    omega, quality, diag = 2.1, 2.0, 0.25
+    lags = torch.tensor([0.0, 0.05, 0.4, 1.3, 3.7], dtype=torch.float64)
+    port = quasisep.SHO(omega=omega, quality=quality).evaluate(torch.zeros_like(lags), lags)
+    form_err = rel_max(port.numpy(), sho_closed_form(lags.numpy(), omega, quality))
+    log(f"example: SHO closed form against the port's evaluate at lags {lags.tolist()}: rel err {form_err:.2e}")
+    if form_err > 1e-12:
+        raise AssertionError("the SHO closed form disagrees with the port")
+
+    t, y = example_data()
+    t_test = np.linspace(10.0, 20.0, 500, dtype=np.float32)
+    want = dense_posterior(
+        t.astype(np.float64), y.astype(np.float64), t_test.astype(np.float64),
+        lambda tau: sho_closed_form(tau, omega, quality), diag,
+        math.sqrt(np.finfo(np.float64).eps),
+    )
+    for dtype in (torch.float32, torch.float64):
+        gp = GaussianProcess(
+            1.0 * quasisep.SHO(omega=omega, quality=quality),
+            torch.as_tensor(t, dtype=dtype), diag=diag, assume_sorted=True,
+        )
+        reset_counts()
+        log_prob, post = gp.condition(y)
+        mu = gp.predict(y, t_test)
+        got = (log_prob.item(), post.loc.cpu().numpy(), post.variance.cpu().numpy(), mu.cpu().numpy())
+        torch.cuda.synchronize()
+        counts = dict(cuda_scan.LAUNCHES)
+        finite = math.isfinite(got[0]) and all(np.isfinite(x).all() for x in got[1:])
+        shapes = got[1].shape == got[2].shape == (5000,) and got[3].shape == (500,)
+        ok = finite and shapes and float(got[2].min()) > 0 and counts["ric"] == 1
+        errs = [rel_err(got[0], want[0])] + [rel_max(g, w) for g, w in zip(got[1:], want[1:])]
+        if dtype == torch.float64:
+            ok = ok and errs[0] <= 1e-9 and max(errs[1:]) <= 1e-8
+        log(
+            f"example condition SHO(2.1, 2.0) N=5000 {str(dtype)[6:]}: log prob {got[0]!r} "
+            f"(dense {want[0]!r}); against the dense float64 posterior: log prob rel "
+            f"{errs[0]:.2e}, mean {errs[1]:.2e}, variance {errs[2]:.2e}, predict at 500 "
+            f"new points {errs[3]:.2e} (of the largest magnitude; float64 limits 1e-9 and "
+            f"1e-8); min variance {float(got[2].min())!r}; B3 launches {counts} "
+            f"{'ok' if ok else 'FAIL'}"
+        )
+        if not ok:
+            raise AssertionError(f"example conditioning failed in {dtype}")
+
+
+def phase_condition_path():
+    """The conditioning main path at the headline data; returns B3's JSON
+    records, one per monoid and shape the path runs."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan, scan
+
+    (X5, y5), _ = bench_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (X5, y5))
+    X_test = torch.linspace(0, 10, 1000, dtype=torch.float32, device="cuda")
+    n = X.shape[0]
+
+    def model(X, device=None):
+        return GaussianProcess(
+            1.5 * quasisep.Matern32(scale=2.5), X, diag=0.1, assume_sorted=True, device=device
+        )
+
+    def run(gp, y, generator):
+        log_prob, post = gp.condition(y)
+        out = (log_prob, post.loc, post.variance, gp.predict(y, X_test.to(gp.device, gp.dtype)))
+        return out + (gp.sample(generator, (16,)),)
+
+    # The main path, once: every count set to 0 before it and read after;
+    # B3's calls recorded with their operands, and any call of the plain
+    # blocked scan on a CUDA tensor counted.
+    calls, plain_on_card = [], [0]
+    launch, monoid_scan = cuda_scan._launch, scan.monoid_scan
+
+    def recording_launch(monoid, m, r, reverse, inclusive, operands, out_rows):
+        calls.append((monoid, m, r, reverse, inclusive, operands))
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows)
+
+    def counting_scan(combine, identity, elems, **kwargs):
+        plain_on_card[0] += elems[0].is_cuda
+        return monoid_scan(combine, identity, elems, **kwargs)
+
+    cuda_scan._launch, scan.monoid_scan = recording_launch, counting_scan
+    try:
+        reset_counts()
+        gp = model(X)
+        out32 = run(gp, y, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        counts = dict(cuda_scan.LAUNCHES)
+        b1 = read_counts()
+    finally:
+        cuda_scan._launch, scan.monoid_scan = launch, monoid_scan
+
+    log_prob, loc, var32, mu, draws = out32
+    lp_b1 = gp.log_probability(y).item()
+    shapes = (loc.shape, var32.shape, mu.shape, draws.shape) == ((n,), (n,), (1000,), (16, n))
+    finite = all(bool(torch.isfinite(x).all()) for x in out32)
+    lp_err = rel_err(log_prob.item(), lp_b1)
+    path_ok = (
+        shapes and finite and lp_err <= 5e-4 and plain_on_card[0] == 0
+        and all(counts[k] > 0 for k in ("aff", "ric", "cpl"))
+    )
+    log(
+        f"condition-path matern32 N={n} float32: log prob {log_prob.item()!r} vs B1's "
+        f"{lp_b1!r} (rel {lp_err:.2e}, limit 5e-4); loc, variance {tuple(var32.shape)}, "
+        f"predict {tuple(mu.shape)}, sample {tuple(draws.shape)}, finite {finite}; "
+        f"min variance {float(var32.min())!r}; B3 launches {counts}, plain scans on the "
+        f"card {plain_on_card[0]}, B1/B1r/B2 launches {b1} {'ok' if path_ok else 'FAIL'}"
+    )
+
+    # The float64 variance on the card against the float64 plain version
+    # (the CPU run) on the same operands. The posterior variance is the
+    # small difference of the prior variance and M K^-1 M, so two float64
+    # computations agree only to float64 rounding of those terms: the
+    # error is taken relative to the largest prior variance, and also
+    # printed relative to the posterior variance's own largest magnitude.
+    X64, y64 = X.double(), y.double()
+    prior = model(X64)
+    card = prior.condition(y64)
+    cpu = model(X64.cpu(), device="cpu").condition(y64.cpu())
+    scale = float(prior.variance.abs().max())
+    var_card = card[1].variance.cpu().numpy()
+    var_cpu = cpu[1].variance.numpy()
+    var_err = float(np.max(np.abs(var_card - var_cpu))) / scale
+    var_own = rel_max(var_card, var_cpu)
+    loc_err = rel_max(card[1].loc.cpu(), cpu[1].loc)
+    lp64_err = rel_err(card[0].item(), cpu[0].item())
+    f32_err = rel_max(var32.double().cpu(), var_card)
+    f64_ok = max(var_err, loc_err, lp64_err) <= 1e-8 and float(var_card.min()) > 0
+    log(
+        f"condition-path matern32 N={n} float64: card against the plain version on "
+        f"the CPU: variance {var_err:.2e} of the largest prior variance {scale!r} "
+        f"({var_own:.2e} of its own largest magnitude {float(np.max(np.abs(var_cpu)))!r}), "
+        f"loc {loc_err:.2e}, log prob {lp64_err:.2e} (limit 1e-8); posterior variance "
+        f"in [{float(var_card.min())!r}, {float(var_card.max())!r}]; the float32 "
+        f"variance against the float64 one {f32_err:.2e} of its largest magnitude "
+        f"{'ok' if f64_ok else 'FAIL'}"
+    )
+
+    # Each entry point alone: its B3 launches and its CUDA-event time.
+    entry_points = {
+        "condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(model(X).condition(y)),
+        "predict": lambda: model(X).predict(y, X_test),
+        "sample": lambda: model(X).sample(torch.Generator(device="cuda").manual_seed(1), (16,)),
+    }
+    for name, fn in entry_points.items():
+        reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_scan.LAUNCHES.items() if v}
+        ms = cuda_ms(fn, reps=10, warmup=2)
+        log(f"condition-path entry {name} (constructor included): {ms:.4f} ms, B3 launches {launched}")
+
+    # B3 per monoid and shape at the path's operands, beside its bound and
+    # its plain version.
+    records = []
+    seen = {}
+    for call in calls:
+        key = call[:3]
+        seen.setdefault(key, []).append(call)
+    for (monoid, m, r), group in seen.items():
+        _, _, _, reverse, inclusive, operands = group[0]
+        got = scan_kernel(monoid, m, r, reverse, inclusive, operands)
+        # Against the plain version in float64 on the same values, which
+        # is the kernel's own arithmetic, and in float32 as the caller
+        # runs it.
+        want64 = scan_plain(monoid, m, r, reverse, inclusive, [x.double() for x in operands])
+        (rel, abs_err), = stream_errors([got], [want64])
+        (rel32, _), = stream_errors([got], [scan_plain(monoid, m, r, reverse, inclusive, operands)])
+        ms = cuda_ms(lambda: scan_kernel(monoid, m, r, reverse, inclusive, operands), reps=30, warmup=3)
+        plain_ms = cuda_ms(lambda: scan_plain(monoid, m, r, reverse, inclusive, operands), reps=3, warmup=1)
+        bound, by = scan_bound_ms(monoid, m, r, n, 4)
+        log(
+            f"condition-path B3 {monoid} m={m} r={r} N={n} float32 ({len(group)} launches on "
+            f"the path, first {'reverse' if reverse else 'forward'} "
+            f"{'inclusive' if inclusive else 'exclusive'}): {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), plain {plain_ms:.4f} ms; against the plain version in float64 rel "
+            f"{rel:.2e} (limit 5e-4), abs {abs_err:.3e}; in float32 rel {rel32:.2e}"
+        )
+        path_ok = path_ok and rel <= 5e-4
+        records.append({
+            "name": f"quasisep_scan_{monoid}_m{m}" + (f"_r{r}" if r > 1 else ""),
+            "route": "cuda",
+            "source": "tinygp_tpu_torch/csrc/quasisep_scan.cu",
+            "replaces": "tinygp_tpu/solvers/quasisep/pallas_scan.py:331",
+            "launches": len(group),
+            "max_abs_err": abs_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    if not (path_ok and f64_ok):
+        raise AssertionError("conditioning path failed")
+    return records
+
 
 def main() -> int:
     import torch
@@ -762,7 +1144,10 @@ def main() -> int:
     trainer_counts = phase_trainer()
     grad_records["res"]["launches"] += trainer_counts[1]
     grad_records["bwd"]["launches"] += trainer_counts[2]
-    log(json.dumps({"kernels": [record, grad_records["res"], grad_records["bwd"]]}))
+    phase_scan_vs_plain()
+    phase_example_condition()
+    scan_records = phase_condition_path()
+    log(json.dumps({"kernels": [record, grad_records["res"], grad_records["bwd"], *scan_records]}))
     log(
         json.dumps(
             {

@@ -181,3 +181,150 @@ def test_fit_map_on_the_card_from_numpy_starts(cuda_device):
     assert torch.isfinite(on_card.losses).all() and float(on_card.loss) < float(on_card.losses[0])
     on_cpu = fit("cpu")
     np.testing.assert_allclose(on_card.losses.cpu().numpy(), on_cpu.losses.numpy(), rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3, the generic monoid scan.
+# ---------------------------------------------------------------------------
+
+# (monoid, reverse, exclusive, columns)
+SCANS = [
+    ("aff", False, True, 1),
+    ("aff", True, True, 1),
+    ("aff", False, False, 8),
+    ("aff", True, False, 8),
+    ("cong", False, True, 1),
+    ("cong", True, True, 1),
+    ("ric", False, True, 1),
+    ("cpl", False, True, 1),
+    ("cpl", True, True, 1),
+]
+
+
+def scan_case(monoid, m, n, r, dtype, device, seed):
+    """The wrapper's operands for one monoid: contracting transitions from
+    ``random_qsm_operands`` and normal loads."""
+    d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    if monoid == "aff":
+        return (t(as_), t(rng.normal(size=(m * r, n)))), m, r
+    if monoid == "cong":
+        return (t(as_), t(rng.normal(size=(m * m, n)))), m, 1
+    if monoid == "ric":
+        return (t(d), t(ps), t(qs), t(as_)), m, 1
+    as2 = random_qsm_operands(m, n, seed + 2)[3]
+    return (t(as_), t(as2), t(rng.normal(size=(m * m, n)))), m, 1
+
+
+def run_scan(monoid, operands, m, r, reverse, exclusive):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    if monoid == "aff":
+        return cuda_scan.affine(*operands, m, r, reverse=reverse, exclusive=exclusive)
+    if monoid == "cong":
+        return cuda_scan.congruence(*operands, m, reverse=reverse)
+    if monoid == "ric":
+        return cuda_scan.riccati(*operands)
+    return cuda_scan.coupling(*operands, m, m, reverse=reverse, exclusive=exclusive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", SCANS, ids=lambda c: "-".join(map(str, c)))
+def test_scan_kernel_matches_plain(cuda_device, case, m, dtype):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    monoid, reverse, exclusive, r = case
+    operands, m, r = scan_case(monoid, m, N, r, dtype, cuda_device, seed=10 * m)
+    before = dict(cuda_scan.LAUNCHES)
+    got = run_scan(monoid, operands, m, r, reverse, exclusive)
+    torch.cuda.synchronize()
+    assert cuda_scan.LAUNCHES[monoid] == before[monoid] + 1
+    # The plain version: the same wrapper on the CPU.
+    want = run_scan(monoid, [x.cpu() for x in operands], m, r, reverse, exclusive)
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert stream_err(got, want) <= rtol
+
+
+@pytest.mark.cuda
+def test_scan_kernel_refuses_what_it_cannot_do(cuda_device):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    operands, m, r = scan_case("aff", 5, 300, 1, torch.float64, cuda_device, seed=1)
+    with pytest.raises(NotImplementedError, match="N6"):
+        cuda_scan.affine(*operands, m, r, reverse=False, exclusive=True)
+    operands, m, r = scan_case("aff", 2, 300, 1, torch.float64, cuda_device, seed=1)
+    with pytest.raises(NotImplementedError, match="backward"):
+        cuda_scan.affine(operands[0].requires_grad_(), operands[1], m, r,
+                         reverse=False, exclusive=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_scan.affine(operands[0].detach().t().contiguous().t(), operands[1], m, r,
+                         reverse=False, exclusive=True)
+
+
+# ---------------------------------------------------------------------------
+# Conditioning on the card, through B3, against the CPU's plain versions.
+# ---------------------------------------------------------------------------
+
+
+def condition_outputs(device, n=3000):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    rng = np.random.default_rng(9)
+    X = np.sort(rng.uniform(0, 10, n))
+    y = np.sin(2.0 * X) + 0.3 * rng.normal(size=n)
+    X_test = np.linspace(-0.5, 10.5, 200)
+    eps = rng.normal(size=(n, 4))
+    kernel = 1.5 * quasisep.Matern32(scale=2.5)
+    gp = GaussianProcess(kernel, torch.as_tensor(X), diag=0.1, assume_sorted=True, device=device)
+    before = dict(cuda_scan.LAUNCHES)
+    log_prob, post = gp.condition(y)
+    out = [log_prob, post.loc, post.variance, gp.predict(y, X_test),
+           gp.solver.dot_triangular(torch.as_tensor(eps, device=gp.device))]
+    launched = {k: cuda_scan.LAUNCHES[k] - before[k] for k in before}
+    return out, launched, post
+
+
+@pytest.mark.cuda
+def test_condition_on_the_card_matches_cpu(cuda_device):
+    on_card, launched, _ = condition_outputs(None)
+    torch.cuda.synchronize()
+    # One Riccati flow (the factor), two solves for condition and two more
+    # for predict plus its two rectangular scans and dot_triangular's one,
+    # and the three couplings of the posterior covariance.
+    assert launched == {"aff": 7, "cong": 0, "ric": 1, "cpl": 3}
+    on_cpu, launched_cpu, _ = condition_outputs("cpu")
+    assert launched_cpu == {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
+    for g, w in zip(on_card, on_cpu):
+        assert g.is_cuda and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_sample_on_the_card(cuda_device):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    X = np.linspace(0, 10, 2000)
+    gp = GaussianProcess(1.5 * quasisep.Matern32(scale=2.5), torch.as_tensor(X), diag=0.1)
+    before = dict(cuda_scan.LAUNCHES)
+    draw = gp.sample(torch.Generator(device="cuda").manual_seed(1), (16,))
+    assert draw.shape == (16, 2000) and draw.is_cuda and torch.isfinite(draw).all()
+    assert cuda_scan.LAUNCHES["ric"] == before["ric"] + 1
+    assert cuda_scan.LAUNCHES["aff"] == before["aff"] + 1
+    again = gp.sample(torch.Generator(device="cuda").manual_seed(1), (16,))
+    assert torch.equal(draw, again)
+
+
+@pytest.mark.cuda
+def test_posterior_factor_on_the_card_names_n6(cuda_device):
+    """A posterior of an m = 2 kernel has order 8: its factor is past B3's
+    m <= 4 on the card."""
+    _, _, post = condition_outputs(None, n=500)
+    with pytest.raises(NotImplementedError, match="N6"):
+        post.log_probability(torch.zeros(500, dtype=torch.float64))

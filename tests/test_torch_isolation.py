@@ -31,7 +31,11 @@ def test_forbidden_matches_names_not_prefixes():
 def test_import_loads_no_jax():
     code = (
         "import sys, tinygp_tpu_torch, tinygp_tpu_torch.convert, "
-        "tinygp_tpu_torch.cuda_build, tinygp_tpu_torch.fit\n"
+        "tinygp_tpu_torch.cuda_build, tinygp_tpu_torch.fit, "
+        "tinygp_tpu_torch.test_utils, tinygp_tpu_torch.solvers.quasisep.core, "
+        "tinygp_tpu_torch.solvers.quasisep.cuda_scan, "
+        "tinygp_tpu_torch.solvers.quasisep.general, "
+        "tinygp_tpu_torch.solvers.quasisep.ops\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'tinygp_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'optax.', 'tinygp_tpu.'))]\n"
         "assert not bad, bad\n"

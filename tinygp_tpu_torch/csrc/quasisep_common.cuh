@@ -1,8 +1,8 @@
 // Shared pieces of the quasiseparable log-likelihood kernels on Hopper
 // (sm_90a): the m x m algebra with closed-form inverses, the Riccati and
 // affine monoids, the in-block Kogge-Stone scan and the single-block scan
-// of block totals. Included by quasisep_loglik.cu (kernels B1 and B1r) and
-// quasisep_loglik_bwd.cu (kernel B2).
+// of block totals. Included by quasisep_loglik.cu (kernels B1 and B1r),
+// quasisep_loglik_bwd.cu (kernel B2) and quasisep_scan.cu (kernel B3).
 
 #pragma once
 
@@ -252,10 +252,12 @@ __device__ __forceinline__ V block_exclusive(const T* sm) {
   return t == 0 ? V::identity() : sm_load<V>(sm, t - 1, blockDim.x);
 }
 
-// Exclusive scan of `nb` block totals, in place, by one block.
+// Exclusive scan of `nb` block totals, in place, by one block. With a grid
+// of several blocks along y, block y scans the y-th run of nb totals.
 template <class V, typename T>
 __global__ void scan_totals(int nb, T* tot) {
   T* sm = reinterpret_cast<T*>(qsl_smem);
+  tot += (long long)blockIdx.y * nb * V::S;
   const int t = threadIdx.x, nt = blockDim.x;
   const int per = (nb + nt - 1) / nt;
   const int lo = min(t * per, nb), hi = min(lo + per, nb);

@@ -1,31 +1,38 @@
 """The user-facing Gaussian process interface.
 
-Counterpart of ``tinygp_tpu/gp.py``: the constructor and
-:meth:`GaussianProcess.log_probability`. Conditioning, prediction and
-sampling are ROADMAP item N2, the conditioning slice (kernel B3 and
-``core.py``); the dense solver for other kernels is item N3, the dense slice.
+Counterpart of ``tinygp_tpu/gp.py``: the constructor,
+:meth:`GaussianProcess.log_probability`, :meth:`~GaussianProcess.condition`,
+:meth:`~GaussianProcess.predict` and :meth:`~GaussianProcess.sample`, for
+quasiseparable kernels on the O(N) solver. Conditioning at the training
+points gives a posterior process whose covariance is a ``SymmQSM``;
+predicting the mean at new points is one rectangular O(N + M) product.
+What needs the dense posterior (a variance or covariance at new points, or
+a non-quasiseparable kernel) is ROADMAP item N3, the dense slice, and
+raises.
 
 The process lives on one device, in one dtype. ``device=None`` means the
 card (``"cuda"``) and raises where there is none; pass ``device="cpu"``
 for the plain PyTorch path. The dtype is the coordinates' (the default
 dtype for non-float coordinates). The kernel, mean and noise move there,
-in that dtype (``nn.Module.to``, in place).
+in that dtype (``nn.Module.to``, in place). ``sample`` takes a
+``torch.Generator`` where the JAX package takes a key; the two streams
+differ.
 """
 
 from __future__ import annotations
 
-__all__ = ["GaussianProcess"]
+__all__ = ["GaussianProcess", "ConditionResult"]
 
 import math
-from collections.abc import Callable
-from typing import Any
+from collections.abc import Callable, Sequence
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
 
 from tinygp_tpu_torch import means
 from tinygp_tpu_torch.helpers import as_tensor, resolve_device
-from tinygp_tpu_torch.kernels.base import Kernel
+from tinygp_tpu_torch.kernels.base import Conditioned, Kernel
 from tinygp_tpu_torch.noise import Diagonal, Noise
 
 
@@ -42,6 +49,8 @@ class GaussianProcess(nn.Module):
         mean: A constant, a callable on the ``(N,)`` coordinates, or a
             :class:`~tinygp_tpu_torch.means.MeanBase`.
         solver: A solver class; auto-selected when omitted.
+        mean_value / covariance_value: Precomputed values, which
+            :meth:`condition` passes to the posterior process.
         device: Where the process runs; ``None`` is ``"cuda"``.
         **solver_kwargs: Forwarded to the solver (e.g.
             ``assume_sorted=True``).
@@ -55,6 +64,9 @@ class GaussianProcess(nn.Module):
         ...                      device="cpu")
         >>> bool(torch.isfinite(gp.log_probability(torch.sin(X))))
         True
+        >>> _, cond = gp.condition(torch.sin(X))
+        >>> cond.loc.shape
+        torch.Size([500])
     """
 
     def __init__(
@@ -66,20 +78,24 @@ class GaussianProcess(nn.Module):
         noise: Noise | None = None,
         mean: means.MeanBase | Callable[[torch.Tensor], torch.Tensor] | Any = None,
         solver: Any | None = None,
+        mean_value: torch.Tensor | None = None,
+        covariance_value: Any | None = None,
         device: Any = None,
         **solver_kwargs: Any,
     ):
         super().__init__()
         from tinygp_tpu_torch.kernels.quasisep import Quasisep
+        from tinygp_tpu_torch.solvers.quasisep.core import SymmQSM
         from tinygp_tpu_torch.solvers.quasisep.solver import QuasisepSolver
 
         device = resolve_device(device)
         X = torch.as_tensor(X)
         dtype = X.dtype if X.is_floating_point() else torch.get_default_dtype()
-        X = X.to(device=device, dtype=dtype)
+        X = X.to(device=device, dtype=dtype).contiguous()
 
         mean_function = _as_mean_function(mean).to(device=device, dtype=dtype)
-        mean_value = mean_function(X)
+        if mean_value is None:
+            mean_value = mean_function(X)
         if mean_value.ndim != 1:
             raise ValueError(
                 "the mean must evaluate to one scalar per data point; got "
@@ -89,7 +105,9 @@ class GaussianProcess(nn.Module):
         kernel = kernel.to(device=device, dtype=dtype)
 
         if solver is None:
-            if not isinstance(kernel, Quasisep):
+            if not (
+                isinstance(kernel, Quasisep) or isinstance(covariance_value, SymmQSM)
+            ):
                 raise NotImplementedError(
                     "the dense solver for non-quasiseparable kernels is "
                     "ROADMAP item N3 (the dense slice), not ported yet"
@@ -107,7 +125,9 @@ class GaussianProcess(nn.Module):
         self.mean_function = mean_function
         self.mean = mean_value
         self.noise = noise
-        self.solver = solver(kernel, X, noise, **solver_kwargs)
+        self.solver = solver(
+            kernel, X, noise, covariance=covariance_value, **solver_kwargs
+        )
 
     @property
     def loc(self) -> torch.Tensor:
@@ -119,6 +139,11 @@ class GaussianProcess(nn.Module):
         """Pointwise marginal variance at the input points."""
         return self.solver.variance()
 
+    @property
+    def covariance(self) -> torch.Tensor:
+        """The dense marginal covariance at the input points."""
+        return self.solver.covariance()
+
     def log_probability(self, y: Any) -> torch.Tensor:
         """The marginal log probability of ``y`` under this process.
 
@@ -128,6 +153,161 @@ class GaussianProcess(nn.Module):
         y = as_tensor(y, self.device, self.dtype)
         lp = self.solver.log_likelihood(y - self.loc)
         return torch.where(torch.isfinite(lp), lp, -torch.inf)
+
+    def condition(
+        self,
+        y: Any,
+        X_test: Any | None = None,
+        *,
+        diag: Any | None = None,
+        noise: Noise | None = None,
+        include_mean: bool = True,
+        kernel: Kernel | None = None,
+    ) -> ConditionResult:
+        """Condition on data; the posterior process at ``X_test``.
+
+        Args:
+            y: The observed values, ``(N,)``.
+            X_test: Where to predict; the training points by default. At new
+                points the posterior covariance is dense, ROADMAP item N3,
+                and this raises (``predict`` gives the mean there).
+            diag / noise: The observation noise of the posterior process.
+            include_mean: Include the prior mean in the posterior mean.
+            kernel: Another cross-covariance kernel (e.g. one term of a
+                sum).
+
+        Returns:
+            A :class:`ConditionResult`: the marginal ``log_probability`` of
+            ``y`` and the posterior process ``gp``.
+        """
+        y = as_tensor(y, self.device, self.dtype)
+        X_test = self._check_test_points(X_test)
+        cross_kernel = self.kernel if kernel is None else kernel
+        kinv_r, log_prob, post_loc = self._condition(y, X_test, include_mean, kernel)
+        noise = _as_noise(noise, diag, post_loc)
+        post_mean = means.Conditioned(
+            self.X, kinv_r, cross_kernel,
+            include_mean=include_mean, mean_function=self.mean_function,
+        )
+        post = GaussianProcess(
+            Conditioned(self.X, self.solver, cross_kernel),
+            self.X if X_test is None else X_test,
+            noise=noise,
+            mean=post_mean,
+            mean_value=post_loc,
+            covariance_value=self.solver.condition(cross_kernel, X_test, noise),
+            device=self.device,
+        )
+        return ConditionResult(log_prob, post)
+
+    def predict(
+        self,
+        y: Any,
+        X_test: Any | None = None,
+        *,
+        kernel: Kernel | None = None,
+        include_mean: bool = True,
+        return_var: bool = False,
+        return_cov: bool = False,
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        """The posterior mean at ``X_test`` (and its variance or covariance
+        at the training points).
+
+        The mean alone takes the solves and one O(N) product, with no
+        posterior covariance: what the JAX package's ``jit`` leaves of this
+        call.
+        """
+        if not (return_var or return_cov):
+            y = as_tensor(y, self.device, self.dtype)
+            X_test = self._check_test_points(X_test)
+            return self._condition(y, X_test, include_mean, kernel)[2]
+        post = self.condition(y, X_test, kernel=kernel, include_mean=include_mean).gp
+        if return_var:
+            return post.loc, post.variance
+        return post.loc, post.covariance
+
+    def sample(
+        self,
+        generator: torch.Generator | None = None,
+        shape: Sequence[int] | None = None,
+    ) -> torch.Tensor:
+        """Draw realizations, of shape ``shape + (N,)``: the mean plus the
+        factor times white noise drawn from ``generator`` (a generator on
+        this process's device; PyTorch's default one if ``None``)."""
+        eps = torch.randn(
+            (self.num_data, *(shape or ())),
+            generator=generator,
+            dtype=self.dtype,
+            device=self.device,
+        )
+        return self.mean + torch.movedim(self.solver.dot_triangular(eps), 0, -1)
+
+    def _whiten(self, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whitened residual ``L^-1 (y - mu)`` and the marginal log
+        probability, ``-inf`` where it is not finite."""
+        white = self.solver.solve_triangular(y - self.loc)
+        lp = -0.5 * torch.sum(torch.square(white)) - self.solver.normalization()
+        return white, torch.where(torch.isfinite(lp), lp, -torch.inf)
+
+    def _posterior_mean(
+        self,
+        kinv_r: torch.Tensor,
+        y: torch.Tensor,
+        X_test: torch.Tensor | None,
+        include_mean: bool,
+        kernel: Kernel | None,
+    ) -> torch.Tensor:
+        """``K(X*, X) K^-1 (y - mu) [+ mu(X*)]``, cheapest route first: at
+        the training points with the training kernel ``K kinv_r`` is
+        ``(y - mu) - noise @ kinv_r``; with another kernel one O(N)
+        product; at new points the rectangular product."""
+        if X_test is None:
+            if kernel is None:
+                mu = y - (self.noise @ kinv_r)
+                return mu if include_mean else mu - self.loc
+            mu = kernel.matmul(self.X, y=kinv_r)
+            return mu + self.loc if include_mean else mu
+        mu = (self.kernel if kernel is None else kernel).matmul(X_test, self.X, kinv_r)
+        if include_mean:
+            mu = mu + self.mean_function(X_test)
+        return mu
+
+    def _condition(
+        self,
+        y: torch.Tensor,
+        X_test: torch.Tensor | None,
+        include_mean: bool,
+        kernel: Kernel | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(K^-1 (y - mu), log p(y), posterior mean)``."""
+        white, log_prob = self._whiten(y)
+        # The second triangular solve makes the whitened residual K^-1 (y - mu).
+        kinv_r = self.solver.solve_triangular(white, transpose=True)
+        mean = self._posterior_mean(kinv_r, y, X_test, include_mean, kernel)
+        return kinv_r, log_prob, mean
+
+    def _check_test_points(self, X_test: Any | None) -> torch.Tensor | None:
+        """``X_test`` on this process's device and dtype, with the inputs'
+        trailing (per-point) shape."""
+        if X_test is None:
+            return None
+        X_test = as_tensor(X_test, self.device, self.dtype)
+        if X_test.ndim != self.X.ndim or X_test.shape[1:] != self.X.shape[1:]:
+            raise ValueError(
+                "`X_test` must have the same trailing (per-point) shape as "
+                "the input `X`"
+            )
+        return X_test
+
+
+class ConditionResult(NamedTuple):
+    """The result of conditioning a :class:`GaussianProcess` on data."""
+
+    log_probability: torch.Tensor
+    """The marginal log likelihood of the observed data."""
+
+    gp: GaussianProcess
+    """The conditional process at the test points."""
 
 
 def _default_diag(reference: torch.Tensor) -> float:

@@ -142,13 +142,70 @@ class Quasisep(Kernel):
         raw = self.transition_matrix(X_prev, X)
         m, n = raw.shape[0], raw.shape[-1]
         as_ = raw.transpose(0, 1).reshape(m * m, n)
-        t = self.coord_to_sortable(X)
-        h = self.observation_model(X)
-        h = torch.where(torch.isnan(t)[None, :], 0.0, h)
+        h = self._masked_observations(X)
         qs = torch.sum(Pinf[:, :, None] * h[:, None, :], dim=0)
         d = torch.sum(qs * h, dim=0)
         ps = torch.sum(raw * h[None, :, :], dim=1)
         return d, ps, qs, as_
+
+    def _masked_observations(self, X: torch.Tensor) -> torch.Tensor:
+        """The observation vectors ``(m, N)``, zero where the sortable
+        coordinate is NaN (the JAX package's ``_anchor`` masking)."""
+        h = self.observation_model(X)
+        return torch.where(torch.isnan(self.coord_to_sortable(X))[None, :], 0.0, h)
+
+    def to_symm_qsm(self, X: torch.Tensor) -> Any:
+        """``K(X, X)`` as a :class:`~tinygp_tpu_torch.solvers.quasisep.core.SymmQSM`
+        in the row-major layout (``(N, m)`` generators, ``(N, m, m)``
+        transitions)."""
+        from tinygp_tpu_torch.solvers.quasisep.core import SymmQSM
+
+        return SymmQSM.from_stacked(*self.to_stacked_ssm(X))
+
+    def to_general_qsm(self, X1: torch.Tensor, X2: torch.Tensor) -> Any:
+        """``K(X1, X2)`` as a
+        :class:`~tinygp_tpu_torch.solvers.quasisep.general.GeneralQSM`;
+        ``X2`` must be sorted."""
+        from tinygp_tpu_torch.solvers.quasisep.general import GeneralQSM
+
+        t1 = self.coord_to_sortable(X1)
+        t2 = self.coord_to_sortable(X2)
+        idx = torch.searchsorted(t2, t1, right=True) - 1
+        n2 = X2.shape[0]
+
+        X2_prev = torch.cat([X2[:1], X2[:-1]])
+        # The adjoint transitions, a[k] = raw_k^T.
+        a = self.transition_matrix(X2_prev, X2).permute(2, 1, 0)
+        Pinf = self.stationary_covariance()
+        h1 = self._masked_observations(X1)
+        h2 = self._masked_observations(X2)
+        ql = torch.einsum("in,ji->nj", h2, Pinf)
+        qu = torch.einsum("in,ij->nj", h1, Pinf)
+
+        # Carry each row's generators from its anchor column (past) and to
+        # the next column (future).
+        anchor = torch.clamp(idx, 0, n2 - 1)
+        past = self.transition_matrix(X2[anchor], X1)
+        pl = torch.einsum("in,jin->nj", h1, past)
+        anchor = torch.clamp(idx + 1, 0, n2 - 1)
+        future = self.transition_matrix(X1, X2[anchor])
+        qu = torch.einsum("ni,ijn->nj", qu, future)
+        return GeneralQSM(pl=pl, ql=ql, pu=h2.T, qu=qu, a=a, idx=idx)
+
+    def matmul(
+        self,
+        X1: torch.Tensor,
+        X2: torch.Tensor | None = None,
+        y: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``K(X1, X2) @ y`` in O(N) (``K(X1, X1) @ y`` without ``X2``)."""
+        if y is None:
+            X2, y = None, X2
+            if y is None:
+                raise TypeError("matmul() needs a right-hand side `y`")
+        if X2 is None:
+            return self.to_symm_qsm(X1).matmul(y)
+        return self.to_general_qsm(X1, X2).matmul(y)
 
     # -- algebra (closed within the quasisep family) ------------------------
     def __add__(self, other: Any) -> Kernel:

@@ -2,13 +2,13 @@
 
 Counterpart of ``tinygp_tpu/means.py``. A mean function maps a tensor of
 coordinates to one mean value per point; a callable is applied to the
-whole coordinate tensor, so it must broadcast. The posterior mean
-(``Conditioned``) comes with conditioning, ROADMAP item N2.
+whole coordinate tensor, so it must broadcast. :class:`Conditioned` is
+the mean of a process conditioned on data.
 """
 
 from __future__ import annotations
 
-__all__ = ["MeanBase", "Mean"]
+__all__ = ["MeanBase", "Mean", "Conditioned"]
 
 from collections.abc import Callable
 from typing import Any
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from tinygp_tpu_torch.helpers import as_hyper
+from tinygp_tpu_torch.kernels.base import Kernel
 
 
 class MeanBase(nn.Module):
@@ -41,3 +42,38 @@ class Mean(MeanBase):
         if self.func is not None:
             return self.func(X)
         return self.value.expand(X.shape[:1])
+
+
+class Conditioned(MeanBase):
+    """The mean of a process conditioned on data:
+    ``mu(x) = k(x, X) @ alpha``, plus the prior mean if asked.
+
+    Args:
+        X: The ``(N,)`` training coordinates.
+        alpha: ``K^-1 (y - mu)``, ``(N,)``.
+        kernel: The cross-covariance kernel.
+        include_mean: Add ``mean_function(x)``.
+        mean_function: The prior mean.
+    """
+
+    def __init__(
+        self,
+        X: torch.Tensor,
+        alpha: torch.Tensor,
+        kernel: Kernel,
+        *,
+        include_mean: bool = True,
+        mean_function: MeanBase | None = None,
+    ):
+        super().__init__()
+        self.register_buffer("X", X)
+        self.register_buffer("alpha", alpha)
+        self.kernel = kernel
+        self.include_mean = include_mean
+        self.mean_function = mean_function
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        mu = self.kernel(X, self.X) @ self.alpha
+        if self.include_mean and self.mean_function is not None:
+            mu = mu + self.mean_function(X)
+        return mu

@@ -1,4 +1,4 @@
-"""The O(N) quasiseparable solver and its scans."""
+"""The O(N) quasiseparable solver, its matrix classes and its scans."""
 
 __all__ = ["QuasisepSolver"]
 

@@ -1,6 +1,6 @@
 """Scan primitives for quasiseparable linear algebra and their adjoints.
 
-Counterpart of ``tinygp_tpu/solvers/quasisep/scan.py``. Two first-order
+Counterpart of ``tinygp_tpu/solvers/quasisep/scan.py``. Four first-order
 recurrences over the data axis carry every O(N) operation:
 
 1. the **affine** recurrence ``g_k = A_k g_prev + B_k``;
@@ -8,7 +8,9 @@ recurrences over the data axis carry every O(N) operation:
    carries the Riccati flow's adjoint;
 3. the **Riccati** covariance flow ``F' = a F a^T + u u^T / c2`` with
    ``u = q - a F p`` and ``c2 = d - p^T F p``, composed in parallel as a
-   linear-fractional (Möbius) map on the triple ``(A, F, G)``.
+   linear-fractional (Möbius) map on the triple ``(A, F, G)``;
+4. the two-sided **coupling** ``g_k = A_k g_prev B_k^T + C_k`` of the
+   QSM product (``ops.qsm_mul``).
 
 Operands are *stacked*: an ``(N, m, k)`` array is one ``(m*k, N)`` tensor
 with the components on the second-to-last axis and the data axis last, so
@@ -19,17 +21,27 @@ algebra, which is written out as elementwise products of rows.
 with the same ``_BLOCK``, ``_SEQ_CUTOFF`` and ``_ASSOC_CUTOFF`` and the
 same block scaling, so that in float64 its association order is the one
 the JAX CPU route uses. The TPU-only associative-scan level and the
-Pallas branch are not part of the port; on the card the whole
-log-likelihood and its gradient run in CUDA kernels
-(:mod:`tinygp_tpu_torch.solvers.quasisep.cuda_loglik`). The hand-written
+Pallas branch are not part of the port. The stacked scans
+(:func:`_affine_scan_s`, :func:`_congruence_scan_s`,
+:func:`_riccati_scan_s`, :func:`_coupling_scan_s`) are plain PyTorch on
+any device: they are the plain versions of the CUDA kernels. The hand-written
 adjoints (:func:`_affine_bwd_s`, :func:`_riccati_bwd_s`) are the two
 reverse scans of the backward kernel's plain version
 (``cuda_loglik.plain_loglik_bwd``).
+
+The row-major API of the QSM classes (:func:`affine_scan`,
+:func:`congruence_scan`, :func:`riccati_scan`) takes ``(N, m, k)``
+operands. With ``parallel=True`` it goes through the wrappers of
+:mod:`~tinygp_tpu_torch.solvers.quasisep.cuda_scan`: kernel B3 for CUDA
+tensors, the stacked plain scans for CPU tensors. ``parallel=False`` is the
+JAX package's sequential oracle, a Python loop over N on any device. The
+port has no lazy ``Block`` transitions, so the JAX package's
+``_dense_transitions`` has nothing to do here and is not ported.
 """
 
 from __future__ import annotations
 
-__all__ = ["monoid_scan"]
+__all__ = ["monoid_scan", "affine_scan", "congruence_scan", "riccati_scan"]
 
 from collections.abc import Callable
 
@@ -292,7 +304,16 @@ def _ssolve(M, B, m, r):
 
 
 def _affine_scan_s(As, Bs, m, r, *, reverse: bool, exclusive: bool):
-    """Stacked affine scan: As (m*m, N), Bs (m*r, N) -> the states."""
+    """Stacked affine scan: As (m*m, N), Bs (m*r, N) -> the states.
+
+    With r > 1 columns, the columns ride on a leading batch axis as r
+    single-column scans that share the transitions, so the combine's
+    Python-level rows stay m wide (the algebra per column is the same).
+    """
+    if r > 1:
+        Bb = Bs.reshape(m, r, -1).transpose(0, 1)
+        e = _affine_scan_s(As[None], Bb, m, 1, reverse=reverse, exclusive=exclusive)
+        return e.transpose(0, 1).reshape(m * r, -1)
 
     def combine(earlier, later):
         A_e, B_e = earlier
@@ -411,6 +432,36 @@ def _congruence_scan_s(As, Bs, m, *, reverse: bool):
     return monoid_scan(combine, identity, (As, Bs), reverse=reverse)[1]
 
 
+def _coupling_scan_s(As, Bs, Cs, m1, m2, *, reverse: bool, exclusive: bool):
+    """Stacked coupling scan: the prefix of ``g = A g B^T + C`` from
+    ``g = 0``, with As (m1*m1, N), Bs (m2*m2, N), Cs (m1*m2, N).
+
+    The JAX package runs this recurrence (``ops._coupling_scan``) as a
+    sequential ``lax.scan``; as a monoid ``(A, B, C)`` with the combine
+    ``(A_l A_e, B_l B_e, A_l C_e B_l^T + C_l)`` it runs through the same
+    blocked scan, and on the card through kernel B3.
+    """
+
+    def combine(earlier, later):
+        if reverse:
+            earlier, later = later, earlier
+        A_e, B_e, C_e = earlier
+        A_l, B_l, C_l = later
+        return (
+            _smm(A_l, A_e, m1, m1, m1),
+            _smm(B_l, B_e, m2, m2, m2),
+            _smm_t(_smm(A_l, C_e, m1, m1, m2), B_l, m1, m2, m2) + C_l,
+        )
+
+    identity = (_seye(m1, As), _seye(m2, Bs), Cs.new_zeros((m1 * m2, 1)))
+    excl = monoid_scan(combine, identity, (As, Bs, Cs), reverse=reverse)
+    if exclusive:
+        return excl[2]
+    elems = (As, Bs, Cs)
+    incl = combine(elems, excl) if reverse else combine(excl, elems)
+    return incl[2]
+
+
 def _riccati_bwd_s(res, Ybar_s, inv_c2=None):
     """Adjoint of the Riccati flow via a reverse congruence scan.
 
@@ -450,3 +501,123 @@ def _riccati_bwd_s(res, Ybar_s, inv_c2=None):
     pbar = -_smv(Fs, aTSu, m, m) * inv_c2 + (uSu * inv_c2**2) * Fp
     abar = _smm(_smm(S, as_, m, m, m), Fs, m, m, m) - _souter(Su, Fp) * inv_c2
     return dbar, pbar, qbar, abar
+
+
+# ---------------------------------------------------------------------------
+# The row-major API of the QSM classes: (N, m, k) operands at the edges.
+# ---------------------------------------------------------------------------
+
+
+def _pack3(a: torch.Tensor) -> torch.Tensor:
+    """(N, m, k) -> stacked (m*k, N), contiguous."""
+    n, m, k = a.shape
+    return a.permute(1, 2, 0).reshape(m * k, n).contiguous()
+
+
+def _unpack3(s: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """Stacked (m*k, N) -> (N, m, k)."""
+    return s.reshape(m, k, s.shape[-1]).permute(2, 0, 1)
+
+
+def affine_scan(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    *,
+    reverse: bool = False,
+    parallel: bool = True,
+    exclusive: bool = True,
+) -> torch.Tensor:
+    """Prefix states of the affine recurrence ``g_k = A_k g_prev + B_k``.
+
+    Args:
+        A: Transitions, ``(N, m, m)``.
+        B: Loads, ``(N, m, r)`` (or ``(N, m)`` for one right-hand side).
+        reverse: Run right-to-left (``g_k = A_k g_{k+1} + B_k``).
+        parallel: The monoid scan (kernel B3 on the card, the blocked plain
+            scan on the CPU) or the sequential oracle, a loop over N.
+        exclusive: Return the state before step k (the default) rather
+            than after it.
+
+    Returns:
+        ``e`` with ``e.shape == B.shape``.
+    """
+    squeeze = B.ndim == 2
+    if squeeze:
+        B = B[..., None]
+    if parallel:
+        from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+        m, r = B.shape[1], B.shape[2]
+        e = _unpack3(
+            cuda_scan.affine(
+                _pack3(A), _pack3(B), m, r, reverse=reverse, exclusive=exclusive
+            ),
+            m,
+            r,
+        )
+    else:
+        e = _sequential(
+            lambda g, k: A[k] @ g + B[k], B, reverse=reverse, exclusive=exclusive
+        )
+    return e[..., 0] if squeeze else e
+
+
+def congruence_scan(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    *,
+    reverse: bool = False,
+    parallel: bool = True,
+) -> torch.Tensor:
+    """Exclusive prefix of the congruence recurrence
+    ``g_k = A_k g A_k^T + B_k``; ``A`` and ``B`` are ``(N, m, m)``."""
+    if parallel:
+        from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+        m = A.shape[-1]
+        e = cuda_scan.congruence(_pack3(A), _pack3(B), m, reverse=reverse)
+        return _unpack3(e, m, m)
+    return _sequential(
+        lambda g, k: A[k] @ g @ A[k].T + B[k], B, reverse=reverse, exclusive=True
+    )
+
+
+def riccati_scan(
+    d: torch.Tensor,
+    p: torch.Tensor,
+    q: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    parallel: bool = True,
+) -> torch.Tensor:
+    """Exclusive prefix ``F`` ``(N, m, m)`` of the Riccati covariance flow
+    ``F' = a F a^T + u u^T / c2`` with ``u = q - a F p`` and
+    ``c2 = d - p^T F p``, from ``F_0 = 0``; ``d`` ``(N,)``, ``p``/``q``
+    ``(N, m)``, ``a`` ``(N, m, m)``. The monoid form is
+    :func:`_riccati_scan_s`'s."""
+    m = p.shape[1]
+    if parallel:
+        from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+        F = cuda_scan.riccati(d, p.T.contiguous(), q.T.contiguous(), _pack3(a))
+        return _unpack3(F, m, m)
+
+    def step(F, k):
+        Fp = F @ p[k]
+        u = q[k] - a[k] @ Fp
+        return a[k] @ F @ a[k].T + torch.outer(u, u) / (d[k] - p[k] @ Fp)
+
+    return _sequential(step, p.new_zeros(p.shape[0], m, m), reverse=False, exclusive=True)
+
+
+def _sequential(step, like: torch.Tensor, *, reverse: bool, exclusive: bool):
+    """The sequential oracle: ``g <- step(g, k)`` over k from ``g = 0``,
+    stacking the state before (``exclusive``) or after each step."""
+    n = like.shape[0]
+    g = like.new_zeros(like.shape[1:])
+    out = [None] * n
+    for k in range(n - 1, -1, -1) if reverse else range(n):
+        new = step(g, k)
+        out[k] = g if exclusive else new
+        g = new
+    return torch.stack(out)

@@ -2,12 +2,13 @@
 
 Counterpart of ``tinygp_tpu/test_utils.py``, with its own copy of the
 tolerance table: 5e-4 for float32 and 5e-7 for float64, keyed on the least
-precise operand.
+precise operand; and generators of well-conditioned random operands and
+quasiseparable matrices, as numpy arrays that both packages take.
 """
 
 from __future__ import annotations
 
-__all__ = ["assert_allclose", "random_qsm_operands"]
+__all__ = ["assert_allclose", "random_qsm_operands", "random_qsm_tree"]
 
 from typing import Any
 
@@ -78,3 +79,64 @@ def random_qsm_operands(
     d = np.sum(h * h, axis=1) + rng.uniform(0.5, 1.0, n)
     y = rng.normal(size=n)
     return d, p.T.copy(), h.T.copy(), a.reshape(n, m * m).T.copy(), y
+
+
+def _tree(name: str, **fields: Any) -> dict[str, Any]:
+    """A QSM tree as :func:`tinygp_tpu_torch.convert.qsm_from_tree` takes
+    it: arrays under ``params``, sub-matrices under ``children``."""
+    return {
+        "class": name,
+        "params": {k: v for k, v in fields.items() if not isinstance(v, dict)},
+        "children": {k: v for k, v in fields.items() if isinstance(v, dict)},
+    }
+
+
+def _row_major(m: int, n: int, seed: int):
+    """``(d, p, q, a)`` of a positive definite symmetric QSM in the row-major
+    layout: ``(N,)``, ``(N, m)``, ``(N, m)``, ``(N, m, m)``."""
+    d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
+    return d, ps.T.copy(), qs.T.copy(), as_.T.reshape(n, m, m).copy()
+
+
+def random_qsm_tree(name: str, n: int, m: int, seed: int) -> dict[str, Any]:
+    """A well-conditioned random order-``m`` QSM of the class ``name``, as a
+    tree of float64 numpy arrays (see :mod:`tinygp_tpu_torch.convert`).
+
+    The symmetric matrices are positive definite
+    (:func:`random_qsm_operands`); the strict triangles are their lower
+    parts; the triangular matrices are their Cholesky factors; a
+    ``SquareQSM`` is ``D + L1 + L2^T`` with ``D = (D1 + D2) / 2`` for two
+    such matrices ``K_i = D_i + L_i + L_i^T``: a positive definite matrix
+    plus a skew-symmetric one, so elimination without pivoting is stable.
+    """
+    d, p, q, a = _row_major(m, n, seed)
+    if name == "DiagQSM":
+        return _tree(name, d=d)
+    if name in ("StrictLowerTriQSM", "StrictUpperTriQSM"):
+        return _tree(name, p=p, q=q, a=a)
+    if name == "SymmQSM":
+        return _tree(
+            name, diag=_tree("DiagQSM", d=d), lower=_tree("StrictLowerTriQSM", p=p, q=q, a=a)
+        )
+    if name in ("LowerTriQSM", "UpperTriQSM"):
+        # The Cholesky factor by the sequential Riccati recurrence.
+        F = np.zeros((m, m))
+        c, w = np.empty(n), np.empty((n, m))
+        for k in range(n):
+            Fp = F @ p[k]
+            c2 = d[k] - p[k] @ Fp
+            u = q[k] - a[k] @ Fp
+            c[k], w[k] = np.sqrt(c2), u / np.sqrt(c2)
+            F = a[k] @ F @ a[k].T + np.outer(u, u) / c2
+        part = "lower" if name == "LowerTriQSM" else "upper"
+        strict = "StrictLowerTriQSM" if part == "lower" else "StrictUpperTriQSM"
+        return _tree(name, diag=_tree("DiagQSM", d=c), **{part: _tree(strict, p=p, q=w, a=a)})
+    if name == "SquareQSM":
+        d2, p2, q2, a2 = _row_major(m, n, seed + 1)
+        return _tree(
+            name,
+            diag=_tree("DiagQSM", d=0.5 * (d + d2)),
+            lower=_tree("StrictLowerTriQSM", p=p, q=q, a=a),
+            upper=_tree("StrictUpperTriQSM", p=p2, q=q2, a=a2),
+        )
+    raise ValueError(f"no quasiseparable matrix class named {name!r}")
