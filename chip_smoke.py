@@ -48,10 +48,32 @@ Phases, each printing its numbers on lines of its own:
    probability against B1's; the float64 variance on the card against the
    float64 plain version on the CPU; CUDA-event times of each entry point,
    and of B3 per monoid at the path's shapes beside its bound and its
-   plain version.
+   plain version;
+10. the dense path's kernels against their plain versions in float64 on
+    the same values: B5 (the panel product, at the blocked Cholesky's
+    offsets and with a ragged row count), B4 with and without its row side
+    products (in place, on the lower triangle) at the 19 trailing sizes of
+    N = 1e4 at block 512, and B6 at the path's posterior downdates and at
+    ``benchmarks/dense_micro.py``'s shapes, each timed beside its bound,
+    its plain version and the library call (``matmul``, ``addmm``);
+11. the dense main path at ``bench.py``'s dense workload
+    (``1.5 * Matern32(scale=2.5)``, ``diag=0.1``, N = 1e4, float32):
+    ``log_probability`` against a float64 Cholesky, with its launches and
+    the guard's re-factorizations counted, and timed whole, by strip build
+    and by kernel beside the native float32 Cholesky;
+12. its gradient in ``(amp, scale)`` against float64 autograd through
+    ``torch.linalg.cholesky``, and a 10-step ``fit_map``;
+13. ``condition``, ``predict(return_var=True)`` at 1000 new points and
+    ``sample`` against a float64 dense posterior, with the native float32
+    route beside it as the yardstick;
+14. the ill-conditioned route: ``ExpSquared(scale=1.0)`` on 4096 points with
+    the float32 default jitter (3-term order, the guards), against float64
+    and the native float32 route.
 
 The line before the last is a JSON record of every kernel (B3 with one
-record per monoid and shape of the conditioning path); the last line
+record per monoid and shape of the conditioning path; B4 with and without
+its side products, B5 and B6 each summed over the shapes of the dense main
+path); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -187,8 +209,10 @@ def phase_build():
         timeout=60,
         check=True,
     )
+    global CARD
+    CARD = smi.stdout.strip()
     log("card name and power limit (nvidia-smi):")
-    log(smi.stdout.strip())
+    log(CARD)
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
@@ -196,6 +220,18 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_dense_precision():
+    """The port's plain float32 products must run in full float32: TF32
+    off for matmuls, "highest" precision."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    log(f"float32 matmul: allow_tf32 {tf32}, float32_matmul_precision {precision!r}")
+    if tf32 is not False or precision != "highest":
+        raise AssertionError("float32 products would run in TF32")
 
 
 def phase_kernel_vs_plain():
@@ -1129,6 +1165,630 @@ def phase_condition_path():
     return records
 
 
+# ---------------------------------------------------------------------------
+# The dense path: kernels B4, B5 and B6 under the blocked Cholesky.
+# ---------------------------------------------------------------------------
+
+# The 3-term bf16 split product takes six bf16 products per float32 one, so
+# float32-grade work on the H100's tensor cores (989 TFLOP/s bf16) runs at
+# most at a sixth of that: the least time the card could take for products
+# of this accuracy. The float32 FMA rate (PEAK_F32_FLOPS) is printed beside.
+PEAK_SPLIT3_FLOPS = 989e12 / 6
+DENSE_N = 10_000
+DENSE_BLOCK = 512
+DENSE_M = 10_240  # DENSE_N padded to a block multiple: 20 panels
+DENSE_TILE = 256  # the tile the factorization passes to the kernels at block 512
+DENSE_COUNTS = ("panel", "syrk_inplace", "syrk_inplace_extras", "syrk")
+# B6's calls in benchmarks/dense_micro.py:58-66: (m, b, lower_only).
+MICRO_SYRK = ((9728, 512, False), (5120, 512, False), (9216, 1024, False))
+CARD = "card not read yet"
+
+
+def dense_bound_ms(nbytes, flops):
+    """(least time at the 3-term tensor-core rate or the HBM rate, which of
+    the two bounds it, the same operations at the float32 FMA rate)."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_SPLIT3_FLOPS * 1e3
+    by = "bytes" if by_bytes >= by_ops else "operations"
+    return max(by_bytes, by_ops), by, flops / PEAK_F32_FLOPS * 1e3
+
+
+def syrk_inplace_work(t, b, extras):
+    """Bytes and operations of B4 on a trailing size t: the lower triangle
+    of T read and written, L read, two flops per term; with the row side
+    products also ak read, rowsq and rsu written and 4 t b flops."""
+    nbytes, flops = 4 * (t * (t + 1) + t * b), b * t * (t + 1)
+    if extras:
+        nbytes, flops = nbytes + 4 * (b + 2 * t), flops + 4 * t * b
+    return nbytes, flops
+
+
+def panel_work(rows, b):
+    """B5: the (rows, b) panel and W read, the output written."""
+    return 4 * (2 * rows * b + b * b), 2 * rows * b * b
+
+
+def syrk_work(m, b, tile, lower_only):
+    """B6: T read (with ``lower_only`` only its tiles at or below the
+    diagonal), L read, the whole output written; the m (m + 1) / 2 distinct
+    dot products of the symmetric L L^T, 2 b flops each (the zero tiles
+    need none, and the tiles left hold them all)."""
+    nt = m // tile
+    t_read = nt * (nt + 1) // 2 * tile * tile if lower_only else m * m
+    return 4 * (t_read + m * b + m * m), m * (m + 1) * b
+
+
+def reset_dense_counts():
+    from tinygp_tpu_torch.ops import cuda_dense, dense
+
+    for k in cuda_dense.LAUNCHES:
+        cuda_dense.LAUNCHES[k] = 0
+    dense.NATIVE_REFACTORS = 0
+
+
+def read_dense_counts():
+    from tinygp_tpu_torch.ops import cuda_dense, dense
+
+    return dict(cuda_dense.LAUNCHES), dense.NATIVE_REFACTORS
+
+
+def dense_data():
+    """``bench.py``'s dense draws (bench.py:357-358): X, y at N = 1e4, after
+    its draws at 1e5 and 1e6 from the same generator."""
+    rng = np.random.default_rng(42)
+    for n in (100_000, 1_000_000):
+        rng.uniform(0, 10, n)
+        rng.normal(size=n)
+    return np.sort(rng.uniform(0, 10, DENSE_N)), rng.normal(size=DENSE_N)
+
+
+def matern32_f64(X1, X2, amp, scale):
+    """``amp * Matern32(scale)`` by its closed form, in the operands' dtype."""
+    import torch
+
+    f = math.sqrt(3.0) / scale
+    r = torch.abs(X1[:, None] - X2[None, :])
+    return amp * (1 + f * r) * torch.exp(-f * r)
+
+
+def dense_gp(X, amp=1.5, scale=2.5, **kwargs):
+    """``bench.py``'s dense model: ``amp * Matern32(scale)``, ``diag=0.1``."""
+    from tinygp_tpu_torch import GaussianProcess, kernels
+
+    return GaussianProcess(amp * kernels.Matern32(scale=scale), X, diag=0.1, **kwargs)
+
+
+def phase_dense_kernels():
+    """B5, B4 (both modes) and B6 against their plain versions in float64
+    on the same values, at the main path's shapes (m = 10240, b = 512,
+    trailing sizes 512 j), B5 also at an offset with a ragged row count, B6
+    at ``benchmarks/dense_micro.py``'s shapes, its only caller; each timed
+    beside its bound, its plain version and the library call. Returns the
+    kernels' measurements, B6's with its launches there."""
+    import torch
+
+    from tinygp_tpu_torch.ops import cuda_dense as cd
+
+    m, b, tile = DENSE_M, DENSE_BLOCK, DENSE_TILE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    out = {
+        k: {"rel": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "f32_ms": 0.0, "by": set()}
+        for k in DENSE_COUNTS
+    }
+    failures = []
+    micro_launches = 0
+
+    def check(name, label, got, want):
+        (rel, abs_err), = stream_errors([got], [want])
+        ok = rel <= 1e-5 and bool(torch.isfinite(got).all())
+        out[name]["rel"] = max(out[name]["rel"], rel)
+        out[name]["abs"] = max(out[name]["abs"], abs_err)
+        log(f"dense-kernel {name} {label}: against the float64 plain version rel "
+            f"{rel:.3e} (limit 1e-5), abs {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((name, label))
+
+    def timed(name, label, work, kernel, plain, library, reps):
+        nbytes, flops = work
+        bound, by, f32 = dense_bound_ms(nbytes, flops)
+        k_ms = cuda_ms(kernel, reps=reps, warmup=1)
+        p_ms = cuda_ms(plain, reps=reps, warmup=1)
+        l_ms = cuda_ms(library, reps=reps, warmup=1)
+        rec = out[name]
+        rec["ms"] += k_ms
+        rec["plain_ms"] += p_ms
+        rec["library_ms"] += l_ms
+        rec["bound_ms"] += bound
+        rec["f32_ms"] += f32
+        rec["by"].add(by)
+        log(f"dense-kernel {name} {label} [{CARD}]: {k_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}; {f32:.4f} ms at the float32 FMA rate), plain {p_ms:.4f} ms, "
+            f"library {l_ms:.4f} ms")
+
+    check_j = (1, 10, 19)
+    A, W, ak = randn(m, m), randn(b, b, scale=b**-0.5), randn(b)
+    S = randn(m, m)
+    T = (S + S.T) * 2**-0.5
+    del S
+    W64 = W.double()
+    # B5: the panel of step k reads rows hi: of block column lo:hi. The
+    # main path's well-conditioned matrices take 2 terms (float32 sums);
+    # the ill-conditioned route takes 3 (float64 sums), checked and timed
+    # beside them.
+    wide_ms = 0.0
+    for j in range(1, m // b):
+        t = j * b
+        hi = m - t
+        lo = hi - b
+        for terms in (2, 3) if j in check_j else ():
+            got = cd.split_panel_matmul(A, W, tile=tile, terms=terms, at=(hi, lo), rows=t)
+            want = cd.plain_panel_matmul(A[:, lo:hi].double(), W64, hi, 0, t)
+            check("panel", f"terms={terms} rows={t} at=({hi}, {lo})", got, want)
+        timed(
+            "panel", f"terms=2 rows={t}", panel_work(t, b),
+            lambda: cd.split_panel_matmul(A, W, tile=tile, terms=2, at=(hi, lo), rows=t),
+            lambda: cd.plain_panel_matmul(A, W, hi, lo, t),
+            lambda: torch.matmul(A[hi:hi + t, lo:hi], W),
+            reps=10,
+        )
+        wide_ms += cuda_ms(
+            lambda: cd.split_panel_matmul(A, W, tile=tile, terms=3, at=(hi, lo), rows=t),
+            reps=10, warmup=1,
+        )
+    log(f"dense-kernel panel terms=3 (float64 sums) summed over the same shapes [{CARD}]: "
+        f"{wide_ms:.4f} ms")
+    # A ragged row count against the kernel's 128-row tiles, at tile 32.
+    for terms in (2, 3):
+        got = cd.split_panel_matmul(A, W, tile=32, terms=terms, at=(1024, 512),
+                                    rows=m - 1024 - 96)
+        check("panel", f"terms={terms} ragged rows=9120 at=(1024, 512) tile 32", got,
+              cd.plain_panel_matmul(A[:, 512:1024].double(), W64, 1024, 0, m - 1024 - 96))
+    del A
+
+    # B4, in place, with and without the row side products.
+    for j in range(1, m // b):
+        t = j * b
+        off = m - t
+        L = randn(t, b, scale=b**-0.5)
+        if j in check_j:
+            lower = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+            L64 = L.double()
+            want = cd.plain_syrk_sub_inplace(T[off:, off:].double(), L64, 0)[lower]
+            for name, ak_ in (("syrk_inplace", None), ("syrk_inplace_extras", ak)):
+                Tc = T.clone()
+                res = cd.syrk_sub_inplace(Tc, L, offset=off, tile=tile, ak=ak_)
+                if ak_ is not None:
+                    _, rowsq, rsu = res
+                    check(name, f"t={t} rowsq", rowsq, (L64 * L64).sum(1))
+                    check(name, f"t={t} rsu", rsu, L64 @ ak.double())
+                untouched = torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
+                if not untouched:
+                    failures.append((name, f"t={t} leading rows or columns changed"))
+                check(name, f"t={t} offset={off} lower triangle (leading part untouched "
+                      f"{untouched})", Tc[off:, off:][lower], want)
+                del Tc
+            del lower, L64, want
+        Tw = T.clone()
+        for name, ak_ in (("syrk_inplace", None), ("syrk_inplace_extras", ak)):
+            timed(
+                name, f"t={t}", syrk_inplace_work(t, b, ak_ is not None),
+                lambda: cd.syrk_sub_inplace(Tw, L, offset=off, tile=tile, ak=ak_),
+                lambda: cd.plain_syrk_sub_inplace(Tw, L, off, ak_),
+                lambda: Tw[off:, off:].addmm_(L, L.T, alpha=-1.0),
+                reps=5,
+            )
+        del Tw, L
+    del T
+
+    # B6 lies on no entry point's path: its one caller in the JAX package is
+    # benchmarks/dense_micro.py:58-66, T - L L^T at three shapes. Driven
+    # there once each with the counts at 0, each output then held to the
+    # float64 plain version; lower_only (no caller) is checked beside them.
+    for mm, bb, lower_only in MICRO_SYRK + ((9728, 512, True), (5120, 512, True)):
+        S = randn(mm, mm)
+        Tm = S + S.T
+        del S
+        Lm = randn(mm, bb, scale=bb**-0.5)
+        label = f"m={mm} b={bb} lower_only={lower_only}"
+        if not lower_only:
+            reset_dense_counts()
+        got = cd.syrk_sub(Tm, Lm, tile=DENSE_TILE, lower_only=lower_only)
+        if not lower_only:
+            torch.cuda.synchronize()
+            micro_launches += read_dense_counts()[0]["syrk"]
+        want = cd.plain_syrk_sub(Tm.double(), Lm.double(), DENSE_TILE, lower_only)
+        zeros_ok = torch.equal(got == 0, want == 0)
+        check("syrk", label + f" (zero pattern {zeros_ok})", got, want)
+        if not zeros_ok:
+            failures.append(("syrk", label + " zero pattern"))
+        del got, want
+        work = syrk_work(mm, bb, DENSE_TILE, lower_only)
+        kernel = lambda: cd.syrk_sub(Tm, Lm, tile=DENSE_TILE, lower_only=lower_only)  # noqa: E731
+        plain = lambda: cd.plain_syrk_sub(Tm, Lm, DENSE_TILE, lower_only)  # noqa: E731
+        library = lambda: torch.addmm(Tm, Lm, Lm.T, alpha=-1.0)  # noqa: E731
+        if not lower_only:
+            timed("syrk", label + " (benchmarks/dense_micro.py)", work, kernel, plain, library,
+                  reps=5)
+        else:
+            bound, by, f32 = dense_bound_ms(*work)
+            log(f"dense-kernel syrk {label} [{CARD}]: {cuda_ms(kernel, reps=5, warmup=1):.4f} ms, "
+                f"bound {bound:.4f} ms ({by}; {f32:.4f} at the float32 FMA rate), plain "
+                f"{cuda_ms(plain, reps=5, warmup=1):.4f} ms, library "
+                f"{cuda_ms(library, reps=5, warmup=1):.4f} ms")
+        del Tm, Lm
+    out["syrk"]["launches"] = micro_launches
+    log(f"dense-micro B6 launches at benchmarks/dense_micro.py's {len(MICRO_SYRK)} shapes: "
+        f"{micro_launches}")
+    if micro_launches != len(MICRO_SYRK):
+        failures.append(("syrk", f"{micro_launches} launches at dense_micro.py's shapes"))
+    for name, rec in out.items():
+        where = "dense_micro.py's" if name == "syrk" else "the main path's"
+        log(f"dense-kernel {name} summed over {where} shapes [{CARD}]: "
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms (3-term tensor-core rate; "
+            f"{rec['f32_ms']:.4f} ms at the float32 FMA rate), plain {rec['plain_ms']:.4f} ms, "
+            f"library {rec['library_ms']:.4f} ms (addmm does twice B4's and B6's least terms)")
+    if failures:
+        raise AssertionError(f"dense kernels disagree with their plain versions: {failures}")
+    return out
+
+
+class DenseTimers:
+    """CUDA events around every B4/B5/B6 launch and at the entry of the
+    fused loop (after the strip build), while active."""
+
+    def __init__(self):
+        self.launches = []
+        self.marks = []
+
+    def __enter__(self):
+        import torch
+
+        from tinygp_tpu_torch.ops import cuda_dense, dense
+
+        self._run, self._dispatch = cuda_dense._run, dense._scaled_terms_dispatch
+
+        def run(name, fn, *args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            self._run(name, fn, *args)
+            end.record()
+            self.launches.append((name, start, end))
+
+        def dispatch(*args, **kwargs):
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            self.marks.append(mark)
+            return self._dispatch(*args, **kwargs)
+
+        cuda_dense._run, dense._scaled_terms_dispatch = run, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from tinygp_tpu_torch.ops import cuda_dense, dense
+
+        cuda_dense._run, dense._scaled_terms_dispatch = self._run, self._dispatch
+
+    def summed(self):
+        """Milliseconds by kernel name (after a synchronize)."""
+        sums = {}
+        for name, start, end in self.launches:
+            sums[name] = sums.get(name, 0.0) + start.elapsed_time(end)
+        return sums
+
+
+def f64_loglik(K, y):
+    """The log density by a float64 dense Cholesky (torch.linalg)."""
+    import torch
+
+    L = torch.linalg.cholesky(K)
+    alpha = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    n = y.shape[0]
+    return -0.5 * (alpha @ alpha) - torch.log(torch.diagonal(L)).sum() - 0.5 * n * math.log(2 * math.pi)
+
+
+def phase_dense_loglik():
+    """The dense ``log_probability`` at N = 1e4 in float32; returns its
+    launch counts."""
+    import torch
+
+    from tinygp_tpu_torch.ops import dense
+
+    Xn, yn = dense_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+    reset_dense_counts()
+    value = dense_gp(X).log_probability(y)
+    torch.cuda.synchronize()
+    counts, refactors = read_dense_counts()
+
+    X64, y64 = X.double(), y.double()
+    K64 = matern32_f64(X64, X64, 1.5, 2.5) + 0.1 * torch.eye(DENSE_N, dtype=torch.float64, device="cuda")
+    want = float(f64_loglik(K64, y64))
+    del K64
+    got = value.item()
+    err = rel_err(got, want)
+
+    whole_ms = cuda_ms(lambda: dense_gp(X).log_probability(y), reps=10, warmup=2)
+    gp = dense_gp(X)
+    torch.cuda.synchronize()
+    with DenseTimers() as timers:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gp.log_probability(y)
+        torch.cuda.synchronize()
+    strip_ms = start.elapsed_time(timers.marks[0])
+    sums = timers.summed()
+
+    def native():
+        K = matern32_f64(X, X, 1.5, 2.5) + 0.1 * torch.eye(DENSE_N, device="cuda")
+        L = torch.linalg.cholesky(K)
+        a = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+        return (a * a).sum(), torch.log(torch.diagonal(L)).sum()
+
+    native_ms = cuda_ms(native, reps=10, warmup=2)
+    ok = (
+        math.isfinite(got) and err <= 5e-4 and refactors == 0
+        and counts == {"panel": 19, "syrk_inplace": 0, "syrk_inplace_extras": 19, "syrk": 0}
+    )
+    log(
+        f"dense-loglik matern32 N={DENSE_N} float32: log_probability {got!r} vs float64 dense "
+        f"Cholesky {want!r}, rel err {err:.3e} (limit 5e-4); launches {counts}, native "
+        f"re-factorizations {refactors} {'ok' if ok else 'FAIL'}"
+    )
+    log(
+        f"dense-loglik timings [{CARD}]: whole call {whole_ms:.4f} ms (constructor included), "
+        f"strip build {strip_ms:.4f} ms, B5 summed {sums.get('panel', 0.0):.4f} ms, B4 with "
+        f"side products summed {sums.get('syrk_inplace_extras', 0.0):.4f} ms; yardstick "
+        f"torch.linalg.cholesky + solve_triangular in float32 on the same matrix (built "
+        f"included) {native_ms:.4f} ms"
+    )
+    if not ok:
+        raise AssertionError("dense log_probability failed")
+    return counts
+
+
+def phase_dense_path_gradient():
+    """The gradient in (amp, scale) at N = 1e4 in float32 and a 10-step
+    ``fit_map``; returns their launch counts."""
+    import torch
+
+    from tinygp_tpu_torch import fit_map
+
+    Xn, yn = dense_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+
+    def grad32():
+        amp, scale = (torch.tensor(v, device="cuda", requires_grad=True) for v in (1.5, 2.5))
+        lp = dense_gp(X, amp, scale).log_probability(y)
+        return torch.autograd.grad(lp, [amp, scale])
+
+    reset_dense_counts()
+    g32 = [float(g) for g in grad32()]
+    torch.cuda.synchronize()
+    counts, refactors = read_dense_counts()
+
+    X64, y64 = X.double(), y.double()
+    amp, scale = (torch.tensor(v, dtype=torch.float64, device="cuda", requires_grad=True)
+                  for v in (1.5, 2.5))
+    K64 = matern32_f64(X64, X64, amp, scale) + 0.1 * torch.eye(DENSE_N, dtype=torch.float64, device="cuda")
+    g64 = [float(g) for g in torch.autograd.grad(f64_loglik(K64, y64), [amp, scale])]
+    del K64
+    grad_ok = all(abs(a - w) <= 2e-3 * abs(w) + 1e-3 for a, w in zip(g32, g64))
+    whole_ms = cuda_ms(grad32, reps=5, warmup=1)
+    ok = grad_ok and refactors == 0 and counts == {
+        "panel": 19, "syrk_inplace": 0, "syrk_inplace_extras": 19, "syrk": 0
+    }
+    log(
+        f"dense-gradient matern32 N={DENSE_N} float32: d/d(amp, scale) {g32} vs float64 "
+        f"autograd through torch.linalg.cholesky {g64} (limit 2e-3 relative + 1e-3); "
+        f"launches {counts}, native re-factorizations {refactors}; whole forward and "
+        f"backward {whole_ms:.4f} ms [{CARD}] {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError("dense gradient failed")
+
+    steps = 10
+
+    def loss_fn(p):
+        return -dense_gp(X, torch.exp(p["log_amp"]), torch.exp(p["log_scale"])).log_probability(y)
+
+    init = {"log_amp": math.log(1.5), "log_scale": math.log(2.5)}
+    reset_dense_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_map(loss_fn, init, num_steps=steps, learning_rate=0.05, dtype=torch.float32)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    fit_counts, fit_refactors = read_dense_counts()
+    losses = [float(v) for v in res.losses]
+    ok = (
+        all(math.isfinite(v) for v in losses) and float(res.loss) < losses[0]
+        and fit_refactors == 0 and fit_counts["panel"] == 19 * steps
+        and fit_counts["syrk_inplace_extras"] == 19 * steps
+    )
+    log(
+        f"dense-trainer fit_map matern32 N={DENSE_N} float32, {steps} Adam steps at lr 0.05: "
+        f"losses {losses[0]!r} -> {losses[-1]!r}, best {float(res.loss)!r}; {step_ms:.4f} ms "
+        f"per step (host clock) [{CARD}]; launches {fit_counts}, native re-factorizations "
+        f"{fit_refactors} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError("dense fit_map failed")
+    return {k: counts[k] + fit_counts[k] for k in counts}
+
+
+def posterior_f64(X, y, Xt, jitter, dtype):
+    """Dense posterior by torch.linalg in ``dtype`` with the native
+    Cholesky: the mean and variance at the data and at ``Xt``, each
+    variance by column sums of squares of the whitened cross-covariance."""
+    import torch
+
+    X, y, Xt = (a.to(dtype) for a in (X, y, Xt))
+    n = X.shape[0]
+    Kf = matern32_f64(X, X, 1.5, 2.5)
+    L = torch.linalg.cholesky(Kf + 0.1 * torch.eye(n, dtype=dtype, device="cuda"))
+    alpha = torch.linalg.solve_triangular(
+        L.T, torch.linalg.solve_triangular(L, y[:, None], upper=False), upper=True
+    )[:, 0]
+    loc = y - 0.1 * alpha
+    A = torch.linalg.solve_triangular(L, Kf, upper=False)
+    var = torch.diagonal(Kf) + jitter - (A * A).sum(0)
+    del A, Kf
+    Ks = matern32_f64(X, Xt, 1.5, 2.5)
+    mu = Ks.T @ alpha
+    A = torch.linalg.solve_triangular(L, Ks, upper=False)
+    var_t = 1.5 + jitter - (A * A).sum(0)
+    return [x.double() for x in (loc, var, mu, var_t)]
+
+
+def phase_dense_condition():
+    """``condition``, ``predict(return_var=True)`` at 1000 new points and
+    ``sample`` at N = 1e4 in float32; returns their launch counts."""
+    import torch
+
+    Xn, yn = dense_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+    X_test = torch.linspace(0, 10, 1000, device="cuda")
+    reset_dense_counts()
+    gp = dense_gp(X)
+    _, post = gp.condition(y)
+    mu, var_t = gp.predict(y, X_test, return_var=True)
+    draws = gp.sample(torch.Generator(device="cuda").manual_seed(0), (16,))
+    got = [post.loc, post.variance, mu, var_t]
+    torch.cuda.synchronize()
+    counts, refactors = read_dense_counts()
+
+    jitter = math.sqrt(torch.finfo(torch.float32).eps)
+    want = posterior_f64(X, y, X_test, jitter, torch.float64)
+    # The yardstick is the native float32 route: the same entry points with
+    # blocked=False, so torch.linalg's float32 Cholesky where B5 and B4
+    # factor, and everything after it the same (the downdate Kss - A^T A is
+    # one float32 product on both). The torch.linalg route with pairwise
+    # column sums for the variance is printed beside it.
+    nat_gp = dense_gp(X, blocked=False)
+    _, nat_post = nat_gp.condition(y)
+    native = [nat_post.loc, nat_post.variance, *nat_gp.predict(y, X_test, return_var=True)]
+    colsum = posterior_f64(X, y, X_test, jitter, torch.float32)
+    floor = 1e-6 * 1.6  # of the largest prior variance
+    parts, ok = [], True
+    for label, g, w, nat, cs in zip(("loc", "variance", "predict mean", "predict variance"),
+                                    got, want, native, colsum):
+        err = float((g.double() - w).abs().max())
+        nerr = float((nat.double() - w).abs().max())
+        fine = bool(torch.isfinite(g).all()) and err <= 2 * nerr + floor
+        ok = ok and fine
+        parts.append(f"{label} {err:.3e} (native float32 {nerr:.3e}; column sums "
+                     f"{float((cs - w).abs().max()):.3e})")
+    shapes = draws.shape == (16, DENSE_N) and bool(torch.isfinite(draws).all())
+    ok = ok and shapes and refactors == 0 and counts == {
+        "panel": 19, "syrk_inplace": 19, "syrk_inplace_extras": 0, "syrk": 0
+    }
+    log(
+        f"dense-condition matern32 N={DENSE_N} float32: largest error against the float64 "
+        f"posterior: {', '.join(parts)} (limit: twice the native float32 route's plus "
+        f"{floor:.1e}); min variance {float(post.variance.min())!r}, at new points "
+        f"{float(var_t.min())!r}; sample {tuple(draws.shape)} finite {shapes}; launches "
+        f"{counts}, native re-factorizations {refactors} {'ok' if ok else 'FAIL'}"
+    )
+    times = {
+        "condition": lambda: (lambda r: (r[1].loc, r[1].variance))(dense_gp(X).condition(y)),
+        "predict": lambda: dense_gp(X).predict(y, X_test, return_var=True),
+        "sample": lambda: dense_gp(X).sample(torch.Generator(device="cuda").manual_seed(1), (16,)),
+    }
+    log(f"dense-condition entry points, constructor included [{CARD}]: " + ", ".join(
+        f"{name} {cuda_ms(fn, reps=3, warmup=1):.4f} ms" for name, fn in times.items()))
+    if not ok:
+        raise AssertionError("dense conditioning failed")
+    return counts
+
+
+def phase_dense_ill_conditioned():
+    """``ExpSquared(scale=1.0)`` on 4096 sorted points of [0, 10] with the
+    float32 default jitter: the 3-term order and the guards; returns its
+    launch counts."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess, kernels
+
+    n = 4096
+    rng = np.random.default_rng(7)
+    Xn, yn = np.sort(rng.uniform(0, 10, n)), rng.normal(size=n)
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+    jitter = math.sqrt(torch.finfo(torch.float32).eps)
+    reset_dense_counts()
+    gp = GaussianProcess(kernels.ExpSquared(scale=1.0), X)
+    terms = 2 if float(gp.solver.rel_floor) > 1e-2 else 3
+    got = gp.log_probability(y).item()
+    torch.cuda.synchronize()
+    counts, refactors = read_dense_counts()
+
+    def K(dtype):
+        Xd = X.to(dtype)
+        return torch.exp(-0.5 * (Xd[:, None] - Xd[None, :]) ** 2) + jitter * torch.eye(
+            n, dtype=dtype, device="cuda")
+
+    want = float(f64_loglik(K(torch.float64), y.double()))
+    L32, info = torch.linalg.cholesky_ex(K(torch.float32))
+    if int(info) == 0:
+        a = torch.linalg.solve_triangular(L32, y[:, None], upper=False)
+        native = float(-0.5 * (a * a).sum() - torch.log(torch.diagonal(L32)).sum()
+                       - 0.5 * n * math.log(2 * math.pi))
+    else:
+        native = -math.inf
+    err = abs(got - want) if math.isfinite(got) else math.inf
+    nerr = abs(native - want) if math.isfinite(native) else math.inf
+    slack = 4 * float(torch.finfo(torch.float32).eps) * abs(want)
+    if math.isfinite(nerr) or math.isfinite(err):
+        ok = err <= nerr + slack
+    else:
+        ok = got == -math.inf
+    ok = ok and counts["panel"] == n // DENSE_BLOCK - 1
+    log(
+        f"dense-ill-conditioned expsquared N={n} float32, jitter {jitter:.3e}: rel_floor "
+        f"{float(gp.solver.rel_floor):.3e} -> {terms}-term order; guard fired "
+        f"{refactors} times; log_probability {got!r}, float64 {want!r}, native float32 "
+        f"{native!r}: errors {err:.4g} vs native {nerr:.4g} (limit: the native's plus "
+        f"{slack:.3g}); launches {counts} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError("the ill-conditioned dense route failed")
+    return counts
+
+
+def dense_records(measured, launches):
+    """The JSON records of B4 (both modes), B5 and B6 (B6's launches are
+    those at ``benchmarks/dense_micro.py``'s shapes)."""
+    meta = {
+        "panel": ("dense_panel", "tinygp_tpu/ops/pallas_dense.py:315"),
+        "syrk_inplace": ("dense_syrk_inplace", "tinygp_tpu/ops/pallas_dense.py:158"),
+        "syrk_inplace_extras": (
+            "dense_syrk_inplace_extras", "tinygp_tpu/ops/pallas_dense.py:158 ak="
+        ),
+        "syrk": ("dense_syrk", "tinygp_tpu/ops/pallas_dense.py:93"),
+    }
+    records = []
+    for key, (name, replaces) in meta.items():
+        rec = measured[key]
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tinygp_tpu_torch/csrc/dense_syrk.cu",
+            "replaces": replaces,
+            "launches": rec["launches"] if key == "syrk" else launches[key],
+            "max_abs_err": rec["abs"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes" if rec["by"] == {"bytes"} else "operations",
+            "library_ms": rec["library_ms"],
+        })
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1136,6 +1796,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     phase_build()
+    phase_dense_precision()
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()
@@ -1147,7 +1808,20 @@ def main() -> int:
     phase_scan_vs_plain()
     phase_example_condition()
     scan_records = phase_condition_path()
-    log(json.dumps({"kernels": [record, grad_records["res"], grad_records["bwd"], *scan_records]}))
+    measured = phase_dense_kernels()
+    launches = dict.fromkeys(DENSE_COUNTS, 0)
+    for phase in (phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
+                  phase_dense_ill_conditioned):
+        for k, v in phase().items():
+            launches[k] += v
+    missing = [k for k in ("panel", "syrk_inplace", "syrk_inplace_extras") if not launches[k]]
+    if missing or launches["syrk"]:
+        raise AssertionError(f"dense main path launches wrong: {launches}")
+    log(f"dense main path launches: {launches} (B6 lies on no entry point's path; its launches "
+        f"in the kernels line are those at dense_micro.py's shapes)")
+    records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
+    records += dense_records(measured, launches)
+    log(json.dumps({"kernels": records}))
     log(
         json.dumps(
             {

@@ -175,8 +175,9 @@ def test_banded_noise_matches_jax():
     assert_allclose(gp.solver.dot_triangular(torch.tensor(eps)), ref["dot"])
     x = torch.tensor(eps)
     assert_allclose(noise @ x, noise.to_qsm().to_dense() @ x)
-    with pytest.raises(NotImplementedError, match="N3"):
-        noise + torch.eye(N)
+    # The dense sum, which the dense solver factors, is the same band.
+    assert_allclose(noise + torch.eye(N, dtype=torch.float64),
+                    noise.to_qsm().to_dense() + torch.eye(N, dtype=torch.float64))
 
 
 def test_precomputed_covariance_matches_jax():
@@ -263,11 +264,25 @@ def test_dot_triangular_is_the_factor():
     ],
     ids=["condition_at_new_points", "var_at_new_points", "cov_at_new_points", "dense_kernel"],
 )
-def test_dense_posteriors_name_n3(call):
+def test_dense_posteriors_match_the_dense_kernel_process(call):
+    """The quasiseparable process's dense posteriors (at new points, or
+    over a kernel that is not quasiseparable) agree with the same model's
+    dense-kernel process."""
+    from tinygp_tpu_torch import kernels as tk
+
     X, y, X_test, _ = data(n=50)
     gp = GaussianProcess(MODELS["matern32"](tq), torch.tensor(X), diag=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="N3"):
-        call(gp, y, X_test)
+    dense = GaussianProcess(MODELS["matern32"](tk), torch.tensor(X), diag=0.1, device="cpu")
+    got, want = call(gp, y, X_test), call(dense, y, X_test)
+    if hasattr(got, "gp"):
+        got, want = (got[0], got.gp.loc, got.gp.variance), (want[0], want.gp.loc, want.gp.variance)
+    elif isinstance(got, torch.Tensor):
+        # The solvers' own condition: the O(N) solver's dense branch leaves
+        # the noise out, as the JAX one does; the dense solver adds it.
+        got, want = (got,), (want - torch.diag(gp.noise.diagonal()),)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert_allclose(g, w)
 
 
 def test_test_points_must_match_the_inputs():

@@ -328,3 +328,162 @@ def test_posterior_factor_on_the_card_names_n6(cuda_device):
     _, _, post = condition_outputs(None, n=500)
     with pytest.raises(NotImplementedError, match="N6"):
         post.log_probability(torch.zeros(500, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# Kernels B4, B5 and B6 (the blocked dense Cholesky's products) and the
+# dense path on the card.
+# ---------------------------------------------------------------------------
+
+# (m, tile, b, offset, rows): ragged against the kernels' 128 x 128 tiles
+# and 8-deep steps (b = 20), offsets, and a main-path panel width.
+DENSE_SHAPES = [(100, 20, 20, 20, 60), (96, 16, 16, 32, 48), (1280, 256, 512, 256, 768)]
+
+
+def dense_err(got, want):
+    """Largest error relative to the float64 reference's largest magnitude."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dense_kernels_match_plain(cuda_device, shape):
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    m, tile, b, off, rows = shape
+    rng = np.random.default_rng(m + b)
+
+    def card(*size):
+        return torch.as_tensor(rng.normal(size=size), dtype=torch.float32, device=cuda_device)
+
+    S = card(m, m)
+    T, A, W, L, Lf, ak = S + S.T, card(m, m), card(b, b), card(m - off, b), card(m, b), card(b)
+    before = dict(cuda_dense.LAUNCHES)
+
+    # B5 at an offset, and reading the whole operand.
+    c0 = b if m >= 2 * b else 0
+    got = cuda_dense.split_panel_matmul(A, W, tile=tile, at=(off, c0), rows=rows)
+    want = cuda_dense.plain_panel_matmul(A.double(), W.double(), off, c0, rows)
+    assert got.shape == (rows, b) and dense_err(got, want) <= 1e-5
+    got = cuda_dense.split_panel_matmul(A[:, :b].contiguous(), W, tile=tile, terms=2)
+    assert dense_err(got, A[:, :b].double() @ W.double()) <= 1e-5
+
+    # B4 without and with the row side products: the leading rows and
+    # columns untouched, the trailing lower triangle T - L L^T.
+    lower = torch.tril(torch.ones(m - off, m - off, dtype=torch.bool, device=cuda_device))
+    want = cuda_dense.plain_syrk_sub_inplace(T.double().clone(), L.double(), off)
+    for ak_ in (None, ak):
+        Tc = T.clone()
+        out = cuda_dense.syrk_sub_inplace(Tc, L, offset=off, tile=tile, ak=ak_)
+        if ak_ is not None:
+            out, rowsq, rsu = out
+            assert dense_err(rowsq, (L.double() ** 2).sum(1)) <= 1e-5
+            assert dense_err(rsu, L.double() @ ak.double()) <= 1e-5
+        assert out is Tc
+        assert torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
+        assert dense_err(Tc[off:, off:][lower], want[off:, off:][lower]) <= 1e-5
+
+    # B6 with and without the zero tiles.
+    for lower_only in (False, True):
+        got = cuda_dense.syrk_sub(T, Lf, tile=tile, lower_only=lower_only)
+        want = cuda_dense.plain_syrk_sub(T.double(), Lf.double(), tile, lower_only)
+        assert dense_err(got, want) <= 1e-5 and torch.equal(got == 0, want == 0)
+    torch.cuda.synchronize()
+    launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"panel": 2, "syrk_inplace": 1, "syrk_inplace_extras": 1, "syrk": 2}
+
+
+@pytest.mark.cuda
+def test_dense_kernels_refuse_what_they_cannot_do(cuda_device):
+    """A CUDA tensor of a type the kernels do not take raises; it never
+    runs the plain version."""
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    T = torch.zeros(64, 64, dtype=torch.float64, device=cuda_device)
+    L = torch.zeros(64, 16, dtype=torch.float64, device=cuda_device)
+    before = dict(cuda_dense.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_dense.syrk_sub(T, L, tile=16)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_dense.syrk_sub_inplace(T, L[16:], offset=16, tile=16)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_dense.split_panel_matmul(T, L[:16], tile=16, at=(16, 16), rows=48)
+    with pytest.raises(ValueError, match="one device"):
+        cuda_dense.syrk_sub(T.float(), L.float().cpu(), tile=16)
+    with pytest.raises(NotImplementedError, match="backward"):
+        cuda_dense.syrk_sub(T.float().requires_grad_(), L.float(), tile=16)
+    assert cuda_dense.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_dense_gp_on_the_card_matches_cpu(cuda_device):
+    """The dense path at N = 4500 in float32 (blocked: B5 and B4 eight times
+    each) against float64 on the CPU."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import cuda_dense, dense
+
+    rng = np.random.default_rng(12)
+    n = 4500
+    X = np.sort(rng.uniform(0, 10, n))
+    y = rng.normal(size=n)
+    X_test = np.linspace(0, 10, 100)
+
+    def run(device, dtype):
+        amp, scale = (torch.tensor(v, dtype=dtype, device=device or cuda_device, requires_grad=True)
+                      for v in (1.5, 2.5))
+        gp = GaussianProcess(amp * kernels.Matern32(scale=scale), torch.as_tensor(X, dtype=dtype),
+                             diag=0.1, device=device)
+        lp = gp.log_probability(y)
+        grads = torch.autograd.grad(lp, [amp, scale])
+        with torch.no_grad():
+            mu, var = gp.predict(y, X_test, return_var=True)
+        return [lp.detach(), *grads, mu, var]
+
+    before = dict(cuda_dense.LAUNCHES)
+    refactors = dense.NATIVE_REFACTORS
+    on_card = run(None, torch.float32)
+    torch.cuda.synchronize()
+    launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
+    # log_probability (fused: B5 and B4 with extras) and the factor for
+    # predict (B5 and B4 without); the posterior downdate is a plain product.
+    assert launched == {"panel": 16, "syrk_inplace": 8, "syrk_inplace_extras": 8, "syrk": 0}
+    assert dense.NATIVE_REFACTORS == refactors
+    want = run("cpu", torch.float64)
+    lp, ga, gs, mu, var = (x.double().cpu() for x in on_card)
+    assert all(torch.isfinite(x).all() for x in (lp, ga, gs, mu, var))
+    np.testing.assert_allclose(float(lp), float(want[0]), rtol=5e-4)
+    for g, w in zip((ga, gs), want[1:3]):
+        assert abs(float(g) - float(w)) < 2e-3 * abs(float(w)) + 1e-3
+    assert float((mu - want[3]).abs().max()) <= 5e-3 * float(want[3].abs().max())
+    assert float((var - want[4]).abs().max()) <= 1e-3 * 1.6
+
+
+@pytest.mark.cuda
+def test_quasisep_variance_at_new_points_on_the_card(cuda_device):
+    """The O(N) process's dense posterior at new points: B3 whitens the
+    cross-covariance (one column per point); the downdate is a plain
+    product, so no dense kernel runs."""
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    rng = np.random.default_rng(4)
+    X = np.sort(rng.uniform(0, 10, 3000))
+    y = rng.normal(size=3000)
+    X_test = np.linspace(-0.5, 10.5, 200)
+
+    def run(device, dtype):
+        gp = GaussianProcess(1.5 * quasisep.Matern32(scale=2.5), torch.as_tensor(X, dtype=dtype),
+                             diag=0.1, assume_sorted=True, device=device)
+        return gp.predict(y, X_test, return_var=True)
+
+    want = run("cpu", torch.float64)
+    got = run(None, torch.float64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9, atol=1e-12)
+    before = dict(cuda_dense.LAUNCHES)
+    mu, var = run(None, torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_dense.LAUNCHES == before
+    assert torch.isfinite(mu).all() and torch.isfinite(var).all()
+    assert float((mu.double().cpu() - want[0]).abs().max()) <= 5e-3 * float(want[0].abs().max())
+    assert float((var.double().cpu() - want[1]).abs().max()) <= 1e-3 * 1.5

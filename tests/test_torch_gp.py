@@ -11,7 +11,6 @@ from tinygp_tpu import GaussianProcess as JaxGP
 from tinygp_tpu.kernels import quasisep as jq
 from tinygp_tpu_torch import GaussianProcess
 from tinygp_tpu_torch.kernels import quasisep as tq
-from tinygp_tpu_torch.kernels.base import Conditioned
 from tinygp_tpu_torch.test_utils import assert_allclose
 
 # (kernel builder, N): the benchmark's Matern32, the flagship SHO and the
@@ -94,22 +93,3 @@ def test_default_device_is_the_card():
     X, _ = data(50)
     with pytest.raises(RuntimeError, match="CUDA"):
         GaussianProcess(tq.Matern32(scale=1.0), X)
-
-
-@pytest.mark.parametrize(
-    "call",
-    [
-        lambda gp: gp.condition(gp.X, gp.X),
-        lambda gp: gp.predict(gp.X, gp.X, return_cov=True),
-        lambda gp: gp.solver.condition(gp.kernel, gp.X, gp.noise),
-        lambda gp: gp.noise + torch.eye(50, dtype=torch.float64),
-        lambda gp: GaussianProcess(Conditioned(gp.X, gp.solver, gp.kernel), gp.X, device="cpu"),
-    ],
-    ids=["condition_at_new_points", "covariance_at_new_points", "solver_condition",
-         "dense_noise", "dense_solver"],
-)
-def test_unported_parts_name_their_roadmap_item(call):
-    X, _ = data(50)
-    gp = GaussianProcess(tq.Matern32(scale=1.0), X, diag=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item N3"):
-        call(gp)

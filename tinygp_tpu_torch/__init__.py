@@ -1,11 +1,13 @@
 """tinygp-tpu's port to PyTorch and CUDA for one NVIDIA H100.
 
 A second package beside the JAX reference ``tinygp_tpu``, ported one slice
-at a time (see ROADMAP.md). It carries the O(N) quasiseparable GP
-marginal log-likelihood and its gradient end to end: the quasiseparable
-kernels, ``GaussianProcess`` with ``log_probability``, the fused
-log-likelihood and its backward as hand-written CUDA kernels for Hopper,
-and ``fit_map``, which fits hyperparameters with them. Entry points run on
+at a time (see ROADMAP.md). It carries ``GaussianProcess`` with
+``log_probability`` (and its gradient), ``condition``, ``predict`` and
+``sample`` on two paths: the O(N) quasiseparable solver, whose fused
+log-likelihood, backward and monoid scans are hand-written CUDA kernels for
+Hopper, and the dense solver for the stationary kernels, whose blocked
+Cholesky runs its panel and trailing products as CUDA kernels too; and
+``fit_map``, which fits hyperparameters with either. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 """
 
@@ -16,6 +18,7 @@ from tinygp_tpu_torch import (
     means as means,
     noise as noise,
     solvers as solvers,
+    transforms as transforms,
 )
 from tinygp_tpu_torch.fit import FitResult as FitResult, fit_map as fit_map
 from tinygp_tpu_torch.gp import GaussianProcess as GaussianProcess

@@ -8,11 +8,17 @@ dictionary of numpy arrays::
      "params": {"scale": np.ndarray},
      "children": {"kernel": {"class": "Matern32", ...}}}
 
-where ``class`` names a class of :mod:`tinygp_tpu_torch.kernels.quasisep`,
-``params`` its hyperparameters and ``children`` its wrapped kernels, each
-under the name of its constructor argument (``kernel``, or ``kernel1`` and
-``kernel2``). A caller with the JAX package at hand builds it by walking
-the JAX kernel's dataclass fields.
+where ``class`` names a class, ``params`` its hyperparameters, ``children``
+its wrapped kernels or distance, each under the name of its constructor
+argument (``kernel``, ``kernel1`` and ``kernel2``, ``distance``), and an
+optional ``static`` its other constructor arguments, passed unchanged
+(``Subspace``'s ``axis``; ``Custom``'s and ``Transform``'s callables, which
+the caller writes for PyTorch). A bare class name is looked up in
+:mod:`~tinygp_tpu_torch.kernels.quasisep` first; a qualified one names the
+module: ``quasisep.Matern32``, ``stationary.Matern32``, ``base.Product``,
+``distance.L2Distance`` or ``transforms.Linear``, the last part of the JAX
+class's module and its name. A caller with the JAX package at hand builds
+the tree by walking the JAX kernel's dataclass fields.
 
 A quasiseparable matrix is described the same way, with the class names
 of :mod:`tinygp_tpu_torch.solvers.quasisep.core` and their field names::
@@ -34,9 +40,32 @@ from typing import Any
 
 import torch
 
+from tinygp_tpu_torch import transforms
 from tinygp_tpu_torch.helpers import as_tensor, resolve_device
-from tinygp_tpu_torch.kernels import quasisep
+from tinygp_tpu_torch.kernels import base, distance, quasisep, stationary
 from tinygp_tpu_torch.solvers.quasisep import core
+
+_MODULES = {
+    "quasisep": quasisep,
+    "base": base,
+    "stationary": stationary,
+    "distance": distance,
+    "transforms": transforms,
+}
+
+
+def _kernel_class(name: str) -> type:
+    """The port's class for a bare or module-qualified class name."""
+    module, _, cls = name.rpartition(".")
+    if module:
+        found = _MODULES.get(module)
+        if found is not None and cls in found.__all__:
+            return getattr(found, cls)
+    else:
+        for found in _MODULES.values():
+            if cls in found.__all__:
+                return getattr(found, cls)
+    raise ValueError(f"no kernel, distance or transform named {name!r} in the port")
 
 
 def kernel_from_tree(
@@ -44,13 +73,11 @@ def kernel_from_tree(
     *,
     device: Any = None,
     dtype: torch.dtype = torch.float64,
-) -> quasisep.Quasisep:
-    """The port's kernel for ``tree``, its hyperparameters on ``device``
-    (``None`` is ``"cuda"``) in ``dtype``."""
+) -> base.Kernel | distance.Distance:
+    """The port's kernel (or distance) for ``tree``, its hyperparameters on
+    ``device`` (``None`` is ``"cuda"``) in ``dtype``."""
     device = resolve_device(device)
-    name = tree["class"]
-    if name not in quasisep.__all__:
-        raise ValueError(f"no quasiseparable kernel named {name!r} in the port")
+    cls = _kernel_class(tree["class"])
     params = {
         k: as_tensor(v, device, dtype) for k, v in tree.get("params", {}).items()
     }
@@ -58,7 +85,7 @@ def kernel_from_tree(
         k: kernel_from_tree(v, device=device, dtype=dtype)
         for k, v in tree.get("children", {}).items()
     }
-    return getattr(quasisep, name)(**children, **params)
+    return cls(**children, **params, **tree.get("static", {}))
 
 
 def qsm_from_tree(

@@ -2,13 +2,12 @@
 
 Counterpart of ``tinygp_tpu/gp.py``: the constructor,
 :meth:`GaussianProcess.log_probability`, :meth:`~GaussianProcess.condition`,
-:meth:`~GaussianProcess.predict` and :meth:`~GaussianProcess.sample`, for
-quasiseparable kernels on the O(N) solver. Conditioning at the training
-points gives a posterior process whose covariance is a ``SymmQSM``;
-predicting the mean at new points is one rectangular O(N + M) product.
-What needs the dense posterior (a variance or covariance at new points, or
-a non-quasiseparable kernel) is ROADMAP item N3, the dense slice, and
-raises.
+:meth:`~GaussianProcess.predict` and :meth:`~GaussianProcess.sample`.
+Quasiseparable kernels (and precomputed ``SymmQSM`` covariances) take the
+O(N) :class:`~tinygp_tpu_torch.solvers.QuasisepSolver`; every other kernel
+takes the dense :class:`~tinygp_tpu_torch.solvers.DirectSolver`. A
+posterior at new points, or of a kernel that is not quasiseparable, has a
+dense covariance and a ``DirectSolver``.
 
 The process lives on one device, in one dtype. ``device=None`` means the
 card (``"cuda"``) and raises where there is none; pass ``device="cpu"``
@@ -40,8 +39,8 @@ class GaussianProcess(nn.Module):
     """A Gaussian process regression model.
 
     Args:
-        kernel: The covariance kernel (quasiseparable in this slice).
-        X: The ``(N,)`` input coordinates.
+        kernel: The covariance kernel.
+        X: The input coordinates, ``(N,)`` or ``(N, d)``.
         diag: Extra diagonal variance (scalar or ``(N,)``); defaults to
             ``sqrt(eps)`` jitter for the dtype.
         noise: A full :class:`~tinygp_tpu_torch.noise.Noise` model;
@@ -53,7 +52,9 @@ class GaussianProcess(nn.Module):
             :meth:`condition` passes to the posterior process.
         device: Where the process runs; ``None`` is ``"cuda"``.
         **solver_kwargs: Forwarded to the solver (e.g.
-            ``assume_sorted=True``).
+            ``assume_sorted=True`` for the quasiseparable one, ``blocked=False``
+            for the dense one, which forces the native Cholesky); each
+            solver drops the other's switches.
 
     Examples:
         >>> import torch
@@ -85,6 +86,7 @@ class GaussianProcess(nn.Module):
     ):
         super().__init__()
         from tinygp_tpu_torch.kernels.quasisep import Quasisep
+        from tinygp_tpu_torch.solvers.direct import DirectSolver
         from tinygp_tpu_torch.solvers.quasisep.core import SymmQSM
         from tinygp_tpu_torch.solvers.quasisep.solver import QuasisepSolver
 
@@ -105,16 +107,17 @@ class GaussianProcess(nn.Module):
         kernel = kernel.to(device=device, dtype=dtype)
 
         if solver is None:
-            if not (
-                isinstance(kernel, Quasisep) or isinstance(covariance_value, SymmQSM)
-            ):
-                raise NotImplementedError(
-                    "the dense solver for non-quasiseparable kernels is "
-                    "ROADMAP item N3 (the dense slice), not ported yet"
-                )
-            solver = QuasisepSolver
-        if solver is QuasisepSolver:
-            # The dense-only switch is a no-op on the O(N) path.
+            structured = isinstance(kernel, Quasisep) or isinstance(
+                covariance_value, SymmQSM
+            )
+            solver = QuasisepSolver if structured else DirectSolver
+        if solver is DirectSolver:
+            # The quasiseparable switches are no-ops on the dense path, so
+            # one model function serves both solvers.
+            solver_kwargs.pop("assume_sorted", None)
+            solver_kwargs.pop("parallel", None)
+        elif solver is QuasisepSolver:
+            # ... and the dense-only switch is a no-op on the O(N) path.
             solver_kwargs.pop("blocked", None)
 
         self.num_data = mean_value.shape[0]
@@ -169,8 +172,7 @@ class GaussianProcess(nn.Module):
         Args:
             y: The observed values, ``(N,)``.
             X_test: Where to predict; the training points by default. At new
-                points the posterior covariance is dense, ROADMAP item N3,
-                and this raises (``predict`` gives the mean there).
+                points the posterior covariance is dense.
             diag / noise: The observation noise of the posterior process.
             include_mean: Include the prior mean in the posterior mean.
             kernel: Another cross-covariance kernel (e.g. one term of a
@@ -210,8 +212,8 @@ class GaussianProcess(nn.Module):
         return_var: bool = False,
         return_cov: bool = False,
     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-        """The posterior mean at ``X_test`` (and its variance or covariance
-        at the training points).
+        """The posterior mean at ``X_test`` (and its variance or
+        covariance there).
 
         The mean alone takes the solves and one O(N) product, with no
         posterior covariance: what the JAX package's ``jit`` leaves of this

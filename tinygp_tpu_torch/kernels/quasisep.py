@@ -93,7 +93,16 @@ class Quasisep(Kernel):
 
     Subclasses implement the state-space quadruple of the module docstring;
     the stacked operands and pointwise evaluation derive from it here.
+    ``evaluate`` takes bare ``(N,)`` coordinates, without a feature axis.
     """
+
+    _features = False
+
+    def gram(self, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+        return self.evaluate(X1[:, None], X2[None, :])
+
+    def diag(self, X: torch.Tensor) -> torch.Tensor:
+        return self.evaluate_diag(X)
 
     def _hyper(self, **values: Any) -> None:
         for name, value in values.items():

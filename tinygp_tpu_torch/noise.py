@@ -1,24 +1,22 @@
 """Observation-noise models.
 
-Counterpart of ``tinygp_tpu/noise.py``: the ``Noise`` protocol, the
-``Diagonal`` model and the ``Banded`` model, each with its diagonal, its
-product ``noise @ x`` and its quasiseparable form ``to_qsm``, which is
-what the O(N) solver adds to the kernel's matrix. ``Banded`` is an order-J
-quasiseparable matrix whose transition is a shift register. The dense
-algebra (``noise + matrix``) and the ``Dense`` model belong to the dense
-solver, ROADMAP item N3.
+Counterpart of ``tinygp_tpu/noise.py``: the ``Noise`` protocol and the
+``Diagonal``, ``Dense`` and ``Banded`` models, each with its diagonal, its
+sum with a dense matrix (``noise + K``, what the dense solver factors), its
+product ``noise @ x`` and, where it has one, its quasiseparable form
+``to_qsm``, which is what the O(N) solver adds to the kernel's matrix.
+``Banded`` is an order-J quasiseparable matrix whose transition is a
+shift register.
 """
 
 from __future__ import annotations
 
-__all__ = ["Noise", "Diagonal", "Banded"]
+__all__ = ["Noise", "Diagonal", "Dense", "Banded"]
 
 from typing import Any
 
 import torch
 from torch import nn
-
-_DENSE = "adding noise to a dense matrix is ROADMAP item N3 (the dense slice)"
 
 
 class Noise(nn.Module):
@@ -28,8 +26,8 @@ class Noise(nn.Module):
         """The diagonal of the noise matrix."""
         raise NotImplementedError("concrete noise models define diagonal()")
 
-    def __add__(self, other: Any) -> Any:
-        raise NotImplementedError(_DENSE)
+    def __add__(self, other: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("concrete noise models define +")
 
     def __radd__(self, other: Any) -> Any:
         return self.__add__(other)
@@ -61,6 +59,12 @@ class Diagonal(Noise):
     def diagonal(self) -> torch.Tensor:
         return self.diag
 
+    def __add__(self, other: torch.Tensor) -> torch.Tensor:
+        # A masked add, one elementwise pass over the matrix.
+        n, m = other.shape[-2:]
+        eq = torch.eye(n, m, dtype=torch.bool, device=other.device)
+        return other + torch.where(eq, self.diag[:, None], other.new_zeros(()))
+
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         return self.diag * other if other.ndim == 1 else self.diag[:, None] * other
 
@@ -68,6 +72,27 @@ class Diagonal(Noise):
         from tinygp_tpu_torch.solvers.quasisep.core import DiagQSM
 
         return DiagQSM(d=self.diag)
+
+
+class Dense(Noise):
+    """A full-rank observation-noise matrix ``value`` ``(N, N)``; it has no
+    quasiseparable form, so only the dense solver takes it."""
+
+    def __init__(self, value: torch.Tensor):
+        super().__init__()
+        self.register_buffer("value", value)
+
+    def diagonal(self) -> torch.Tensor:
+        return torch.diagonal(self.value)
+
+    def __add__(self, other: torch.Tensor) -> torch.Tensor:
+        return self.value + other
+
+    def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
+        return self.value @ other
+
+    def to_qsm(self) -> Any:
+        raise NotImplementedError("a dense noise model has no compact quasiseparable form")
 
 
 class Banded(Noise):
@@ -92,6 +117,13 @@ class Banded(Noise):
 
     def diagonal(self) -> torch.Tensor:
         return self.diag
+
+    def __add__(self, other: torch.Tensor) -> torch.Tensor:
+        band = torch.diag_embed(self.diag)
+        for j in range(self.off_diags.shape[1]):
+            upper = torch.diag_embed(self.off_diags[: self.diag.shape[0] - j - 1, j], offset=j + 1)
+            band = band + upper + upper.T
+        return other + band
 
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         return self.to_qsm().matmul(other)

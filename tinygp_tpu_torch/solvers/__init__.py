@@ -1,8 +1,9 @@
-"""Linear-algebra backends for GP computations. The port carries the O(N)
-:class:`QuasisepSolver` and its quasiseparable matrix algebra
-(``solvers.quasisep``); the dense, Kalman and low-rank solvers are ROADMAP
-items N3 and L2."""
+"""Linear-algebra backends for GP computations: the dense
+:class:`DirectSolver` and the O(N) :class:`QuasisepSolver` with its
+quasiseparable matrix algebra (``solvers.quasisep``). The Kalman and
+low-rank solvers are ROADMAP item L2."""
 
-__all__ = ["QuasisepSolver"]
+__all__ = ["DirectSolver", "QuasisepSolver"]
 
+from tinygp_tpu_torch.solvers.direct import DirectSolver
 from tinygp_tpu_torch.solvers.quasisep import QuasisepSolver

@@ -126,21 +126,25 @@ class QuasisepSolver(Solver):
         n = r.shape[0]
         return -0.5 * (quad + n * math.log(2 * math.pi)) - logdet
 
-    def condition(self, kernel: Kernel, X_test: Any, noise: Noise) -> SymmQSM:
-        """The posterior covariance at the training points,
-        ``M + noise - (L^-1 M)^T (L^-1 M)`` with ``M = K(X, X)`` of a
-        quasiseparable ``kernel``: a :class:`SymmQSM` of order 4m."""
+    def condition(self, kernel: Kernel, X_test: Any, noise: Noise) -> Any:
+        """The posterior covariance. At the training points with a
+        quasiseparable ``kernel`` it stays a :class:`SymmQSM` of order 4m,
+        ``M + noise - (L^-1 M)^T (L^-1 M)`` with ``M = K(X, X)``; otherwise it
+        is the dense ``Kss - A^T A``, ``A = L^-1 K(X, X_test)``, without the
+        noise, as in the JAX package."""
         from tinygp_tpu_torch.kernels.quasisep import Quasisep
 
-        if X_test is not None or not isinstance(kernel, Quasisep):
-            raise NotImplementedError(
-                "the dense posterior covariance (at new points, or for a "
-                "kernel that is not quasiseparable) is ROADMAP item N3, the "
-                "dense slice"
-            )
-        M = kernel.to_symm_qsm(self.X)
-        delta = (self.factor.inv() @ M).gram()
-        return (M + noise.to_qsm()) - delta
+        if X_test is None and isinstance(kernel, Quasisep):
+            M = kernel.to_symm_qsm(self.X)
+            delta = (self.factor.inv() @ M).gram()
+            return (M + noise.to_qsm()) - delta
+        if X_test is None:
+            Kss = Ks = kernel(self.X, self.X)
+        else:
+            Kss = kernel(X_test, X_test)
+            Ks = kernel(self.X, X_test)
+        A = self.solve_triangular(Ks)
+        return Kss - A.mT @ A
 
 
 def _guard_sorted(coords: torch.Tensor) -> None:
