@@ -68,12 +68,26 @@ Phases, each printing its numbers on lines of its own:
     route beside it as the yardstick;
 14. the ill-conditioned route: ``ExpSquared(scale=1.0)`` on 4096 points with
     the float32 default jitter (3-term order, the guards), against float64
-    and the native float32 route.
+    and the native float32 route; kernel B7 launches 0 times over phases
+    11-14;
+15. kernel B7, the tiled gram builder, on its entry point
+    ``ops.gram.gram_tiled``: ``benchmarks/dense_pieces.py``'s
+    ``1.5 * Matern32(scale=2.5)`` at N = M = 1e4 and the gradient in
+    ``(amp, scale, X1)`` of ``sum(sin(K) w)`` at N = 2048 (against float64
+    autograd, 1e-4 per parameter), with B7's launches counted; B7 against
+    float64 on the same float32 values, within twice the float32 plain
+    version's error plus 1e-6 of the largest entry, for every leaf with
+    either metric on ragged 1-d and 3-d points, the JAX test's kernels,
+    each root transform, and the 1e4 gram; timed at 1e4 and summed over
+    the dense path's 20 strip shapes (through ``gram_tiled`` and launched
+    directly), beside its bound, its plain version and
+    ``kernel(X[lo:n], X[lo:cr])`` as the strip build calls it, and the host
+    time of one small ``gram_tiled`` call.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 and B6 each summed over the shapes of the dense main
-path); the last line
+path; B7 at 1e4); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -1789,8 +1803,211 @@ def dense_records(measured, launches):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Kernel B7: the tiled gram builder, on its own entry point.
+# ---------------------------------------------------------------------------
+
+GRAM_N = 10_000  # benchmarks/dense_pieces.py:17
+GRAM_GRAD_N = 2048
+GRAM_RAGGED = (1037, 515)
+GRAM_LEAVES = ("Exp", "ExpSquared", "Matern32", "Matern52", "Cosine", "ExpSineSquared",
+               "RationalQuadratic")
+
+
+def gram_work(n1, n2, d, ops, n_params):
+    """Bytes and operations of B7 on ``(n1, d)`` and ``(n2, d)`` points:
+    the points and the ``n_params`` parameters read once and the output written once; per
+    entry 3 d operations (difference, absolute value or square, sum) for
+    each of the L1 and L2 sums the program needs, about ten for each leaf
+    (its transcendental counted as one) and one for each sum or product."""
+    from tinygp_tpu_torch.ops import gram
+
+    leaves = [(op, metric) for op, metric, _ in ops if op > gram._MUL]
+    uses_l1 = any(metric == 0 or op not in gram._SQUARED for op, metric in leaves)
+    uses_l2 = any(metric == 1 for _, metric in leaves)
+    per_entry = 3 * d * (uses_l1 + uses_l2) + 10 * len(leaves) + (len(ops) - len(leaves))
+    nbytes = 4 * ((n1 + n2) * d + n1 * n2 + n_params)
+    return nbytes, n1 * n2 * per_entry
+
+
+def gram_f64(kernel, X1, X2):
+    """The kernel's matrix in float64 on the float32 values B7 reads: the
+    float32 inputs and the hyperparameters rounded to float32."""
+    import torch
+
+    params = {n: b.float().double() for n, b in kernel.named_buffers()}
+    return torch.func.functional_call(kernel, params, (X1.double(), X2.double()))
+
+
+def strip_shapes(n, block):
+    """The dense path's strips, ``(lo, cr)``: rows ``lo:n`` against columns
+    ``lo:cr`` (``ops/dense.py:kernel_loglik_terms``)."""
+    return [(lo, min(lo + block, n)) for lo in range(0, n, block)]
+
+
+def phase_gram():
+    """Kernel B7 on its entry point ``ops.gram.gram_tiled``: the path
+    (``benchmarks/dense_pieces.py``'s gram at N = 1e4 and a gradient at
+    N = 2048) with its launches counted; B7 against its plain version on
+    every kernel of its set; its times beside its bound and the plain
+    version's, at 1e4 and summed over the dense path's strips. Returns B7's
+    record."""
+    import torch
+
+    from tinygp_tpu_torch import kernels, transforms
+    from tinygp_tpu_torch.ops import gram
+
+    def card(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    # The path, once: the count set to 0 before it and read after.
+    X = card(np.sort(np.random.default_rng(0).uniform(0, 10, GRAM_N)))
+    pieces = (1.5 * kernels.Matern32(scale=2.5)).to("cuda")
+    Xg = card(np.random.default_rng(2).uniform(0, 5, GRAM_GRAD_N))
+    amp, scale = (torch.tensor(v, device="cuda", requires_grad=True) for v in (1.5, 1.4))
+    x1 = Xg.clone().requires_grad_(True)
+    w = torch.arange(GRAM_GRAD_N, dtype=torch.float32, device="cuda")
+    gram.LAUNCHES["gram"] = 0
+    K = gram.gram_tiled(pieces, X, X)
+    Kg = gram.gram_tiled(kernels.Constant(amp) * kernels.Matern32(scale=scale), x1, Xg)
+    grads = torch.autograd.grad((torch.sin(Kg) * w).sum(), (amp, scale, x1))
+    torch.cuda.synchronize()
+    launches = gram.LAUNCHES["gram"]
+    del Kg
+
+    failures = []
+    worst = {"abs": 0.0}
+
+    def check(label, kernel, X1, X2, got=None):
+        # The plain versions broadcast a Constant's value to a matrix on the
+        # value's device, so the hyperparameters go where the points are.
+        kernel = kernel.to("cuda")
+        got = gram.gram_tiled(kernel, X1, X2) if got is None else got
+        want = gram_f64(kernel, X1, X2)
+        err = float((got.double() - want).abs().max())
+        plain = float((gram.plain_gram(kernel, X1, X2).double() - want).abs().max())
+        top = float(want.abs().max())
+        limit = 2 * plain + 1e-6 * top
+        ok = err <= limit and tuple(got.shape) == tuple(want.shape) and bool(
+            torch.isfinite(got).all())
+        worst["abs"] = max(worst["abs"], err)
+        log(f"gram {label} {tuple(X1.shape)} x {tuple(X2.shape)}: against float64 {err:.3e}, "
+            f"the float32 plain version {plain:.3e}, limit {limit:.3e} (max|K| {top:.4g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+
+    rng = np.random.default_rng(15)
+    n1, n2 = GRAM_RAGGED
+    extra = {"ExpSineSquared": dict(gamma=0.9), "RationalQuadratic": dict(alpha=1.1)}
+    one = [card(rng.uniform(0, 10, n)) for n in (n1, n2)]
+    three = [card(rng.normal(size=(n, 3))) for n in (n1, n2)]
+    for name in GRAM_LEAVES:
+        for metric in ("L1Distance", "L2Distance"):
+            leaf = getattr(kernels, name)(scale=1.7, distance=getattr(kernels, metric)(),
+                                          **extra.get(name, {}))
+            for pts in (one, three):
+                check(f"{name} {metric}", leaf, *pts)
+    composite = kernels.ExpSineSquared(scale=2.0, gamma=0.9) + kernels.RationalQuadratic(alpha=1.1)
+    check("ExpSineSquared(2.0, 0.9) + RationalQuadratic(alpha=1.1)", composite, *one)
+    check("1.3 * Matern32(scale=1.7)", 1.3 * kernels.Matern32(scale=1.7), *three)
+    check("ExpSquared(scale=1.2)", kernels.ExpSquared(scale=1.2), *three)
+    roots = {
+        "Linear(per-dimension scale)": transforms.Linear(
+            torch.tensor([2.0, 0.5, 1.3]), kernels.ExpSquared(scale=1.1)),
+        "Cholesky(2-d factor)": transforms.Cholesky.from_parameters(
+            torch.tensor([1.5, 0.7, 2.0]), torch.tensor([0.3, -0.2, 0.4]),
+            kernels.Matern52(scale=1.1)),
+        "Subspace(axis=[0, 2])": transforms.Subspace(
+            np.array([0, 2]), 0.5 * kernels.Matern32(scale=0.8)),
+    }
+    for label, kernel in roots.items():
+        check(label, kernel, *three)
+    check("dense_pieces.py 1.5 * Matern32(scale=2.5)", pieces, X, X, got=K)
+    del K
+
+    # The gradient against float64 autograd through the kernel's own matrix.
+    a64, s64 = (torch.tensor(v, dtype=torch.float64, device="cuda", requires_grad=True)
+                for v in (1.5, 1.4))
+    x64 = Xg.double().requires_grad_(True)
+    K64 = (kernels.Constant(a64) * kernels.Matern32(scale=s64))(x64, Xg.double())
+    want = torch.autograd.grad((torch.sin(K64) * w.double()).sum(), (a64, s64, x64))
+    del K64
+    rels = [float((g.double() - v).abs().max() / v.abs().max()) for g, v in zip(grads, want)]
+    grad_ok = max(rels) <= 1e-4
+    log(f"gram gradient of sum(sin(K) w) N={GRAM_GRAD_N} float32 in (amp, scale, X1): "
+        f"{[float(grads[0]), float(grads[1])]} vs float64 {[float(want[0]), float(want[1])]}; "
+        f"errors relative per parameter {[f'{r:.3e}' for r in rels]} (limit 1e-4) "
+        f"{'ok' if grad_ok else 'FAIL'}")
+    if not grad_ok:
+        failures.append("gradient")
+    log(f"gram path launches (value at N={GRAM_N} and the gradient): {launches}")
+    if not launches:
+        failures.append("no launch on the path")
+
+    # Times: at 1e4 x 1e4, and summed over the dense path's strip shapes.
+    ops, params = gram._compile(pieces, X, X)[2:]
+    nbytes, flops = gram_work(GRAM_N, GRAM_N, 1, ops, len(params))
+    bound, by = bound_ms(nbytes, flops)
+    k_ms = cuda_ms(lambda: gram.gram_tiled(pieces, X, X), reps=20, warmup=3)
+    p_ms = cuda_ms(lambda: gram.plain_gram(pieces, X, X), reps=20, warmup=3)
+    cdist_ms = cuda_ms(lambda: torch.cdist(X[:, None], X[:, None]), reps=20, warmup=3)
+    log(f"gram dense_pieces.py N={GRAM_N} [{CARD}]: B7 {k_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}; {nbytes} bytes, {flops} operations), plain {p_ms:.4f} ms")
+    log(f"gram yardstick, not the same function [{CARD}]: torch.cdist of the same points "
+        f"(the distance alone) {cdist_ms:.4f} ms")
+
+    Xd = card(dense_data()[0])
+    strips = strip_shapes(DENSE_N, DENSE_BLOCK)
+    entries = sum((DENSE_N - lo) * (cr - lo) for lo, cr in strips)
+    s_bytes = s_flops = 0
+    for lo, cr in strips:
+        nb, fl = gram_work(DENSE_N - lo, cr - lo, 1, ops, len(params))
+        s_bytes, s_flops = s_bytes + nb, s_flops + fl
+    s_bound, s_by = bound_ms(s_bytes, s_flops)
+    strip_b7 = cuda_ms(
+        lambda: [gram.gram_tiled(pieces, Xd[lo:], Xd[lo:cr]) for lo, cr in strips],
+        reps=20, warmup=3)
+    strip_now = cuda_ms(lambda: [pieces(Xd[lo:], Xd[lo:cr]) for lo, cr in strips],
+                        reps=20, warmup=3)
+    # The same launches without gram_tiled's host work (the tree walk, the
+    # root maps, the autograd Function), and that host work per call.
+    P = Xd[:, None]
+    strip_launch = cuda_ms(lambda: [gram._launch(ops, params, P[lo:], P[lo:cr])
+                                    for lo, cr in strips], reps=20, warmup=3)
+    tiny = X[:64]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        gram.gram_tiled(pieces, tiny, tiny)
+    torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"gram strip shapes of the dense path (N={DENSE_N}, block {DENSE_BLOCK}: {len(strips)} "
+        f"strips, {entries} entries) [{CARD}]: B7 summed {strip_b7:.4f} ms through gram_tiled, "
+        f"{strip_launch:.4f} ms launched directly, bound {s_bound:.4f} ms ({s_by}); "
+        f"kernel(X[lo:n], X[lo:cr]) as the strip build calls it today {strip_now:.4f} ms; one "
+        f"gram_tiled call of 64 x 64 points {call_us:.1f} us on the host clock")
+    if failures:
+        raise AssertionError(f"kernel B7 failed: {failures}")
+    return {
+        "name": "gram_tiled",
+        "route": "cuda",
+        "source": "tinygp_tpu_torch/csrc/gram.cu",
+        "replaces": "tinygp_tpu/ops/pallas_gram.py:107",
+        "launches": launches,
+        "max_abs_err": worst["abs"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
+
+    from tinygp_tpu_torch.ops import gram
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1810,17 +2027,22 @@ def main() -> int:
     scan_records = phase_condition_path()
     measured = phase_dense_kernels()
     launches = dict.fromkeys(DENSE_COUNTS, 0)
+    gram.LAUNCHES["gram"] = 0
     for phase in (phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
                   phase_dense_ill_conditioned):
         for k, v in phase().items():
             launches[k] += v
     missing = [k for k in ("panel", "syrk_inplace", "syrk_inplace_extras") if not launches[k]]
-    if missing or launches["syrk"]:
-        raise AssertionError(f"dense main path launches wrong: {launches}")
-    log(f"dense main path launches: {launches} (B6 lies on no entry point's path; its launches "
-        f"in the kernels line are those at dense_micro.py's shapes)")
+    if missing or launches["syrk"] or gram.LAUNCHES["gram"]:
+        raise AssertionError(f"dense main path launches wrong: {launches}, B7 "
+                             f"{gram.LAUNCHES['gram']}")
+    log(f"dense main path launches: {launches}, B7 {gram.LAUNCHES['gram']} (B6 lies on no entry "
+        f"point's path; its launches in the kernels line are those at dense_micro.py's shapes; "
+        f"the strip build does not route through B7)")
+    gram_record = phase_gram()
     records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
     records += dense_records(measured, launches)
+    records.append(gram_record)
     log(json.dumps({"kernels": records}))
     log(
         json.dumps(

@@ -487,3 +487,110 @@ def test_quasisep_variance_at_new_points_on_the_card(cuda_device):
     assert torch.isfinite(mu).all() and torch.isfinite(var).all()
     assert float((mu.double().cpu() - want[0]).abs().max()) <= 5e-3 * float(want[0].abs().max())
     assert float((var.double().cpu() - want[1]).abs().max()) <= 1e-3 * 1.5
+
+
+def gram_kernels(d):
+    """Kernel B7's set: every leaf with either metric, a tree of sums and
+    products and, on points of 3 features, each root transform."""
+    from tinygp_tpu_torch import kernels, transforms
+
+    extra = {"ExpSineSquared": dict(gamma=0.9), "RationalQuadratic": dict(alpha=1.1)}
+    out = {
+        f"{name}-{metric}": getattr(kernels, name)(
+            scale=1.7, distance=getattr(kernels, metric)(), **extra.get(name, {})
+        )
+        for name in ("Exp", "ExpSquared", "Matern32", "Matern52", "Cosine", "ExpSineSquared",
+                     "RationalQuadratic")
+        for metric in ("L1Distance", "L2Distance")
+    }
+    out["tree"] = (1.3 * kernels.Matern32(scale=1.7) + kernels.Exp(scale=0.9)) * (
+        kernels.ExpSquared(scale=1.1) + 0.5 * kernels.Cosine(scale=2.0)
+    )
+    if d == 3:
+        out["linear"] = transforms.Linear(torch.tensor([2.0, 0.5, 1.3]), kernels.ExpSquared())
+        out["cholesky"] = transforms.Cholesky.from_parameters(
+            torch.tensor([1.5, 0.7, 2.0]), torch.tensor([0.3, -0.2, 0.4]), kernels.Matern52()
+        )
+        out["subspace"] = transforms.Subspace(np.array([0, 2]), kernels.Matern32(scale=0.8))
+    return out
+
+
+def gram_f64(kernel, X1, X2):
+    """The kernel's matrix in float64 on the float32 values B7 reads: the
+    float32 inputs and the hyperparameters rounded to float32."""
+    params = {n: b.float().double() for n, b in kernel.named_buffers()}
+    return torch.func.functional_call(kernel, params, (X1.double(), X2.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3], ids=["N", "Nx3"])
+def test_gram_kernel_matches_plain(cuda_device, d):
+    """B7 on ragged shapes no further from float64 than twice the float32
+    plain version plus 1e-6 of the largest entry, and the diagonal exactly
+    the plain version's."""
+    from tinygp_tpu_torch.ops import gram
+
+    rng = np.random.default_rng(21 + d)
+    shape = () if d == 1 else (d,)
+    X1, X2 = (torch.as_tensor(rng.uniform(0, 10, (n, *shape)), dtype=torch.float32,
+                              device=cuda_device) for n in (1037, 515))
+    kernels = gram_kernels(d)
+    before = gram.LAUNCHES["gram"]
+    for name, kernel in kernels.items():
+        kernel = kernel.to(cuda_device)
+        got = gram.gram_tiled(kernel, X1, X2)
+        want = gram_f64(kernel, X1, X2)
+        err = float((got.double() - want).abs().max())
+        plain = float((gram.plain_gram(kernel, X1, X2).double() - want).abs().max())
+        assert got.shape == (1037, 515) and torch.isfinite(got).all(), name
+        assert err <= 2 * plain + 1e-6 * float(want.abs().max()), (name, err, plain)
+        diag = gram.gram_tiled(kernel, X1, X1).diagonal()
+        assert torch.equal(diag, gram.plain_gram(kernel, X1, X1).diagonal()), name
+    torch.cuda.synchronize()
+    assert gram.LAUNCHES["gram"] == before + 2 * len(kernels)
+
+
+@pytest.mark.cuda
+def test_gram_gradient_on_the_card_matches_cpu(cuda_device):
+    """d/d(amp, scale, X1) of sum(sin(K) w) through B7 against float64
+    autograd on the CPU, rtol 1e-4 per parameter."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    rng = np.random.default_rng(31)
+    X = rng.uniform(0, 5, 300)
+
+    def grads(device, dtype, build):
+        amp, scale = (torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+                      for v in (1.5, 1.4))
+        x = torch.as_tensor(X, dtype=dtype, device=device).requires_grad_(True)
+        K = build(kernels.Constant(amp) * kernels.Matern32(scale=scale), x, x.detach())
+        w = torch.arange(300, dtype=dtype, device=device)
+        return torch.autograd.grad((torch.sin(K) * w).sum(), (amp, scale, x))
+
+    before = gram.LAUNCHES["gram"]
+    got = grads(cuda_device, torch.float32, gram.gram_tiled)
+    torch.cuda.synchronize()
+    assert gram.LAUNCHES["gram"] == before + 1
+    want = grads("cpu", torch.float64, lambda k, a, b: k(a, b))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g.cpu().double() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_gram_kernel_refuses_what_it_cannot_do(cuda_device):
+    """On the card the gate's refusals raise; nothing runs the plain version."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    X = torch.linspace(0, 1, 50, device=cuda_device)
+    before = gram.LAUNCHES["gram"]
+    with pytest.raises(ValueError, match="float32"):
+        gram.gram_tiled(kernels.Matern32(), X.double(), X.double())
+    with pytest.raises(ValueError, match="DotProduct"):
+        gram.gram_tiled(kernels.DotProduct(), X, X)
+    with pytest.raises(ValueError, match="two devices"):
+        gram.gram_tiled(kernels.Matern32(), X, X.cpu())
+    assert gram.LAUNCHES["gram"] == before
+    assert gram.gram_tiled(kernels.Matern32(), X[:0], X).shape == (0, 50)

@@ -36,7 +36,7 @@ def test_import_loads_no_jax():
         "tinygp_tpu_torch.solvers.quasisep.cuda_scan, "
         "tinygp_tpu_torch.solvers.quasisep.general, "
         "tinygp_tpu_torch.solvers.quasisep.ops, tinygp_tpu_torch.solvers.direct, "
-        "tinygp_tpu_torch.ops.dense, tinygp_tpu_torch.ops.cuda_dense, "
+        "tinygp_tpu_torch.ops.dense, tinygp_tpu_torch.ops.cuda_dense, tinygp_tpu_torch.ops.gram, "
         "tinygp_tpu_torch.kernels.stationary, tinygp_tpu_torch.kernels.distance, "
         "tinygp_tpu_torch.transforms\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'tinygp_tpu')"

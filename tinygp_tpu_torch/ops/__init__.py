@@ -1,2 +1,4 @@
-"""Dense linear algebra: the blocked Cholesky (:mod:`~tinygp_tpu_torch.ops.dense`)
-and its CUDA kernels B4, B5 and B6 (:mod:`~tinygp_tpu_torch.ops.cuda_dense`)."""
+"""Dense linear algebra and the kernel matrix: the blocked Cholesky
+(:mod:`~tinygp_tpu_torch.ops.dense`), its CUDA kernels B4, B5 and B6
+(:mod:`~tinygp_tpu_torch.ops.cuda_dense`), and the tiled gram builder with
+its CUDA kernel B7 (:mod:`~tinygp_tpu_torch.ops.gram`)."""
