@@ -9,9 +9,10 @@ Phases, each printing its numbers on lines of its own:
 
 1. the card's name and power limit; the build of every CUDA kernel;
 2. each kernel against its plain PyTorch version on random operands
-   (m = 1..4 at N = 17,161 in float64 and float32; m = 2 at N = 1e6): B1
-   (the log-likelihood), B1r (with the residuals a gradient needs) and B2
-   (the backward, on B1r's residuals, with random scalar cotangents);
+   (m = 1..4, and 5 and 8 through the generic-order source, at N = 17,161
+   in float64 and float32; m = 2 at N = 1e6): B1 (the log-likelihood),
+   B1r (with the residuals a gradient needs) and B2 (the backward, on
+   B1r's residuals, with random scalar cotangents);
 3. the kernel path's ``log_probability`` and its float64 gradient against
    a dense numpy/scipy Cholesky log-likelihood built from the kernels'
    closed forms and its central differences;
@@ -34,7 +35,10 @@ Phases, each printing its numbers on lines of its own:
    operands for every monoid (affine forward and reverse, exclusive and
    inclusive, with 1 and 8 columns; congruence forward and reverse; the
    Riccati flow; the coupling forward and reverse), m = 1..4 at N = 17,161
-   in float64 and float32 and m = 2 at N = 1e6;
+   in float64 and float32 and m = 2 at N = 1e6; and the generic-order
+   engine at m = 5, 6, 8, 12 and 16 (every monoid, both directions and
+   outputs, 1 and 8 columns) and the couplings (2, 4), (4, 8) and (6, 6),
+   at N = 17,161 in float64 and float32, with its launches counted;
 8. conditioning at the light-curve example's size
    (``examples/quasisep_lightcurve.py:23-77``): ``condition(y)`` and
    ``predict(y, t_test)`` of ``1.0 * SHO(omega=2.1, quality=2.0)`` on the
@@ -82,12 +86,25 @@ Phases, each printing its numbers on lines of its own:
     the dense path's 20 strip shapes (through ``gram_tiled`` and launched
     directly), beside its bound, its plain version and
     ``kernel(X[lo:n], X[lo:cr])`` as the strip build calls it, and the host
-    time of one small ``gram_tiled`` call.
+    time of one small ``gram_tiled`` call;
+16. every quasiseparable order at ``bench.py``'s data (N = 1e5): in
+    float32 Matern52's ``condition``, ``predict(return_var=True)`` and
+    ``sample``, the 2-term celerite's ``condition``, and
+    ``1.2 * SHO + 1.5 * Matern52`` (m = 5): its value (also at N = 1e6),
+    its gradient in four hyperparameters and 20 ``fit_map`` steps; in
+    float64 the posterior processes (order 8, 12 and 16) of Matern32,
+    Matern52 and the 2-term celerite, ``log_probability`` and ``sample``,
+    with their default jitter at N = 1e5 (reported: the reference's O(N)
+    factor does not hold there) and given ``diag=1e-3`` at N = 5000; the
+    generic-order launches counted over the path, each held to its plain
+    version on the path's well-posed operands and timed beside its bound;
+    the float64 entry points against the CPU's plain version.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 and B6 each summed over the shapes of the dense main
-path; B7 at 1e4); the last line
+path; B7 at 1e4; one record per generic-order instantiation of phase 16,
+and B1, B1r and B2 at m = 5); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -192,12 +209,14 @@ def stream_errors(got, want):
 
 
 def reset_counts():
-    """Set every kernel's launch count to 0: B1, B1r, B2 and B3's."""
+    """Set every kernel's launch count to 0: B1, B1r, B2 and B3's, and
+    those of the generic-order sources."""
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan
 
     cuda_loglik.LAUNCHES = cuda_loglik.LAUNCHES_RES = cuda_loglik.LAUNCHES_BWD = 0
-    for monoid in cuda_scan.LAUNCHES:
-        cuda_scan.LAUNCHES[monoid] = 0
+    for counts in (cuda_scan.LAUNCHES, cuda_scan.LAUNCHES_GENERIC, cuda_loglik.LAUNCHES_GENERIC):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts():
@@ -253,8 +272,9 @@ def phase_kernel_vs_plain():
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
-    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4)]
-    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
+    # m = 1..4 run the templated kernels, 5 and 8 the generic-order source.
+    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8)]
+    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8)]
     cases += [(2, 1_000_000, torch.float64, 1e-8), (2, 1_000_000, torch.float32, 5e-4)]
     failures = []
     for m, n, dtype, rtol in cases:
@@ -841,13 +861,30 @@ SCAN_VARIANTS = [
 ]
 
 
-def scan_operands(monoid, m, n, r, dtype, seed):
+# The generic-order engine: a subset of the variants above at each order
+# (every monoid, both directions, both outputs, 1 and 8 columns), and the
+# coupling of unequal orders.
+GENERIC_ORDERS = (5, 6, 8, 12, 16)
+GENERIC_SCAN_VARIANTS = [
+    ("aff", False, False, 1),
+    ("aff", True, True, 8),
+    ("cong", True, False, 1),
+    ("ric", False, False, 1),
+    ("cpl", False, False, 1),
+    ("cpl", True, True, 1),
+]
+COUPLING_PAIRS = ((2, 4), (4, 8), (6, 6))
+
+
+def scan_operands(monoid, m, n, r, dtype, seed, m2=None):
     """B3's operands for one monoid on the card: contracting transitions
-    from ``random_qsm_operands`` and normal loads."""
+    from ``random_qsm_operands`` and normal loads; ``m2`` is the
+    coupling's second order (``m`` if not given)."""
     import torch
 
     from tinygp_tpu_torch.test_utils import random_qsm_operands
 
+    m2 = m if m2 is None else m2
     d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
     rng = np.random.default_rng(seed + 1)
     if monoid == "aff":
@@ -857,11 +894,11 @@ def scan_operands(monoid, m, n, r, dtype, seed):
     elif monoid == "ric":
         arrays = (d, ps, qs, as_)
     else:
-        arrays = (as_, random_qsm_operands(m, n, seed + 2)[3], rng.normal(size=(m * m, n)))
+        arrays = (as_, random_qsm_operands(m2, n, seed + 2)[3], rng.normal(size=(m * m2, n)))
     return [torch.as_tensor(x, dtype=dtype, device="cuda") for x in arrays]
 
 
-def scan_kernel(monoid, m, r, reverse, inclusive, operands):
+def scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=None):
     """B3 through its wrapper."""
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
@@ -871,10 +908,11 @@ def scan_kernel(monoid, m, r, reverse, inclusive, operands):
         return cuda_scan.congruence(*operands, m, reverse=reverse)
     if monoid == "ric":
         return cuda_scan.riccati(*operands)
-    return cuda_scan.coupling(*operands, m, m, reverse=reverse, exclusive=not inclusive)
+    m2 = m if m2 is None else m2
+    return cuda_scan.coupling(*operands, m, m2, reverse=reverse, exclusive=not inclusive)
 
 
-def scan_plain(monoid, m, r, reverse, inclusive, operands):
+def scan_plain(monoid, m, r, reverse, inclusive, operands, m2=None):
     """B3's plain version, the stacked scans of ``scan.py``, on the same
     tensors."""
     from tinygp_tpu_torch.solvers.quasisep import scan
@@ -885,21 +923,24 @@ def scan_plain(monoid, m, r, reverse, inclusive, operands):
         return scan._congruence_scan_s(*operands, m, reverse=reverse)
     if monoid == "ric":
         return scan._riccati_scan_s(*operands, m)
+    m2 = m if m2 is None else m2
     return scan._coupling_scan_s(
-        *operands, m, m, reverse=reverse, exclusive=not inclusive
+        *operands, m, m2, reverse=reverse, exclusive=not inclusive
     )
 
 
-def scan_bound_ms(monoid, m, r, n, itemsize):
+def scan_bound_ms(monoid, m, r, n, itemsize, m2=None):
     """Least time for one B3 scan: read each operand and write the state
     once, or do the sequential recurrence's operations (per element:
     A g + B, 2m^2 + m per column; A g A^T + B, 4m^3 + m^2; the Riccati
-    step, 4m^3 + 6m^2 + 3m + 2; A g B^T + C, 4m^3 + m^2)."""
+    step, 4m^3 + 6m^2 + 3m + 2; A g B^T + C with g of m x m2,
+    2 m^2 m2 + 2 m m2^2 + m m2)."""
+    m2 = m if m2 is None else m2
     values, flops = {
         "aff": (m * m + 2 * m * r, (2 * m * m + m) * r),
         "cong": (3 * m * m, 4 * m**3 + m * m),
         "ric": (1 + 2 * m + 2 * m * m, 4 * m**3 + 6 * m * m + 3 * m + 2),
-        "cpl": (4 * m * m, 4 * m**3 + m * m),
+        "cpl": (m * m + m2 * m2 + 2 * m * m2, 2 * m * m * m2 + 2 * m * m2 * m2 + m * m2),
     }[monoid]
     return bound_ms(values * n * itemsize, flops * n)
 
@@ -927,6 +968,31 @@ def phase_scan_vs_plain():
             f"kernel-vs-plain B3 m={m} N={n} {str(dtype)[6:]}: rel err per stream "
             f"(rtol {rtol:g}): {', '.join(parts)}"
         )
+
+    # The generic-order engine, at N_LONG: every order of the slice's path
+    # and the couplings of unequal orders, with its launches counted.
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    t0 = time.perf_counter()
+    for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
+        cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
+        cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
+        for m, m2, (monoid, reverse, inclusive, r) in cases:
+            operands = scan_operands(monoid, m, N_LONG, r, dtype, seed=10 * m + m2, m2=m2)
+            before = cuda_scan.LAUNCHES_GENERIC[monoid]
+            got = scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=m2)
+            want = scan_plain(monoid, m, r, reverse, inclusive, operands, m2=m2)
+            (err, _), = stream_errors([got], [want])
+            launched = cuda_scan.LAUNCHES_GENERIC[monoid] - before
+            ok = err <= rtol and bool(torch.isfinite(got).all()) and launched == 1
+            tag = (f"{monoid}{'-rev' if reverse else ''}{'-incl' if inclusive else ''}-r{r} "
+                   f"m={m}" + (f"x{m2}" if monoid == "cpl" else ""))
+            log(f"kernel-vs-plain B3 generic {tag} N={N_LONG} {str(dtype)[6:]}: rel err "
+                f"{err:.2e} (rtol {rtol:g}), generic launches {launched} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append((tag, N_LONG, dtype))
+    log(f"kernel-vs-plain B3 generic: {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError(f"B3 disagrees with its plain version: {failures}")
 
@@ -1055,9 +1121,9 @@ def phase_condition_path():
     calls, plain_on_card = [], [0]
     launch, monoid_scan = cuda_scan._launch, scan.monoid_scan
 
-    def recording_launch(monoid, m, r, reverse, inclusive, operands, out_rows):
+    def recording_launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
         calls.append((monoid, m, r, reverse, inclusive, operands))
-        return launch(monoid, m, r, reverse, inclusive, operands, out_rows)
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
 
     def counting_scan(combine, identity, elems, **kwargs):
         plain_on_card[0] += elems[0].is_cuda
@@ -1176,6 +1242,436 @@ def phase_condition_path():
         })
     if not (path_ok and f64_ok):
         raise AssertionError("conditioning path failed")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Every quasiseparable order: the generic-order sources on the slice's path.
+# ---------------------------------------------------------------------------
+
+def celerite2():
+    """``bench.py:331-345``'s 2-term celerite (order 4)."""
+    from tinygp_tpu_torch.kernels import quasisep
+
+    return quasisep.Celerite(a=1.0, b=0.1, c=0.5, d=1.0) + quasisep.Celerite(
+        a=0.5, b=0.05, c=1.5, d=3.0
+    )
+
+
+def sum5_gp(X, p):
+    """``1.2 * SHO(omega=1.5, quality=3.0) + 1.5 * Matern52(scale=2.5)``
+    (order 5), its four hyperparameters ``p = (amp1, omega, amp2, scale)``."""
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    kernel = p[0] * quasisep.SHO(omega=p[1], quality=3.0) + p[2] * quasisep.Matern52(scale=p[3])
+    return GaussianProcess(kernel, X, diag=0.1, assume_sorted=True, device=X.device.type)
+
+
+SUM5_PARAMS = (1.2, 1.5, 1.5, 2.5)
+
+
+def sum5_value_and_grad(X, y):
+    import torch
+
+    p = [torch.tensor(v, dtype=X.dtype, device=X.device, requires_grad=True) for v in SUM5_PARAMS]
+    lp = sum5_gp(X, p).log_probability(y)
+    return lp.detach(), torch.autograd.grad(lp, p)
+
+
+def orders_path(X, y, X_test, generator):
+    """The slice's float32 entry points at orders above 4, in the order a
+    user calls them; returns every output by name."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess, fit_map
+
+    out = {}
+    dev = X.device.type
+    gp = GaussianProcess(matern52_kernel(), X, diag=0.1, assume_sorted=True, device=dev)
+    lp, post = gp.condition(y)
+    mu, var = gp.predict(y, X_test, return_var=True)
+    out["matern52"] = (lp, post.loc, post.variance, mu, var, gp.sample(generator, (16,)))
+    gp = GaussianProcess(celerite2(), X, diag=0.1, assume_sorted=True, device=dev)
+    lp, post = gp.condition(y)
+    out["celerite2"] = (lp, post.loc, post.variance)
+    with torch.no_grad():
+        value = sum5_gp(X, SUM5_PARAMS).log_probability(y)
+    out["sum5"] = (value, *sum5_value_and_grad(X, y)[1])
+
+    def loss_fn(params):
+        return -sum5_gp(X, [torch.exp(params[k]) for k in ("amp1", "omega", "amp2", "scale")]
+                        ).log_probability(y)
+
+    init = {k: math.log(v) for k, v in zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)}
+    res = fit_map(loss_fn, init, num_steps=20, learning_rate=0.05, dtype=X.dtype, device=dev)
+    out["sum5_fit"] = (res.losses, res.loss)
+    return out
+
+
+def matern32_kernel():
+    from tinygp_tpu_torch.kernels import quasisep
+
+    return 1.5 * quasisep.Matern32(scale=2.5)
+
+
+def matern52_kernel():
+    from tinygp_tpu_torch.kernels import quasisep
+
+    return 1.5 * quasisep.Matern52(scale=2.5)
+
+
+POSTERIOR_MODELS = {"matern32": matern32_kernel, "matern52": matern52_kernel,
+                    "celerite2": celerite2}
+
+
+def posterior_path(X, y, post_diag, generator=None, noise=None):
+    """Each model's posterior process at the training points (order 4m: 8,
+    12, 16): its log probability, and a sample of 16 draws through
+    ``generator`` or the factor times ``noise``."""
+    from tinygp_tpu_torch import GaussianProcess
+
+    out = {}
+    for name, kernel in POSTERIOR_MODELS.items():
+        gp = GaussianProcess(kernel(), X, diag=0.1, assume_sorted=True, device=X.device.type)
+        post = gp.condition(y, diag=post_diag)[1]
+        draws = (post.sample(generator, (16,)) if noise is None
+                 else post.solver.dot_triangular(noise))
+        out[name] = (post.log_probability(y), draws)
+    return out
+
+
+def phase_orders_path():
+    """The slice of every quasiseparable order at ``bench.py``'s data
+    (N = 1e5). Float32, as ``bench.py`` runs: Matern52's ``condition``,
+    ``predict`` with variances and ``sample``; the 2-term celerite's
+    ``condition``; ``1.2 * SHO + 1.5 * Matern52`` (m = 5): value, gradient
+    in its four hyperparameters, 20 ``fit_map`` steps, and the value at
+    N = 1e6. Float64: the posterior processes of Matern32, Matern52 and the
+    2-term celerite (order 8, 12 and 16), ``log_probability`` and
+    ``sample``, with their default 1.49e-8 jitter at N = 1e5, and given
+    ``diag=1e-3`` at N = 5000 (every 20th point), where the O(N) algorithm
+    holds (see tests/test_torch_orders.py and PERF.md: with the jitter the
+    reference's O(N) posterior factor loses the state from N of a few
+    hundred; the JAX package returns -inf for Matern32's at N = 2000).
+    Every count is set to 0 before the path and read after it; each
+    generic-order instantiation is held to its plain version on random
+    operands of its path shape; the float64 entry points against the CPU's plain
+    float64 path, and the posteriors given diag=1e-3 against a dense
+    Cholesky. Returns the JSON records of the generic-order kernels."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan
+
+    (X5, y5), (X6, y6) = bench_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (X5, y5))
+    X_1e6, y_1e6 = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (X6, y6))
+    X_test = torch.linspace(0, 10, 1000, dtype=torch.float32, device="cuda")
+    X64, y64 = X.double(), y.double()
+    Xs, ys = X64[::20].contiguous(), y64[::20].contiguous()
+    noise = torch.as_tensor(np.random.default_rng(3).normal(size=(Xs.shape[0], 16)), device="cuda")
+    n = X.shape[0]
+    t0 = time.perf_counter()
+
+    # The path, once, with the generic engine's launches recorded with their
+    # operands.
+    calls = {}
+    launch = cuda_scan._launch
+
+    def recording(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+        key = (monoid, m, m if m2 is None else m2, r)
+        if key[1] != key[2] or m > 4:
+            calls.setdefault(key, []).append((reverse, inclusive, operands))
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+    cuda_scan._launch = recording
+    try:
+        reset_counts()
+        out = orders_path(X, y, X_test, torch.Generator(device="cuda").manual_seed(0))
+        with torch.no_grad():
+            out["sum5_n1e6"] = (sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),)
+        jittered = posterior_path(X64, y64, None, torch.Generator(device="cuda").manual_seed(1))
+        noisy = posterior_path(Xs, ys, 1e-3, noise=noise)
+        torch.cuda.synchronize()
+        scan_counts = dict(cuda_scan.LAUNCHES_GENERIC)
+        loglik_counts = dict(cuda_loglik.LAUNCHES_GENERIC)
+        b123 = read_counts()
+    finally:
+        cuda_scan._launch = launch
+    path_s = time.perf_counter() - t0
+
+    finite = {k: all(bool(torch.isfinite(x).all()) for x in v) for k, v in out.items()}
+    finite.update({f"{k} posterior diag=1e-3": all(bool(torch.isfinite(x).all()) for x in v)
+                   for k, v in noisy.items()})
+    shapes = (
+        [tuple(x.shape) for x in out["matern52"]] == [(), (n,), (n,), (1000,), (1000,), (16, n)]
+        and [tuple(x.shape) for x in out["celerite2"]] == [(), (n,), (n,)]
+        and all([tuple(x.shape) for x in v] == [(), (16, n)] for v in jittered.values())
+    )
+    losses = [float(x) for x in out["sum5_fit"][0]]
+    moved = (
+        all(scan_counts[k] > 0 for k in ("aff", "ric", "cpl"))
+        and loglik_counts["b1"] == 2 and loglik_counts["b1r"] >= 21 and loglik_counts["b2"] >= 21
+    )
+    path_ok = all(finite.values()) and shapes and moved and float(out["sum5_fit"][1]) < losses[0]
+    jitter_report = {
+        k: f"log prob {v[0].item()!r}, draws finite {bool(torch.isfinite(v[1]).all())}"
+        for k, v in jittered.items()
+    }
+    log(
+        f"orders-path N={n} float32 ({path_s:.1f} s for the whole path): matern52 condition "
+        f"log prob {out['matern52'][0].item()!r}, min variance {float(out['matern52'][2].min())!r}, "
+        f"predict variance in [{float(out['matern52'][4].min())!r}, "
+        f"{float(out['matern52'][4].max())!r}]; celerite2 condition log prob "
+        f"{out['celerite2'][0].item()!r}; sum5 (m = 5) value {out['sum5'][0].item()!r}, "
+        f"gradient {[float(g) for g in out['sum5'][1:]]}, fit_map losses {losses[0]!r} -> "
+        f"{losses[-1]!r}, value at N=1e6 {out['sum5_n1e6'][0].item()!r}; posteriors given "
+        f"diag=1e-3 at N={Xs.shape[0]} float64 log prob "
+        f"{ {k: v[0].item() for k, v in noisy.items()} }; finite {finite}, shapes {shapes}; "
+        f"generic launches B3 {scan_counts}, B1/B1r/B2 {loglik_counts}; all launches "
+        f"B1/B1r/B2 {b123} {'ok' if path_ok else 'FAIL'}"
+    )
+    log(
+        f"orders-path posteriors at N={n} float64 with the default jitter (the reference "
+        f"algorithm's O(N) factor does not hold here; recorded, not checked): {jitter_report}"
+    )
+
+    # The float64 entry points on the card against the CPU's plain float64
+    # path: the m = 5 sum's value and gradient and Matern52's posterior mean
+    # and variance at N = 1e5 (the variance within 1e-8 of the largest
+    # prior variance, as the conditioning phase holds Matern32's).
+    t1 = time.perf_counter()
+    Xc, yc = X64.cpu(), y64.cpu()
+    card_v, card_g = sum5_value_and_grad(X64, y64)
+    cpu_v, cpu_g = sum5_value_and_grad(Xc, yc)
+    errs = {"sum5 value": rel_err(card_v.item(), cpu_v.item())}
+    errs.update({f"sum5 grad {i}": rel_err(float(a), float(b))
+                 for i, (a, b) in enumerate(zip(card_g, cpu_g))})
+    from tinygp_tpu_torch import GaussianProcess
+
+    def m52(X):
+        return GaussianProcess(matern52_kernel(), X, diag=0.1, assume_sorted=True,
+                               device=X.device.type)
+
+    card_post = m52(X64).condition(y64)[1]
+    cpu_post = m52(Xc).condition(yc)[1]
+    scale = float(m52(Xc).variance.abs().max())
+    errs["matern52 loc"] = rel_max(card_post.loc.cpu(), cpu_post.loc)
+    errs["matern52 variance"] = float(
+        (card_post.variance.cpu() - cpu_post.variance).abs().max()) / scale
+    f64_ok = max(errs.values()) <= 1e-8
+    log(
+        f"orders-path float64, card against the CPU's plain version "
+        f"({time.perf_counter() - t1:.1f} s): "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit 1e-8) "
+        f"{'ok' if f64_ok else 'FAIL'}"
+    )
+
+    # The posteriors given diag=1e-3 (N = 5000) against a dense Cholesky of
+    # the same posterior matrix on the card. Their order-4m realization
+    # makes every parallel composition of the Riccati and affine maps lose
+    # digits, the plain blocked scans' too (6e-7 from dense in the log
+    # probability at kappa = 101 on the CPU): the card is held no further
+    # from dense than ten times the plain CPU path, and never looser than
+    # 1e-8.
+    t1 = time.perf_counter()
+    noisy_cpu = posterior_path(Xs.cpu(), ys.cpu(), 1e-3, noise=noise.cpu())
+    dense_errs = {}
+    for name, kernel in POSTERIOR_MODELS.items():
+        gp = GaussianProcess(kernel(), Xs, diag=0.1, assume_sorted=True, device=Xs.device.type)
+        post = gp.condition(ys, diag=1e-3)[1]
+        L = torch.linalg.cholesky(post.solver.matrix.to_dense())
+        z = torch.linalg.solve_triangular(L, (ys - post.loc)[:, None], upper=False)[:, 0]
+        lp = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(L)))
+              - 0.5 * Xs.shape[0] * math.log(2 * math.pi)).item()
+        draws = (L @ noise).cpu()
+        card = (rel_err(noisy[name][0].item(), lp), rel_max(noisy[name][1].cpu(), draws))
+        plain = (rel_err(noisy_cpu[name][0].item(), lp), rel_max(noisy_cpu[name][1], draws))
+        limits = [max(1e-8, 10 * e) for e in plain]
+        dense_errs[name] = (card, plain, all(c <= lim for c, lim in zip(card, limits)))
+    dense_ok = all(v[2] for v in dense_errs.values())
+    log(
+        f"orders-path posteriors given diag=1e-3 at N={Xs.shape[0]} float64 against a dense "
+        f"Cholesky of the same matrix ({time.perf_counter() - t1:.1f} s): (log prob, factor "
+        f"times noise) card / plain CPU "
+        f"{ {k: ([f'{e:.2e}' for e in v[0]], [f'{e:.2e}' for e in v[1]]) for k, v in dense_errs.items()} } "
+        f"(limit: ten times the plain's, at least 1e-8) {'ok' if dense_ok else 'FAIL'}"
+    )
+    f64_ok = f64_ok and dense_ok
+
+    # Each generic B3 instantiation of the path, at the shape and type the
+    # path gives it, against its plain version on random well-conditioned
+    # operands (as phase 7; the path's own posterior operands are
+    # ill-conditioned for any parallel composition, see above), and timed
+    # beside its bound and its plain version on the path's largest operands.
+    records = []
+    kernels_ok = True
+    for (monoid, m, m2, r), group in sorted(calls.items()):
+        reverse, inclusive, operands = max(group, key=lambda c: c[2][0].shape[-1])
+        n_op, dtype = operands[0].shape[-1], operands[0].dtype
+        rtol = 1e-8 if dtype == torch.float64 else 5e-4
+        checks = scan_operands(monoid, m, n_op, r, dtype, seed=m + m2 + r, m2=m2)
+        got = scan_kernel(monoid, m, r, reverse, inclusive, checks, m2=m2)
+        want64 = scan_plain(monoid, m, r, reverse, inclusive, [x.double() for x in checks], m2=m2)
+        (rel, abs_err), = stream_errors([got], [want64])
+        run = lambda: scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=m2)
+        ms = cuda_ms(run, reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: scan_plain(monoid, m, r, reverse, inclusive, operands, m2=m2),
+                           reps=1, warmup=1)
+        bound, by = scan_bound_ms(monoid, m, r, n_op, operands[0].element_size(), m2=m2)
+        ok = rel <= rtol and bool(torch.isfinite(got).all())
+        kernels_ok = kernels_ok and ok
+        shape = f"m={m}" + (f"x{m2}" if monoid == "cpl" else "") + (f" r={r}" if r > 1 else "")
+        log(
+            f"orders-path B3 generic {monoid} {shape} N={n_op} {str(dtype)[6:]} ({len(group)} "
+            f"launches on the path; {'reverse' if reverse else 'forward'} "
+            f"{'inclusive' if inclusive else 'exclusive'}): {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), plain {plain_ms:.4f} ms (one call); on random operands of this shape "
+            f"against the plain version in float64 rel {rel:.2e} (limit {rtol:g}), abs "
+            f"{abs_err:.3e} {'ok' if ok else 'FAIL'}"
+        )
+        records.append({
+            "name": f"quasisep_generic_scan_{monoid}_m{m}" + (f"x{m2}" if monoid == "cpl" else "")
+            + (f"_r{r}" if r > 1 else ""),
+            "route": "cuda",
+            "source": "tinygp_tpu_torch/csrc/quasisep_generic.cu",
+            "replaces": "tinygp_tpu/solvers/quasisep/pallas_scan.py:331",
+            "launches": len(group),
+            "max_abs_err": abs_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+
+    # B1 (at 1e6), B1r and B2 (at 1e5) at m = 5 on the path's operands.
+    with torch.no_grad():
+        gp6 = sum5_gp(X_1e6, SUM5_PARAMS)
+        ops6 = (*gp6.solver.ssm, (y_1e6 - gp6.loc).contiguous())
+        gp5 = sum5_gp(X, SUM5_PARAMS)
+        ops5 = (*gp5.solver.ssm, (y - gp5.loc).contiguous())
+        got = cuda_loglik.fused_loglik_terms(*ops6)
+        b1_err = stream_errors(got, cuda_loglik.plain_loglik_terms(*(x.double() for x in ops6)))
+        res = cuda_loglik.fused_loglik_res(*ops5)
+        res_err = stream_errors(res, cuda_loglik.plain_loglik_terms_res(*(x.double() for x in ops5)))
+        qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
+        bwd_args = (*ops5[1:], *res[2:], qbar, lbar)
+        bars = cuda_loglik.fused_loglik_bwd(*bwd_args)
+        bwd_err = stream_errors(bars, cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args)))
+        timings = {
+            "b1": (cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*ops6), reps=10, warmup=2),
+                   cuda_ms(lambda: cuda_loglik.plain_loglik_terms(*ops6), reps=1, warmup=1)),
+            "b1r": (cuda_ms(lambda: cuda_loglik.fused_loglik_res(*ops5), reps=10, warmup=2),
+                    cuda_ms(lambda: cuda_loglik.plain_loglik_terms_res(*ops5), reps=1, warmup=1)),
+            "b2": (cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2),
+                   cuda_ms(lambda: cuda_loglik.plain_loglik_bwd(*bwd_args), reps=1, warmup=1)),
+        }
+    m = ops5[1].shape[0]
+    bounds = {
+        "b1": loglik_bound_ms(m, X_1e6.shape[0], 4),
+        "b1r": loglik_bound_ms(m, n, 4, residuals=True),
+        "b2": bwd_bound_ms(m, n, 4),
+    }
+    errs = {"b1": b1_err, "b1r": res_err, "b2": bwd_err}
+    for key, name, replaces in (
+        ("b1", "quasisep_loglik_generic_m5", "pallas_loglik.py:86"),
+        ("b1r", "quasisep_loglik_res_generic_m5", "pallas_loglik.py:86 residuals=True"),
+        ("b2", "quasisep_loglik_bwd_generic_m5", "pallas_loglik.py:414"),
+    ):
+        rel = max(e for e, _ in errs[key])
+        ok = rel <= 5e-4
+        kernels_ok = kernels_ok and ok
+        (ms, plain_ms), (bound, by) = timings[key], bounds[key]
+        n_op = X_1e6.shape[0] if key == "b1" else n
+        log(
+            f"orders-path {key.upper()} generic m={m} N={n_op} float32 ({loglik_counts[key]} "
+            f"launches on the path): {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms (one call); against the plain version in float64 rel per "
+            f"stream {[f'{e:.2e}' for e, _ in errs[key]]} (limit 5e-4) {'ok' if ok else 'FAIL'}"
+        )
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tinygp_tpu_torch/csrc/quasisep_loglik_generic.cu",
+            "replaces": f"tinygp_tpu/solvers/quasisep/{replaces}",
+            "launches": loglik_counts[key],
+            "max_abs_err": max(a for _, a in errs[key]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    # B1, B1r and B2 at m = 8 and 16 (no entry point's path above runs them
+    # there), on random operands at N = 1e5 in float32, beside their bounds.
+    for m_hi in (8, 16):
+        args = random_operands(m_hi, n, torch.float32, seed=m_hi)
+        res = cuda_loglik.fused_loglik_res(*args)
+        qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
+        bwd_args = (*args[1:], *res[2:], qbar, lbar)
+        errs_hi = [
+            max(e for e, _ in stream_errors(cuda_loglik.fused_loglik_terms(*args),
+                                            cuda_loglik.plain_loglik_terms(*(x.double() for x in args)))),
+            max(e for e, _ in stream_errors(res, cuda_loglik.plain_loglik_terms_res(
+                *(x.double() for x in args)))),
+            max(e for e, _ in stream_errors(cuda_loglik.fused_loglik_bwd(*bwd_args),
+                                            cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args)))),
+        ]
+        times = [cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*args), reps=10, warmup=2),
+                 cuda_ms(lambda: cuda_loglik.fused_loglik_res(*args), reps=10, warmup=2),
+                 cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2)]
+        bounds_hi = [loglik_bound_ms(m_hi, n, 4), loglik_bound_ms(m_hi, n, 4, residuals=True),
+                     bwd_bound_ms(m_hi, n, 4)]
+        ok = max(errs_hi) <= 5e-4
+        kernels_ok = kernels_ok and ok
+        log(
+            f"orders-path B1/B1r/B2 generic m={m_hi} N={n} float32 on random operands: "
+            f"{[f'{t:.4f}' for t in times]} ms, bounds {[f'{b:.4f} ({w})' for b, w in bounds_hi]} "
+            f"ms; against the plain version in float64 rel {[f'{e:.2e}' for e in errs_hi]} "
+            f"(limit 5e-4) {'ok' if ok else 'FAIL'}"
+        )
+
+    # Each entry point alone: CUDA-event time, constructor included (median
+    # of 5 after 1), and a fit_map step on the host clock.
+    from tinygp_tpu_torch import fit_map
+
+    gen = torch.Generator(device="cuda")
+    entries = {
+        "matern52 condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(
+            m52(X).condition(y)),
+        "matern52 predict(return_var) 1000 points": lambda: m52(X).predict(
+            y, X_test, return_var=True),
+        "matern52 sample 16": lambda: m52(X).sample(gen.manual_seed(0), (16,)),
+        "celerite2 condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(
+            GaussianProcess(celerite2(), X, diag=0.1, assume_sorted=True).condition(y)),
+        "sum5 value": lambda: sum5_gp(X, SUM5_PARAMS).log_probability(y),
+        "sum5 value N=1e6": lambda: sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),
+        "sum5 gradient": lambda: sum5_value_and_grad(X, y),
+        "celerite2 posterior (order 16, diag=1e-3, N=5000) log_probability": lambda: (
+            GaussianProcess(celerite2(), Xs, diag=0.1, assume_sorted=True)
+            .condition(ys, diag=1e-3)[1].log_probability(ys)),
+        "matern32 posterior (order 8, N=1e5) sample 16": lambda: (
+            GaussianProcess(matern32_kernel(), X64, diag=0.1, assume_sorted=True)
+            .condition(y64)[1].sample(gen.manual_seed(0), (16,))),
+    }
+    entry_ms = {k: cuda_ms(fn, reps=5, warmup=1) for k, fn in entries.items()}
+
+    def loss_fn(params):
+        return -sum5_gp(X, [torch.exp(params[k]) for k in ("amp1", "omega", "amp2", "scale")]
+                        ).log_probability(y)
+
+    init = {k: math.log(v) for k, v in zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fit_map(loss_fn, init, num_steps=10, learning_rate=0.05, dtype=torch.float32)
+    torch.cuda.synchronize()
+    entry_ms["sum5 fit_map step (host clock)"] = (time.perf_counter() - t2) / 10 * 1e3
+    log(f"orders-path entry points (N={n}, float32 unless noted), ms: "
+        f"{ {k: round(v, 4) for k, v in entry_ms.items()} }")
+    log(f"orders-path: {time.perf_counter() - t0:.1f} s in all")
+    if not (path_ok and f64_ok and kernels_ok):
+        raise AssertionError("orders path failed")
     return records
 
 
@@ -2007,10 +2503,14 @@ def phase_gram():
 def main() -> int:
     import torch
 
-    from tinygp_tpu_torch.ops import gram
-
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    try:
+        from tinygp_tpu_torch.ops import gram
+    except ModuleNotFoundError as err:
+        print(f"chip_smoke: {err}; run this script from the root of the repository, "
+              "beside the tinygp_tpu_torch package", file=sys.stderr)
         return 1
     phase_build()
     phase_dense_precision()
@@ -2040,9 +2540,11 @@ def main() -> int:
         f"point's path; its launches in the kernels line are those at dense_micro.py's shapes; "
         f"the strip build does not route through B7)")
     gram_record = phase_gram()
+    generic_records = phase_orders_path()
     records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
     records += dense_records(measured, launches)
     records.append(gram_record)
+    records += generic_records
     log(json.dumps({"kernels": records}))
     log(
         json.dumps(

@@ -29,15 +29,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# m = 1..4: the templated kernels; above, the generic-order sources.
+LOGLIK_ORDERS = [1, 2, 3, 4, 5, 8]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", LOGLIK_ORDERS)
 def test_kernel_matches_plain(cuda_device, m, dtype):
     args = operands(m, N, dtype, cuda_device, seed=m)
-    before = cuda_loglik.LAUNCHES
+    before = cuda_loglik.LAUNCHES, cuda_loglik.LAUNCHES_GENERIC["b1"]
     got = cuda_loglik.fused_loglik_terms(*args)
     torch.cuda.synchronize()
-    assert cuda_loglik.LAUNCHES == before + 1
+    assert cuda_loglik.LAUNCHES == before[0] + 1
+    assert cuda_loglik.LAUNCHES_GENERIC["b1"] == before[1] + (m > 4)
     want = cuda_loglik.plain_loglik_terms(*args)
     # float64: the kernel's sequential in-chunk recurrence against the
     # plain blocked Moebius scan differ only by rounding; float32 is the
@@ -72,8 +77,8 @@ def test_gp_on_the_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_do(cuda_device):
-    with pytest.raises(NotImplementedError, match="m > 4"):
-        cuda_loglik.fused_loglik_terms(*operands(5, 300, torch.float64, cuda_device))
+    with pytest.raises(NotImplementedError, match="N10"):
+        cuda_loglik.fused_loglik_terms(*operands(33, 300, torch.float64, cuda_device))
     args = operands(2, 300, torch.float64, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_loglik.fused_loglik_terms(args[0], args[1], args[2], args[3].t().contiguous().t(), args[4])
@@ -87,7 +92,7 @@ def stream_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", LOGLIK_ORDERS)
 def test_res_and_bwd_kernels_match_plain(cuda_device, m, dtype):
     args = operands(m, N, dtype, cuda_device, seed=m)
     rtol = 1e-8 if dtype == torch.float64 else 5e-4
@@ -201,9 +206,11 @@ SCANS = [
 ]
 
 
-def scan_case(monoid, m, n, r, dtype, device, seed):
+def scan_case(monoid, m, n, r, dtype, device, seed, m2=None):
     """The wrapper's operands for one monoid: contracting transitions from
-    ``random_qsm_operands`` and normal loads."""
+    ``random_qsm_operands`` and normal loads (the coupling's second order
+    is ``m2``, ``m`` if not given)."""
+    m2 = m if m2 is None else m2
     d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
     rng = np.random.default_rng(seed + 1)
 
@@ -216,11 +223,11 @@ def scan_case(monoid, m, n, r, dtype, device, seed):
         return (t(as_), t(rng.normal(size=(m * m, n)))), m, 1
     if monoid == "ric":
         return (t(d), t(ps), t(qs), t(as_)), m, 1
-    as2 = random_qsm_operands(m, n, seed + 2)[3]
-    return (t(as_), t(as2), t(rng.normal(size=(m * m, n)))), m, 1
+    as2 = random_qsm_operands(m2, n, seed + 2)[3]
+    return (t(as_), t(as2), t(rng.normal(size=(m * m2, n)))), m, 1
 
 
-def run_scan(monoid, operands, m, r, reverse, exclusive):
+def run_scan(monoid, operands, m, r, reverse, exclusive, m2=None):
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
     if monoid == "aff":
@@ -229,22 +236,24 @@ def run_scan(monoid, operands, m, r, reverse, exclusive):
         return cuda_scan.congruence(*operands, m, reverse=reverse)
     if monoid == "ric":
         return cuda_scan.riccati(*operands)
-    return cuda_scan.coupling(*operands, m, m, reverse=reverse, exclusive=exclusive)
+    m2 = m if m2 is None else m2
+    return cuda_scan.coupling(*operands, m, m2, reverse=reverse, exclusive=exclusive)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 16])
 @pytest.mark.parametrize("case", SCANS, ids=lambda c: "-".join(map(str, c)))
 def test_scan_kernel_matches_plain(cuda_device, case, m, dtype):
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
     monoid, reverse, exclusive, r = case
     operands, m, r = scan_case(monoid, m, N, r, dtype, cuda_device, seed=10 * m)
-    before = dict(cuda_scan.LAUNCHES)
+    before = dict(cuda_scan.LAUNCHES), dict(cuda_scan.LAUNCHES_GENERIC)
     got = run_scan(monoid, operands, m, r, reverse, exclusive)
     torch.cuda.synchronize()
-    assert cuda_scan.LAUNCHES[monoid] == before[monoid] + 1
+    assert cuda_scan.LAUNCHES[monoid] == before[0][monoid] + 1
+    assert cuda_scan.LAUNCHES_GENERIC[monoid] == before[1][monoid] + (m > 4)
     # The plain version: the same wrapper on the CPU.
     want = run_scan(monoid, [x.cpu() for x in operands], m, r, reverse, exclusive)
     rtol = 1e-8 if dtype == torch.float64 else 5e-4
@@ -253,11 +262,30 @@ def test_scan_kernel_matches_plain(cuda_device, case, m, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("orders", [(2, 4), (4, 8), (3, 6), (8, 2)], ids=lambda o: f"{o[0]}x{o[1]}")
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_kernel_couples_unequal_orders(cuda_device, orders, reverse, dtype):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    m1, m2 = orders
+    operands, _, _ = scan_case("cpl", m1, N, 1, dtype, cuda_device, seed=m1 + m2, m2=m2)
+    before = cuda_scan.LAUNCHES_GENERIC["cpl"]
+    got = run_scan("cpl", operands, m1, 1, reverse, True, m2=m2)
+    torch.cuda.synchronize()
+    assert cuda_scan.LAUNCHES_GENERIC["cpl"] == before + 1
+    want = run_scan("cpl", [x.cpu() for x in operands], m1, 1, reverse, True, m2=m2)
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    assert got.shape == (m1 * m2, N) and torch.isfinite(got).all()
+    assert stream_err(got, want) <= rtol
+
+
+@pytest.mark.cuda
 def test_scan_kernel_refuses_what_it_cannot_do(cuda_device):
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
-    operands, m, r = scan_case("aff", 5, 300, 1, torch.float64, cuda_device, seed=1)
-    with pytest.raises(NotImplementedError, match="N6"):
+    operands, m, r = scan_case("aff", 33, 300, 1, torch.float64, cuda_device, seed=1)
+    with pytest.raises(NotImplementedError, match="N10"):
         cuda_scan.affine(*operands, m, r, reverse=False, exclusive=True)
     operands, m, r = scan_case("aff", 2, 300, 1, torch.float64, cuda_device, seed=1)
     with pytest.raises(NotImplementedError, match="backward"):
@@ -321,13 +349,94 @@ def test_sample_on_the_card(cuda_device):
     assert torch.equal(draw, again)
 
 
+# Conditioning at orders above 4, on the card against the CPU: Matern52's
+# condition couples order 6, the 2-term celerite's order 8; their posterior
+# processes have order 12 and 16, the m = 2 kernels' order 8.
+HIGH_ORDER_MODELS = {
+    "matern32": lambda: 1.5 * quasisep.Matern32(scale=2.5),
+    "matern52": lambda: 1.5 * quasisep.Matern52(scale=2.5),
+    "celerite2": lambda: quasisep.Celerite(a=1.0, b=0.1, c=0.5, d=1.0)
+    + quasisep.Celerite(a=0.5, b=0.05, c=1.5, d=3.0),
+}
+
+
+def posterior_outputs(name, device, n=500):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    rng = np.random.default_rng(4)
+    X = np.sort(rng.uniform(0, 10, n))
+    y = torch.as_tensor(np.sin(2.0 * X) + 0.3 * rng.normal(size=n), device=device or "cuda")
+    gp = GaussianProcess(HIGH_ORDER_MODELS[name](), torch.as_tensor(X), diag=0.1,
+                         assume_sorted=True, device=device)
+    before = dict(cuda_scan.LAUNCHES_GENERIC)
+    log_prob, post = gp.condition(y)
+    # The posterior process given diag=1e-3, whose covariance is well
+    # conditioned (the default jitter's is not; see test_torch_orders.py).
+    post = gp.condition(y, diag=1e-3)[1]
+    noise = torch.as_tensor(rng.normal(size=(n, 4)), device=gp.device)
+    conditioned = [log_prob, post.loc, post.variance]
+    posterior = [post.log_probability(y), post.solver.dot_triangular(noise)]
+    draws = post.sample(torch.Generator(device=gp.device).manual_seed(2), (4,))
+    assert draws.shape == (4, n) and torch.isfinite(draws).all()
+    # The same from a dense Cholesky of the posterior matrix.
+    L = torch.linalg.cholesky(post.solver.matrix.to_dense())
+    z = torch.linalg.solve_triangular(L, (y - post.loc)[:, None], upper=False)[:, 0]
+    dense = [-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(L)))
+             - 0.5 * n * np.log(2 * np.pi), L @ noise]
+    generic = {k: cuda_scan.LAUNCHES_GENERIC[k] - before[k] for k in before}
+    return conditioned, posterior, dense, generic
+
+
 @pytest.mark.cuda
-def test_posterior_factor_on_the_card_names_n6(cuda_device):
-    """A posterior of an m = 2 kernel has order 8: its factor is past B3's
-    m <= 4 on the card."""
-    _, _, post = condition_outputs(None, n=500)
-    with pytest.raises(NotImplementedError, match="N6"):
-        post.log_probability(torch.zeros(500, dtype=torch.float64))
+@pytest.mark.parametrize("name", sorted(HIGH_ORDER_MODELS))
+def test_posterior_factor_on_the_card_matches_cpu(cuda_device, name):
+    """The posterior's own factor (order 4m) and the couplings of orders
+    above 4 run the generic engine on the card. Conditioning matches the
+    CPU; the posterior's log probability and factor are held to a dense
+    Cholesky of the same matrix no further than ten times the CPU's plain
+    version (whose parallel composition of the order-4m maps loses digits
+    too: about 1e-6 here), and never looser than 1e-8."""
+    conditioned, posterior, dense, generic = posterior_outputs(name, None)
+    torch.cuda.synchronize()
+    assert generic["ric"] >= 1 and generic["aff"] >= 1
+    conditioned_cpu, posterior_cpu, dense_cpu, generic_cpu = posterior_outputs(name, "cpu")
+    assert not any(generic_cpu.values())
+    # Per output stream, relative to its largest magnitude (PERF.md §2).
+    for g, w in zip(conditioned, conditioned_cpu):
+        assert g.is_cuda and torch.isfinite(g).all()
+        assert stream_err(g, w) <= 1e-8
+    for g, w, d in zip(posterior, posterior_cpu, dense_cpu):
+        assert g.is_cuda and torch.isfinite(g).all()
+        assert stream_err(g, d) <= max(1e-8, 10 * stream_err(w, d))
+
+
+@pytest.mark.cuda
+def test_sum_of_order_5_on_the_card_matches_cpu(cuda_device):
+    """1.2 * SHO + 1.5 * Matern52 (m = 5): B1, then B1r and B2 for the
+    gradient, above m = 4."""
+    rng = np.random.default_rng(5)
+    X = np.sort(rng.uniform(0, 10, 3000))
+    y = rng.normal(size=3000)
+
+    def value_and_grad(device):
+        p = [torch.tensor(v, dtype=torch.float64, device=device, requires_grad=True)
+             for v in (1.2, 1.5, 1.5, 2.5)]
+        kernel = p[0] * quasisep.SHO(omega=p[1], quality=3.0) + p[2] * quasisep.Matern52(scale=p[3])
+        gp = GaussianProcess(kernel, torch.as_tensor(X), diag=0.1, assume_sorted=True, device=device)
+        with torch.no_grad():
+            value = gp.log_probability(torch.as_tensor(y))
+        lp = gp.log_probability(torch.as_tensor(y))
+        return value, torch.autograd.grad(lp, p)
+
+    before = dict(cuda_loglik.LAUNCHES_GENERIC)
+    value, grads = value_and_grad(None)
+    torch.cuda.synchronize()
+    assert {k: cuda_loglik.LAUNCHES_GENERIC[k] - before[k] for k in before} == {
+        "b1": 1, "b1r": 1, "b2": 1}
+    want_value, want_grads = value_and_grad("cpu")
+    np.testing.assert_allclose(value.item(), want_value.item(), rtol=1e-9)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-8)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,14 @@ the card unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
+import torch as _torch
+
+# On some CPU hosts (torch 2.13, 8 OpenMP threads) the first multithreaded
+# float32 ``torch.exp`` of a process returns one thread's chunk about 1.5e-4
+# off (9 of 40 fresh processes); one single-threaded call first avoids it
+# (0 of 40). tests/test_torch_float32_grain.py probes it.
+_torch.exp(_torch.zeros(16))
+
 from tinygp_tpu_torch import (
     kernels as kernels,
     means as means,
@@ -21,4 +29,7 @@ from tinygp_tpu_torch import (
     transforms as transforms,
 )
 from tinygp_tpu_torch.fit import FitResult as FitResult, fit_map as fit_map
-from tinygp_tpu_torch.gp import GaussianProcess as GaussianProcess
+from tinygp_tpu_torch.gp import (
+    ConditionResult as ConditionResult,
+    GaussianProcess as GaussianProcess,
+)

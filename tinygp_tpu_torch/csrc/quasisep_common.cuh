@@ -3,6 +3,8 @@
 // affine monoids, the in-block Kogge-Stone scan and the single-block scan
 // of block totals. Included by quasisep_loglik.cu (kernels B1 and B1r),
 // quasisep_loglik_bwd.cu (kernel B2) and quasisep_scan.cu (kernel B3).
+// Its last section, the block-cooperative algebra at any order with a
+// pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
 #pragma once
 
@@ -282,6 +284,86 @@ int scan_threads() {
   int nt = kScanThreads;
   while (nt > 32 && (long long)nt * V::S * sizeof(T) > kSharedLimit) nt /= 2;
   return nt;
+}
+
+// ------------------------------------------- block-cooperative algebra, any m
+//
+// For the generic-order engine (quasisep_generic.cuh). Every thread of the
+// block calls each function with the same arguments; the matrices are
+// row-major with a leading dimension, in shared or device memory; the
+// threads split the output entries, and each function ends with
+// __syncthreads() so that its result is visible to the whole block.
+
+// C (r x c) = op(A) op(B) [+ D], where op(A) is r x k and op(B) k x c, and
+// op(X) is X or, with the flag set, X^T. C may alias D (each entry of D is
+// read only by the thread that writes the same entry of C), not A or B.
+__device__ inline void gmm(int r, int k, int c, const Acc* A, int lda, bool ta,
+                           const Acc* B, int ldb, bool tb, Acc* C, int ldc,
+                           const Acc* D = nullptr, int ldd = 0) {
+  for (int idx = threadIdx.x; idx < r * c; idx += blockDim.x) {
+    const int i = idx / c, j = idx - i * c;
+    Acc acc = Acc(0);
+    for (int l = 0; l < k; ++l) {
+      const Acc a = ta ? A[l * lda + i] : A[i * lda + l];
+      const Acc b = tb ? B[j * ldb + l] : B[l * ldb + j];
+      acc += a * b;
+    }
+    C[i * ldc + j] = D ? D[i * ldd + j] + acc : acc;
+  }
+  __syncthreads();
+}
+
+// Gauss-Jordan inverse with partial pivoting. W is m x 2m (row stride 2m)
+// with the matrix in its left half; on return the right half holds the
+// inverse. scr holds 5m values (the pivot row, the displaced row and the
+// column's factors) and piv one int. At the orders of the generic engine
+// (up to 32) the scan merges' I + F G is not reliably near the identity,
+// so unlike the closed forms above this pivots.
+__device__ inline void ginverse(int m, Acc* W, Acc* scr, int* piv) {
+  const int ld = 2 * m;
+  for (int idx = threadIdx.x; idx < m * m; idx += blockDim.x) {
+    const int i = idx / m, j = idx - i * m;
+    W[i * ld + m + j] = i == j ? Acc(1) : Acc(0);
+  }
+  __syncthreads();
+  Acc* prow = scr;          // the pivot row, scaled
+  Acc* orow = scr + ld;     // row col before the swap
+  Acc* fac = scr + 2 * ld;  // each row's entry in column col
+  for (int col = 0; col < m; ++col) {
+    if (threadIdx.x == 0) {
+      int p = col;
+      Acc best = fabs(W[col * ld + col]);
+      for (int i = col + 1; i < m; ++i) {
+        const Acc v = fabs(W[i * ld + col]);
+        if (v > best) {
+          best = v;
+          p = i;
+        }
+      }
+      *piv = p;
+    }
+    __syncthreads();
+    const int p = *piv;
+    const Acc inv_pivot = Acc(1) / W[p * ld + col];
+    for (int j = threadIdx.x; j < ld; j += blockDim.x) {
+      prow[j] = W[p * ld + j] * inv_pivot;
+      orow[j] = W[col * ld + j];
+    }
+    // Row p takes the old row col, whose entry in this column is W[col][col].
+    for (int i = threadIdx.x; i < m; i += blockDim.x)
+      fac[i] = i == p ? W[col * ld + col] : W[i * ld + col];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < m * ld; idx += blockDim.x) {
+      const int i = idx / ld, j = idx - i * ld;
+      if (i == col)
+        W[idx] = prow[j];
+      else if (i == p)
+        W[idx] = orow[j] - fac[i] * prow[j];
+      else
+        W[idx] -= fac[i] * prow[j];
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace

@@ -19,6 +19,12 @@ Three kernels replace the TPU's:
   cotangents, the cotangents of ``(d, ps, qs, as_, y)``, through a reverse
   affine-adjoint scan and a reverse congruence scan.
 
+Those sources are templated for m = 1..4. For 4 < m <= 32 the same three
+entry points run ``csrc/quasisep_loglik_generic.cu``, which has the same C
+interface: each call is a short sequence of the generic-order scan engine
+and hand-written elementwise and reduction kernels, with the same
+arithmetic. Above 32 a CUDA operand raises (ROADMAP item N10).
+
 Every scan runs in float64 for float32 operands too: composed in float32,
 the Riccati maps of long spans lose the state (see the note in the
 source). The residuals are stored in the operands' type.
@@ -30,7 +36,8 @@ otherwise it runs B1. Each of the three wrappers (:func:`fused_loglik_terms`
 without grad, :func:`fused_loglik_res`, :func:`fused_loglik_bwd`) runs its
 plain PyTorch version for CPU tensors and launches its kernel for CUDA
 tensors, or raises; none falls back. Each launch adds one to its counter:
-:data:`LAUNCHES` (B1), :data:`LAUNCHES_RES` (B1r), :data:`LAUNCHES_BWD` (B2).
+:data:`LAUNCHES` (B1), :data:`LAUNCHES_RES` (B1r), :data:`LAUNCHES_BWD` (B2);
+a launch above m = 4 also to :data:`LAUNCHES_GENERIC`.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_RES",
     "LAUNCHES_BWD",
+    "LAUNCHES_GENERIC",
     "FusedLoglik",
     "fused_loglik_terms",
     "fused_loglik_res",
@@ -63,8 +71,11 @@ LAUNCHES_RES = 0
 """Calls that launched kernel B1r, the forward with residuals."""
 LAUNCHES_BWD = 0
 """Calls that launched kernel B2, the backward."""
+LAUNCHES_GENERIC = {"b1": 0, "b1r": 0, "b2": 0}
+"""Of those, the calls above m = 4 (``quasisep_loglik_generic.cu``)."""
 
-_MAX_M = 4
+_MAX_M = 4  # the templated kernels' orders
+_MAX_GENERIC_M = 32
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -230,6 +241,20 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _generic_library() -> ctypes.CDLL:
+    """B1, B1r and B2 for 4 < m <= 32, built at first use: the same C
+    signatures as the templated libraries."""
+    lib = cuda_build.library("quasisep_loglik_generic")
+    for name in ("qsl_workspace_elems", "qsl_bwd_workspace_elems"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_longlong
+    _bind(lib, "qsl_loglik", 7)
+    _bind(lib, "qsl_loglik_res", 10)
+    _bind(lib, "qsl_loglik_bwd", 15)
+    return lib
+
+
 def _check(**operands: torch.Tensor) -> tuple[int, int]:
     """Validate what a kernel takes; return ``(m, n)``."""
     ps = operands["ps"]
@@ -255,10 +280,10 @@ def _check(**operands: torch.Tensor) -> tuple[int, int]:
         raise ValueError(f"no kernel for device {ps.device}")
     if ps.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or float64, not {ps.dtype}")
-    if m > _MAX_M:
+    if m > _MAX_GENERIC_M:
         raise NotImplementedError(
-            f"the CUDA log-likelihood takes m <= {_MAX_M}; m = {m} is ROADMAP "
-            "item N6 (m > 4 on CUDA)"
+            f"the CUDA log-likelihood takes m <= {_MAX_GENERIC_M}; m = {m} is "
+            "ROADMAP item N10 (orders above 32 on CUDA)"
         )
     if not 1 <= n < 2**31:
         raise ValueError(f"N must be in [1, 2**31); got {n}")
@@ -296,10 +321,11 @@ def _loglik_b1(d, ps, qs, as_, y) -> tuple[torch.Tensor, torch.Tensor]:
     if _on_cpu(d, ps, qs, as_, y):
         return plain_loglik_terms(d, ps, qs, as_, y)
     m, n = _check(d=d, ps=ps, qs=qs, as_=as_, y=y)
-    lib = _library()
+    lib = _library() if m <= _MAX_M else _generic_library()
     out = d.new_empty(2)
     _launch(lib, "qsl_loglik", lib.qsl_workspace_elems, m, n, (d, ps, qs, as_, y, out))
     LAUNCHES += 1
+    LAUNCHES_GENERIC["b1"] += m > _MAX_M
     return out[0], out[1]
 
 
@@ -316,7 +342,7 @@ def fused_loglik_res(
     if _on_cpu(d, ps, qs, as_, y):
         return plain_loglik_terms_res(d, ps, qs, as_, y)
     m, n = _check(d=d, ps=ps, qs=qs, as_=as_, y=y)
-    lib = _library()
+    lib = _library() if m <= _MAX_M else _generic_library()
     out = d.new_empty(2)
     Fs, e, ic = d.new_empty(m * m, n), d.new_empty(m, n), d.new_empty(n)
     _launch(
@@ -324,6 +350,7 @@ def fused_loglik_res(
         (d, ps, qs, as_, y, out, Fs, e, ic),
     )
     LAUNCHES_RES += 1
+    LAUNCHES_GENERIC["b1r"] += m > _MAX_M
     return out[0], out[1], Fs, e, ic
 
 
@@ -348,7 +375,7 @@ def fused_loglik_bwd(
     if _on_cpu(ps, qs, as_, y, Fs, e, ic, qbar, lbar):
         return plain_loglik_bwd(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
     m, n = _check(ps=ps, qs=qs, as_=as_, y=y, Fs=Fs, e=e, ic=ic, qbar=qbar, lbar=lbar)
-    lib = _bwd_library()
+    lib = _bwd_library() if m <= _MAX_M else _generic_library()
     outs = (y.new_empty(n), y.new_empty(m, n), y.new_empty(m, n),
             y.new_empty(m * m, n), y.new_empty(n))
     _launch(
@@ -356,6 +383,7 @@ def fused_loglik_bwd(
         (ps, qs, as_, y, Fs, e, ic, qbar, lbar) + outs,
     )
     LAUNCHES_BWD += 1
+    LAUNCHES_GENERIC["b2"] += m > _MAX_M
     return outs
 
 

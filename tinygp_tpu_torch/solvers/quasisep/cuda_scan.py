@@ -2,8 +2,12 @@
 wrappers and their plain versions.
 
 Counterpart of ``tinygp_tpu/solvers/quasisep/pallas_scan.py``. Kernel B3
-(``csrc/quasisep_scan.cu``) replaces ``pallas_scan._scan_kernel``, the
-TPU's exclusive monoid scan, forward or reverse, with pruned outputs. One
+replaces ``pallas_scan._scan_kernel``, the TPU's exclusive monoid scan,
+forward or reverse, with pruned outputs, at any order. It has two CUDA
+sources: ``csrc/quasisep_scan.cu``, templated for m = 1..4 (the coupling
+for two equal orders up to 4), and the generic-order engine
+``csrc/quasisep_generic.cu``, which takes the order at run time, for every
+other order up to 32 and any pair of coupling orders. One
 wrapper per monoid, each on stacked operands (components first, the data
 axis last, as :mod:`~tinygp_tpu_torch.solvers.quasisep.scan` lays them
 out):
@@ -15,17 +19,17 @@ out):
 
 Each runs its plain version, the stacked scans of ``scan.py`` through the
 blocked ``monoid_scan``, for CPU tensors, and launches B3 for CUDA
-tensors, or raises; none falls back. B3 is instantiated for m = 1..4 (the
-coupling for m1 = m2 <= 4); a larger operand on the card raises with
-ROADMAP item N6. B3 has no backward: a CUDA operand that requires a
+tensors, or raises; none falls back. An order above 32 on the card raises
+with ROADMAP item N10. B3 has no backward: a CUDA operand that requires a
 gradient raises instead of returning a result that autograd would cut.
 
-Every launch adds one to :data:`LAUNCHES` under its monoid's name.
+Every launch adds one to :data:`LAUNCHES` under its monoid's name, and a
+launch of the generic engine also to :data:`LAUNCHES_GENERIC`.
 """
 
 from __future__ import annotations
 
-__all__ = ["LAUNCHES", "affine", "congruence", "riccati", "coupling"]
+__all__ = ["LAUNCHES", "LAUNCHES_GENERIC", "affine", "congruence", "riccati", "coupling"]
 
 import ctypes
 import functools
@@ -37,10 +41,13 @@ from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
 LAUNCHES = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Calls that launched kernel B3, by monoid (one per call of its C entry,
-which enqueues the kernel's three passes)."""
+which enqueues the kernel's passes)."""
+LAUNCHES_GENERIC = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
+"""Of those, the calls that went to the generic-order engine."""
 
 _KIND = {"aff": 0, "cong": 1, "ric": 2, "cpl": 3}
-_MAX_M = 4
+_MAX_M = 4  # the templated kernel's orders
+_MAX_GENERIC_M = 32
 _MAX_COLUMNS = 65535
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -68,14 +75,36 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _generic_library() -> ctypes.CDLL:
+    """The generic-order engine's library, built at first use."""
+    lib = cuda_build.library("quasisep_generic")
+    lib.qsg_workspace_elems.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
+    lib.qsg_workspace_elems.restype = ctypes.c_longlong
+    for suffix in _DTYPES.values():
+        fn = getattr(lib, f"qsg_scan_{suffix}")
+        # kind m m2 n r reverse inclusive | x0 x1 x2 x3 out work | work_elems stream
+        fn.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    lib.qsg_error_string.argtypes = [ctypes.c_int]
+    lib.qsg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
 
 
-def _launch(monoid, m, r, reverse, inclusive, operands, out_rows):
+def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
     """Check the operands, run B3 for ``monoid`` on their device and current
     stream with a float64 workspace, and return the ``(out_rows, N)``
-    output; raise on anything the kernel does not take."""
+    output; raise on anything the kernel does not take. ``m2`` is the
+    coupling's second order. Orders up to 4 (the coupling's equal) go to
+    the templated kernel, the rest to the generic-order engine."""
+    m2 = m if m2 is None else m2
     ref = operands[0]
     n = ref.shape[-1]
     for x in operands:
@@ -91,10 +120,10 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows):
         raise ValueError(f"no kernel for device {ref.device}")
     if ref.dtype not in _DTYPES:
         raise ValueError(f"B3 takes float32 or float64, not {ref.dtype}")
-    if m > _MAX_M:
+    if max(m, m2) > _MAX_GENERIC_M:
         raise NotImplementedError(
-            f"kernel B3 takes m <= {_MAX_M}; this {monoid} scan has m = {m}, "
-            "which is ROADMAP item N6 (m > 4 on CUDA)"
+            f"kernel B3 takes orders up to {_MAX_GENERIC_M}; this {monoid} scan has "
+            f"({m}, {m2}), which is ROADMAP item N10 (orders above 32 on CUDA)"
         )
     if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
         raise NotImplementedError(
@@ -105,24 +134,35 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows):
         raise ValueError(f"B3 takes 1 to {_MAX_COLUMNS} columns; got {r}")
     if not 1 <= n < 2**40:
         raise ValueError(f"N must be in [1, 2**40); got {n}")
-    lib = _library()
+    generic = m != m2 or m > _MAX_M
     kind = _KIND[monoid]
     out = ref.new_empty(out_rows, n)
     ptrs = [x.data_ptr() for x in operands] + [None] * (4 - len(operands))
     with torch.cuda.device(ref.device):
-        work_elems = lib.qss_workspace_elems(kind, m, n, r)
+        if generic:
+            lib, prefix = _generic_library(), "qsg"
+            head = (kind, m, m2)
+            work_elems = lib.qsg_workspace_elems(kind, m, m2, n, r)
+        else:
+            lib, prefix = _library(), "qss"
+            head = (kind, m)
+            work_elems = lib.qss_workspace_elems(kind, m, n, r)
+        if work_elems < 0:
+            raise ValueError(f"B3 refuses the {monoid} scan of order ({m}, {m2}), r = {r}")
         work = torch.empty(work_elems, dtype=torch.float64, device=ref.device)
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = getattr(lib, f"qss_scan_{_DTYPES[ref.dtype]}")(
-            kind, m, n, r, int(reverse), int(inclusive), *ptrs, out.data_ptr(),
+        err = getattr(lib, f"{prefix}_scan_{_DTYPES[ref.dtype]}")(
+            *head, n, r, int(reverse), int(inclusive), *ptrs, out.data_ptr(),
             work.data_ptr(), work_elems, stream,
         )
     if err:
         raise RuntimeError(
             f"quasisep scan kernel ({monoid}) failed: "
-            f"{lib.qss_error_string(err).decode()} (cudaError {err})"
+            f"{getattr(lib, prefix + '_error_string')(err).decode()} (cudaError {err})"
         )
     LAUNCHES[monoid] += 1
+    if generic:
+        LAUNCHES_GENERIC[monoid] += 1
     return out
 
 
@@ -192,11 +232,7 @@ def coupling(
         return _scan._coupling_scan_s(
             As, Bs, Cs, m1, m2, reverse=reverse, exclusive=exclusive
         )
-    if m1 != m2:
-        raise NotImplementedError(
-            f"kernel B3 couples equal orders; ({m1}, {m2}) is ROADMAP item N6"
-        )
     _check_rows("As", As, m1 * m1)
     _check_rows("Bs", Bs, m2 * m2)
     _check_rows("Cs", Cs, m1 * m2)
-    return _launch("cpl", m1, 1, reverse, not exclusive, (As, Bs, Cs), m1 * m2)
+    return _launch("cpl", m1, 1, reverse, not exclusive, (As, Bs, Cs), m1 * m2, m2=m2)

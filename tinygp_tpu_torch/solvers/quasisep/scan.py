@@ -146,11 +146,34 @@ def monoid_scan(
 
 # ---------------------------------------------------------------------------
 # Stacked m×m algebra: (..., m*k, N) tensors, components at axis -2.
+#
+# Up to 4 rows and columns each product is written out as elementwise
+# products of rows, the JAX package's form. Above that, which the Python
+# loops would make O(m^3) tensor operations, the stacked operands are viewed
+# as batched matrices, data axis first, and multiplied with one `matmul`.
 # ---------------------------------------------------------------------------
+
+_ROW_LOOP_MAX = 4
+
+
+def _big(*dims: int) -> bool:
+    return max(dims) > _ROW_LOOP_MAX
+
+
+def _mat(X, rows, cols):
+    """Stacked (..., rows*cols, N) -> batched matrices (..., N, rows, cols)."""
+    return torch.movedim(X.unflatten(-2, (rows, cols)), -1, -3)
+
+
+def _unmat(Y):
+    """Batched matrices (..., N, rows, cols) -> stacked (..., rows*cols, N)."""
+    return torch.movedim(Y, -3, -1).flatten(-3, -2)
 
 
 def _smm(A, B, m, k, r):
     """Stacked matmul: (..., m*k, N) x (..., k*r, N) -> (..., m*r, N)."""
+    if _big(m, k, r):
+        return _unmat(torch.matmul(_mat(A, m, k), _mat(B, k, r)))
     rows = []
     for i in range(m):
         for j in range(r):
@@ -163,6 +186,8 @@ def _smm(A, B, m, k, r):
 
 def _smm_t(A, B, m, k, r):
     """Stacked ``A @ B^T``: (..., m*k, N) x (..., r*k, N) -> (..., m*r, N)."""
+    if _big(m, k, r):
+        return _unmat(torch.matmul(_mat(A, m, k), _mat(B, r, k).mT))
     rows = []
     for i in range(m):
         for j in range(r):
@@ -175,6 +200,8 @@ def _smm_t(A, B, m, k, r):
 
 def _st(A, m, k):
     """Stacked transpose: (..., m*k, N) -> (..., k*m, N)."""
+    if _big(m, k):
+        return _unmat(_mat(A, m, k).mT)
     return torch.stack(
         [A[..., i * k + j, :] for j in range(k) for i in range(m)], dim=-2
     )
@@ -182,6 +209,8 @@ def _st(A, m, k):
 
 def _sadd_eye(X, m):
     """Add the m x m identity to a stacked (..., m*m, N) matrix."""
+    if _big(m):
+        return X + _seye(m, X)
     return torch.stack(
         [
             X[..., c, :] + 1.0 if c % (m + 1) == 0 else X[..., c, :]
@@ -193,6 +222,8 @@ def _sadd_eye(X, m):
 
 def _smv(M, v, m, k):
     """Stacked matvec: (..., m*k, N) x (..., k, N) -> (..., m, N)."""
+    if _big(m, k):
+        return _smm(M, v, m, k, 1)
     rows = []
     for i in range(m):
         acc = M[..., i * k, :] * v[..., 0, :]
@@ -205,6 +236,8 @@ def _smv(M, v, m, k):
 def _souter(u, v):
     """Stacked outer: (..., m, N) x (..., r, N) -> (..., m*r, N)."""
     m, r = u.shape[-2], v.shape[-2]
+    if _big(m, r):
+        return (u.unsqueeze(-2) * v.unsqueeze(-3)).flatten(-3, -2)
     return torch.stack(
         [u[..., i, :] * v[..., j, :] for i in range(m) for j in range(r)],
         dim=-2,
