@@ -7,7 +7,10 @@ Run from the root of the repository, on a machine with one NVIDIA card and
 
 Phases, each printing its numbers on lines of its own:
 
-1. the card's name and power limit; the build of every CUDA kernel;
+1. the card's name and power limit; the build of every CUDA kernel, and
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
+   kernel of ``csrc/dense_tc.cu`` with its GEMM's tiles, stages and
+   dynamic shared memory;
 2. each kernel against its plain PyTorch version on random operands
    (m = 1..4, and 5 and 8 through the generic-order source, at N = 17,161
    in float64 and float32; m = 2 at N = 1e6): B1 (the log-likelihood),
@@ -57,9 +60,12 @@ Phases, each printing its numbers on lines of its own:
     the same values: B5 (the panel product, at the blocked Cholesky's
     offsets and with a ragged row count), B4 with and without its row side
     products (in place, on the lower triangle) at the 19 trailing sizes of
-    N = 1e4 at block 512, and B6 at the path's posterior downdates and at
-    ``benchmarks/dense_micro.py``'s shapes, each timed beside its bound,
-    its plain version and the library call (``matmul``, ``addmm``);
+    N = 1e4 at block 512, and B6 at ``benchmarks/dense_micro.py``'s shapes,
+    each timed beside its bound, its plain version and the library call
+    (``matmul``, ``addmm``), with the ratio of the sums; B5's and B6's
+    split pass bit for bit against ``split_pieces`` (the panels, W^T read
+    through its strides, L), and B5 and B6 within 1e-6 of
+    ``plain_split_dots``, the float64 sum of the same exact piece products;
 11. the dense main path at ``bench.py``'s dense workload
     (``1.5 * Matern32(scale=2.5)``, ``diag=0.1``, N = 1e4, float32):
     ``log_probability`` against a float64 Cholesky, with its launches and
@@ -253,6 +259,34 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    log_ptxas("dense_tc")
+
+
+def log_ptxas(stem):
+    """Each kernel of ``csrc/<stem>.cu`` as ``nvcc -Xptxas -v`` reported it
+    (registers, shared memory, spills), and the dense GEMM's dynamic shared
+    memory, which ptxas does not see."""
+    import re
+
+    from tinygp_tpu_torch import cuda_build
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    name, report = None, {}
+    for line in cuda_build.build_log(stem).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            syrk = re.search(r"tc_gemmILb(\d)E", mangled)
+            name = (f"tc_gemm for {'B6' if syrk.group(1) == '1' else 'B5'}" if syrk
+                    else "split_kernel" if "split_kernel" in mangled else mangled)
+            report[name] = []
+        elif name and ("registers" in line or "spill" in line or "smem" in line):
+            report[name].append(line.split(":", 1)[-1].strip())
+    for name, lines in report.items():
+        log(f"ptxas {stem}.cu {name}: {'; '.join(lines)}")
+    cfg = cuda_dense.gemm_config()
+    log(f"ptxas {stem}.cu tc_gemm: {cfg['bm']} x {cfg['bn']} tiles, {cfg['stages']} stages, "
+        f"{cfg['smem']} bytes of dynamic shared memory")
 
 
 def phase_dense_precision():
@@ -1803,6 +1837,37 @@ def phase_dense_kernels():
         if not ok:
             failures.append((name, label))
 
+    def check_pieces(label, x):
+        """The split pass on the card against ``split_pieces`` (plain
+        PyTorch on the same tensor), bit for bit, padding zeros included:
+        its three pieces, whose first two are the 2-term split."""
+        got = cd.split_pass(x)
+        rows, k = x.shape
+        same = not got[:, rows:].any() and not got[:, :, k:].any()
+        for terms in (2, 3):
+            for p, piece in enumerate(cd.split_pieces(x, terms)):
+                same = same and torch.equal(got[p, :rows, :k].view(torch.int16),
+                                            piece.view(torch.int16))
+        log(f"dense-kernel split pass {label}: equal to split_pieces (2 and 3 terms) bit for "
+            f"bit {same}")
+        if not same:
+            failures.append(("split", label))
+
+    def check_split_dots(name, label, got, want):
+        """A kernel against ``plain_split_dots`` (float64 sums of the exact
+        piece products): only the accumulation may round. The signed mean
+        error toward ``want``'s sign, over its mean magnitude, shows a
+        rounding bias (the tensor cores round toward zero)."""
+        (rel, _), = stream_errors([got], [want])
+        ok = rel <= 1e-6
+        diff = got.double() - want
+        bias = float((diff * torch.sign(want)).mean() / want.abs().mean())
+        log(f"dense-kernel {name} {label}: against plain_split_dots in float64 on the same "
+            f"pieces rel {rel:.3e} (limit 1e-6), signed mean error {bias:.3e} of the mean "
+            f"magnitude {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((name, label + " split dots"))
+
     def timed(name, label, work, kernel, plain, library, reps):
         nbytes, flops = work
         bound, by, f32 = dense_bound_ms(nbytes, flops)
@@ -1827,9 +1892,9 @@ def phase_dense_kernels():
     del S
     W64 = W.double()
     # B5: the panel of step k reads rows hi: of block column lo:hi. The
-    # main path's well-conditioned matrices take 2 terms (float32 sums);
-    # the ill-conditioned route takes 3 (float64 sums), checked and timed
-    # beside them.
+    # main path's well-conditioned matrices take 2 terms (float32 sums of
+    # the 3-term products); the ill-conditioned route takes 3 (float64
+    # sums), checked and timed beside them.
     wide_ms = 0.0
     for j in range(1, m // b):
         t = j * b
@@ -1839,6 +1904,12 @@ def phase_dense_kernels():
             got = cd.split_panel_matmul(A, W, tile=tile, terms=terms, at=(hi, lo), rows=t)
             want = cd.plain_panel_matmul(A[:, lo:hi].double(), W64, hi, 0, t)
             check("panel", f"terms={terms} rows={t} at=({hi}, {lo})", got, want)
+            panel = A[hi:hi + t, lo:hi]
+            if terms == 2:  # the tensor cores; 3 terms sums float32 products in float64
+                check_pieces(f"panel rows={t}", panel)
+                check_split_dots("panel", f"terms={terms} rows={t}", got,
+                                 cd.plain_split_dots(panel, W, 3))
+            del got, want, panel
         timed(
             "panel", f"terms=2 rows={t}", panel_work(t, b),
             lambda: cd.split_panel_matmul(A, W, tile=tile, terms=2, at=(hi, lo), rows=t),
@@ -1850,6 +1921,7 @@ def phase_dense_kernels():
             lambda: cd.split_panel_matmul(A, W, tile=tile, terms=3, at=(hi, lo), rows=t),
             reps=10, warmup=1,
         )
+    check_pieces("W^T (W read through its strides)", W.T)
     log(f"dense-kernel panel terms=3 (float64 sums) summed over the same shapes [{CARD}]: "
         f"{wide_ms:.4f} ms")
     # A ragged row count against the kernel's 128-row tiles, at tile 32.
@@ -1912,11 +1984,20 @@ def phase_dense_kernels():
             torch.cuda.synchronize()
             micro_launches += read_dense_counts()[0]["syrk"]
         want = cd.plain_syrk_sub(Tm.double(), Lm.double(), DENSE_TILE, lower_only)
-        zeros_ok = torch.equal(got == 0, want == 0)
+        # The plain version's zeros (lower_only's tiles) are zeros, and any
+        # other zero is a float32 rounding of an element within the limit
+        # below of zero (T - L L^T can round to exactly 0 at random).
+        zeros_ok = bool((got[want == 0] == 0).all()) and bool(
+            (want[got == 0].abs() <= 1e-5 * want.abs().max()).all())
         check("syrk", label + f" (zero pattern {zeros_ok})", got, want)
         if not zeros_ok:
             failures.append(("syrk", label + " zero pattern"))
-        del got, want
+        del want
+        if not lower_only:
+            check_pieces(f"L m={mm} b={bb}", Lm)
+            check_split_dots("syrk", label, got,
+                             Tm.double() - cd.plain_split_dots(Lm, Lm, 3, nt=True))
+        del got
         work = syrk_work(mm, bb, DENSE_TILE, lower_only)
         kernel = lambda: cd.syrk_sub(Tm, Lm, tile=DENSE_TILE, lower_only=lower_only)  # noqa: E731
         plain = lambda: cd.plain_syrk_sub(Tm, Lm, DENSE_TILE, lower_only)  # noqa: E731
@@ -1938,10 +2019,12 @@ def phase_dense_kernels():
         failures.append(("syrk", f"{micro_launches} launches at dense_micro.py's shapes"))
     for name, rec in out.items():
         where = "dense_micro.py's" if name == "syrk" else "the main path's"
+        library = "torch.matmul" if name == "panel" else "addmm"
         log(f"dense-kernel {name} summed over {where} shapes [{CARD}]: "
             f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms (3-term tensor-core rate; "
             f"{rec['f32_ms']:.4f} ms at the float32 FMA rate), plain {rec['plain_ms']:.4f} ms, "
-            f"library {rec['library_ms']:.4f} ms (addmm does twice B4's and B6's least terms)")
+            f"library {rec['library_ms']:.4f} ms (addmm does twice B4's and B6's least terms); "
+            f"kernel / {library} in this run {rec['ms'] / rec['library_ms']:.4f}")
     if failures:
         raise AssertionError(f"dense kernels disagree with their plain versions: {failures}")
     return out
@@ -2286,7 +2369,8 @@ def dense_records(measured, launches):
         records.append({
             "name": name,
             "route": "cuda",
-            "source": "tinygp_tpu_torch/csrc/dense_syrk.cu",
+            "source": "tinygp_tpu_torch/csrc/"
+            + ("dense_tc.cu" if key in ("panel", "syrk") else "dense_syrk.cu"),
             "replaces": replaces,
             "launches": rec["launches"] if key == "syrk" else launches[key],
             "max_abs_err": rec["abs"],

@@ -444,9 +444,16 @@ def test_sum_of_order_5_on_the_card_matches_cpu(cuda_device):
 # dense path on the card.
 # ---------------------------------------------------------------------------
 
-# (m, tile, b, offset, rows): ragged against the kernels' 128 x 128 tiles
-# and 8-deep steps (b = 20), offsets, and a main-path panel width.
-DENSE_SHAPES = [(100, 20, 20, 20, 60), (96, 16, 16, 32, 48), (1280, 256, 512, 256, 768)]
+# (m, tile, b, offset, rows): ragged against the kernels' 128 x 128 tiles,
+# B4's 8-deep steps and B5's and B6's 64-wide k-chunks (b = 20, 16, 520;
+# rows 60, 48 and 1060, no multiple of 64), offsets, a main-path panel
+# width, and caller tiles below the kernels' 128 (B6's lower_only zeros).
+DENSE_SHAPES = [
+    (100, 20, 20, 20, 60),
+    (96, 16, 16, 32, 48),
+    (1280, 256, 512, 256, 768),
+    (1100, 20, 520, 20, 1060),
+]
 
 
 def dense_err(got, want):
@@ -501,6 +508,60 @@ def test_dense_kernels_match_plain(cuda_device, shape):
     torch.cuda.synchronize()
     launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"panel": 2, "syrk_inplace": 1, "syrk_inplace_extras": 1, "syrk": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [2, 3])
+@pytest.mark.parametrize("rows,b", [(300, 20), (1100, 520)])
+def test_dense_split_and_tensor_core_sums_on_the_card(cuda_device, rows, b, terms):
+    """B5's and B6's split pass equals ``split_pieces`` bit for bit (with
+    values just above the smallest normal, whose residuals flush); the
+    tensor-core kernels (B6, and B5 at 2 terms), which compute the 3-term
+    products for either order, are within 1e-6 of ``plain_split_dots`` at
+    3 terms on the same pieces, so only the accumulation rounds (operands
+    scaled as the factorization's, rows of L of about unit norm); B5 at
+    3 terms (float64 sums) within 1e-6 of the float64 product; B5 reads a
+    transposed W through its strides; B6's lower_only at a caller tile of
+    64, below the kernel's."""
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    rng = np.random.default_rng(rows + b + terms)
+
+    def card(*size):
+        return torch.as_tensor(rng.normal(size=size), dtype=torch.float32, device=cuda_device)
+
+    A, Wt, L = card(rows, b), card(b, b) * b**-0.5, card(rows, b) * b**-0.5
+    tiny = torch.finfo(torch.float32).tiny
+    A[0] = tiny * (1 + torch.rand(b, device=cuda_device) * 2**-5)
+    S = card(rows, rows)
+    T = S + S.T
+    before = dict(cuda_dense.LAUNCHES)
+
+    pieces = cuda_dense.split_pass(A)
+    torch.cuda.synchronize()
+    want = cuda_dense.split_pass(A.cpu())
+    assert torch.equal(pieces.cpu().view(torch.int16), want.view(torch.int16))
+
+    # B5 at 2 terms runs the tensor cores; at 3 it sums the float32
+    # products in float64.
+    W = Wt.T
+    got = cuda_dense.split_panel_matmul(A, W, tile=20, terms=terms)
+    if terms == 2:
+        want = cuda_dense.plain_split_dots(A.cpu(), W.cpu(), 3)
+    else:
+        want = A.double().cpu() @ W.double().cpu()
+    assert dense_err(got.cpu(), want) <= 1e-6
+    got = cuda_dense.syrk_sub(T, L, tile=20, terms=terms)
+    want = T.double().cpu() - cuda_dense.plain_split_dots(L.cpu(), L.cpu(), 3, nt=True)
+    assert dense_err(got.cpu(), want) <= 1e-6
+    m = rows // 64 * 64  # T read through its row stride
+    got = cuda_dense.syrk_sub(T[:m, :m], L[:m], tile=64, terms=terms, lower_only=True)
+    want = cuda_dense.plain_syrk_by_tiles(T[:m, :m].double().cpu(), L[:m].double().cpu(), 64,
+                                          lower_only=True)
+    assert dense_err(got.cpu(), want) <= 1e-5 and torch.equal(got.cpu() == 0, want == 0)
+    torch.cuda.synchronize()
+    launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"panel": 1, "syrk_inplace": 0, "syrk_inplace_extras": 0, "syrk": 2}
 
 
 @pytest.mark.cuda

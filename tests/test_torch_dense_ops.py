@@ -337,6 +337,24 @@ def test_fused_loglik_gradients_match_native():
     assert float(np.max(np.abs(gr.numpy() - jr))) < 1e-3 * float(np.max(np.abs(jr)))
 
 
+def test_fused_loglik_backward_forms_the_inverse_in_float64():
+    """The backward forms T^-1 from the float32 factor in float64 and
+    returns float32 cotangents: the gradient lies within 1e-6 of the
+    float64 one on the same float32 values (a float32 inverse about
+    doubles the error here; at N = 1e4 on the card it decided the dense
+    gradient check, PERF.md)."""
+    K, r = loglik_fixture(14, 512)
+    Kt, rt = t32(K).requires_grad_(True), t32(r).requires_grad_(True)
+    q, h = tdense.blocked_loglik_terms(Kt, rt, block=256, min_size=0, terms=3)
+    gK, gr = torch.autograd.grad(-0.5 * q - h, [Kt, rt])
+    assert gK.dtype == gr.dtype == torch.float32
+    K64, r64 = (t32(a).double().requires_grad_(True) for a in (K, r))
+    q64, h64 = tdense._native_loglik_terms(K64, r64)
+    wK, wr = torch.autograd.grad(-0.5 * q64 - h64, [K64, r64])
+    assert float((gK.double() - wK).abs().max()) < 1e-6 * float(wK.abs().max())
+    assert float((gr.double() - wr).abs().max()) < 1e-6 * float(wr.abs().max())
+
+
 def test_direct_solver_fused_loglik_dispatch(monkeypatch):
     from tinygp_tpu_torch import GaussianProcess, kernels
 

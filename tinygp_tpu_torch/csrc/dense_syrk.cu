@@ -1,22 +1,18 @@
-// The blocked dense Cholesky's matrix products on Hopper (sm_90a): kernels
-// B4, B5 and B6, float32.
+// The blocked dense Cholesky's in-place trailing update on Hopper (sm_90a),
+// kernel B4, and the 3-term order of the panel product B5, float32.
 //
-// Replaces three TPU kernels of tinygp_tpu/ops/pallas_dense.py:
+// Replaces, of tinygp_tpu/ops/pallas_dense.py:
 //
 //   B4  _make_syrk_inplace_kernel (line 158), launched by syrk_sub_inplace
 //       (line 201, pallas_call at line 273): in place, T[off:, off:] -= L L^T
 //       on the lower tiles of the trailing submatrix, and with `ak` the row
 //       side products rowsq[r] = sum_c L[r, c]^2 and rsu[r] = sum_c L[r, c]
 //       ak[c] (pallas_dense.py:177-196). Entry: dsk_syrk_inplace.
-//   B5  _make_panel_kernel (line 315), launched by split_panel_matmul
-//       (line 322, pallas_call at line 351): out = A[r0:r0+rows, c0:c0+b] @ W,
-//       the panel read in place through A's row stride (the TPU's block
-//       index map at pallas_dense.py:355). Entry: dsk_panel_matmul.
-//   B6  _make_syrk_kernel (line 93), launched by syrk_sub (line 112,
-//       pallas_call at line 139): out of place, out = T - L L^T; with
-//       lower_only the tiles above the diagonal, at the caller's `tile`
-//       granularity, are zeros (pallas_dense.py:98-107). Entry: dsk_syrk.
-//       It shares B4's tile body: one template, two launches.
+//   B5  _make_panel_kernel (line 315) at terms = 3 only: out =
+//       A[r0:r0+rows, c0:c0+b] @ W with float64 sums. Entry:
+//       dsk_panel_matmul_f64. The 2-term order, which the main path runs,
+//       and the out-of-place update B6 are in dense_tc.cu, on the tensor
+//       cores.
 //
 // Contract of B4. Every element on or below the diagonal of the trailing
 // submatrix is updated exactly once. The strictly upper tiles are never
@@ -26,44 +22,40 @@
 // the diagonal), so the upper triangle may hold anything.
 //
 // Accuracy. The TPU kernels reach float32 accuracy through bf16 splits on
-// the MXU: 3 terms about 2^-24 per operand, 2 terms about 2^-16. These
-// kernels accumulate every product in float32 FMA whatever `terms` the
-// caller asks for, which meets the 3-term contract and so either. The
-// wrappers still check `terms` and `tile`, so the factorization reads like
-// the JAX one. The exception is B5 when the caller asks for 3 terms: it accumulates
-// in float64. The factorization asks for 3 terms below a relative noise
-// floor of 1e-2, where B5's product with the explicit inverse inv(L11)^T
-// cancels: with float32 sums there, a GP matrix with sqrt(eps) jitter lost
-// more of its quadratic form than the native float32 Cholesky does
-// (chip_smoke.py's ill-conditioned phase holds the route to it; PERF.md has
-// the readings). B4 and B6 contract over b = 512 on the factorization's and
-// benchmarks/dense_micro.py's shapes and keep the float32 sum.
+// the MXU: 3 terms about 2^-24 per operand, 2 terms about 2^-16. B4
+// accumulates every product in float32 FMA whatever `terms` the caller asks
+// for, which meets the 3-term contract and so either; the wrapper still
+// checks `terms` and `tile`, so the factorization reads like the JAX one.
+// The factorization asks for 3 terms below a relative noise floor of 1e-2,
+// where B5's product with the explicit inverse inv(L11)^T cancels: with
+// float32 sums there, a GP matrix with sqrt(eps) jitter lost more of its
+// quadratic form than the native float32 Cholesky does (chip_smoke.py's
+// ill-conditioned phase holds the route to it). Float64 sums of the
+// float32 products hold it; float32 accumulators cannot, whether in FMA or
+// in the tensor cores with float64 sums across 64-wide chunks (PERF.md,
+// PRs 4 and 7). So B5's 3-term order stays here, in float64.
 //
-// What bounds them. At the main path's shapes (N = 1e4 padded to m = 10240,
-// block b = 512, trailing sizes 512 j for j = 1..19) one factorization's B4
-// launches do about sum_j 512 (512 j)^2 = 3.3e11 flops: 4.9 ms at the
-// 67 TFLOP/s float32 FMA rate, 2.0 ms at the tensor-core rate a 3-term
-// bf16 split would allow (989/6 TFLOP/s). They move about 2.6e9 bytes
-// (0.8 ms at 3.35 TB/s). B5 does about 5.1e10 flops (0.8 ms at 67 TFLOP/s)
-// and moves about 4e8 bytes. So both are bound by operations. B6 at
-// dense_micro.py's m = 9728, b = 512 needs m (m + 1) b = 4.8e10 flops (the
-// m (m + 1) / 2 distinct dot products of the symmetric L L^T; it computes
-// both triangles, twice that) and moves about 7.8e8 bytes.
+// What bounds them. At the main path's shapes (N = 1e4 padded to
+// m = 10240, block b = 512, trailing sizes 512 j for j = 1..19) one
+// factorization's B4 launches do about sum_j 512 (512 j)^2 = 3.3e11 flops:
+// 4.9 ms at the 67 TFLOP/s float32 FMA rate, 2.0 ms at the tensor-core rate
+// a 3-term bf16 split would allow (989/6 TFLOP/s). They move about 2.6e9
+// bytes (0.8 ms at 3.35 TB/s). So B4 is bound by operations, and so is
+// B5's float64 order (about 5.1e10 flops of float64 FMA at 34 TFLOP/s).
 //
 // Design, simple first. A classic shared-memory tiled SGEMM: a block of 256
 // threads owns a 128 x 128 output tile, walks the contraction in steps of 8
 // through shared memory (tiles padded against bank conflicts) and keeps an
-// 8 x 8 micro-tile per thread in registers, FMA in float32. Every edge is
-// masked, so any rows, b and trailing size work. B4's grid enumerates only
-// the lower tile pairs of the trailing submatrix, each block decoding its
-// (i, j) from blockIdx.x (there is no scalar prefetch on Hopper); the blocks
-// of the first tile column also write the row side products, from L rows a
-// warp each, with a fixed reduction order.
+// 8 x 8 micro-tile per thread in registers. Every edge is masked, so any
+// rows, b and trailing size work. B4's grid enumerates only the lower tile
+// pairs of the trailing submatrix, each block decoding its (i, j) from
+// blockIdx.x (there is no scalar prefetch on Hopper); the blocks of the
+// first tile column also write the row side products, from L rows a warp
+// each, with a fixed reduction order.
 //
-// Left for later: the tensor cores (wgmma on bf16 or TF32 splits, which the
-// 2-term slack would allow), TMA loads into a ring of stages, a persistent
-// grid, and a register double buffer of the shared tiles. This design is
-// several times its bound (PERF.md has the times).
+// Left for later: B4 on dense_tc.cu's tensor-core SYRK body, with the row
+// side products in its epilogue (ROADMAP N4d). This design is several
+// times its bound (PERF.md has the times).
 
 #include <cuda_runtime.h>
 
@@ -82,21 +74,21 @@ constexpr int kTN = 8;    // micro-tile columns per thread
 using Tile = float[kBK][kBM + kPad];
 
 // acc += A(rows of the tile) @ B(columns of the tile) over K.
-// A(i, k) = a[i * lda + k]. B(k, j) = b[j * ldb + k] when kNT (the SYRK's
-// L^T), else b[k * ldb + j] (the panel's W). a and b point at the tile's
-// first row and column; rows_a and cols_b are how many of them exist.
-// Acc is float (float32 FMA) or double (float64 products and sums of the
-// float32 operands).
+// A(i, k) = a[i * lda + k], B(k, j) = b[k * sbk + j * sbj]; a and b point
+// at the tile's first row and column; rows_a and cols_b are how many of
+// them exist. kNT loads B along k (B4's L^T, sbk = 1), else along j (B5's
+// W). Acc is float (float32 FMA) or double (float64 products and sums of
+// the float32 operands).
 __device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double mad(float a, float b, double c) {
   return fma((double)a, (double)b, c);
 }
 
 template <bool kNT, typename Acc>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ a, long long lda,
-                                          int rows_a, const float* __restrict__ b,
-                                          long long ldb, int cols_b, int K, Tile& As,
-                                          Tile& Bs, Acc (&acc)[kTM][kTN]) {
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ a, long long lda, int rows_a,
+                                          const float* __restrict__ b, long long sbk,
+                                          long long sbj, int cols_b, int K, Tile& As, Tile& Bs,
+                                          Acc (&acc)[kTM][kTN]) {
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   for (int k0 = 0; k0 < K; k0 += kBK) {
@@ -110,15 +102,9 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, long long
 #pragma unroll
     for (int e = 0; e < (kBN * kBK) / kThreads; ++e) {
       const int idx = tid + e * kThreads;
-      if (kNT) {
-        const int j = idx / kBK, kk = idx % kBK;
-        const bool ok = j < cols_b && k0 + kk < K;
-        Bs[kk][j] = ok ? b[(long long)j * ldb + k0 + kk] : 0.0f;
-      } else {
-        const int kk = idx / kBN, j = idx % kBN;
-        const bool ok = j < cols_b && k0 + kk < K;
-        Bs[kk][j] = ok ? b[(long long)(k0 + kk) * ldb + j] : 0.0f;
-      }
+      const int j = kNT ? idx / kBK : idx % kBN, kk = kNT ? idx % kBK : idx / kBN;
+      const bool ok = j < cols_b && k0 + kk < K;
+      Bs[kk][j] = ok ? b[(long long)(k0 + kk) * sbk + (long long)j * sbj] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -147,52 +133,29 @@ __device__ __forceinline__ void lower_pair(long long g, int& i, int& j) {
   j = (int)(g - r * (r + 1) / 2);
 }
 
-// B4 (kInPlace: t_in == t_out, lower tile pairs on blockIdx.x, optional row
-// side products) and B6 (out of place, the full tile grid on (x, y),
-// optional lower_only zeros). T and out are (m, m) with leading dimensions
-// ldt and ldo; L is (m, b) with leading dimension ldl.
-template <bool kInPlace, bool kExtras>
+// B4: T (m, m) at t, leading dimension ldt, -= L L^T on the lower tile
+// pairs (blockIdx.x); L is (m, b) with leading dimension ldl. kExtras: the
+// row side products too.
+template <bool kExtras>
 __global__ void __launch_bounds__(kThreads)
-    syrk_kernel(const float* t_in, float* t_out, long long ldt, long long ldo,
-                const float* __restrict__ l, long long ldl, int m, int b,
+    syrk_kernel(float* t, long long ldt, const float* __restrict__ l, long long ldl, int m, int b,
                 const float* __restrict__ ak, float* __restrict__ rowsq,
-                float* __restrict__ rsu, int lower_only, int tile) {
+                float* __restrict__ rsu) {
   __shared__ __align__(16) Tile As;
   __shared__ __align__(16) Tile Bs;
   int bi, bj;
-  if (kInPlace) {
-    lower_pair(blockIdx.x, bi, bj);
-  } else {
-    bi = blockIdx.y;
-    bj = blockIdx.x;
-  }
+  lower_pair(blockIdx.x, bi, bj);
   const int row0 = bi * kBM, col0 = bj * kBN;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-
-  if (!kInPlace && lower_only) {
-    const int last_row = min(row0 + kBM, m) - 1;
-    if (col0 / tile > last_row / tile) {
-      // The whole tile lies in zero tiles of the caller's grid.
-      for (int i = 0; i < kTM; ++i) {
-        const int r = row0 + ty * kTM + i;
-        for (int j = 0; j < kTN; ++j) {
-          const int c = col0 + tx * kTN + j;
-          if (r < m && c < m) t_out[(long long)r * ldo + c] = 0.0f;
-        }
-      }
-      return;
-    }
-  }
 
   float acc[kTM][kTN];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-  const float* li = l + (long long)row0 * ldl;
-  const float* lj = l + (long long)col0 * ldl;
-  gemm_tile<true>(li, ldl, m - row0, lj, ldl, m - col0, b, As, Bs, acc);
+  gemm_tile<true>(l + (long long)row0 * ldl, ldl, m - row0, l + (long long)col0 * ldl, 1, ldl,
+                  m - col0, b, As, Bs, acc);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = row0 + ty * kTM + i;
@@ -200,10 +163,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int c = col0 + tx * kTN + j;
-      if (c >= m) continue;
-      float v = t_in[(long long)r * ldt + c] - acc[i][j];
-      if (!kInPlace && lower_only && c / tile > r / tile) v = 0.0f;
-      t_out[(long long)r * ldo + c] = v;
+      if (c < m) t[(long long)r * ldt + c] -= acc[i][j];
     }
   }
 
@@ -233,24 +193,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B5: out(rows, b) = A(rows, b) @ W(b, b); a points at the panel's first
-// element, read through the row stride lda. Acc is the accumulator type.
-template <typename Acc>
+// B5 at 3 terms: out(rows, b) = A(rows, b) @ W(b, b) in float64 sums; a
+// points at the panel's first element, read through the row stride lda,
+// and W[k, n] is w[k * w_s0 + n * w_s1].
 __global__ void __launch_bounds__(kThreads)
     panel_kernel(const float* __restrict__ a, long long lda, const float* __restrict__ w,
-                 long long ldw, float* __restrict__ out, long long ldo, int rows, int b) {
+                 long long w_s0, long long w_s1, float* __restrict__ out, long long ldo, int rows,
+                 int b) {
   __shared__ __align__(16) Tile As;
   __shared__ __align__(16) Tile Bs;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  Acc acc[kTM][kTN];
+  double acc[kTM][kTN];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-  gemm_tile<false>(a + (long long)row0 * lda, lda, rows - row0, w + col0, ldw, b - col0, b,
-                   As, Bs, acc);
+  gemm_tile<false>(a + (long long)row0 * lda, lda, rows - row0, w + col0 * w_s1, w_s0, w_s1,
+                   b - col0, b, As, Bs, acc);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = row0 + ty * kTM + i;
@@ -269,21 +230,19 @@ int tiles(int n, int t) { return (n + t - 1) / t; }
 
 extern "C" {
 
-// B5: out (rows, b), leading dimension ldo, = A @ W with A the (rows, b)
-// panel at a (leading dimension lda) and W (b, b) at w (leading dimension
-// ldw); wide != 0 accumulates in float64. Returns a cudaError_t code:
-// nonzero if an argument is refused or the launch failed.
-int dsk_panel_matmul(const float* a, long long lda, const float* w, long long ldw,
-                     float* out, long long ldo, int rows, int b, int wide, void* stream) {
-  if (rows < 0 || b < 0 || lda < b || ldw < b || ldo < b || tiles(rows, kBM) > 65535)
+// B5 at 3 terms: out (rows, b), leading dimension ldo, = A @ W in float64
+// sums, with A the (rows, b) panel at a (leading dimension lda) and W
+// (b, b) with W[k, n] at w[k * w_s0 + n * w_s1]. Returns a cudaError_t
+// code.
+int dsk_panel_matmul_f64(const float* a, long long lda, const float* w, long long w_s0,
+                         long long w_s1, float* out, long long ldo, int rows, int b,
+                         void* stream) {
+  if (rows < 0 || b < 0 || lda < b || ldo < b || tiles(rows, kBM) > 65535)
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || b == 0) return 0;
   const dim3 grid((unsigned)tiles(b, kBN), (unsigned)tiles(rows, kBM));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide)
-    panel_kernel<double><<<grid, kThreads, 0, s>>>(a, lda, w, ldw, out, ldo, rows, b);
-  else
-    panel_kernel<float><<<grid, kThreads, 0, s>>>(a, lda, w, ldw, out, ldo, rows, b);
+  panel_kernel<<<grid, kThreads, 0, s>>>(a, lda, w, w_s0, w_s1, out, ldo, rows, b);
   return (int)cudaGetLastError();
 }
 
@@ -301,26 +260,10 @@ int dsk_syrk_inplace(float* t, long long ldt, const float* l, long long ldl, int
   if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ak)
-    syrk_kernel<true, true><<<(unsigned)pairs, kThreads, 0, s>>>(
-        t, t, ldt, ldt, l, ldl, m, b, ak, rowsq, rsu, 0, 1);
+    syrk_kernel<true><<<(unsigned)pairs, kThreads, 0, s>>>(t, ldt, l, ldl, m, b, ak, rowsq, rsu);
   else
-    syrk_kernel<true, false><<<(unsigned)pairs, kThreads, 0, s>>>(
-        t, t, ldt, ldt, l, ldl, m, b, nullptr, nullptr, nullptr, 0, 1);
-  return (int)cudaGetLastError();
-}
-
-// B6: out (m, m), leading dimension ldo, = T - L L^T with T (m, m) at t
-// (leading dimension ldt) and L (m, b) at l; with lower_only, zeros where
-// col / tile > row / tile. Returns a cudaError_t code.
-int dsk_syrk(const float* t, long long ldt, const float* l, long long ldl, int m, int b,
-             float* out, long long ldo, int lower_only, int tile, void* stream) {
-  if (m < 0 || b < 0 || ldt < m || ldl < b || ldo < m || tile < 1 ||
-      tiles(m, kBM) > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (m == 0) return 0;
-  const dim3 grid((unsigned)tiles(m, kBN), (unsigned)tiles(m, kBM));
-  syrk_kernel<false, false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t, out, ldt, ldo, l, ldl, m, b, nullptr, nullptr, nullptr, lower_only, tile);
+    syrk_kernel<false><<<(unsigned)pairs, kThreads, 0, s>>>(t, ldt, l, ldl, m, b, nullptr,
+                                                            nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -5,12 +5,14 @@ plain C interface (no PyTorch headers, so a build takes seconds). The
 libraries go to ``build/tinygp_tpu_torch/<digest>/`` beside the package,
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is reused. All sources compile in parallel, one ``nvcc``
-each. A failed build raises; nothing falls back.
+each, with ``-Xptxas -v``: each library's compiler output (every kernel's
+registers, shared memory and spills) is kept beside it and read back by
+:func:`build_log`. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
 
-__all__ = ["build_all", "library"]
+__all__ = ["build_all", "build_log", "library"]
 
 import ctypes
 import hashlib
@@ -25,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tinygp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -82,6 +84,7 @@ def build_all() -> dict[str, Path]:
     for stem, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            libs[stem].with_suffix(".log").write_text(log)
             os.replace(tmp, libs[stem])
         else:
             os.unlink(tmp)
@@ -89,6 +92,11 @@ def build_all() -> dict[str, Path]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return libs
+
+
+def build_log(stem: str) -> str:
+    """The compiler's output for ``csrc/<stem>.cu`` (built if needed)."""
+    return build_all()[stem].with_suffix(".log").read_text()
 
 
 def library(stem: str) -> ctypes.CDLL:

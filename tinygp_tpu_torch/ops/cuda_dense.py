@@ -1,25 +1,33 @@
 """The blocked Cholesky's matrix products: kernels B4, B5 and B6, their
 wrappers and their plain versions.
 
-Counterpart of ``tinygp_tpu/ops/pallas_dense.py``. The kernels are in
-``csrc/dense_syrk.cu`` (float32):
+Counterpart of ``tinygp_tpu/ops/pallas_dense.py`` (float32):
 
-- :func:`split_panel_matmul` (B5): ``A[r0:r0+rows, c0:c0+b] @ W``, the
-  panel read in place through ``A``'s row stride;
-- :func:`syrk_sub_inplace` (B4): in place, ``T[off:, off:] -= L L^T`` on
-  the lower part of the trailing submatrix, and with ``ak`` the row side
-  products ``rowsq = sum(L**2, 1)`` and ``rsu = L @ ak``;
-- :func:`syrk_sub` (B6): out of place, ``T - L L^T``, with ``lower_only``
-  zeros above the diagonal at ``tile`` granularity.
+- :func:`split_panel_matmul` (B5, ``csrc/dense_tc.cu``; at ``terms=3``
+  ``csrc/dense_syrk.cu``): ``A[r0:r0+rows, c0:c0+b] @ W``, the panel read
+  in place through ``A``'s row stride;
+- :func:`syrk_sub_inplace` (B4, ``csrc/dense_syrk.cu``): in place,
+  ``T[off:, off:] -= L L^T`` on the lower part of the trailing submatrix,
+  and with ``ak`` the row side products ``rowsq = sum(L**2, 1)`` and
+  ``rsu = L @ ak``;
+- :func:`syrk_sub` (B6, ``csrc/dense_tc.cu``): out of place, ``T - L L^T``,
+  with ``lower_only`` zeros above the diagonal at ``tile`` granularity.
 
 The TPU kernels reach float32 accuracy through bf16 splits (``terms`` 3
-about 2^-24, 2 about 2^-16); these kernels accumulate in float32 FMA,
-which meets the 3-term contract, except that B5 accumulates in float64
-for ``terms=3`` (the order the factorization picks for ill-conditioned
-matrices, where the panel's product with an explicit inverse cancels; see
-the source). The wrappers take and check
-``terms`` and ``tile`` with the JAX package's rules, so the factorization reads
-like the JAX one.
+about 2^-24, 2 about 2^-16). B5 and B6 do the same on Hopper's tensor
+cores: a split pass writes the three bf16 pieces (:func:`split_pieces` is
+its plain version, equal bit for bit), and a ``wgmma`` GEMM sums the six
+piece products of :func:`plain_split_dots` at 3 terms in float32, whatever
+``terms`` asks for: the 2-term products missed the dense gradient's limit
+on the main path (see the source). B5's 3-term order, which the
+factorization picks for ill-conditioned matrices (where the panel's
+product with an explicit inverse cancels), needs float64 sums and runs a
+float64-sum body in ``csrc/dense_syrk.cu`` instead. B6 computes the lower
+tile pairs only and mirrors them
+(:func:`plain_syrk_by_tiles` is its schedule in plain PyTorch). B4
+accumulates in float32 FMA, which meets the 3-term contract. The wrappers
+take and check ``terms`` and ``tile`` with the JAX package's rules, so the
+factorization reads like the JAX one.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises, with no fallback. Every launch adds one to :data:`LAUNCHES` under
@@ -33,16 +41,26 @@ from __future__ import annotations
 
 __all__ = [
     "LAUNCHES",
+    "KERNEL_TILE",
+    "K_CHUNK",
     "split_panel_matmul",
     "syrk_sub_inplace",
     "syrk_sub",
+    "split_pass",
+    "split_pieces",
+    "plain_split_dots",
     "plain_panel_matmul",
     "plain_syrk_sub_inplace",
     "plain_syrk_sub",
+    "plain_syrk_by_tiles",
+    "lower_pair",
+    "gemm_config",
 ]
 
+import contextlib
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -52,45 +70,84 @@ LAUNCHES = {"panel": 0, "syrk_inplace": 0, "syrk_inplace_extras": 0, "syrk": 0}
 """Launches of B5 (``panel``), B4 without and with the row side products,
 and B6 (``syrk``)."""
 
+LAUNCHES_SPLIT = 0
+"""Launches of the split pass alone (:func:`split_pass`); B5 and B6 run it
+inside their own launches, which count under their names."""
+
+KERNEL_TILE = 128
+"""B5's and B6's output tile rows (``kBM`` in ``csrc/dense_tc.cu``), to
+which the split pass pads the pieces' rows."""
+
+K_CHUNK = 64
+"""The tensor-core GEMM's k-chunk (``kBK``), to which the pieces' columns
+are padded."""
+
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 
+# C entries: (library stem, argument types before the stream).
+_SIGNATURES = {
+    "dsk_syrk_inplace": ("dense_syrk", [_P, _LL, _P, _LL, _I, _I, _P, _P, _P]),
+    "dsk_panel_matmul": ("dense_tc", [_P, _LL, _P, _LL, _LL, _P, _LL, _I, _I, _P, _LL]),
+    "dsk_panel_matmul_f64": ("dense_syrk", [_P, _LL, _P, _LL, _LL, _P, _LL, _I, _I]),
+    "dsk_syrk": ("dense_tc", [_P, _LL, _P, _LL, _I, _I, _P, _LL, _I, _I, _P, _LL]),
+    "dsk_split": ("dense_tc", [_P, _LL, _LL, _I, _I, _P, _LL]),
+}
+
+
+def gemm_config() -> dict[str, int]:
+    """The tensor-core GEMM's configuration (B5 at 2 terms, B6): output
+    tile rows and columns, ring stages and dynamic shared memory in
+    bytes."""
+    fn = cuda_build.library("dense_tc").dsk_gemm_config
+    out = [_I() for _ in range(4)]
+    fn.argtypes = [ctypes.POINTER(_I)] * 4
+    fn.restype = None
+    fn(*(ctypes.byref(x) for x in out))
+    return dict(zip(("bm", "bn", "stages", "smem"), (x.value for x in out)))
+
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with its C signatures."""
-    lib = cuda_build.library("dense_syrk")
-    lib.dsk_panel_matmul.argtypes = [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P]
-    lib.dsk_syrk_inplace.argtypes = [_P, _LL, _P, _LL, _I, _I, _P, _P, _P, _P]
-    lib.dsk_syrk.argtypes = [_P, _LL, _P, _LL, _I, _I, _P, _LL, _I, _I, _P]
-    for fn in (lib.dsk_panel_matmul, lib.dsk_syrk_inplace, lib.dsk_syrk):
-        fn.restype = ctypes.c_int
+def _function(fn: str):
+    """The C entry ``fn`` and its library's error-string function, built
+    at first use, with their C signatures."""
+    stem, argtypes = _SIGNATURES[fn]
+    lib = cuda_build.library(stem)
+    entry = getattr(lib, fn)
+    entry.argtypes = [*argtypes, _P]
+    entry.restype = ctypes.c_int
     lib.dsk_error_string.argtypes = [ctypes.c_int]
     lib.dsk_error_string.restype = ctypes.c_char_p
-    return lib
+    return entry, lib.dsk_error_string
 
 
-def _runs_plain(terms: int, tile: int, *tensors: torch.Tensor) -> bool:
+def _runs_plain(
+    terms: int, tile: int, *tensors: torch.Tensor, any_strides: tuple[torch.Tensor, ...] = ()
+) -> bool:
     """Check what every kernel takes; return whether the tensors lie on the
-    CPU (run the plain version) rather than on one CUDA device."""
+    CPU (run the plain version) rather than on one CUDA device. The
+    operands in ``any_strides`` are read through both their strides and
+    need no contiguous rows."""
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3; got {terms}")
     if tile < 1:
         raise ValueError(f"tile must be positive; got {tile}")
-    ref = tensors[0]
-    for x in tensors:
-        if x.device != ref.device:
+    operands = (*tensors, *any_strides)
+    device = operands[0].device
+    for x in operands:
+        if x.device != device:
             raise ValueError("all operands must be on one device")
         if x.dtype != torch.float32:
             raise ValueError(f"the dense kernels take float32, not {x.dtype}")
+    for x in tensors:
         if x.ndim >= 1 and x.stride(-1) != 1:
             raise ValueError("the dense kernels take operands with contiguous rows")
-    if ref.device.type == "cpu":
+    if device.type == "cpu":
         return True
-    if ref.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ref.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
         raise NotImplementedError(
             "the dense kernels have no backward of their own; differentiate "
             "through ops.dense, whose autograd Functions run them without grad"
@@ -98,17 +155,111 @@ def _runs_plain(terms: int, tile: int, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def _on_device(x: torch.Tensor):
+    """A guard that makes ``x``'s card current, entered only where another
+    one is (a few microseconds a launch, which the small panels feel)."""
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
 def _run(name: str, fn, *args) -> None:
     """Launch on the operands' device and current stream; raise on a
     refused argument or a failed launch."""
-    lib = _library()
-    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    entry, error_string = _function(fn)
+    # The current stream's handle without building a Stream object (a few
+    # microseconds a launch, which the small panels feel).
+    err = entry(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
     if err:
         raise RuntimeError(
-            f"dense kernel {name} failed: {lib.dsk_error_string(err).decode()} "
-            f"(cudaError {err})"
+            f"dense kernel {name} failed: {error_string(err).decode()} (code {err})"
         )
-    LAUNCHES[name] += 1
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1
+
+
+def _padded(rows: int, k: int) -> tuple[int, int]:
+    """The pieces' plane of ``(rows, k)``: rows padded to the kernel's tile,
+    columns to its k-chunk."""
+    return -(-rows // KERNEL_TILE) * KERNEL_TILE, -(-k // K_CHUNK) * K_CHUNK
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _sub_ftz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a - b`` in float32 with subnormal inputs and result flushed to
+    signed zero, as XLA and the TPU compute it (and ``sub.ftz`` on the
+    card)."""
+
+    def flush(v):
+        return torch.where(v.abs() < _TINY, torch.zeros_like(v).copysign(v), v)
+
+    return flush(flush(a) - flush(b))
+
+
+def split_pieces(x: torch.Tensor, terms: int) -> tuple[torch.Tensor, ...]:
+    """The bf16 pieces of float32 ``x``: ``(h, l)`` with ``x ~ h + l`` for
+    2 terms (``_split2``), ``(h, m, l)`` with ``x ~ h + m + l`` for 3
+    (``_split3``), rounded in their order and equal to them bit for bit
+    (subnormal differences flush to zero, as in XLA). The split pass's
+    plain version, on any device."""
+    if terms not in (2, 3):
+        raise ValueError(f"terms must be 2 or 3; got {terms}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the split takes float32, not {x.dtype}")
+    h = x.to(torch.bfloat16)
+    r = _sub_ftz(x, h.float())
+    if terms == 2:
+        return h, r.to(torch.bfloat16)
+    m = r.to(torch.bfloat16)
+    return h, m, _sub_ftz(r, m.float()).to(torch.bfloat16)
+
+
+def split_pass(x: torch.Tensor) -> torch.Tensor:
+    """The split pass of B5 and B6 alone, on ``x`` ``(rows, k)`` float32
+    (any strides): its three bf16 pieces ``(h, m, l)``, ``(3, rows_pad,
+    k_pad)`` with ``rows`` padded to :data:`KERNEL_TILE` and ``k`` to
+    :data:`K_CHUNK`, zeros outside ``x``; ``(h, m)`` is the 2-term split.
+    A CPU tensor gets :func:`split_pieces` padded the same way."""
+    global LAUNCHES_SPLIT
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-d; got {tuple(x.shape)}")
+    rows, k = x.shape
+    out = torch.empty((3, *_padded(rows, k)), dtype=torch.bfloat16, device=x.device)
+    if _runs_plain(3, 1, any_strides=(x,)):
+        out.zero_()
+        for p, piece in enumerate(split_pieces(x, 3)):
+            out[p, :rows, :k] = piece
+        return out
+    with _on_device(x):
+        _run("split", "dsk_split", x.data_ptr(), x.stride(0), x.stride(1), rows, k,
+             out.data_ptr(), out.numel())
+    LAUNCHES_SPLIT += 1
+    return out
+
+
+def plain_split_dots(
+    x: torch.Tensor, y: torch.Tensor, terms: int, *, nt: bool = False
+) -> torch.Tensor:
+    """``_split_dots``: the sum of the piece products approximating
+    ``x @ y`` (``x @ y.T`` with ``nt``), in float64. Each product of two
+    bf16 pieces is exact, so at ``terms=3`` this is what B5 (NN) and B6
+    (NT) compute up to the rounding of their accumulation."""
+    px, py = split_pieces(x, terms), split_pieces(y, terms)
+
+    def dot(a, b):
+        b = b.double()
+        return a.double() @ (b.mT if nt else b)
+
+    if terms == 2:
+        (hi, li), (hj, lj) = px, py
+        return dot(hi, hj) + (dot(hi, lj) + dot(li, hj))
+    (hi, mi, li), (hj, mj, lj) = px, py
+    acc = dot(hi, hj)
+    acc = acc + (dot(hi, mj) + dot(mi, hj))
+    return acc + (dot(hi, lj) + (dot(li, hj) + dot(mi, mj)))
 
 
 def plain_panel_matmul(
@@ -130,7 +281,8 @@ def split_panel_matmul(
 ) -> torch.Tensor:
     """``A[at[0]:at[0]+rows, at[1]:at[1]+b] @ W`` (B5), ``(rows, b)``.
 
-    ``W`` is ``(b, b)``. With ``at=None`` the whole of ``A``, ``(rows, b)``,
+    ``W`` is ``(b, b)``, any strides (the kernel reads it through both, so
+    ``inv(L11).mT`` needs no copy). With ``at=None`` the whole of ``A``, ``(rows, b)``,
     is the panel; with ``at=(r0, c0)`` the panel is read out of the larger
     ``A`` in place. ``rows`` and ``r0`` are multiples of ``tile``, ``c0``
     of ``b``, as the JAX launcher asks.
@@ -147,14 +299,24 @@ def split_panel_matmul(
         )
     if r0 + rows > A.shape[0] or c0 + b > A.shape[1]:
         raise ValueError(f"the panel at {at} with {rows} rows lies outside A {tuple(A.shape)}")
-    if _runs_plain(terms, tile, A, W):
+    if _runs_plain(terms, tile, A, any_strides=(W,)):
         return plain_panel_matmul(A, W, r0, c0, rows)
-    W = W.contiguous()
     out = A.new_empty(rows, b)
-    panel = A[r0:, c0:]
-    with torch.cuda.device(A.device):
-        _run("panel", "dsk_panel_matmul", panel.data_ptr(), A.stride(0), W.data_ptr(),
-             W.stride(0), out.data_ptr(), out.stride(0), rows, b, int(terms == 3))
+    # The panel's first element (A's rows are contiguous, float32). W goes
+    # through its strides: inv(L11)^T as a transposed view costs no copy.
+    lda = A.stride(0)
+    args = (A.data_ptr() + 4 * (r0 * lda + c0), lda, W.data_ptr(), *W.stride(), out.data_ptr(),
+            b, rows, b)
+    with _on_device(A):
+        if terms == 3:  # float64 sums (csrc/dense_syrk.cu says why)
+            _run("panel", "dsk_panel_matmul_f64", *args)
+            return out
+        # The tensor cores, with scratch for the three pieces of the panel,
+        # then those of W^T.
+        rows_pad, b_pad = _padded(rows, b)
+        elems = 3 * b_pad * (rows_pad + -(-b // KERNEL_TILE) * KERNEL_TILE)
+        scratch = torch.empty(elems, dtype=torch.bfloat16, device=A.device)
+        _run("panel", "dsk_panel_matmul", *args, scratch.data_ptr(), elems)
     return out
 
 
@@ -201,7 +363,7 @@ def syrk_sub_inplace(
     if L.stride(0) < b:
         L = L.contiguous()
     trail = T[offset:, offset:]
-    with torch.cuda.device(T.device):
+    with _on_device(T):
         if ak is None:
             _run("syrk_inplace", "dsk_syrk_inplace", trail.data_ptr(), T.stride(0),
                  L.data_ptr(), L.stride(0), mt, b, None, None, None)
@@ -243,7 +405,50 @@ def syrk_sub(
     if _runs_plain(terms, tile, T, L):
         return plain_syrk_sub(T, L, tile, lower_only)
     out = T.new_empty(m, m)
-    with torch.cuda.device(T.device):
+    elems = 3 * math.prod(_padded(m, b))
+    scratch = torch.empty(elems, dtype=torch.bfloat16, device=T.device)
+    with _on_device(T):
         _run("syrk", "dsk_syrk", T.data_ptr(), T.stride(0), L.data_ptr(), L.stride(0), m, b,
-             out.data_ptr(), out.stride(0), int(lower_only), tile)
+             out.data_ptr(), out.stride(0), int(lower_only), tile, scratch.data_ptr(), elems)
+    return out
+
+
+def lower_pair(g: int) -> tuple[int, int]:
+    """The (i, j), j <= i, of lower tile pair ``g`` in row-major order, as
+    B6's blocks decode it from ``blockIdx.x``."""
+    r = int((math.sqrt(8.0 * g + 1.0) - 1.0) * 0.5)
+    while r * (r + 1) // 2 > g:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= g:
+        r += 1
+    return r, g - r * (r + 1) // 2
+
+
+def plain_syrk_by_tiles(
+    T: torch.Tensor,
+    L: torch.Tensor,
+    tile: int,
+    lower_only: bool = False,
+    kernel_tile: int = KERNEL_TILE,
+) -> torch.Tensor:
+    """B6's schedule in plain PyTorch: ``T - L L^T`` computed on the lower
+    pairs of ``kernel_tile`` tiles only, each (i, j) written as
+    ``T - acc`` and, for i != j, mirrored onto (j, i) as ``T - acc^T``;
+    with ``lower_only`` zeros where ``col // tile > row // tile`` at the
+    caller's ``tile``. Equal to :func:`plain_syrk_sub` wherever the
+    products are exact."""
+    m = T.shape[0]
+    nt = -(-m // kernel_tile)
+    out = torch.empty_like(T)
+    blocks = torch.arange(m, device=T.device) // tile
+    for g in range(nt * (nt + 1) // 2):
+        i, j = lower_pair(g)
+        ri = slice(i * kernel_tile, min((i + 1) * kernel_tile, m))
+        rj = slice(j * kernel_tile, min((j + 1) * kernel_tile, m))
+        acc = L[ri] @ L[rj].T
+        out[ri, rj] = T[ri, rj] - acc
+        if i != j:
+            out[rj, ri] = T[rj, ri] - acc.T
+    if lower_only:
+        out = torch.where(blocks[None, :] > blocks[:, None], out.new_zeros(()), out)
     return out

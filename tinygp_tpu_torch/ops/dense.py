@@ -294,8 +294,14 @@ class _ScaledLoglik(torch.autograd.Function):
     def backward(ctx, qbar, lbar):
         # quad = rs^T T^-1 rs, half_logdet = 0.5 log|T|: with cotangents
         # (qbar, lbar), Tbar = -qbar beta beta^T + 0.5 lbar T^-1 and
-        # rsbar = 2 qbar beta, where beta = T^-1 rs.
+        # rsbar = 2 qbar beta, where beta = T^-1 rs. Computed in float64
+        # from the factor whatever its type: a float32 explicit inverse errs
+        # by about cond(T) eps, which left the float32 gradient at N = 1e4
+        # at the mercy of the factor's last bits (PERF.md, PR 7). On the
+        # H100 the float64 inverse and product cost no more than float32's.
         Ls, rs = ctx.saved_tensors
+        dtype = rs.dtype
+        Ls, rs = Ls.to(torch.float64), rs.to(torch.float64)
         beta = _solve_lower(Ls, _solve_lower(Ls, rs), trans=True)
         Linv = _solve_lower(Ls, torch.eye(Ls.shape[0], dtype=Ls.dtype, device=Ls.device))
         Tinv = split_syrk(Linv.mT)
@@ -306,7 +312,7 @@ class _ScaledLoglik(torch.autograd.Function):
             # zero upper triangle), so the gradient with respect to T as
             # consumed doubles the strict lower part and zeroes the upper.
             Tbar = 2.0 * torch.tril(Tbar, -1) + torch.diag(torch.diagonal(Tbar))
-        return Tbar, (2.0 * qbar) * beta, None, None, None
+        return Tbar.to(dtype), ((2.0 * qbar) * beta).to(dtype), None, None, None
 
 
 def _scaled_terms_dispatch(T, rs, block, terms, rel_floor, lower_only=False):
