@@ -57,22 +57,26 @@ Phases, each printing its numbers on lines of its own:
    and of B3 per monoid at the path's shapes beside its bound and its
    plain version;
 10. the dense path's kernels against their plain versions in float64 on
-    the same values: B5 (the panel product, at the blocked Cholesky's
-    offsets and with a ragged row count), B4 with and without its row side
-    products (in place, on the lower triangle) at the 19 trailing sizes of
+    the same values: B5 (the panel product at both orders, at the blocked
+    Cholesky's offsets and with a ragged row count), B4 with and without
+    its row side products (in place, on the lower triangle, T outside its
+    lower tiles unchanged bit for bit, the side products bit for bit
+    against ``plain_row_sums``) at each of the 19 trailing sizes of
     N = 1e4 at block 512, and B6 at ``benchmarks/dense_micro.py``'s shapes,
     each timed beside its bound, its plain version and the library call
-    (``matmul``, ``addmm``), with the ratio of the sums; B5's and B6's
-    split pass bit for bit against ``split_pieces`` (the panels, W^T read
-    through its strides, L), and B5 and B6 within 1e-6 of
-    ``plain_split_dots``, the float64 sum of the same exact piece products;
+    (``matmul``, a float64 ``matmul`` for B5's 3-term order, ``addmm``),
+    with the ratio of the sums; the split pass bit for bit against
+    ``split_pieces`` (the panels, W^T read through its strides, L), and B5,
+    B4 and B6 within 1e-6 of ``plain_split_dots``, the float64 sum of the
+    same exact piece products, with their signed mean error;
 11. the dense main path at ``bench.py``'s dense workload
     (``1.5 * Matern32(scale=2.5)``, ``diag=0.1``, N = 1e4, float32):
     ``log_probability`` against a float64 Cholesky, with its launches and
     the guard's re-factorizations counted, and timed whole, by strip build
     and by kernel beside the native float32 Cholesky;
 12. its gradient in ``(amp, scale)`` against float64 autograd through
-    ``torch.linalg.cholesky``, and a 10-step ``fit_map``;
+    ``torch.linalg.cholesky``, with the native float32 route's error
+    beside it, and a 10-step ``fit_map``;
 13. ``condition``, ``predict(return_var=True)`` at 1000 new points and
     ``sample`` against a float64 dense posterior, with the native float32
     route beside it as the yardstick;
@@ -108,12 +112,17 @@ Phases, each printing its numbers on lines of its own:
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
-its side products, B5 and B6 each summed over the shapes of the dense main
-path; B7 at 1e4; one record per generic-order instantiation of phase 16,
-and B1, B1r and B2 at m = 5); the last line
+its side products, B5 at either order and B6 each summed over the shapes of
+the dense main path; B7 at 1e4; one record per generic-order instantiation
+of phase 16, and B1, B1r and B2 at m = 5); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
+
+``python3 chip_smoke.py --dense-times`` runs phase 1 and then only times
+B4 at each trailing size beside ``addmm`` and the dense value and gradient
+calls, through entry points older trees share: copied into a parent
+commit's checkout, it times the parent's kernels in the same chip call.
 """
 
 from __future__ import annotations
@@ -276,8 +285,8 @@ def log_ptxas(stem):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            syrk = re.search(r"tc_gemmILb(\d)E", mangled)
-            name = (f"tc_gemm for {'B6' if syrk.group(1) == '1' else 'B5'}" if syrk
+            kind = re.search(r"tc_gemmILi(\d)E", mangled)
+            name = (f"tc_gemm for {('B5', 'B6', 'B4')[int(kind.group(1))]}" if kind
                     else "split_kernel" if "split_kernel" in mangled else mangled)
             report[name] = []
         elif name and ("registers" in line or "spill" in line or "smem" in line):
@@ -1718,23 +1727,32 @@ def phase_orders_path():
 # most at a sixth of that: the least time the card could take for products
 # of this accuracy. The float32 FMA rate (PEAK_F32_FLOPS) is printed beside.
 PEAK_SPLIT3_FLOPS = 989e12 / 6
+# B5's 3-term order sums float32 products in float64: the least time for
+# that work is at the float64 tensor-core rate (data sheet), with the
+# float64 FMA units' rate, which its body uses, printed beside.
+PEAK_F64_FLOPS = 67e12
+PEAK_F64_FMA_FLOPS = 34e12
 DENSE_N = 10_000
 DENSE_BLOCK = 512
 DENSE_M = 10_240  # DENSE_N padded to a block multiple: 20 panels
 DENSE_TILE = 256  # the tile the factorization passes to the kernels at block 512
 DENSE_COUNTS = ("panel", "syrk_inplace", "syrk_inplace_extras", "syrk")
+# Besides: the split pass's launches (B4, B5 at 2 terms, B6) and B5's
+# float64-sum launches (3 terms), which also count under "panel".
+DENSE_EXTRA_COUNTS = ("split", "panel_f64")
 # B6's calls in benchmarks/dense_micro.py:58-66: (m, b, lower_only).
 MICRO_SYRK = ((9728, 512, False), (5120, 512, False), (9216, 1024, False))
 CARD = "card not read yet"
 
 
-def dense_bound_ms(nbytes, flops):
-    """(least time at the 3-term tensor-core rate or the HBM rate, which of
-    the two bounds it, the same operations at the float32 FMA rate)."""
+def dense_bound_ms(nbytes, flops, rate=PEAK_SPLIT3_FLOPS, fma_rate=PEAK_F32_FLOPS):
+    """(least time at ``rate`` (the 3-term tensor-core rate) or the HBM
+    rate, which of the two bounds it, the same operations at ``fma_rate``
+    (the float32 FMA rate))."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_SPLIT3_FLOPS * 1e3
+    by_ops = flops / rate * 1e3
     by = "bytes" if by_bytes >= by_ops else "operations"
-    return max(by_bytes, by_ops), by, flops / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), by, flops / fma_rate * 1e3
 
 
 def syrk_inplace_work(t, b, extras):
@@ -1767,13 +1785,26 @@ def reset_dense_counts():
 
     for k in cuda_dense.LAUNCHES:
         cuda_dense.LAUNCHES[k] = 0
+    cuda_dense.LAUNCHES_SPLIT = cuda_dense.LAUNCHES_F64 = 0
     dense.NATIVE_REFACTORS = 0
 
 
 def read_dense_counts():
+    """The dense kernels' launches by name (and ``split``, ``panel_f64``)
+    and the guards' re-factorizations since the last reset."""
     from tinygp_tpu_torch.ops import cuda_dense, dense
 
-    return dict(cuda_dense.LAUNCHES), dense.NATIVE_REFACTORS
+    counts = dict(cuda_dense.LAUNCHES)
+    counts.update(split=cuda_dense.LAUNCHES_SPLIT, panel_f64=cuda_dense.LAUNCHES_F64)
+    return counts, dense.NATIVE_REFACTORS
+
+
+def dense_path_counts(panel, inplace, extras, f64=0):
+    """The launch counts a dense path must read: B5 ``panel`` times (``f64``
+    of them at 3 terms), B4 without and with side products, no B6, and a
+    split pass for every B4 and every 2-term B5."""
+    return {"panel": panel, "syrk_inplace": inplace, "syrk_inplace_extras": extras, "syrk": 0,
+            "split": inplace + extras + panel - f64, "panel_f64": f64}
 
 
 def dense_data():
@@ -1803,12 +1834,13 @@ def dense_gp(X, amp=1.5, scale=2.5, **kwargs):
 
 
 def phase_dense_kernels():
-    """B5, B4 (both modes) and B6 against their plain versions in float64
-    on the same values, at the main path's shapes (m = 10240, b = 512,
-    trailing sizes 512 j), B5 also at an offset with a ragged row count, B6
-    at ``benchmarks/dense_micro.py``'s shapes, its only caller; each timed
-    beside its bound, its plain version and the library call. Returns the
-    kernels' measurements, B6's with its launches there."""
+    """B5 (both orders), B4 (both modes) and B6 against their plain
+    versions in float64 on the same values, at the main path's shapes
+    (m = 10240, b = 512, trailing sizes 512 j, B4 at every one), B5 also at
+    an offset with a ragged row count, B6 at ``benchmarks/dense_micro.py``'s
+    shapes, its only caller; each timed beside its bound, its plain version
+    and the library call. Returns the kernels' measurements (B5's 3-term
+    order under ``panel_f64``), B6's with its launches there."""
     import torch
 
     from tinygp_tpu_torch.ops import cuda_dense as cd
@@ -1822,7 +1854,7 @@ def phase_dense_kernels():
     out = {
         k: {"rel": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "bound_ms": 0.0, "f32_ms": 0.0, "by": set()}
-        for k in DENSE_COUNTS
+        for k in (*DENSE_COUNTS, "panel_f64")
     }
     failures = []
     micro_launches = 0
@@ -1870,7 +1902,9 @@ def phase_dense_kernels():
 
     def timed(name, label, work, kernel, plain, library, reps):
         nbytes, flops = work
-        bound, by, f32 = dense_bound_ms(nbytes, flops)
+        f64 = name == "panel_f64"
+        bound, by, f32 = dense_bound_ms(
+            nbytes, flops, *((PEAK_F64_FLOPS, PEAK_F64_FMA_FLOPS) if f64 else ()))
         k_ms = cuda_ms(kernel, reps=reps, warmup=1)
         p_ms = cuda_ms(plain, reps=reps, warmup=1)
         l_ms = cuda_ms(library, reps=reps, warmup=1)
@@ -1882,8 +1916,8 @@ def phase_dense_kernels():
         rec["f32_ms"] += f32
         rec["by"].add(by)
         log(f"dense-kernel {name} {label} [{CARD}]: {k_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({by}; {f32:.4f} ms at the float32 FMA rate), plain {p_ms:.4f} ms, "
-            f"library {l_ms:.4f} ms")
+            f"({by}; {f32:.4f} ms at the {'float64' if f64 else 'float32'} FMA rate), plain "
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms")
 
     check_j = (1, 10, 19)
     A, W, ak = randn(m, m), randn(b, b, scale=b**-0.5), randn(b)
@@ -1894,8 +1928,8 @@ def phase_dense_kernels():
     # B5: the panel of step k reads rows hi: of block column lo:hi. The
     # main path's well-conditioned matrices take 2 terms (float32 sums of
     # the 3-term products); the ill-conditioned route takes 3 (float64
-    # sums), checked and timed beside them.
-    wide_ms = 0.0
+    # sums, "panel_f64"), checked and timed beside them, its yardstick the
+    # float64 product of the float64-cast panel and W.
     for j in range(1, m // b):
         t = j * b
         hi = m - t
@@ -1903,7 +1937,8 @@ def phase_dense_kernels():
         for terms in (2, 3) if j in check_j else ():
             got = cd.split_panel_matmul(A, W, tile=tile, terms=terms, at=(hi, lo), rows=t)
             want = cd.plain_panel_matmul(A[:, lo:hi].double(), W64, hi, 0, t)
-            check("panel", f"terms={terms} rows={t} at=({hi}, {lo})", got, want)
+            check("panel" if terms == 2 else "panel_f64", f"terms={terms} rows={t} at=({hi}, {lo})",
+                  got, want)
             panel = A[hi:hi + t, lo:hi]
             if terms == 2:  # the tensor cores; 3 terms sums float32 products in float64
                 check_pieces(f"panel rows={t}", panel)
@@ -1917,44 +1952,62 @@ def phase_dense_kernels():
             lambda: torch.matmul(A[hi:hi + t, lo:hi], W),
             reps=10,
         )
-        wide_ms += cuda_ms(
+        timed(
+            "panel_f64", f"terms=3 rows={t}", panel_work(t, b),
             lambda: cd.split_panel_matmul(A, W, tile=tile, terms=3, at=(hi, lo), rows=t),
-            reps=10, warmup=1,
+            lambda: cd.plain_panel_matmul(A, W, hi, lo, t),
+            lambda: torch.matmul(A[hi:hi + t, lo:hi].double(), W64),
+            reps=10,
         )
     check_pieces("W^T (W read through its strides)", W.T)
-    log(f"dense-kernel panel terms=3 (float64 sums) summed over the same shapes [{CARD}]: "
-        f"{wide_ms:.4f} ms")
     # A ragged row count against the kernel's 128-row tiles, at tile 32.
     for terms in (2, 3):
         got = cd.split_panel_matmul(A, W, tile=32, terms=terms, at=(1024, 512),
                                     rows=m - 1024 - 96)
-        check("panel", f"terms={terms} ragged rows=9120 at=(1024, 512) tile 32", got,
+        check("panel" if terms == 2 else "panel_f64",
+              f"terms={terms} ragged rows=9120 at=(1024, 512) tile 32", got,
               cd.plain_panel_matmul(A[:, 512:1024].double(), W64, 1024, 0, m - 1024 - 96))
     del A
 
-    # B4, in place, with and without the row side products.
+    # B4, in place, with and without the row side products, at every
+    # trailing size: the lower triangle against the float64 plain version,
+    # T outside the trailing lower 128 x 128 tiles unchanged bit for bit,
+    # the row side products equal to plain_row_sums (the split pass's
+    # order) bit for bit, and at three sizes the signed mean error against
+    # plain_split_dots.
     for j in range(1, m // b):
         t = j * b
         off = m - t
         L = randn(t, b, scale=b**-0.5)
-        if j in check_j:
-            lower = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
-            L64 = L.double()
-            want = cd.plain_syrk_sub_inplace(T[off:, off:].double(), L64, 0)[lower]
-            for name, ak_ in (("syrk_inplace", None), ("syrk_inplace_extras", ak)):
-                Tc = T.clone()
-                res = cd.syrk_sub_inplace(Tc, L, offset=off, tile=tile, ak=ak_)
-                if ak_ is not None:
-                    _, rowsq, rsu = res
-                    check(name, f"t={t} rowsq", rowsq, (L64 * L64).sum(1))
-                    check(name, f"t={t} rsu", rsu, L64 @ ak.double())
-                untouched = torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
-                if not untouched:
-                    failures.append((name, f"t={t} leading rows or columns changed"))
-                check(name, f"t={t} offset={off} lower triangle (leading part untouched "
-                      f"{untouched})", Tc[off:, off:][lower], want)
-                del Tc
-            del lower, L64, want
+        lower = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+        blocks = torch.arange(t, device="cuda") // cd.KERNEL_TILE
+        upper = blocks[None, :] > blocks[:, None]
+        L64 = L.double()
+        want = cd.plain_syrk_sub_inplace(T[off:, off:].double(), L64, 0)[lower]
+        for name, ak_ in (("syrk_inplace", None), ("syrk_inplace_extras", ak)):
+            Tc = T.clone()
+            res = cd.syrk_sub_inplace(Tc, L, offset=off, tile=tile, ak=ak_)
+            sums = ""
+            if ak_ is not None:
+                _, rowsq, rsu = res
+                check(name, f"t={t} rowsq", rowsq, (L64 * L64).sum(1))
+                check(name, f"t={t} rsu", rsu, L64 @ ak.double())
+                same = all(torch.equal(g, w) for g, w in zip((rowsq, rsu), cd.plain_row_sums(L, ak)))
+                sums = f", row sums equal to plain_row_sums bit for bit {same}"
+                if not same:
+                    failures.append((name, f"t={t} row sums differ from plain_row_sums"))
+            untouched = (torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
+                         and torch.equal(Tc[off:, off:][upper], T[off:, off:][upper]))
+            if not untouched:
+                failures.append((name, f"t={t} T changed outside the lower tiles"))
+            check(name, f"t={t} offset={off} lower triangle (T outside the lower tiles "
+                  f"untouched {untouched}{sums})", Tc[off:, off:][lower], want)
+            if j in check_j and ak_ is None:
+                dots = T[off:, off:].double() - cd.plain_split_dots(L, L, 3, nt=True)
+                check_split_dots(name, f"t={t}", Tc[off:, off:][lower], dots[lower])
+                del dots
+            del Tc
+        del lower, upper, L64, want
         Tw = T.clone()
         for name, ak_ in (("syrk_inplace", None), ("syrk_inplace_extras", ak)):
             timed(
@@ -2019,12 +2072,15 @@ def phase_dense_kernels():
         failures.append(("syrk", f"{micro_launches} launches at dense_micro.py's shapes"))
     for name, rec in out.items():
         where = "dense_micro.py's" if name == "syrk" else "the main path's"
-        library = "torch.matmul" if name == "panel" else "addmm"
+        library = {"panel": "torch.matmul", "panel_f64": "torch.matmul in float64"}.get(
+            name, "addmm (twice B4's and B6's least terms)")
+        rates = ("float64 tensor-core rate", "float64 FMA rate") if name == "panel_f64" else (
+            "3-term tensor-core rate", "float32 FMA rate")
         log(f"dense-kernel {name} summed over {where} shapes [{CARD}]: "
-            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms (3-term tensor-core rate; "
-            f"{rec['f32_ms']:.4f} ms at the float32 FMA rate), plain {rec['plain_ms']:.4f} ms, "
-            f"library {rec['library_ms']:.4f} ms (addmm does twice B4's and B6's least terms); "
-            f"kernel / {library} in this run {rec['ms'] / rec['library_ms']:.4f}")
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rates[0]}; "
+            f"{rec['f32_ms']:.4f} ms at the {rates[1]}), plain {rec['plain_ms']:.4f} ms, "
+            f"library {rec['library_ms']:.4f} ms ({library}); kernel / library in this run "
+            f"{rec['ms'] / rec['library_ms']:.4f}")
     if failures:
         raise AssertionError(f"dense kernels disagree with their plain versions: {failures}")
     return out
@@ -2125,7 +2181,7 @@ def phase_dense_loglik():
     native_ms = cuda_ms(native, reps=10, warmup=2)
     ok = (
         math.isfinite(got) and err <= 5e-4 and refactors == 0
-        and counts == {"panel": 19, "syrk_inplace": 0, "syrk_inplace_extras": 19, "syrk": 0}
+        and counts == dense_path_counts(19, 0, 19)
     )
     log(
         f"dense-loglik matern32 N={DENSE_N} float32: log_probability {got!r} vs float64 dense "
@@ -2144,6 +2200,15 @@ def phase_dense_loglik():
     return counts
 
 
+def dense_grad32(X, y, **kwargs):
+    """The dense model's gradient in (amp, scale) at (1.5, 2.5)."""
+    import torch
+
+    amp, scale = (torch.tensor(v, device="cuda", requires_grad=True) for v in (1.5, 2.5))
+    lp = dense_gp(X, amp, scale, **kwargs).log_probability(y)
+    return torch.autograd.grad(lp, [amp, scale])
+
+
 def phase_dense_path_gradient():
     """The gradient in (amp, scale) at N = 1e4 in float32 and a 10-step
     ``fit_map``; returns their launch counts."""
@@ -2155,9 +2220,7 @@ def phase_dense_path_gradient():
     X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
 
     def grad32():
-        amp, scale = (torch.tensor(v, device="cuda", requires_grad=True) for v in (1.5, 2.5))
-        lp = dense_gp(X, amp, scale).log_probability(y)
-        return torch.autograd.grad(lp, [amp, scale])
+        return dense_grad32(X, y)
 
     reset_dense_counts()
     g32 = [float(g) for g in grad32()]
@@ -2172,14 +2235,17 @@ def phase_dense_path_gradient():
     del K64
     grad_ok = all(abs(a - w) <= 2e-3 * abs(w) + 1e-3 for a, w in zip(g32, g64))
     whole_ms = cuda_ms(grad32, reps=5, warmup=1)
-    ok = grad_ok and refactors == 0 and counts == {
-        "panel": 19, "syrk_inplace": 0, "syrk_inplace_extras": 19, "syrk": 0
-    }
+    ok = grad_ok and refactors == 0 and counts == dense_path_counts(19, 0, 19)
+    # Beside it, not a limit: the native float32 route (blocked=False:
+    # torch.linalg's float32 Cholesky and its autograd, all in float32).
+    native = [float(g) for g in dense_grad32(X, y, blocked=False)]
     log(
         f"dense-gradient matern32 N={DENSE_N} float32: d/d(amp, scale) {g32} vs float64 "
-        f"autograd through torch.linalg.cholesky {g64} (limit 2e-3 relative + 1e-3); "
-        f"launches {counts}, native re-factorizations {refactors}; whole forward and "
-        f"backward {whole_ms:.4f} ms [{CARD}] {'ok' if ok else 'FAIL'}"
+        f"autograd through torch.linalg.cholesky {g64} (limit 2e-3 relative + 1e-3): errors "
+        f"{[abs(a - w) for a, w in zip(g32, g64)]}, native float32 route's "
+        f"{[abs(a - w) for a, w in zip(native, g64)]}; launches {counts}, native "
+        f"re-factorizations {refactors}; whole forward and backward {whole_ms:.4f} ms "
+        f"[{CARD}] {'ok' if ok else 'FAIL'}"
     )
     if not ok:
         raise AssertionError("dense gradient failed")
@@ -2200,8 +2266,7 @@ def phase_dense_path_gradient():
     losses = [float(v) for v in res.losses]
     ok = (
         all(math.isfinite(v) for v in losses) and float(res.loss) < losses[0]
-        and fit_refactors == 0 and fit_counts["panel"] == 19 * steps
-        and fit_counts["syrk_inplace_extras"] == 19 * steps
+        and fit_refactors == 0 and fit_counts == dense_path_counts(19 * steps, 0, 19 * steps)
     )
     log(
         f"dense-trainer fit_map matern32 N={DENSE_N} float32, {steps} Adam steps at lr 0.05: "
@@ -2277,9 +2342,7 @@ def phase_dense_condition():
         parts.append(f"{label} {err:.3e} (native float32 {nerr:.3e}; column sums "
                      f"{float((cs - w).abs().max()):.3e})")
     shapes = draws.shape == (16, DENSE_N) and bool(torch.isfinite(draws).all())
-    ok = ok and shapes and refactors == 0 and counts == {
-        "panel": 19, "syrk_inplace": 19, "syrk_inplace_extras": 0, "syrk": 0
-    }
+    ok = ok and shapes and refactors == 0 and counts == dense_path_counts(19, 19, 0)
     log(
         f"dense-condition matern32 N={DENSE_N} float32: largest error against the float64 "
         f"posterior: {', '.join(parts)} (limit: twice the native float32 route's plus "
@@ -2339,7 +2402,8 @@ def phase_dense_ill_conditioned():
         ok = err <= nerr + slack
     else:
         ok = got == -math.inf
-    ok = ok and counts["panel"] == n // DENSE_BLOCK - 1
+    steps = n // DENSE_BLOCK - 1
+    ok = ok and counts == dense_path_counts(steps, 0, steps, f64=steps if terms == 3 else 0)
     log(
         f"dense-ill-conditioned expsquared N={n} float32, jitter {jitter:.3e}: rel_floor "
         f"{float(gp.solver.rel_floor):.3e} -> {terms}-term order; guard fired "
@@ -2353,10 +2417,13 @@ def phase_dense_ill_conditioned():
 
 
 def dense_records(measured, launches):
-    """The JSON records of B4 (both modes), B5 and B6 (B6's launches are
-    those at ``benchmarks/dense_micro.py``'s shapes)."""
+    """The JSON records of B4 (both modes), B5 (both orders: both count
+    under ``panel``, the 3-term one also under ``panel_f64``) and B6 (B6's
+    launches are those at ``benchmarks/dense_micro.py``'s shapes)."""
+    launches = dict(launches, panel=launches["panel"] - launches["panel_f64"])
     meta = {
         "panel": ("dense_panel", "tinygp_tpu/ops/pallas_dense.py:315"),
+        "panel_f64": ("dense_panel_f64", "tinygp_tpu/ops/pallas_dense.py:315 terms=3"),
         "syrk_inplace": ("dense_syrk_inplace", "tinygp_tpu/ops/pallas_dense.py:158"),
         "syrk_inplace_extras": (
             "dense_syrk_inplace_extras", "tinygp_tpu/ops/pallas_dense.py:158 ak="
@@ -2370,7 +2437,7 @@ def dense_records(measured, launches):
             "name": name,
             "route": "cuda",
             "source": "tinygp_tpu_torch/csrc/"
-            + ("dense_tc.cu" if key in ("panel", "syrk") else "dense_syrk.cu"),
+            + ("dense_syrk.cu" if key == "panel_f64" else "dense_tc.cu"),
             "replaces": replaces,
             "launches": rec["launches"] if key == "syrk" else launches[key],
             "max_abs_err": rec["abs"],
@@ -2381,6 +2448,45 @@ def dense_records(measured, launches):
             "library_ms": rec["library_ms"],
         })
     return records
+
+
+def dense_times():
+    """``--dense-times``: B4 at each trailing size of N = 1e4 at block 512,
+    with and without its side products, beside ``addmm``, then the dense
+    ``log_probability`` and its gradient at N = 1e4, through entry points
+    that older trees share, so that one chip call can time this tree and
+    its parent in turns (this script copied into the parent's checkout)."""
+    import torch
+
+    from tinygp_tpu_torch.ops import cuda_dense as cd
+
+    m, b, tile = DENSE_M, DENSE_BLOCK, DENSE_TILE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    S = torch.randn(m, m, generator=gen, device="cuda")
+    T = (S + S.T) * 2**-0.5
+    del S
+    ak = torch.randn(b, generator=gen, device="cuda")
+    sums = [0.0, 0.0, 0.0]
+    for j in range(1, m // b):
+        t = j * b
+        off = m - t
+        L = torch.randn(t, b, generator=gen, device="cuda") * b**-0.5
+        times = [
+            cuda_ms(lambda: cd.syrk_sub_inplace(T, L, offset=off, tile=tile, ak=ak), 5, 1),
+            cuda_ms(lambda: cd.syrk_sub_inplace(T, L, offset=off, tile=tile), 5, 1),
+            cuda_ms(lambda: T[off:, off:].addmm_(L, L.T, alpha=-1.0), 5, 1),
+        ]
+        sums = [a + x for a, x in zip(sums, times)]
+        log(f"dense-times B4 t={t} [{CARD}]: with side products {times[0]:.4f} ms, without "
+            f"{times[1]:.4f} ms, addmm {times[2]:.4f} ms")
+    log(f"dense-times B4 summed over the 19 trailing sizes [{CARD}]: with side products "
+        f"{sums[0]:.4f} ms, without {sums[1]:.4f} ms, addmm {sums[2]:.4f} ms")
+    Xn, yn = dense_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+    value_ms = cuda_ms(lambda: dense_gp(X).log_probability(y), reps=10, warmup=2)
+    grad_ms = cuda_ms(lambda: dense_grad32(X, y), reps=5, warmup=1)
+    log(f"dense-times N={DENSE_N} [{CARD}]: log_probability {value_ms:.4f} ms, gradient "
+        f"{grad_ms:.4f} ms (constructor included)")
 
 
 # ---------------------------------------------------------------------------
@@ -2598,6 +2704,9 @@ def main() -> int:
         return 1
     phase_build()
     phase_dense_precision()
+    if sys.argv[1:] == ["--dense-times"]:
+        dense_times()
+        return 0
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()
@@ -2610,13 +2719,14 @@ def main() -> int:
     phase_example_condition()
     scan_records = phase_condition_path()
     measured = phase_dense_kernels()
-    launches = dict.fromkeys(DENSE_COUNTS, 0)
+    launches = dict.fromkeys(DENSE_COUNTS + DENSE_EXTRA_COUNTS, 0)
     gram.LAUNCHES["gram"] = 0
     for phase in (phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
                   phase_dense_ill_conditioned):
         for k, v in phase().items():
             launches[k] += v
-    missing = [k for k in ("panel", "syrk_inplace", "syrk_inplace_extras") if not launches[k]]
+    missing = [k for k in ("panel", "syrk_inplace", "syrk_inplace_extras", "split", "panel_f64")
+               if not launches[k]]
     if missing or launches["syrk"] or gram.LAUNCHES["gram"]:
         raise AssertionError(f"dense main path launches wrong: {launches}, B7 "
                              f"{gram.LAUNCHES['gram']}")

@@ -476,6 +476,7 @@ def test_dense_kernels_match_plain(cuda_device, shape):
     S = card(m, m)
     T, A, W, L, Lf, ak = S + S.T, card(m, m), card(b, b), card(m - off, b), card(m, b), card(b)
     before = dict(cuda_dense.LAUNCHES)
+    before_split, before_f64 = cuda_dense.LAUNCHES_SPLIT, cuda_dense.LAUNCHES_F64
 
     # B5 at an offset, and reading the whole operand.
     c0 = b if m >= 2 * b else 0
@@ -486,8 +487,12 @@ def test_dense_kernels_match_plain(cuda_device, shape):
     assert dense_err(got, A[:, :b].double() @ W.double()) <= 1e-5
 
     # B4 without and with the row side products: the leading rows and
-    # columns untouched, the trailing lower triangle T - L L^T.
+    # columns and the strictly upper 128 x 128 tiles untouched, the
+    # trailing lower triangle T - L L^T, the side products bit for bit
+    # plain_row_sums (the split pass's order).
     lower = torch.tril(torch.ones(m - off, m - off, dtype=torch.bool, device=cuda_device))
+    blocks = torch.arange(m - off, device=cuda_device) // cuda_dense.KERNEL_TILE
+    upper = blocks[None, :] > blocks[:, None]
     want = cuda_dense.plain_syrk_sub_inplace(T.double().clone(), L.double(), off)
     for ak_ in (None, ak):
         Tc = T.clone()
@@ -496,8 +501,11 @@ def test_dense_kernels_match_plain(cuda_device, shape):
             out, rowsq, rsu = out
             assert dense_err(rowsq, (L.double() ** 2).sum(1)) <= 1e-5
             assert dense_err(rsu, L.double() @ ak.double()) <= 1e-5
+            sq, su = cuda_dense.plain_row_sums(L, ak)
+            assert torch.equal(rowsq, sq) and torch.equal(rsu, su)
         assert out is Tc
         assert torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
+        assert torch.equal(Tc[off:, off:][upper], T[off:, off:][upper])
         assert dense_err(Tc[off:, off:][lower], want[off:, off:][lower]) <= 1e-5
 
     # B6 with and without the zero tiles.
@@ -508,6 +516,63 @@ def test_dense_kernels_match_plain(cuda_device, shape):
     torch.cuda.synchronize()
     launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"panel": 2, "syrk_inplace": 1, "syrk_inplace_extras": 1, "syrk": 2}
+    # A split pass for B5 at 2 terms, each B4 and each B6; the first B5
+    # (3 terms by default) sums in float64.
+    assert cuda_dense.LAUNCHES_SPLIT - before_split == 5
+    assert cuda_dense.LAUNCHES_F64 - before_f64 == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,offsets", [(512, range(512, 4608, 512)), (32, (160, 4000))],
+                         ids=["every_trailing_size", "ragged_tile32"])
+def test_dense_b4_tensor_cores_at_every_trailing_size(cuda_device, tile, offsets):
+    """B4 on the tensor cores at m = 4608, b = 512: every trailing size a
+    factorization at block 512 gives it (512 to 4096), and at a caller tile
+    of 32 trailing sizes that are no multiple of 128 (4448, 608). The lower
+    triangle within 1e-5 of float64 and 1e-6 of ``plain_split_dots`` (the
+    3-term products, summed in float64), T outside the trailing lower
+    128 x 128 tiles unchanged bit for bit, the side products within 1e-5
+    of float64 and bit for bit ``plain_row_sums``, one launch and one
+    split pass each."""
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    m, b = 4608, 512
+    rng = np.random.default_rng(tile)
+
+    def card(*size, scale=1.0):
+        return torch.as_tensor(rng.normal(size=size) * scale, dtype=torch.float32,
+                               device=cuda_device)
+
+    S = card(m, m)
+    T, ak = (S + S.T) * 2**-0.5, card(b)
+    for off in offsets:
+        t = m - off
+        L = card(t, b, scale=b**-0.5)
+        L64 = L.double()
+        lower = torch.tril(torch.ones(t, t, dtype=torch.bool, device=cuda_device))
+        blocks = torch.arange(t, device=cuda_device) // cuda_dense.KERNEL_TILE
+        upper = blocks[None, :] > blocks[:, None]
+        want = (T[off:, off:].double() - L64 @ L64.T)[lower]
+        dots = (T[off:, off:].double() - cuda_dense.plain_split_dots(L, L, 3, nt=True))[lower]
+        for ak_ in (None, ak):
+            Tc = T.clone()
+            before = dict(cuda_dense.LAUNCHES), cuda_dense.LAUNCHES_SPLIT
+            out = cuda_dense.syrk_sub_inplace(Tc, L, offset=off, tile=tile, ak=ak_)
+            torch.cuda.synchronize()
+            name = "syrk_inplace" if ak_ is None else "syrk_inplace_extras"
+            assert cuda_dense.LAUNCHES[name] == before[0][name] + 1
+            assert cuda_dense.LAUNCHES_SPLIT == before[1] + 1
+            if ak_ is not None:
+                out, rowsq, rsu = out
+                assert dense_err(rowsq, (L64**2).sum(1)) <= 1e-5
+                assert dense_err(rsu, L64 @ ak.double()) <= 1e-5
+                sq, su = cuda_dense.plain_row_sums(L, ak)
+                assert torch.equal(rowsq, sq) and torch.equal(rsu, su)
+            assert out is Tc
+            assert torch.equal(Tc[:off], T[:off]) and torch.equal(Tc[:, :off], T[:, :off])
+            assert torch.equal(Tc[off:, off:][upper], T[off:, off:][upper])
+            got = Tc[off:, off:][lower]
+            assert dense_err(got, want) <= 1e-5 and dense_err(got, dots) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -537,6 +602,13 @@ def test_dense_split_and_tensor_core_sums_on_the_card(cuda_device, rows, b, term
     T = S + S.T
     before = dict(cuda_dense.LAUNCHES)
 
+    # B4 at either order: the tensor cores' 3-term products.
+    Tc = T.clone()
+    cuda_dense.syrk_sub_inplace(Tc, L, offset=0, tile=20, terms=terms)
+    want = T.double().cpu() - cuda_dense.plain_split_dots(L.cpu(), L.cpu(), 3, nt=True)
+    lower = torch.tril(torch.ones(rows, rows, dtype=torch.bool))
+    assert dense_err(Tc.cpu()[lower], want[lower]) <= 1e-6
+
     pieces = cuda_dense.split_pass(A)
     torch.cuda.synchronize()
     want = cuda_dense.split_pass(A.cpu())
@@ -561,7 +633,7 @@ def test_dense_split_and_tensor_core_sums_on_the_card(cuda_device, rows, b, term
     assert dense_err(got.cpu(), want) <= 1e-5 and torch.equal(got.cpu() == 0, want == 0)
     torch.cuda.synchronize()
     launched = {k: cuda_dense.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"panel": 1, "syrk_inplace": 0, "syrk_inplace_extras": 0, "syrk": 2}
+    assert launched == {"panel": 1, "syrk_inplace": 1, "syrk_inplace_extras": 0, "syrk": 2}
 
 
 @pytest.mark.cuda
@@ -611,6 +683,7 @@ def test_dense_gp_on_the_card_matches_cpu(cuda_device):
         return [lp.detach(), *grads, mu, var]
 
     before = dict(cuda_dense.LAUNCHES)
+    before_split = cuda_dense.LAUNCHES_SPLIT
     refactors = dense.NATIVE_REFACTORS
     on_card = run(None, torch.float32)
     torch.cuda.synchronize()
@@ -618,6 +691,8 @@ def test_dense_gp_on_the_card_matches_cpu(cuda_device):
     # log_probability (fused: B5 and B4 with extras) and the factor for
     # predict (B5 and B4 without); the posterior downdate is a plain product.
     assert launched == {"panel": 16, "syrk_inplace": 8, "syrk_inplace_extras": 8, "syrk": 0}
+    # Well conditioned: 2 terms, a split pass before each B5 and each B4.
+    assert cuda_dense.LAUNCHES_SPLIT - before_split == 32
     assert dense.NATIVE_REFACTORS == refactors
     want = run("cpu", torch.float64)
     lp, ga, gs, mu, var = (x.double().cpu() for x in on_card)

@@ -1,9 +1,14 @@
-// The blocked dense Cholesky's panel product and out-of-place trailing
-// update on Hopper's tensor cores (sm_90a): kernels B5 and B6, float32 in
-// and out, bf16 splits on wgmma inside.
+// The blocked dense Cholesky's matrix products on Hopper's tensor cores
+// (sm_90a): kernels B4, B5 and B6, float32 in and out, bf16 splits on
+// wgmma inside.
 //
-// Replaces two TPU kernels of tinygp_tpu/ops/pallas_dense.py:
+// Replaces three TPU kernels of tinygp_tpu/ops/pallas_dense.py:
 //
+//   B4  _make_syrk_inplace_kernel (line 158), launched by syrk_sub_inplace
+//       (line 201, pallas_call at line 273): in place, T[off:, off:] -= L L^T
+//       on the lower tiles of the trailing submatrix, and with `ak` the row
+//       side products rowsq[r] = sum_c L[r, c]^2 and rsu[r] = sum_c L[r, c]
+//       ak[c] (pallas_dense.py:177-196). Entry: dsk_syrk_inplace_tc.
 //   B5  _make_panel_kernel (line 315), launched by split_panel_matmul
 //       (line 322, pallas_call at line 351): out = A[r0:r0+rows, c0:c0+b] @ W,
 //       the panel read in place through A's row stride. Entry:
@@ -20,8 +25,8 @@
 // + (h l' + (l h' + m m')) for 3 (about 2^-24). A product of two bf16
 // pieces is exact in float32, so only the accumulation rounds.
 //
-// Both kernels compute the six products of 3 terms, with float32 sums,
-// for either order. The 2-term products missed the port's limits on the
+// The three compute the six products of 3 terms, with float32 sums, for
+// either order. The 2-term products missed the port's limits on the
 // main path: with them, the dense gradient at N = 1e4 (bench.py's
 // Matern32) erred 2.3% against float64, where its limit is 0.2%, and 1.8%
 // at N = 4500 (PERF.md, PR 7), while the float32 sums of the kernels they
@@ -40,9 +45,12 @@
 //    results to zero, as the TPU and XLA do: the pieces equal the JAX
 //    package's bit for bit, and (h, m) is _split2's (h, l). B5 splits the
 //    panel and W^T in one launch (W read through its strides, so a
-//    transposed view costs no copy); B6 splits L once and reads it on both
-//    sides. Only this pass reads the caller's float32, so the GEMM's TMA
-//    loads need no alignment from the caller.
+//    transposed view costs no copy); B4 and B6 split L once and read it on
+//    both sides. Only this pass reads the caller's float32, so the GEMM's
+//    TMA loads need no alignment from the caller. For B4 with `ak` the same
+//    launch then computes the row side products, a warp per row of L
+//    (row_sums: a fixed order, no fused multiply-add), so B4 needs no third
+//    pass and its GEMM no extra epilogue.
 // 2. One bf16 tensor-core GEMM body in NT form (tc_gemm), out = P Q^T over
 //    the six piece pairs, launched as the split pass's programmatic
 //    dependent so that its launch and prologue overlap the split. A block
@@ -79,7 +87,14 @@
 //    With lower_only every element with col / tile > row / tile is zero
 //    (T is not read there), whatever the caller's tile against 128. Each
 //    thread issues its loads of T in batches, so their latencies overlap.
-//    Both stage their float32 sums in shared memory and store coalesced.
+//    B4: B6's grid over the lower tile pairs of the trailing submatrix,
+//    in place at the caller's offset and leading dimension: it writes
+//    T - acc on tile (i, j) and nothing else. So the diagonal tiles are
+//    updated whole and the strictly upper ones are never touched (the
+//    factorization reads only the lower triangle). T is read and written
+//    through one pointer (syrk_store's kInPlace). Every store is masked to
+//    the trailing size, which need not be a multiple of 128.
+//    All stage their float32 sums in shared memory and store coalesced.
 //
 // What bounds them (chip_smoke.py prints each time beside its bound). At
 // the main path's shapes (N = 1e4 padded to m = 10240, b = 512, panels of
@@ -88,11 +103,15 @@
 // rate (989/6 TFLOP/s), its bound, against about 0.12 ms for its bytes.
 // B6 at benchmarks/dense_micro.py's shapes does m (m + 1) b flops (the
 // distinct dot products) and moves T, L and the output once: 0.90 ms over
-// the three shapes, about half of it bytes.
+// the three shapes, about half of it bytes. B4 over one factorization's
+// 19 trailing sizes does sum_j 512 (512 j)^2 = 3.3e11 flops: 2.0 ms at
+// the same rate, against about 0.8 ms for its bytes. At the smallest
+// sizes its grid (10 to 136 tile pairs, one block an SM) leaves SMs idle.
 //
 // Left for later: a persistent grid whose epilogue overlaps the next
-// tile's loads, and splitting B5's panel in registers (the RS form of
-// wgmma), which would save the split pass's bytes and its launch.
+// tile's loads (and fills the SMs at B4's small trailing sizes), and
+// splitting B5's panel in registers (the RS form of wgmma), which would
+// save the split pass's bytes and its launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -187,10 +206,46 @@ __device__ __forceinline__ void split_group(const SplitOp& op, long long g) {
   for (int p = 0; p < kPieces; ++p) dst[p * plane] = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
 }
 
+// B4's row side products over x (rows, k), x[r, c] at x[r * s_row + c]:
+// rowsq[r] = sum_c x[r, c]^2 and rsu[r] = sum_c x[r, c] ak[c]. None where
+// ak is null.
+struct RowSums {
+  const float* x;
+  long long s_row;
+  int rows, k;
+  const float* ak;
+  float* rowsq;
+  float* rsu;
+};
+
+// One row's side products, by one warp, in a fixed order: lane i sums
+// columns i, i + 32, ... in turn, each product rounded before its sum (no
+// fused multiply-add, so plain_syrk_inplace_by_tiles repeats it bit for
+// bit), then a butterfly over the lanes.
+__device__ __forceinline__ void row_sums(const RowSums& rs, long long r, int lane) {
+  const float* row = rs.x + r * rs.s_row;
+  float sq = 0.0f, su = 0.0f;
+  for (int c = lane; c < rs.k; c += 32) {
+    const float v = row[c];
+    sq = __fadd_rn(sq, __fmul_rn(v, v));
+    su = __fadd_rn(su, __fmul_rn(v, rs.ak[c]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    su += __shfl_xor_sync(0xffffffffu, su, o);
+  }
+  if (lane == 0) {
+    rs.rowsq[r] = sq;
+    rs.rsu[r] = su;
+  }
+}
+
 // The split pass over one or two operands in one launch: the first
-// groups_a groups are a's, the rest b's.
+// groups_a groups are a's, the rest b's; then, where rs.ak is set, the
+// row side products, a warp per row.
 __global__ void __launch_bounds__(kSplitThreads)
-    split_kernel(SplitOp a, SplitOp b, long long groups_a, long long groups) {
+    split_kernel(SplitOp a, SplitOp b, RowSums rs, long long groups_a, long long groups) {
   // The GEMM that reads the pieces may start its prologue now; it waits
   // for this grid to finish before its first load (griddepcontrol.wait).
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
@@ -200,6 +255,12 @@ __global__ void __launch_bounds__(kSplitThreads)
       split_group(a, g);
     else
       split_group(b, g - groups_a);
+  }
+  if (rs.ak) {
+    const long long warps = (long long)gridDim.x * (kSplitThreads / 32);
+    for (long long r = ((long long)blockIdx.x * kSplitThreads + threadIdx.x) / 32; r < rs.rows;
+         r += warps)
+      row_sums(rs, r, threadIdx.x % 32);
   }
 }
 
@@ -347,18 +408,21 @@ __device__ __forceinline__ void lower_pair(long long g, int& i, int& j) {
   j = (int)(g - r * (r + 1) / 2);
 }
 
-// B6's stores of one tile from the staged sums acc ([kBM][kLd]):
+// B6's and B4's stores of one tile from the staged sums acc ([kBM][kLd]):
 // out[R][C] = T[R][C] - acc, or 0 where lower_only zeroes it. Direct:
 // R = row0 + r, C = col0 + c, acc[r][c]; kMirror: R = col0 + c,
-// C = row0 + r, acc[r][c] again (neighbouring threads along C). Each
-// thread loads kBatch elements of T before it stores any.
-template <bool kMirror>
+// C = row0 + r, acc[r][c] again (neighbouring threads along C). kInPlace
+// (B4): T is out itself, read and written through out alone (t is null),
+// so no two restrict pointers alias. Each thread loads kBatch elements of
+// T before it stores any.
+template <bool kMirror, bool kInPlace>
 __device__ __forceinline__ void syrk_store(const float* acc, int row0, int col0, int m,
                                            const float* __restrict__ t, long long ldt,
                                            float* __restrict__ out, long long ldo,
                                            int lower_only, int tile) {
   constexpr int kBatch = 16;
   static_assert((kBM * kBN) % (kConsumers * kBatch) == 0, "whole batches");
+  static_assert(!(kMirror && kInPlace), "B4 writes no mirror");
   for (int base = threadIdx.x; base < kBM * kBN; base += kConsumers * kBatch) {
     float tv[kBatch];
     int at[kBatch];  // the element's index in acc; -1 outside out, -2 a zero
@@ -372,7 +436,7 @@ __device__ __forceinline__ void syrk_store(const float* acc, int row0, int col0,
       const bool zero = lower_only && C / tile > R / tile;
       at[u] = !in ? -1 : zero ? -2 : r * kLd + c;
       dst[u] = (long long)R * ldo + C;
-      tv[u] = at[u] >= 0 ? t[(long long)R * ldt + C] : 0.0f;
+      tv[u] = at[u] < 0 ? 0.0f : kInPlace ? out[dst[u]] : t[(long long)R * ldt + C];
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -507,12 +571,18 @@ __device__ __forceinline__ void run_chunk(float (&acc)[kDepth][kHalfAcc], float 
   fold_slot<kSlots - 1>(total, acc[(kSlots - 1) % kDepth]);
 }
 
+// What a tc_gemm grid computes (its template argument).
+constexpr int kPanel = 0;       // B5: out = P Q^T
+constexpr int kSyrk = 1;        // B6: out = T - P P^T, out of place, mirrored
+constexpr int kSyrkInPlace = 2; // B4: T -= P P^T in place, no mirror
+
 // out = P Q^T over the six piece pairs, P's pieces in `ma` (planes of
-// a_rows rows), Q's in `mb` (planes of b_rows rows), nk k-chunks. B5
-// (!kSyrk): out (rows, cols) at ldo, tile (blockIdx.y, blockIdx.x). B6
-// (kSyrk): the lower tile pair of blockIdx.x of out = T - P P^T,
-// m = rows = cols.
-template <bool kSyrk>
+// a_rows rows), Q's in `mb` (planes of b_rows rows), nk k-chunks. kPanel:
+// out (rows, cols) at ldo, tile (blockIdx.y, blockIdx.x). kSyrk: the lower
+// tile pair of blockIdx.x of out = T - P P^T, m = rows = cols.
+// kSyrkInPlace: the same pair of out -= P P^T (t null), its diagonal tiles
+// whole, the strictly upper tiles never touched.
+template <int kKind>
 __global__ void __launch_bounds__(kThreads, 1)
     tc_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
             int a_rows, int b_rows, int nk, float* __restrict__ out, long long ldo, int rows,
@@ -525,7 +595,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = full + kStages;
 
   int row0, col0;
-  if (kSyrk) {
+  if (kKind != kPanel) {
     int bi, bj;
     lower_pair(blockIdx.x, bi, bj);
     row0 = bi * kBM;
@@ -601,16 +671,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
 
-  if (!kSyrk) {
+  if constexpr (kKind == kPanel) {
     for (int idx = threadIdx.x; idx < kBM * kBN; idx += kConsumers) {
       const int r = idx / kBN, c = idx % kBN;
       const int R = row0 + r, Cc = col0 + c;
       if (R < rows && Cc < cols) out[(long long)R * ldo + Cc] = stage_c[r * kLd + c];
     }
-    return;
+  } else if constexpr (kKind == kSyrkInPlace) {
+    syrk_store<false, true>(stage_c, row0, col0, rows, nullptr, 0, out, ldo, 0, 1);
+  } else {
+    syrk_store<false, false>(stage_c, row0, col0, rows, t, ldt, out, ldo, lower_only, tile);
+    if (row0 != col0)
+      syrk_store<true, false>(stage_c, row0, col0, rows, t, ldt, out, ldo, lower_only, tile);
   }
-  syrk_store<false>(stage_c, row0, col0, rows, t, ldt, out, ldo, lower_only, tile);
-  if (row0 != col0) syrk_store<true>(stage_c, row0, col0, rows, t, ldt, out, ldo, lower_only, tile);
 }
 
 // ---- host side ---------------------------------------------------------
@@ -665,25 +738,26 @@ SplitOp split_op(const float* x, long long s_row, long long s_col, int rows, int
 
 long long split_elems(const SplitOp& op) { return (long long)kPieces * op.rows_pad * op.k_pad; }
 
-// The split pass of a, and of b where b.x is not null, in one launch.
-int launch_split(const SplitOp& a, const SplitOp& b, cudaStream_t s) {
+// The split pass of a, and of b where b.x is not null, in one launch,
+// with the row side products rs where rs.ak is not null.
+int launch_split(const SplitOp& a, const SplitOp& b, const RowSums& rs, cudaStream_t s) {
   const long long groups_a = (long long)a.rows_pad * a.k_pad / 8;
   const long long groups = groups_a + (b.x ? (long long)b.rows_pad * b.k_pad / 8 : 0);
   if (groups == 0) return 0;
   const long long blocks = (groups + kSplitThreads - 1) / kSplitThreads;
   const unsigned grid = (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16);
-  split_kernel<<<grid, kSplitThreads, 0, s>>>(a, b, groups_a, groups);
+  split_kernel<<<grid, kSplitThreads, 0, s>>>(a, b, rs, groups_a, groups);
   return (int)cudaGetLastError();
 }
 
-template <bool kSyrk>
+template <int kKind>
 int launch_gemm(dim3 grid, cudaStream_t s, const CUtensorMap& ma, const CUtensorMap& mb,
                 int a_rows, int b_rows, int nk, float* out, long long ldo, int rows, int cols,
                 const float* t, long long ldt, int lower_only, int tile) {
   static bool ready = false;  // the shared-memory attribute, set once
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tc_gemm<kSyrk>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        tc_gemm<kKind>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
@@ -699,7 +773,7 @@ int launch_gemm(dim3 grid, cudaStream_t s, const CUtensorMap& ma, const CUtensor
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tc_gemm<kSyrk>, ma, mb, a_rows, b_rows, nk, out,
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tc_gemm<kKind>, ma, mb, a_rows, b_rows, nk, out,
                                            ldo, rows, cols, t, ldt, lower_only, tile);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
@@ -717,7 +791,7 @@ int dsk_split(const float* x, long long s_row, long long s_col, int rows, int k,
   if (rows < 0 || k < 0 || pad(rows, kRowPad) > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const SplitOp op = split_op(x, s_row, s_col, rows, k, pieces);
   if (elems < split_elems(op)) return (int)cudaErrorInvalidValue;
-  return launch_split(op, SplitOp{}, static_cast<cudaStream_t>(stream));
+  return launch_split(op, SplitOp{}, RowSums{}, static_cast<cudaStream_t>(stream));
 }
 
 // B5 at 2 terms (3-term products, float32 sums): out (rows, b), leading
@@ -738,12 +812,12 @@ int dsk_panel_matmul(const float* a, long long lda, const float* w, long long w_
   if (elems < split_elems(pa) + split_elems(pw)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int e = launch_split(pa, pw, s)) return e;
+  if (int e = launch_split(pa, pw, RowSums{}, s)) return e;
   CUtensorMap ma, mb;
   if (int e = make_map(&ma, pa.out, (long long)kPieces * pa.rows_pad, pa.k_pad)) return e;
   if (int e = make_map(&mb, pw.out, (long long)kPieces * pw.rows_pad, pw.k_pad)) return e;
   const dim3 grid((unsigned)((b + kBN - 1) / kBN), (unsigned)(pa.rows_pad / kBM));
-  return launch_gemm<false>(grid, s, ma, mb, pa.rows_pad, pw.rows_pad, pa.k_pad / kBK, out, ldo,
+  return launch_gemm<kPanel>(grid, s, ma, mb, pa.rows_pad, pw.rows_pad, pa.k_pad / kBK, out, ldo,
                             rows, b, nullptr, 0, 0, 1);
 }
 
@@ -763,11 +837,36 @@ int dsk_syrk(const float* t, long long ldt, const float* l, long long ldl, int m
   if (elems < split_elems(pl) || pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int e = launch_split(pl, SplitOp{}, s)) return e;
+  if (int e = launch_split(pl, SplitOp{}, RowSums{}, s)) return e;
   CUtensorMap map;
   if (int e = make_map(&map, pl.out, (long long)kPieces * pl.rows_pad, pl.k_pad)) return e;
-  return launch_gemm<true>(dim3((unsigned)pairs), s, map, map, pl.rows_pad, pl.rows_pad,
+  return launch_gemm<kSyrk>(dim3((unsigned)pairs), s, map, map, pl.rows_pad, pl.rows_pad,
                            pl.k_pad / kBK, out, ldo, m, m, t, ldt, lower_only, tile);
+}
+
+// B4: in place, t (m, m) -= L L^T on the lower 128 x 128 tile pairs, with
+// t the trailing submatrix's first element (leading dimension ldt) and L
+// (m, b) at l (leading dimension ldl); the diagonal tiles are updated
+// whole, the strictly upper tiles are not touched. With ak (b,) not null,
+// also rowsq (m,) and rsu (m,), from the split pass. `scratch` holds L's
+// pieces: 3 planes of pad(m, 128) x pad(b, 64) bf16 (`elems` values
+// available). Returns a cudaError_t code (20000 + a CUresult where the
+// tensor map's encoding failed).
+int dsk_syrk_inplace_tc(float* t, long long ldt, const float* l, long long ldl, int m, int b,
+                        const float* ak, float* rowsq, float* rsu, void* scratch,
+                        long long elems, void* stream) {
+  if (m < 0 || b < 1 || ldt < m || ldl < b || (ak && (!rowsq || !rsu)))
+    return (int)cudaErrorInvalidValue;
+  const SplitOp pl = split_op(l, ldl, 1, m, b, scratch);
+  const long long nt = pl.rows_pad / kBM, pairs = nt * (nt + 1) / 2;
+  if (elems < split_elems(pl) || pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int e = launch_split(pl, SplitOp{}, RowSums{l, ldl, m, b, ak, rowsq, rsu}, s)) return e;
+  CUtensorMap map;
+  if (int e = make_map(&map, pl.out, (long long)kPieces * pl.rows_pad, pl.k_pad)) return e;
+  return launch_gemm<kSyrkInPlace>(dim3((unsigned)pairs), s, map, map, pl.rows_pad, pl.rows_pad,
+                                   pl.k_pad / kBK, t, ldt, m, m, nullptr, 0, 0, 1);
 }
 
 // The tensor-core GEMM's configuration: output tile rows and columns,

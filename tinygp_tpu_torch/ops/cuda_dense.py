@@ -6,7 +6,7 @@ Counterpart of ``tinygp_tpu/ops/pallas_dense.py`` (float32):
 - :func:`split_panel_matmul` (B5, ``csrc/dense_tc.cu``; at ``terms=3``
   ``csrc/dense_syrk.cu``): ``A[r0:r0+rows, c0:c0+b] @ W``, the panel read
   in place through ``A``'s row stride;
-- :func:`syrk_sub_inplace` (B4, ``csrc/dense_syrk.cu``): in place,
+- :func:`syrk_sub_inplace` (B4, ``csrc/dense_tc.cu``): in place,
   ``T[off:, off:] -= L L^T`` on the lower part of the trailing submatrix,
   and with ``ak`` the row side products ``rowsq = sum(L**2, 1)`` and
   ``rsu = L @ ak``;
@@ -14,7 +14,7 @@ Counterpart of ``tinygp_tpu/ops/pallas_dense.py`` (float32):
   with ``lower_only`` zeros above the diagonal at ``tile`` granularity.
 
 The TPU kernels reach float32 accuracy through bf16 splits (``terms`` 3
-about 2^-24, 2 about 2^-16). B5 and B6 do the same on Hopper's tensor
+about 2^-24, 2 about 2^-16). B4, B5 and B6 do the same on Hopper's tensor
 cores: a split pass writes the three bf16 pieces (:func:`split_pieces` is
 its plain version, equal bit for bit), and a ``wgmma`` GEMM sums the six
 piece products of :func:`plain_split_dots` at 3 terms in float32, whatever
@@ -23,24 +23,30 @@ on the main path (see the source). B5's 3-term order, which the
 factorization picks for ill-conditioned matrices (where the panel's
 product with an explicit inverse cancels), needs float64 sums and runs a
 float64-sum body in ``csrc/dense_syrk.cu`` instead. B6 computes the lower
-tile pairs only and mirrors them
-(:func:`plain_syrk_by_tiles` is its schedule in plain PyTorch). B4
-accumulates in float32 FMA, which meets the 3-term contract. The wrappers
-take and check ``terms`` and ``tile`` with the JAX package's rules, so the
-factorization reads like the JAX one.
+tile pairs only and mirrors them (:func:`plain_syrk_by_tiles` is its
+schedule in plain PyTorch); B4 computes the lower tile pairs of the
+trailing submatrix in place, with its row side products in the split pass
+(:func:`plain_syrk_inplace_by_tiles`). The wrappers take and check
+``terms`` and ``tile`` with the JAX package's rules, so the factorization
+reads like the JAX one.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises, with no fallback. Every launch adds one to :data:`LAUNCHES` under
-its kernel's name (B4 with ``ak`` counts under ``syrk_inplace_extras``).
+its kernel's name (B4 with ``ak`` counts under ``syrk_inplace_extras``),
+every launch of the split pass to :data:`LAUNCHES_SPLIT` and every one of
+B5's float64-sum body to :data:`LAUNCHES_F64`.
 After B4 only the lower triangle of the trailing submatrix is defined: the
 plain version subtracts ``tril(L L^T)`` and leaves the upper triangle as it
-was; the kernel may update more (see the source).
+was; the kernel updates the diagonal 128 x 128 tiles whole (see the
+source).
 """
 
 from __future__ import annotations
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_SPLIT",
+    "LAUNCHES_F64",
     "KERNEL_TILE",
     "K_CHUNK",
     "split_panel_matmul",
@@ -53,6 +59,8 @@ __all__ = [
     "plain_syrk_sub_inplace",
     "plain_syrk_sub",
     "plain_syrk_by_tiles",
+    "plain_syrk_inplace_by_tiles",
+    "plain_row_sums",
     "lower_pair",
     "gemm_config",
 ]
@@ -71,12 +79,16 @@ LAUNCHES = {"panel": 0, "syrk_inplace": 0, "syrk_inplace_extras": 0, "syrk": 0}
 and B6 (``syrk``)."""
 
 LAUNCHES_SPLIT = 0
-"""Launches of the split pass alone (:func:`split_pass`); B5 and B6 run it
-inside their own launches, which count under their names."""
+"""Launches of the split pass: alone (:func:`split_pass`) and as the first
+pass of B4, of B5 at 2 terms and of B6."""
+
+LAUNCHES_F64 = 0
+"""Launches of B5's 3-term order (its float64-sum body), which also count
+under ``panel``."""
 
 KERNEL_TILE = 128
-"""B5's and B6's output tile rows (``kBM`` in ``csrc/dense_tc.cu``), to
-which the split pass pads the pieces' rows."""
+"""The tensor-core kernels' output tile rows (``kBM`` in
+``csrc/dense_tc.cu``), to which the split pass pads the pieces' rows."""
 
 K_CHUNK = 64
 """The tensor-core GEMM's k-chunk (``kBK``), to which the pieces' columns
@@ -88,12 +100,14 @@ _I = ctypes.c_int
 
 # C entries: (library stem, argument types before the stream).
 _SIGNATURES = {
-    "dsk_syrk_inplace": ("dense_syrk", [_P, _LL, _P, _LL, _I, _I, _P, _P, _P]),
+    "dsk_syrk_inplace_tc": ("dense_tc", [_P, _LL, _P, _LL, _I, _I, _P, _P, _P, _P, _LL]),
     "dsk_panel_matmul": ("dense_tc", [_P, _LL, _P, _LL, _LL, _P, _LL, _I, _I, _P, _LL]),
     "dsk_panel_matmul_f64": ("dense_syrk", [_P, _LL, _P, _LL, _LL, _P, _LL, _I, _I]),
     "dsk_syrk": ("dense_tc", [_P, _LL, _P, _LL, _I, _I, _P, _LL, _I, _I, _P, _LL]),
     "dsk_split": ("dense_tc", [_P, _LL, _LL, _I, _I, _P, _LL]),
 }
+# The C entries whose launch starts with the split pass.
+_SPLITS = ("dsk_split", "dsk_panel_matmul", "dsk_syrk", "dsk_syrk_inplace_tc")
 
 
 def gemm_config() -> dict[str, int]:
@@ -167,6 +181,7 @@ def _on_device(x: torch.Tensor):
 def _run(name: str, fn, *args) -> None:
     """Launch on the operands' device and current stream; raise on a
     refused argument or a failed launch."""
+    global LAUNCHES_SPLIT, LAUNCHES_F64
     entry, error_string = _function(fn)
     # The current stream's handle without building a Stream object (a few
     # microseconds a launch, which the small panels feel).
@@ -177,6 +192,10 @@ def _run(name: str, fn, *args) -> None:
         )
     if name in LAUNCHES:
         LAUNCHES[name] += 1
+    if fn in _SPLITS:
+        LAUNCHES_SPLIT += 1
+    if fn == "dsk_panel_matmul_f64":
+        LAUNCHES_F64 += 1
 
 
 def _padded(rows: int, k: int) -> tuple[int, int]:
@@ -223,7 +242,6 @@ def split_pass(x: torch.Tensor) -> torch.Tensor:
     k_pad)`` with ``rows`` padded to :data:`KERNEL_TILE` and ``k`` to
     :data:`K_CHUNK`, zeros outside ``x``; ``(h, m)`` is the 2-term split.
     A CPU tensor gets :func:`split_pieces` padded the same way."""
-    global LAUNCHES_SPLIT
     if x.ndim != 2:
         raise ValueError(f"x must be 2-d; got {tuple(x.shape)}")
     rows, k = x.shape
@@ -236,7 +254,6 @@ def split_pass(x: torch.Tensor) -> torch.Tensor:
     with _on_device(x):
         _run("split", "dsk_split", x.data_ptr(), x.stride(0), x.stride(1), rows, k,
              out.data_ptr(), out.numel())
-    LAUNCHES_SPLIT += 1
     return out
 
 
@@ -362,18 +379,44 @@ def syrk_sub_inplace(
         return plain_syrk_sub_inplace(T, L, offset, ak)
     if L.stride(0) < b:
         L = L.contiguous()
+    # The tensor cores at either order, with scratch for L's three pieces;
+    # the row side products come from the split pass.
+    elems = 3 * math.prod(_padded(mt, b))
+    scratch = torch.empty(elems, dtype=torch.bfloat16, device=T.device)
     trail = T[offset:, offset:]
+    rowsq = rsu = None
+    if ak is not None:
+        ak, rowsq, rsu = ak.contiguous(), L.new_empty(mt), L.new_empty(mt)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     with _on_device(T):
-        if ak is None:
-            _run("syrk_inplace", "dsk_syrk_inplace", trail.data_ptr(), T.stride(0),
-                 L.data_ptr(), L.stride(0), mt, b, None, None, None)
-            return T
-        ak = ak.contiguous()
-        rowsq, rsu = L.new_empty(mt), L.new_empty(mt)
-        _run("syrk_inplace_extras", "dsk_syrk_inplace", trail.data_ptr(), T.stride(0),
-             L.data_ptr(), L.stride(0), mt, b, ak.data_ptr(), rowsq.data_ptr(),
-             rsu.data_ptr())
-    return T, rowsq, rsu
+        _run("syrk_inplace" if ak is None else "syrk_inplace_extras", "dsk_syrk_inplace_tc",
+             trail.data_ptr(), T.stride(0), L.data_ptr(), L.stride(0), mt, b, ptr(ak),
+             ptr(rowsq), ptr(rsu), scratch.data_ptr(), elems)
+    return T if ak is None else (T, rowsq, rsu)
+
+
+def plain_row_sums(L: torch.Tensor, ak: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """B4's row side products ``(sum(L**2, 1), L @ ak)`` in the split
+    pass's order: lane ``i`` of a warp sums columns ``i, i + 32, ...`` in
+    turn, each product rounded before its sum, then a butterfly over the
+    32 lanes. Equal to the kernel's bit for bit in float32."""
+    t, b = L.shape
+    lanes = -(-b // 32) * 32
+    Lp = torch.nn.functional.pad(L, (0, lanes - b)).view(t, -1, 32)
+    akp = torch.nn.functional.pad(ak, (0, lanes - b)).view(-1, 32)
+    sq, su = L.new_zeros(t, 32), L.new_zeros(t, 32)
+    for c in range(Lp.shape[1]):
+        x = Lp[:, c]
+        sq = sq + x * x
+        su = su + x * akp[c]
+    lane = torch.arange(32, device=L.device)
+    for o in (16, 8, 4, 2, 1):
+        sq = sq + sq[:, lane ^ o]
+        su = su + su[:, lane ^ o]
+    return sq[:, 0], su[:, 0]
 
 
 def plain_syrk_sub(
@@ -422,6 +465,32 @@ def lower_pair(g: int) -> tuple[int, int]:
     while (r + 1) * (r + 2) // 2 <= g:
         r += 1
     return r, g - r * (r + 1) // 2
+
+
+def plain_syrk_inplace_by_tiles(
+    T: torch.Tensor,
+    L: torch.Tensor,
+    offset: int,
+    ak: torch.Tensor | None = None,
+    kernel_tile: int = KERNEL_TILE,
+):
+    """B4's schedule in plain PyTorch, in place: on the lower pairs (i, j)
+    of ``kernel_tile`` tiles of the trailing submatrix ``T[offset:,
+    offset:]`` only, ``T - L_i L_j^T``, the diagonal tiles whole, no
+    mirror, the strictly upper tiles untouched; with ``ak`` also
+    :func:`plain_row_sums`. Equal to :func:`plain_syrk_sub_inplace` on the
+    lower triangle wherever the products are exact."""
+    trail = T[offset:, offset:]
+    t = trail.shape[0]
+    nt = -(-t // kernel_tile)
+    for g in range(nt * (nt + 1) // 2):
+        i, j = lower_pair(g)
+        ri = slice(i * kernel_tile, min((i + 1) * kernel_tile, t))
+        rj = slice(j * kernel_tile, min((j + 1) * kernel_tile, t))
+        trail[ri, rj] = trail[ri, rj] - L[ri] @ L[rj].T
+    if ak is None:
+        return T
+    return T, *plain_row_sums(L, ak)
 
 
 def plain_syrk_by_tiles(

@@ -18,8 +18,10 @@ are host branches here, one read-back per call, where the JAX package has
 :data:`NATIVE_REFACTORS`.
 
 The split order ``terms`` (2 or 3, picked from ``rel_floor``) is the JAX
-package's choice and is passed to the kernels, which accumulate in float32
-FMA for either (see ``csrc/dense_syrk.cu``). The plain float32 products
+package's choice and is passed to the kernels: B4 computes the 3-term
+products with float32 sums for either, and so does B5 at 2 terms
+(``csrc/dense_tc.cu``); B5 at 3 terms sums in float64
+(``csrc/dense_syrk.cu``). The plain float32 products
 here (``split_syrk``, the 512 x 512 steps, the backward) run in full
 float32: PyTorch's default, with TF32 off.
 
@@ -365,18 +367,26 @@ def kernel_loglik_terms(
     only, with the noise, the unit-diagonal scaling and the padding folded
     into the strip; the covariance itself is never built. Any dtype but
     float32 builds the whole matrix and takes the native factor.
+
+    Float32 inputs build the strips in float64 and round the working
+    matrix to float32 once, for the factorization: the gradient then flows
+    back through the strip build in float64. Built in float32, that sum
+    over N^2 entries, whose terms largely cancel, erred past the
+    gradient's limit at N = 1e4 with any rounding of the factor (PERF.md
+    §6, B4 on the tensor cores). The returned terms are float32.
     """
     n = X.shape[0]
     if variance is None:
         variance = kernel(X) + noise_diag
     dtype = torch.promote_types(variance.dtype, r.dtype)
-    like = dict(dtype=dtype, device=X.device)
     if dtype != torch.float32:
+        like = dict(dtype=dtype, device=X.device)
         eq = torch.eye(n, dtype=torch.bool, device=X.device)
         K = kernel(X, X) + torch.where(eq, noise_diag[:, None], torch.zeros((), **like))
         return _native_loglik_terms(K, r)
-    r = r.to(dtype)
-    s = _safe_rsqrt(variance)
+    like = dict(dtype=torch.float64, device=X.device)
+    X, noise_diag, r = X.double(), noise_diag.double(), r.double()
+    s = _safe_rsqrt(variance.double())
     pad = (-n) % block
     m = n + pad
     strips = []
@@ -397,7 +407,7 @@ def kernel_loglik_terms(
                 )
             strip = torch.cat([strip, bottom], dim=0)
         strips.append(torch.cat([torch.zeros(lo, block, **like), strip], dim=0))
-    T = torch.cat(strips, dim=1)
-    rs = torch.cat([r * s, torch.zeros(pad, **like)])
+    T = torch.cat(strips, dim=1).to(dtype)
+    rs = torch.cat([r * s, torch.zeros(pad, **like)]).to(dtype)
     quad, hld_scaled = _scaled_terms_dispatch(T, rs, block, terms, rel_floor, lower_only=True)
-    return quad, hld_scaled - torch.sum(torch.log(s))
+    return quad, (hld_scaled - torch.sum(torch.log(s))).to(dtype)
