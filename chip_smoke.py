@@ -80,10 +80,12 @@ Phases, each printing its numbers on lines of its own:
 13. ``condition``, ``predict(return_var=True)`` at 1000 new points and
     ``sample`` against a float64 dense posterior, with the native float32
     route beside it as the yardstick;
-14. the ill-conditioned route: ``ExpSquared(scale=1.0)`` on 4096 points with
-    the float32 default jitter (3-term order, the guards), against float64
-    and the native float32 route; kernel B7 launches 0 times over phases
-    11-14;
+14. the ill-conditioned route: ``ExpSquared(scale=1.0)`` with the float32
+    default jitter (3-term order, the guards) on 4096 points and on
+    ``bench.py``'s dense data at N = 1e4 (timed whole), against float64 and
+    the native float32 route; kernel B7 launches 0 times over phases
+    11-14; before them, a table of B5's 3-term order at each panel shape
+    beside a float64 ``matmul`` and its bound, with the sums;
 15. kernel B7, the tiled gram builder, on its entry point
     ``ops.gram.gram_tiled``: ``benchmarks/dense_pieces.py``'s
     ``1.5 * Matern32(scale=2.5)`` at N = M = 1e4 and the gradient in
@@ -108,7 +110,10 @@ Phases, each printing its numbers on lines of its own:
     factor does not hold there) and given ``diag=1e-3`` at N = 5000; the
     generic-order launches counted over the path, each held to its plain
     version on the path's well-posed operands and timed beside its bound;
-    the float64 entry points against the CPU's plain version.
+    the float64 entry points against the CPU's plain version; then the
+    generic B1 and B1r at m = 5 (N = 1e5 and 1e6) whole and pass by pass
+    (a ``torch.profiler`` trace) and B3's generic Riccati flow at m = 5, 8
+    and 16.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
@@ -123,6 +128,11 @@ not available.
 B4 at each trailing size beside ``addmm`` and the dense value and gradient
 calls, through entry points older trees share: copied into a parent
 commit's checkout, it times the parent's kernels in the same chip call.
+``python3 chip_smoke.py --riccati-panel-times`` does the same for B5's
+3-term order per panel shape (beside a float64 ``matmul``), the
+generic-order B1/B1r at m = 5 whole and pass by pass, B3's generic
+Riccati flow, and the ill-conditioned dense ``log_probability`` at
+N = 1e4.
 """
 
 from __future__ import annotations
@@ -268,7 +278,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
-    log_ptxas("dense_tc")
+    for stem in ("dense_tc", "dense_syrk", "quasisep_loglik_generic"):
+        log_ptxas(stem)
 
 
 def log_ptxas(stem):
@@ -286,13 +297,17 @@ def log_ptxas(stem):
         if entry:
             mangled = entry.group(1)
             kind = re.search(r"tc_gemmILi(\d)E", mangled)
+            plain = re.search(r"\d+([a-z_]+(?:kernel|pass|gemm))(.*)", mangled)
             name = (f"tc_gemm for {('B5', 'B6', 'B4')[int(kind.group(1))]}" if kind
-                    else "split_kernel" if "split_kernel" in mangled else mangled)
+                    else "split_kernel" if "split_kernel" in mangled
+                    else f"{plain.group(1)} {plain.group(2)[:48]}" if plain else mangled)
             report[name] = []
         elif name and ("registers" in line or "spill" in line or "smem" in line):
             report[name].append(line.split(":", 1)[-1].strip())
     for name, lines in report.items():
         log(f"ptxas {stem}.cu {name}: {'; '.join(lines)}")
+    if stem != "dense_tc":
+        return
     cfg = cuda_dense.gemm_config()
     log(f"ptxas {stem}.cu tc_gemm: {cfg['bm']} x {cfg['bn']} tiles, {cfg['stages']} stages, "
         f"{cfg['smem']} bytes of dynamic shared memory")
@@ -406,6 +421,11 @@ def phase_dense_check():
             lambda: quasisep.Celerite(*terms[0]) + quasisep.Celerite(*terms[1]),
             k_cel,
         ),
+        # m = 5: the generic-order B1 (the Riccati flow's rank-one fold).
+        "sho+matern52": (
+            lambda: 1.2 * quasisep.SHO(omega=1.5, quality=3.0) + 1.5 * quasisep.Matern52(scale=2.5),
+            1.2 * sho_closed_form(tau, 1.5, 3.0) + dense_m52(tau, 1.5, 2.5),
+        ),
     }
     failures = []
     for name, (kernel, K) in models.items():
@@ -432,6 +452,11 @@ def phase_dense_check():
 def dense_m32(tau, amp, scale):
     f = math.sqrt(3.0) / scale
     return amp * (1 + f * tau) * np.exp(-f * tau)
+
+
+def dense_m52(tau, amp, scale):
+    f = math.sqrt(5.0) / scale
+    return amp * (1 + f * tau + (f * tau) ** 2 / 3) * np.exp(-f * tau)
 
 
 def dense_celerite(tau, terms):
@@ -485,6 +510,14 @@ def phase_dense_gradient():
             celerite_kernel,
             celerite_dense,
             {"a1": terms[0][0], "c1": terms[0][2], "a2": terms[1][0], "c2": terms[1][2]},
+        ),
+        # m = 5: the generic-order B1r and B2.
+        "sho+matern52": (
+            lambda p: p["amp1"] * quasisep.SHO(omega=p["omega"], quality=3.0)
+            + p["amp2"] * quasisep.Matern52(scale=p["scale"]),
+            lambda p: p["amp1"] * sho_closed_form(tau, p["omega"], 3.0)
+            + dense_m52(tau, p["amp2"], p["scale"]) + 0.1 * eye,
+            dict(zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)),
         ),
     }
     failures = []
@@ -2363,57 +2396,45 @@ def phase_dense_condition():
 
 
 def phase_dense_ill_conditioned():
-    """``ExpSquared(scale=1.0)`` on 4096 sorted points of [0, 10] with the
-    float32 default jitter: the 3-term order and the guards; returns its
-    launch counts."""
+    """``ExpSquared(scale=1.0)`` with the float32 default jitter: the
+    3-term order and the guards, on 4096 sorted points of [0, 10] and on
+    ``bench.py``'s dense data at N = 1e4, where the 3-term panels are the
+    main path's 19, timed whole; returns its launch counts."""
     import torch
 
     from tinygp_tpu_torch import GaussianProcess, kernels
 
-    n = 4096
     rng = np.random.default_rng(7)
-    Xn, yn = np.sort(rng.uniform(0, 10, n)), rng.normal(size=n)
-    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
-    jitter = math.sqrt(torch.finfo(torch.float32).eps)
-    reset_dense_counts()
-    gp = GaussianProcess(kernels.ExpSquared(scale=1.0), X)
-    terms = 2 if float(gp.solver.rel_floor) > 1e-2 else 3
-    got = gp.log_probability(y).item()
-    torch.cuda.synchronize()
-    counts, refactors = read_dense_counts()
-
-    def K(dtype):
-        Xd = X.to(dtype)
-        return torch.exp(-0.5 * (Xd[:, None] - Xd[None, :]) ** 2) + jitter * torch.eye(
-            n, dtype=dtype, device="cuda")
-
-    want = float(f64_loglik(K(torch.float64), y.double()))
-    L32, info = torch.linalg.cholesky_ex(K(torch.float32))
-    if int(info) == 0:
-        a = torch.linalg.solve_triangular(L32, y[:, None], upper=False)
-        native = float(-0.5 * (a * a).sum() - torch.log(torch.diagonal(L32)).sum()
-                       - 0.5 * n * math.log(2 * math.pi))
-    else:
-        native = -math.inf
-    err = abs(got - want) if math.isfinite(got) else math.inf
-    nerr = abs(native - want) if math.isfinite(native) else math.inf
-    slack = 4 * float(torch.finfo(torch.float32).eps) * abs(want)
-    if math.isfinite(nerr) or math.isfinite(err):
-        ok = err <= nerr + slack
-    else:
-        ok = got == -math.inf
-    steps = n // DENSE_BLOCK - 1
-    ok = ok and counts == dense_path_counts(steps, 0, steps, f64=steps if terms == 3 else 0)
-    log(
-        f"dense-ill-conditioned expsquared N={n} float32, jitter {jitter:.3e}: rel_floor "
-        f"{float(gp.solver.rel_floor):.3e} -> {terms}-term order; guard fired "
-        f"{refactors} times; log_probability {got!r}, float64 {want!r}, native float32 "
-        f"{native!r}: errors {err:.4g} vs native {nerr:.4g} (limit: the native's plus "
-        f"{slack:.3g}); launches {counts} {'ok' if ok else 'FAIL'}"
-    )
-    if not ok:
-        raise AssertionError("the ill-conditioned dense route failed")
-    return counts
+    cases = ((np.sort(rng.uniform(0, 10, 4096)), rng.normal(size=4096)), dense_data())
+    total = None
+    for Xn, yn in cases:
+        n = len(Xn)
+        reset_dense_counts()
+        gp, X, y, got, want, native = ill_conditioned_dense(Xn, yn)
+        torch.cuda.synchronize()
+        counts, refactors = read_dense_counts()
+        terms = 2 if float(gp.solver.rel_floor) > 1e-2 else 3
+        err, nerr, slack, ok = ill_conditioned_errors(got, want, native)
+        steps = -(-n // DENSE_BLOCK) - 1
+        ok = ok and counts == dense_path_counts(steps, 0, steps, f64=steps if terms == 3 else 0)
+        ms = ""
+        if n == DENSE_N:
+            ms = cuda_ms(
+                lambda: GaussianProcess(kernels.ExpSquared(scale=1.0), X).log_probability(y),
+                reps=5, warmup=1)
+            ms = f"; whole call {ms:.4f} ms [{CARD}] (constructor included)"
+        log(
+            f"dense-ill-conditioned expsquared N={n} float32, jitter "
+            f"{math.sqrt(torch.finfo(torch.float32).eps):.3e}: rel_floor "
+            f"{float(gp.solver.rel_floor):.3e} -> {terms}-term order; guard fired "
+            f"{refactors} times; log_probability {got!r}, float64 {want!r}, native float32 "
+            f"{native!r}: errors {err:.4g} vs native {nerr:.4g} (limit: the native's plus "
+            f"{slack:.3g}); launches {counts}{ms} {'ok' if ok else 'FAIL'}"
+        )
+        if not ok:
+            raise AssertionError("the ill-conditioned dense route failed")
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+    return total
 
 
 def dense_records(measured, launches):
@@ -2487,6 +2508,245 @@ def dense_times():
     grad_ms = cuda_ms(lambda: dense_grad32(X, y), reps=5, warmup=1)
     log(f"dense-times N={DENSE_N} [{CARD}]: log_probability {value_ms:.4f} ms, gradient "
         f"{grad_ms:.4f} ms (constructor included)")
+
+
+def panel_f64_times():
+    """B5's 3-term order at each of the 19 panel shapes of N = 1e4 at block
+    512, beside a float64 ``torch.matmul`` of the cast panel and the bound
+    at the float64 tensor-core rate, each held to float64 (1e-5); returns
+    the sums (view, contiguous, matmul, bound): W as the transposed view
+    the factorization passes (``inv(L11)^T``) and contiguous, as the
+    ``panel_f64`` record passes it."""
+    import torch
+
+    from tinygp_tpu_torch.ops import cuda_dense as cd
+
+    m, b, tile = DENSE_M, DENSE_BLOCK, DENSE_TILE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    A = torch.randn(m, m, generator=gen, device="cuda")
+    W = torch.randn(b, b, generator=gen, device="cuda") * b**-0.5
+    Ws = (W.T, W.T.contiguous())  # the same values: a view (strides (1, b)) and contiguous
+    W64 = Ws[0].double()
+    sums = [0.0] * 4
+    worst = 0.0
+    log(f"panel-f64 rows | kernel ms, W a view | kernel ms, W contiguous | float64 matmul ms | "
+        f"bound ms (67 TFLOP/s) [{CARD}]")
+    for j in range(1, m // b):
+        t = j * b
+        hi = m - t
+        lo = hi - b
+        want = A[hi:hi + t, lo:hi].double() @ W64
+        for Wx in Ws:
+            got = cd.split_panel_matmul(A, Wx, tile=tile, terms=3, at=(hi, lo), rows=t)
+            (rel, _), = stream_errors([got], [want])
+            worst = max(worst, rel)
+            del got
+        del want
+        times = [
+            *(cuda_ms(lambda: cd.split_panel_matmul(A, Wx, tile=tile, terms=3, at=(hi, lo),
+                                                    rows=t), 10, 2) for Wx in Ws),
+            cuda_ms(lambda: torch.matmul(A[hi:hi + t, lo:hi].double(), W64), 10, 2),
+            dense_bound_ms(*panel_work(t, b), PEAK_F64_FLOPS, PEAK_F64_FMA_FLOPS)[0],
+        ]
+        sums = [s + x for s, x in zip(sums, times)]
+        log(f"panel-f64 {t} | " + " | ".join(f"{x:.4f}" for x in times))
+    log(f"panel-f64 sum of all 19 [{CARD}] | " + " | ".join(f"{x:.4f}" for x in sums)
+        + f"; kernel / matmul {sums[0] / sums[2]:.4f} (view), {sums[1] / sums[2]:.4f} "
+        f"(contiguous); largest error against float64 {worst:.3e} (limit 1e-5) "
+        f"{'ok' if worst <= 1e-5 else 'FAIL'}")
+    if worst > 1e-5:
+        raise AssertionError("B5's 3-term order disagrees with float64")
+    return sums
+
+
+# The generic-order B1/B1r sequence's passes, in launch order. A kernel
+# belongs to the Riccati flow until its finish pass (or, in older trees,
+# the separate emission pass) has run in the call, and to the whitening
+# affine scan after it.
+LOGLIK_STAGES = ("ric chunk", "ric totals", "ric finish", "emit_pass", "aff chunk",
+                 "aff totals", "aff finish", "terms_pass", "g_reduce", "other")
+
+
+def loglik_split(fn, calls=5):
+    """Device microseconds per call of each pass of the generic B1/B1r
+    sequence, from a ``torch.profiler`` trace of ``calls`` calls of
+    ``fn``; None where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)
+    split = dict.fromkeys(LOGLIK_STAGES, 0.0)
+    ric_done = False
+    for e in kernels:
+        name, us = e.name, e.time_range.elapsed_us()
+        scan = "aff" if ric_done else "ric"
+        for key, stage in (("ric_chunk_pass", "ric chunk"), ("ric_finish_pass", "ric finish"),
+                           ("aff_chunk_pass", "aff chunk"), ("aff_finish_pass", "aff finish"),
+                           ("g_chunk_pass", f"{scan} chunk"), ("g_totals_pass", f"{scan} totals"),
+                           ("g_finish_pass", f"{scan} finish"), ("emit_pass", "emit_pass"),
+                           ("terms_pass", "terms_pass"), ("g_reduce", "g_reduce")):
+            if key in name:
+                break
+        else:
+            stage = "other"
+        split[stage] += us / calls
+        if "emit_pass" in name or "ric_finish_pass" in name:
+            ric_done = True
+        if "g_reduce" in name:
+            ric_done = False
+    return split if sum(split.values()) > 0 else None
+
+
+def generic_loglik_times():
+    """The generic-order B1 and B1r at m = 5 on the m = 5 sum's operands
+    (``1.2 * SHO + 1.5 * Matern52``, float32) at N = 1e5 and 1e6: the whole
+    call by CUDA events, each pass of the sequence from a profiler trace,
+    and the Riccati flow alone through B3's generic entry; B2 at m = 5 and
+    1e5; then B3's generic Riccati flow at m = 8 and 16 and its affine scan
+    with one column at m = 8 (forward and reverse) in float64 on random
+    operands at 1e5. B1, B1r and B2 are held to their float64 plain
+    versions (5e-4, the float32 limit). Returns {label: ms}."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan
+
+    (X5, y5), (X6, y6) = bench_data()
+    out = {}
+    for Xn, yn in ((X5, y5), (X6, y6)):
+        X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+        n = X.shape[0]
+        with torch.no_grad():
+            gp = sum5_gp(X, SUM5_PARAMS)
+            ops = (*gp.solver.ssm, (y - gp.loc).contiguous())
+        want = cuda_loglik.plain_loglik_terms(*(x.double() for x in ops))
+        for key, fn in (("B1", cuda_loglik.fused_loglik_terms),
+                        ("B1r", cuda_loglik.fused_loglik_res)):
+            (rel_q, _), (rel_l, _) = stream_errors(fn(*ops)[:2], want)
+            if not max(rel_q, rel_l) <= 5e-4:
+                raise AssertionError(f"generic {key} at m = 5, N = {n} disagrees with float64: "
+                                     f"{rel_q:.3e} / {rel_l:.3e} (limit 5e-4)")
+            ms = cuda_ms(lambda: fn(*ops), reps=10, warmup=2)
+            split = loglik_split(lambda: fn(*ops))
+            out[f"{key} m=5 N={n}"] = ms
+            shown = ("not measured (no device time in the trace)" if split is None else
+                     ", ".join(f"{k} {v / 1e3:.4f}" for k, v in split.items() if v))
+            bound = loglik_bound_ms(5, n, 4, residuals=key == "B1r")[0]
+            log(f"generic-times {key} m=5 N={n} float32 [{CARD}]: {ms:.4f} ms, bound "
+                f"{bound:.4f} ms; against float64 plain rel {rel_q:.2e} / {rel_l:.2e} (limit "
+                f"5e-4) ok; split (ms per call): {shown}")
+        ric = cuda_ms(lambda: cuda_scan.riccati(*ops[:4]), reps=10, warmup=2)
+        out[f"ric m=5 N={n}"] = ric
+        log(f"generic-times B3 Riccati flow alone m=5 N={n} float32 [{CARD}]: {ric:.4f} ms")
+        if n == 100_000:
+            # B2, whose reverse affine scan has one column.
+            res = cuda_loglik.fused_loglik_res(*ops)
+            bwd_args = (*ops[1:], *res[2:], *(torch.ones((), device="cuda") for _ in range(2)))
+            plain = cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args))
+            worst = max(rel for rel, _ in stream_errors(cuda_loglik.fused_loglik_bwd(*bwd_args),
+                                                        plain))
+            if not worst <= 5e-4:
+                raise AssertionError(f"generic B2 at m = 5 disagrees with float64: {worst:.3e}")
+            ms = cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2)
+            out[f"B2 m=5 N={n}"] = ms
+            log(f"generic-times B2 m=5 N={n} float32 [{CARD}]: {ms:.4f} ms, bound "
+                f"{bwd_bound_ms(5, n, 4)[0]:.4f} ms; against float64 plain rel {worst:.2e} "
+                f"(limit 5e-4) ok")
+            del res, bwd_args, plain
+        del X, y, gp, ops
+    for m in (8, 16):
+        args = random_operands(m, 100_000, torch.float64, seed=m)
+        ms = cuda_ms(lambda: cuda_scan.riccati(*args[:4]), reps=10, warmup=2)
+        out[f"ric m={m} N=100000 float64"] = ms
+        log(f"generic-times B3 Riccati flow m={m} N=100000 float64 [{CARD}]: {ms:.4f} ms, bound "
+            f"{scan_bound_ms('ric', m, 1, 100_000, 8)[0]:.4f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    trans = torch.randn(64, 100_000, generator=gen, device="cuda", dtype=torch.float64) / 8
+    loads = torch.randn(8, 100_000, generator=gen, device="cuda", dtype=torch.float64)
+    for reverse in (False, True):
+        ms = cuda_ms(lambda: cuda_scan.affine(trans, loads, 8, 1, reverse=reverse, exclusive=True),
+                     reps=10, warmup=2)
+        out[f"aff m=8 r=1 reverse={reverse} N=100000 float64"] = ms
+        log(f"generic-times B3 affine m=8 r=1 reverse={reverse} N=100000 float64 [{CARD}]: "
+            f"{ms:.4f} ms, bound {scan_bound_ms('aff', 8, 1, 100_000, 8)[0]:.4f} ms")
+    return out
+
+
+def ill_conditioned_dense(Xn, yn):
+    """``ExpSquared(scale=1.0)`` with the float32 default jitter on the
+    points ``Xn``: the float32 ``log_probability`` on the card, the float64
+    dense Cholesky of the same float32 inputs and the native float32
+    Cholesky's; returns (gp, X, y, got, want, native)."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess, kernels
+
+    n = len(Xn)
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+    jitter = math.sqrt(torch.finfo(torch.float32).eps)
+    gp = GaussianProcess(kernels.ExpSquared(scale=1.0), X)
+    got = gp.log_probability(y).item()
+
+    def K(dtype):
+        Xd = X.to(dtype)
+        return torch.exp(-0.5 * (Xd[:, None] - Xd[None, :]) ** 2) + jitter * torch.eye(
+            n, dtype=dtype, device="cuda")
+
+    want = float(f64_loglik(K(torch.float64), y.double()))
+    L32, info = torch.linalg.cholesky_ex(K(torch.float32))
+    if int(info) == 0:
+        a = torch.linalg.solve_triangular(L32, y[:, None], upper=False)
+        native = float(-0.5 * (a * a).sum() - torch.log(torch.diagonal(L32)).sum()
+                       - 0.5 * n * math.log(2 * math.pi))
+    else:
+        native = -math.inf
+    return gp, X, y, got, want, native
+
+
+def ill_conditioned_errors(got, want, native):
+    """(error, native error, slack, within the limit): the route no
+    further from float64 than the native float32 Cholesky, plus 4 eps of
+    the value."""
+    import torch
+
+    err = abs(got - want) if math.isfinite(got) else math.inf
+    nerr = abs(native - want) if math.isfinite(native) else math.inf
+    slack = 4 * float(torch.finfo(torch.float32).eps) * abs(want)
+    ok = err <= nerr + slack if (math.isfinite(nerr) or math.isfinite(err)) else got == -math.inf
+    return err, nerr, slack, ok
+
+
+def riccati_panel_times():
+    """``--riccati-panel-times``: B5's 3-term order per panel shape beside
+    float64 ``matmul``; the generic-order B1/B1r at m = 5 whole and by
+    pass, and B3's generic Riccati flow; the ill-conditioned dense
+    ``log_probability`` at N = 1e4 (``ExpSquared`` with the default
+    jitter on ``bench.py``'s dense data, the 3-term order). Through entry
+    points that older trees share, so that one chip call can time this
+    tree and its parent in turns."""
+    import torch
+
+    panel_f64_times()
+    generic_loglik_times()
+    Xn, yn = dense_data()
+    gp, X, y, got, want, native = ill_conditioned_dense(Xn, yn)
+    err, nerr, slack, ok = ill_conditioned_errors(got, want, native)
+    from tinygp_tpu_torch import GaussianProcess, kernels
+
+    ms = cuda_ms(lambda: GaussianProcess(kernels.ExpSquared(scale=1.0), X).log_probability(y),
+                 reps=5, warmup=1)
+    log(f"ill-conditioned-times expsquared N={DENSE_N} float32 [{CARD}]: log_probability "
+        f"{ms:.4f} ms (constructor included); error against float64 {err:.4g}, native float32 "
+        f"{nerr:.4g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ill-conditioned dense route at N = 1e4 failed")
 
 
 # ---------------------------------------------------------------------------
@@ -2707,6 +2967,9 @@ def main() -> int:
     if sys.argv[1:] == ["--dense-times"]:
         dense_times()
         return 0
+    if sys.argv[1:] == ["--riccati-panel-times"]:
+        riccati_panel_times()
+        return 0
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()
@@ -2719,6 +2982,7 @@ def main() -> int:
     phase_example_condition()
     scan_records = phase_condition_path()
     measured = phase_dense_kernels()
+    panel_f64_times()
     launches = dict.fromkeys(DENSE_COUNTS + DENSE_EXTRA_COUNTS, 0)
     gram.LAUNCHES["gram"] = 0
     for phase in (phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
@@ -2735,6 +2999,7 @@ def main() -> int:
         f"the strip build does not route through B7)")
     gram_record = phase_gram()
     generic_records = phase_orders_path()
+    generic_loglik_times()
     records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
     records += dense_records(measured, launches)
     records.append(gram_record)

@@ -198,6 +198,7 @@ SCANS = [
     ("aff", True, True, 1),
     ("aff", False, False, 8),
     ("aff", True, False, 8),
+    ("aff", True, False, 1),
     ("cong", False, True, 1),
     ("cong", True, True, 1),
     ("ric", False, True, 1),
@@ -839,3 +840,97 @@ def test_gram_kernel_refuses_what_it_cannot_do(cuda_device):
         gram.gram_tiled(kernels.Matern32(), X, X.cpu())
     assert gram.LAUNCHES["gram"] == before
     assert gram.gram_tiled(kernels.Matern32(), X[:0], X).shape == (0, 50)
+
+
+# ---------------------------------------------------------------------------
+# B5's 3-term order on the float64 tensor cores, and the generic-order
+# B1/B1r and B3 Riccati flow through the rank-one chunk fold.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_panel_f64_on_the_card_at_every_panel_size(cuda_device):
+    """B5 at 3 terms at each of the 19 panel shapes of N = 1e4 at block 512
+    (W passed as the transposed view the factorization gives it, and
+    contiguous: the 16-byte loads along either axis of W), on
+    ragged shapes (row counts, panel widths and offsets that leave the
+    16-byte loads for the 4-byte ones), within 1e-5 of float64 and within
+    a float32 rounding of the plain version in the kernel's order; a
+    repeated launch is bit-identical (the split contractions' partial sums
+    are added in a fixed order)."""
+    import ctypes
+
+    from tinygp_tpu_torch import cuda_build
+    from tinygp_tpu_torch.ops import cuda_dense
+
+    order = cuda_build.library("dense_syrk").dsk_panel_f64_order
+    order.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    order.restype = None
+
+    def check(A, W, at, rows, tile):
+        got = cuda_dense.split_panel_matmul(A, W, tile=tile, terms=3, at=at, rows=rows)
+        b = W.shape[0]
+        want = A[at[0] : at[0] + rows, at[1] : at[1] + b].double() @ W.double()
+        assert dense_err(got, want) <= 1e-5
+        plain = cuda_dense.plain_panel_matmul_f64(A, W, *at, rows)
+        assert float((got.double() - plain.double()).abs().max()) <= 2.0**-23 * float(
+            plain.abs().max())
+        again = cuda_dense.split_panel_matmul(A, W, tile=tile, terms=3, at=at, rows=rows)
+        assert torch.equal(got, again)
+        splits, k_step, mma_k = (ctypes.c_int() for _ in range(3))
+        order(rows, b, splits, k_step, mma_k)
+        assert splits.value == cuda_dense.panel_splits(rows, b)
+        assert (k_step.value, mma_k.value) == (32, 8)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    m, b = 10240, 512
+    A = torch.randn(m, m, generator=gen, device=cuda_device)
+    Wt = (torch.randn(b, b, generator=gen, device=cuda_device) * b**-0.5).T
+    before = cuda_dense.LAUNCHES_F64
+    for j in range(1, m // b):
+        t = j * b
+        check(A, Wt, (m - t, m - t - b), t, 256)
+        check(A, Wt.T, (m - t, m - t - b), t, 256)
+    assert cuda_dense.LAUNCHES_F64 - before == 4 * 19
+    for m2, b2, at, rows, tile in ((1100, 40, (8, 40), 1000, 8), (300, 37, (16, 37), 232, 8),
+                                   (2000, 512, (32, 512), 1920, 32)):
+        A2 = torch.randn(m2, m2, generator=gen, device=cuda_device)
+        W2 = torch.randn(b2, b2, generator=gen, device=cuda_device) / b2**0.5
+        check(A2, W2, at, rows, tile)
+        check(A2, W2.T, at, rows, tile)
+
+
+GENERIC_RIC_ORDERS = [5, 8, 16, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", GENERIC_RIC_ORDERS)
+def test_generic_riccati_fold_on_the_card(cuda_device, m, dtype):
+    """The generic-order B1, B1r and B3 Riccati flow, whose chunk pass folds
+    each element with the rank-one step, against their plain versions in
+    float64 (rtol 1e-8 in float64, 5e-4 in float32, per output relative to
+    its largest magnitude); every launch repeated is bit-identical."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan, scan
+
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    for n in (N, 33):
+        args = operands(m, n, dtype, cuda_device, seed=m + n)
+        want = cuda_loglik.plain_loglik_terms_res(*(x.double() for x in args))
+        value = cuda_loglik.fused_loglik_terms(*args)
+        res = cuda_loglik.fused_loglik_res(*args)
+        flow = cuda_scan.riccati(*args[:4])
+        for got, ref in ((value, want[:2]), (res, want), ((flow,), want[2:3])):
+            for g, w in zip(got, ref):
+                g, w = g.double(), w.double()
+                assert torch.isfinite(g).all()
+                assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+        assert all(torch.equal(a, b) for a, b in zip(value, cuda_loglik.fused_loglik_terms(*args)))
+        assert all(torch.equal(a, b) for a, b in zip(res, cuda_loglik.fused_loglik_res(*args)))
+        assert torch.equal(flow, cuda_scan.riccati(*args[:4]))
+        # The engine's flow against the sequential recurrence's in float64.
+        if n == 33:
+            seq = scan.riccati_scan(*(x.double() for x in (
+                args[0], args[1].T, args[2].T, args[3].T.reshape(n, m, m))), parallel=False)
+            got = flow.double().T.reshape(n, m, m)
+            assert float((got - seq).abs().max()) <= rtol * float(seq.abs().max())

@@ -3,7 +3,7 @@
 // affine monoids, the in-block Kogge-Stone scan and the single-block scan
 // of block totals. Included by quasisep_loglik.cu (kernels B1 and B1r),
 // quasisep_loglik_bwd.cu (kernel B2) and quasisep_scan.cu (kernel B3).
-// Its last section, the block-cooperative algebra at any order with a
+// Its last section, the team-cooperative algebra at any order with a
 // pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
 #pragma once
@@ -286,21 +286,41 @@ int scan_threads() {
   return nt;
 }
 
-// ------------------------------------------- block-cooperative algebra, any m
+// ------------------------------------------- team-cooperative algebra, any m
 //
-// For the generic-order engine (quasisep_generic.cuh). Every thread of the
-// block calls each function with the same arguments; the matrices are
-// row-major with a leading dimension, in shared or device memory; the
-// threads split the output entries, and each function ends with
-// __syncthreads() so that its result is visible to the whole block.
+// For the generic-order engine (quasisep_generic.cuh). A team is the set of
+// threads that shares one monoid value: a whole block (BlockTeam) or one
+// warp of it (WarpTeam, for values small enough that a warp's products
+// need no block barrier). Every thread of the team calls each function
+// with the same arguments; the matrices are row-major with a leading
+// dimension, in shared or device memory; the threads split the output
+// entries, and each function ends with the team's barrier so that its
+// result is visible to the whole team.
+
+struct BlockTeam {
+  static constexpr bool kWarp = false;
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+struct WarpTeam {
+  static constexpr bool kWarp = true;
+  __device__ int rank() const { return threadIdx.x & 31; }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+};
 
 // C (r x c) = op(A) op(B) [+ D], where op(A) is r x k and op(B) k x c, and
 // op(X) is X or, with the flag set, X^T. C may alias D (each entry of D is
 // read only by the thread that writes the same entry of C), not A or B.
-__device__ inline void gmm(int r, int k, int c, const Acc* A, int lda, bool ta,
+// K > 0 is k as a compile-time constant, so that the dot products unroll.
+template <int K = 0, class Team>
+__device__ inline void gmm(const Team& tm, int r, int k_run, int c, const Acc* A, int lda, bool ta,
                            const Acc* B, int ldb, bool tb, Acc* C, int ldc,
                            const Acc* D = nullptr, int ldd = 0) {
-  for (int idx = threadIdx.x; idx < r * c; idx += blockDim.x) {
+  const int k = K > 0 ? K : k_run;
+  for (int idx = tm.rank(); idx < r * c; idx += tm.size()) {
     const int i = idx / c, j = idx - i * c;
     Acc acc = Acc(0);
     for (int l = 0; l < k; ++l) {
@@ -310,7 +330,7 @@ __device__ inline void gmm(int r, int k, int c, const Acc* A, int lda, bool ta,
     }
     C[i * ldc + j] = D ? D[i * ldd + j] + acc : acc;
   }
-  __syncthreads();
+  tm.sync();
 }
 
 // Gauss-Jordan inverse with partial pivoting. W is m x 2m (row stride 2m)
@@ -319,18 +339,19 @@ __device__ inline void gmm(int r, int k, int c, const Acc* A, int lda, bool ta,
 // column's factors) and piv one int. At the orders of the generic engine
 // (up to 32) the scan merges' I + F G is not reliably near the identity,
 // so unlike the closed forms above this pivots.
-__device__ inline void ginverse(int m, Acc* W, Acc* scr, int* piv) {
-  const int ld = 2 * m;
-  for (int idx = threadIdx.x; idx < m * m; idx += blockDim.x) {
+template <class Team>
+__device__ inline void ginverse(const Team& tm, int m, Acc* W, Acc* scr, int* piv) {
+  const int ld = 2 * m, t = tm.rank(), nt = tm.size();
+  for (int idx = t; idx < m * m; idx += nt) {
     const int i = idx / m, j = idx - i * m;
     W[i * ld + m + j] = i == j ? Acc(1) : Acc(0);
   }
-  __syncthreads();
+  tm.sync();
   Acc* prow = scr;          // the pivot row, scaled
   Acc* orow = scr + ld;     // row col before the swap
   Acc* fac = scr + 2 * ld;  // each row's entry in column col
   for (int col = 0; col < m; ++col) {
-    if (threadIdx.x == 0) {
+    if (t == 0) {
       int p = col;
       Acc best = fabs(W[col * ld + col]);
       for (int i = col + 1; i < m; ++i) {
@@ -342,18 +363,18 @@ __device__ inline void ginverse(int m, Acc* W, Acc* scr, int* piv) {
       }
       *piv = p;
     }
-    __syncthreads();
+    tm.sync();
     const int p = *piv;
     const Acc inv_pivot = Acc(1) / W[p * ld + col];
-    for (int j = threadIdx.x; j < ld; j += blockDim.x) {
+    for (int j = t; j < ld; j += nt) {
       prow[j] = W[p * ld + j] * inv_pivot;
       orow[j] = W[col * ld + j];
     }
     // Row p takes the old row col, whose entry in this column is W[col][col].
-    for (int i = threadIdx.x; i < m; i += blockDim.x)
+    for (int i = t; i < m; i += nt)
       fac[i] = i == p ? W[col * ld + col] : W[i * ld + col];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < m * ld; idx += blockDim.x) {
+    tm.sync();
+    for (int idx = t; idx < m * ld; idx += nt) {
       const int i = idx / ld, j = idx - i * ld;
       if (i == col)
         W[idx] = prow[j];
@@ -362,7 +383,7 @@ __device__ inline void ginverse(int m, Acc* W, Acc* scr, int* piv) {
       else
         W[idx] -= fac[i] * prow[j];
     }
-    __syncthreads();
+    tm.sync();
   }
 }
 

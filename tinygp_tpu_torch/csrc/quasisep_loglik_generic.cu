@@ -12,13 +12,14 @@
 // sequence on one stream instead of one fused kernel, since a fused chunk
 // would hold several m x m matrices per thread:
 //
-//   B1, B1r: the Riccati flow F by the generic engine (quasisep_generic.cuh,
-//            float64 output); emit_pass: the Cholesky emissions
-//            c2 = d - p^T F p, u = q - a F p and the whitening elements
-//            A = a - (u / c2) p^T, B = (u / c2) y; the affine scan e of
-//            (A, B) by the engine; terms_pass: alpha = (y - p.e) / c and
-//            per-block sums of alpha^2 and log c (B1r also writes F, e and
-//            1/c in the operands' type); g_reduce: the two sums in a fixed
+//   B1, B1r: the Riccati flow by the generic engine (quasisep_generic.cuh),
+//            whose finish pass emits, from the same step, the Cholesky
+//            emissions c2 = d - p^T F p, u = q - a F p and the whitening
+//            elements A = a - (u / c2) p^T, B = (u / c2) y in float64 (and
+//            for B1r the residual F in the operands' type); the affine
+//            scan e of (A, B) by the engine; terms_pass: alpha =
+//            (y - p.e) / c and per-block sums of alpha^2 and log c (B1r
+//            also writes e and 1/c); g_reduce: the two sums in a fixed
 //            order, so the result is deterministic.
 //   B2:      bwd_pre_pass: the emissions again from the residuals, the
 //            transposed transitions A^T and the adjoint loads
@@ -33,11 +34,11 @@
 // of element k at [c * n + k], so a warp's loads are coalesced; their
 // vectors sit in arrays of the order's bucket (8, 16 or 32).
 //
-// What bounds it: the engine's float64 merges (see quasisep_generic.cuh).
-// B1 must read (m^2 + 2m + 2) values per element once; B1r writes
-// m^2 + m + 1 more, B2 reads 2m^2 + 3m + 2 and writes m^2 + 2m + 2. The
-// sequence moves more: F, the whitening elements and the adjoints make
-// round trips through device memory in float64.
+// What bounds it: the engine's float64 arithmetic (see
+// quasisep_generic.cuh). B1 must read (m^2 + 2m + 2) values per element
+// once; B1r writes m^2 + m + 1 more, B2 reads 2m^2 + 3m + 2 and writes
+// m^2 + 2m + 2. The sequence moves more: the whitening elements and the
+// adjoints make round trips through device memory in float64.
 
 #include "quasisep_generic.cuh"
 
@@ -48,33 +49,6 @@ constexpr int kElemThreads = 128;
 long long elem_blocks(long long n) { return (n + kElemThreads - 1) / kElemThreads; }
 
 // ------------------------------------------------------------- forward (B1)
-
-template <typename S, int MX>
-__global__ void __launch_bounds__(kElemThreads)
-emit_pass(int m, long long n, const S* d, const S* ps, const S* qs, const S* as,
-          const S* y, const Acc* F, Acc* A, Acc* B, Acc* c2s) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  Acc p[MX], Fp[MX];
-  for (int i = 0; i < m; ++i) p[i] = Acc(ps[i * n + k]);
-  for (int i = 0; i < m; ++i) {
-    Acc acc = Acc(0);
-    for (int j = 0; j < m; ++j) acc += F[(i * m + j) * n + k] * p[j];
-    Fp[i] = acc;
-  }
-  Acc c2 = Acc(d[k]);
-  for (int i = 0; i < m; ++i) c2 -= p[i] * Fp[i];
-  const Acc inv_c2 = Acc(1) / c2, yk = Acc(y[k]);
-  for (int i = 0; i < m; ++i) {
-    Acc u = Acc(qs[i * n + k]);
-    for (int j = 0; j < m; ++j) u -= Acc(as[(i * m + j) * n + k]) * Fp[j];
-    const Acc wd = u * inv_c2;
-    for (int j = 0; j < m; ++j)
-      A[(i * m + j) * n + k] = Acc(as[(i * m + j) * n + k]) - wd * p[j];
-    B[i * n + k] = wd * yk;
-  }
-  c2s[k] = c2;
-}
 
 // Sum v0 and v1 over the block into partials[2b], partials[2b + 1].
 __device__ void block_sums(Acc v0, Acc v1, Acc* partials) {
@@ -96,11 +70,12 @@ __device__ void block_sums(Acc v0, Acc v1, Acc* partials) {
   }
 }
 
-// kRes: also write each element's residuals F, e and 1/c (B1r).
+// kRes: also write each element's residuals e and 1/c (B1r; the Riccati
+// finish pass wrote F).
 template <typename S, int MX, bool kRes>
 __global__ void __launch_bounds__(kElemThreads)
-terms_pass(int m, long long n, const S* ps, const S* y, const Acc* F,
-           const Acc* e, const Acc* c2s, Acc* partials, S* Fs, S* es, S* ics) {
+terms_pass(int m, long long n, const S* ps, const S* y, const Acc* e, const Acc* c2s,
+           Acc* partials, S* es, S* ics) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   Acc quad = Acc(0), logdet = Acc(0);
   if (k < n) {
@@ -111,7 +86,6 @@ terms_pass(int m, long long n, const S* ps, const S* y, const Acc* F,
     quad = alpha * alpha;
     logdet = log(c);
     if constexpr (kRes) {
-      for (int r = 0; r < m * m; ++r) Fs[r * n + k] = S(F[r * n + k]);
       for (int i = 0; i < m; ++i) es[i * n + k] = S(e[i * n + k]);
       ics[k] = S(Acc(1) / c);
     }
@@ -145,16 +119,15 @@ g_reduce(long long nb, const Acc* partials, S* out) {
   }
 }
 
-// Forward workspace, in Acc: F (m^2 n), the whitening elements A (m^2 n)
-// and B (m n), e (m n), c2 (n), the block sums and one engine workspace.
+// Forward workspace, in Acc: the whitening elements A (m^2 n) and B (m n),
+// e (m n), c2 (n), the block sums and one engine workspace.
 struct FwdLayout {
-  long long F, A, B, e, c2, partials, scan, total;
+  long long A, B, e, c2, partials, scan, total;
   FwdLayout(int m, long long n) {
     const long long mm = (long long)m * m;
     const long long ric = g_workspace_elems(g_spec(gRic, m, m, 1), n);
     const long long aff = g_workspace_elems(g_spec(gAff, m, m, 1), n);
-    F = 0;
-    A = F + mm * n;
+    A = 0;
     B = A + mm * n;
     e = B + m * n;
     c2 = e + m * n;
@@ -169,28 +142,23 @@ cudaError_t run_fwd(int m, long long n, const S* d, const S* ps, const S* qs,
                      const S* as, const S* y, S* out, S* Fs, S* es, S* ics,
                      Acc* work, cudaStream_t st) {
   const FwdLayout L(m, n);
-  Acc *F = work + L.F, *A = work + L.A, *B = work + L.B, *e = work + L.e;
+  Acc *A = work + L.A, *B = work + L.B, *e = work + L.e;
   Acc *c2 = work + L.c2, *partials = work + L.partials, *scan = work + L.scan;
   const long long nb = elem_blocks(n);
   const dim3 grid((unsigned)nb);
-  cudaError_t err = g_run<S, Acc>(g_spec(gRic, m, m, 1), n, 0, 0,
-                                  GIn<S>{d, ps, qs, as}, F, scan, st);
+  cudaError_t err = g_run<S, Acc>(g_spec(gRic, m, m, 1), n, 0, 0, GIn<S>{d, ps, qs, as},
+                                  (Acc*)nullptr, scan, st, RicEmit<S>{y, A, B, c2, Fs});
   if (err == cudaSuccess)
-    err = g_launch(emit_pass<S, MX>, grid, kElemThreads, 0, st, m, n, d, ps, qs,
-                   as, y, (const Acc*)F, A, B, c2);
-  if (err == cudaSuccess)
-    err = g_run<Acc, Acc>(g_spec(gAff, m, m, 1), n, 0, 0,
-                          GIn<Acc>{A, B, nullptr, nullptr}, e, scan, st);
+    err = g_run<Acc, Acc>(g_spec(gAff, m, m, 1), n, 0, 0, GIn<Acc>{A, B, nullptr, nullptr}, e,
+                          scan, st);
   const long long sums_smem = 2LL * kElemThreads * sizeof(Acc);
   if (err == cudaSuccess) {
     if (Fs)
       err = g_launch(terms_pass<S, MX, true>, grid, kElemThreads, sums_smem, st, m,
-                     n, ps, y, (const Acc*)F, (const Acc*)e, (const Acc*)c2,
-                     partials, Fs, es, ics);
+                     n, ps, y, (const Acc*)e, (const Acc*)c2, partials, es, ics);
     else
       err = g_launch(terms_pass<S, MX, false>, grid, kElemThreads, sums_smem, st,
-                     m, n, ps, y, (const Acc*)F, (const Acc*)e, (const Acc*)c2,
-                     partials, Fs, es, ics);
+                     m, n, ps, y, (const Acc*)e, (const Acc*)c2, partials, es, ics);
   }
   if (err == cudaSuccess)
     err = g_launch(g_reduce<S>, dim3(1), kScanThreads,

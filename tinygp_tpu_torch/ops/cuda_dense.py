@@ -21,8 +21,10 @@ piece products of :func:`plain_split_dots` at 3 terms in float32, whatever
 ``terms`` asks for: the 2-term products missed the dense gradient's limit
 on the main path (see the source). B5's 3-term order, which the
 factorization picks for ill-conditioned matrices (where the panel's
-product with an explicit inverse cancels), needs float64 sums and runs a
-float64-sum body in ``csrc/dense_syrk.cu`` instead. B6 computes the lower
+product with an explicit inverse cancels), needs float64 sums and runs on
+the float64 tensor cores in ``csrc/dense_syrk.cu`` instead: exact
+products of the float32 values and float64 sums, in the order
+:func:`plain_panel_matmul_f64` repeats. B6 computes the lower
 tile pairs only and mirrors them (:func:`plain_syrk_by_tiles` is its
 schedule in plain PyTorch); B4 computes the lower tile pairs of the
 trailing submatrix in place, with its row side products in the split pass
@@ -56,6 +58,8 @@ __all__ = [
     "split_pieces",
     "plain_split_dots",
     "plain_panel_matmul",
+    "plain_panel_matmul_f64",
+    "panel_splits",
     "plain_syrk_sub_inplace",
     "plain_syrk_sub",
     "plain_syrk_by_tiles",
@@ -287,6 +291,52 @@ def plain_panel_matmul(
     return A[r0 : r0 + rows, c0 : c0 + b] @ W
 
 
+# B5's 3-term body (csrc/dense_syrk.cu): output tile, contraction step,
+# mma depth, largest split and the blocks a split aims for.
+_F64_TILE = 128
+_F64_K_STEP = 32
+_F64_MMA_K = 8
+_F64_MAX_SPLIT = 8
+_F64_SPLIT_TARGET = 132
+
+
+def panel_splits(rows: int, b: int) -> int:
+    """How many blocks of one cluster B5's 3-term body splits the
+    contraction of a ``(rows, b)`` panel over (``panel_splits`` in
+    ``csrc/dense_syrk.cu``): the largest power of two up to 8 that keeps
+    the blocks within 132 and each split at least two steps of 32."""
+    blocks = -(-rows // _F64_TILE) * -(-b // _F64_TILE)
+    steps = -(-b // _F64_K_STEP)
+    s = 1
+    while 2 * s <= _F64_MAX_SPLIT and blocks * 2 * s <= _F64_SPLIT_TARGET and steps >= 4 * s:
+        s *= 2
+    return s
+
+
+def plain_panel_matmul_f64(
+    A: torch.Tensor, W: torch.Tensor, r0: int, c0: int, rows: int
+) -> torch.Tensor:
+    """B5's 3-term product in the order of its kernel: the float32 panel
+    ``A[r0:r0+rows, c0:c0+b]`` times ``W`` with float64 sums (each product
+    of two float32 values is exact in float64), the contraction split as
+    :func:`panel_splits` says, each split summed in steps of the mma depth
+    (8) in order, the splits' partial sums added in order; rounded once to
+    float32."""
+    b = W.shape[0]
+    panel = A[r0 : r0 + rows, c0 : c0 + b].double()
+    W64 = W.double()
+    s = panel_splits(rows, b)
+    steps = -(-b // _F64_K_STEP)
+    per = -(-steps // s) * _F64_K_STEP  # k values a split takes
+    out = None
+    for lo in range(0, s * per, per):
+        part = panel.new_zeros(rows, b)
+        for k in range(lo, min(lo + per, b), _F64_MMA_K):
+            part += panel[:, k : k + _F64_MMA_K] @ W64[k : k + _F64_MMA_K]
+        out = part if out is None else out + part
+    return out.float()
+
+
 def split_panel_matmul(
     A: torch.Tensor,
     W: torch.Tensor,
@@ -325,7 +375,7 @@ def split_panel_matmul(
     args = (A.data_ptr() + 4 * (r0 * lda + c0), lda, W.data_ptr(), *W.stride(), out.data_ptr(),
             b, rows, b)
     with _on_device(A):
-        if terms == 3:  # float64 sums (csrc/dense_syrk.cu says why)
+        if terms == 3:  # float64 sums on the float64 tensor cores (csrc/dense_syrk.cu)
             _run("panel", "dsk_panel_matmul_f64", *args)
             return out
         # The tensor cores, with scratch for the three pieces of the panel,

@@ -41,7 +41,13 @@ port has no lazy ``Block`` transitions, so the JAX package's
 
 from __future__ import annotations
 
-__all__ = ["monoid_scan", "affine_scan", "congruence_scan", "riccati_scan"]
+__all__ = [
+    "monoid_scan",
+    "affine_scan",
+    "congruence_scan",
+    "riccati_scan",
+    "riccati_fold_rank_one",
+]
 
 from collections.abc import Callable
 
@@ -371,24 +377,25 @@ def _affine_scan_s(As, Bs, m, r, *, reverse: bool, exclusive: bool):
     return incl[1]
 
 
-def _riccati_scan_s(d, ps, qs, as_, m):
-    """Stacked Riccati flow: the exclusive prefix F (m*m, N) from F_0 = 0.
-
-    Each step is the linear-fractional map encoded by ``(A, F, G)``::
+def _riccati_elements(d, ps, qs, as_):
+    """The Riccati flow's elements ``(A, F, G)``, stacked::
 
         A_k = a_k - q_k p_k^T / d_k,  F_k = q_k q_k^T / d_k,
-        G_k = -p_k p_k^T / d_k,
+        G_k = -p_k p_k^T / d_k.
+    """
+    inv_d = 1.0 / d
+    return (as_ - _souter(qs, ps) * inv_d, _souter(qs, qs) * inv_d,
+            -_souter(ps, ps) * inv_d)
 
-    and two maps merge through ``M = I + F_e G_l``::
+
+def _riccati_combine(m):
+    """The Möbius merge of two stacked Riccati values: with
+    ``M = I + F_e G_l``::
 
         A = A_l M^-1 A_e
         F = F_l + A_l M^-1 F_e A_l^T
         G = G_e + A_e^T M^-T G_l A_e
     """
-    inv_d = 1.0 / d
-    A0 = as_ - _souter(qs, ps) * inv_d
-    F0 = _souter(qs, qs) * inv_d
-    G0 = -_souter(ps, ps) * inv_d
 
     def combine(earlier, later):
         A_e, F_e, G_e = earlier
@@ -407,10 +414,56 @@ def _riccati_scan_s(d, ps, qs, as_, m):
         )
         return A, F, G
 
+    return combine
+
+
+def _riccati_scan_s(d, ps, qs, as_, m):
+    """Stacked Riccati flow: the exclusive prefix F (m*m, N) from F_0 = 0,
+    the elements of :func:`_riccati_elements` composed by the merge of
+    :func:`_riccati_combine`."""
     zeros = ps.new_zeros((m * m, 1))
     identity = (_seye(m, ps), zeros, zeros)
-    _, F, _ = monoid_scan(combine, identity, (A0, F0, G0))
+    _, F, _ = monoid_scan(
+        _riccati_combine(m), identity, _riccati_elements(d, ps, qs, as_)
+    )
     return F
+
+
+def riccati_fold_rank_one(d, ps, qs, as_, m, init=None):
+    """Fold a chunk of Riccati elements, in order, into a running value
+    ``(A, F, G)`` with the rank-one step: the plain version of the CUDA
+    engine's chunk pass (``csrc/quasisep_generic.cuh``: ``ric_fold``).
+
+    Each element's map is rank-one (:func:`_riccati_elements`), so its
+    merge after ``(A, F, G)`` needs no inverse: with ``f = F p``, the
+    chunk-local Schur complement ``c = d - p^T f``, ``u = q - a f`` and
+    ``w = A^T p``::
+
+        A' = a A - u w^T / c
+        F' = a F a^T + u u^T / c
+        G' = G - w w^T / c
+
+    equal to :func:`_riccati_combine` of the running value and the
+    element. Operands are stacked over the chunk's last axis (any leading
+    axes broadcast): ``d`` ``(..., L)``, ``ps``/``qs`` ``(..., m, L)``,
+    ``as_`` ``(..., m*m, L)``. ``init`` is a running value ``(A, F, G)``,
+    each ``(..., m*m, 1)``; by default the identity (``A = I``,
+    ``F = G = 0``). Returns the folded value, each ``(..., m*m, 1)``.
+    """
+    if init is None:
+        zeros = ps.new_zeros((m * m, 1))
+        init = (_seye(m, ps), zeros, zeros)
+    A, F, G = init
+    for k in range(ps.shape[-1]):
+        p, q, a = ps[..., k : k + 1], qs[..., k : k + 1], as_[..., k : k + 1]
+        f = _smv(F, p, m, m)
+        c = (d[..., k : k + 1] - torch.sum(p * f, dim=-2)).unsqueeze(-2)
+        u = q - _smv(a, f, m, m)
+        w = _smv(_st(A, m, m), p, m, m)
+        A = _smm(a, A, m, m, m) - _souter(u, w) / c
+        F = _smm_t(_smm(a, F, m, m, m), a, m, m, m) + _souter(u, u) / c
+        G = G - _souter(w, w) / c
+    return A, F, G
 
 
 def _sshift_lane(X, fill, reverse: bool):
