@@ -9,13 +9,15 @@ Phases, each printing its numbers on lines of its own:
 
 1. the card's name and power limit; the build of every CUDA kernel, and
    ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
-   kernel of ``csrc/dense_tc.cu`` with its GEMM's tiles, stages and
-   dynamic shared memory;
+   kernel of ``csrc/dense_tc.cu`` (with its GEMM's tiles, stages and
+   dynamic shared memory), ``dense_syrk.cu`` and the B1-B2 sources
+   ``quasisep_loglik_bwd.cu`` and ``quasisep_loglik_generic.cu``;
 2. each kernel against its plain PyTorch version on random operands
-   (m = 1..4, and 5 and 8 through the generic-order source, at N = 17,161
-   in float64 and float32; m = 2 at N = 1e6): B1 (the log-likelihood),
-   B1r (with the residuals a gradient needs) and B2 (the backward, on
-   B1r's residuals, with random scalar cotangents);
+   (m = 1..4, and 5, 8 and 16 through the generic-order source, at
+   N = 17,161 in float64 and float32; m = 2 at N = 1e6): B1 (the
+   log-likelihood), B1r (with the residuals a gradient needs) and B2 (the
+   backward, on B1r's residuals, with random scalar cotangents; a second
+   launch equal bit for bit);
 3. the kernel path's ``log_probability`` and its float64 gradient against
    a dense numpy/scipy Cholesky log-likelihood built from the kernels'
    closed forms and its central differences;
@@ -30,7 +32,9 @@ Phases, each printing its numbers on lines of its own:
    1e6 in float32, against the float64 kernel gradient and the float32
    plain one, and held to the float64 kernels run on the same float32
    operands, with launches counted and CUDA-event timings of the whole
-   forward and backward, of B1r, of B2 and of their plain versions;
+   forward and backward, of B1r, of B2 and of their plain versions; B2
+   repeated bit for bit, and one kernel and one memset per call in a
+   ``torch.profiler`` trace;
 6. the trainer: 20 Adam steps of ``fit_map`` on the Matern32 model's log
    hyperparameters at N = 1e5 and 1e6 in float32, with one B1r and one B2
    launch per step;
@@ -109,7 +113,8 @@ Phases, each printing its numbers on lines of its own:
     with their default jitter at N = 1e5 (reported: the reference's O(N)
     factor does not hold there) and given ``diag=1e-3`` at N = 5000; the
     generic-order launches counted over the path, each held to its plain
-    version on the path's well-posed operands and timed beside its bound;
+    version on the path's well-posed operands and timed beside its bound
+    (B2 repeated bit for bit, one launch a call);
     the float64 entry points against the CPU's plain version; then the
     generic B1 and B1r at m = 5 (N = 1e5 and 1e6) whole and pass by pass
     (a ``torch.profiler`` trace) and B3's generic Riccati flow at m = 5, 8
@@ -132,7 +137,11 @@ commit's checkout, it times the parent's kernels in the same chip call.
 3-term order per panel shape (beside a float64 ``matmul``), the
 generic-order B1/B1r at m = 5 whole and pass by pass, B3's generic
 Riccati flow, and the ill-conditioned dense ``log_probability`` at
-N = 1e4.
+N = 1e4. ``python3 chip_smoke.py --b2-times`` does the same for B2 (the
+Matern32 gradient's operands at N = 1e5 and 1e6, the m = 5 sum's at 1e5,
+random m = 8 operands at 1e5): CUDA-event times, the passes of a
+``torch.profiler`` trace, two launches compared bit for bit, B1 and B1r
+on the same operands, and the whole gradient calls.
 """
 
 from __future__ import annotations
@@ -278,14 +287,15 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
-    for stem in ("dense_tc", "dense_syrk", "quasisep_loglik_generic"):
+    for stem in ("dense_tc", "dense_syrk", "quasisep_loglik_bwd", "quasisep_loglik_generic"):
         log_ptxas(stem)
 
 
-def log_ptxas(stem):
-    """Each kernel of ``csrc/<stem>.cu`` as ``nvcc -Xptxas -v`` reported it
-    (registers, shared memory, spills), and the dense GEMM's dynamic shared
-    memory, which ptxas does not see."""
+def log_ptxas(stem, only=None):
+    """Each kernel of ``csrc/<stem>.cu`` (those whose name matches the
+    regular expression ``only``, if given) as ``nvcc -Xptxas -v`` reported
+    it (registers, shared memory, spills), and the dense GEMM's dynamic
+    shared memory, which ptxas does not see."""
     import re
 
     from tinygp_tpu_torch import cuda_build
@@ -296,12 +306,21 @@ def log_ptxas(stem):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
+            # Drop the anonymous namespace nvcc names after the source.
+            mangled = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN", mangled)
             kind = re.search(r"tc_gemmILi(\d)E", mangled)
-            plain = re.search(r"\d+([a-z_]+(?:kernel|pass|gemm))(.*)", mangled)
+            plain = re.search(r"\d+([a-z_0-9]*(?:kernel|pass|gemm|chunk|totals))(.*)", mangled)
+            # Template arguments <storage type, order> as the B1-B3 kernels take them.
+            targs = plain and re.match(r"I([fd])Li(\d+)E", plain.group(2))
             name = (f"tc_gemm for {('B5', 'B6', 'B4')[int(kind.group(1))]}" if kind
                     else "split_kernel" if "split_kernel" in mangled
+                    else f"{plain.group(1)}<{'float' if targs.group(1) == 'f' else 'double'}, "
+                         f"{targs.group(2)}>" if targs
                     else f"{plain.group(1)} {plain.group(2)[:48]}" if plain else mangled)
-            report[name] = []
+            if only and not re.search(only, name):
+                name = None
+            else:
+                report[name] = []
         elif name and ("registers" in line or "spill" in line or "smem" in line):
             report[name].append(line.split(":", 1)[-1].strip())
     for name, lines in report.items():
@@ -330,9 +349,10 @@ def phase_kernel_vs_plain():
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
-    # m = 1..4 run the templated kernels, 5 and 8 the generic-order source.
-    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8)]
-    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8)]
+    # m = 1..4 run the templated kernels, 5 and 8 the generic-order source
+    # (B2 there in one launch), 16 the generic sequence.
+    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16)]
+    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16)]
     cases += [(2, 1_000_000, torch.float64, 1e-8), (2, 1_000_000, torch.float32, 5e-4)]
     failures = []
     for m, n, dtype, rtol in cases:
@@ -370,15 +390,17 @@ def phase_kernel_vs_plain():
         qbar, lbar = (torch.tensor(v, dtype=dtype, device="cuda") for v in rng.normal(size=2))
         bwd_args = (*args[1:], *res[2:], qbar, lbar)
         bars = cuda_loglik.fused_loglik_bwd(*bwd_args)
+        same = all(torch.equal(a, b) for a, b in zip(bars, cuda_loglik.fused_loglik_bwd(*bwd_args)))
         plain_bars = cuda_loglik.plain_loglik_bwd(*bwd_args)
         errs = stream_errors(bars, plain_bars)
-        ok = max(e for e, _ in errs) <= rtol and all(
+        ok = same and max(e for e, _ in errs) <= rtol and all(
             bool(torch.isfinite(x).all()) for x in bars
         )
         log(
             f"kernel-vs-plain B2 m={m} N={n} {str(dtype)[6:]}: rel err per "
             f"stream (dbar, psbar, qsbar, asbar, ybar) "
-            f"{[f'{e:.2e}' for e, _ in errs]} (rtol {rtol:g}) {'ok' if ok else 'FAIL'}"
+            f"{[f'{e:.2e}' for e, _ in errs]} (rtol {rtol:g}), a second launch equal bit "
+            f"for bit {same} {'ok' if ok else 'FAIL'}"
         )
         if not ok:
             failures.append(("B2", m, n, dtype))
@@ -728,6 +750,27 @@ def matern32_grad_f64_kernels(X, y):
     return torch.autograd.grad(-0.5 * quad - logdet, [amp, scale])
 
 
+def b2_launch_checks(bwd_args, bars):
+    """B2 launched again on ``bwd_args`` gives ``bars`` bit for bit; and at
+    m <= 8, from a ``torch.profiler`` trace, one call is one kernel launch
+    and at most one memset. Returns (same bits, (one launch, report))."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    same = all(torch.equal(a, b) for a, b in zip(bars, cuda_loglik.fused_loglik_bwd(*bwd_args)))
+    split, per_call = kernel_split(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args))
+    if split is None:
+        return same, (True, "device operations per call not measured (no device time "
+                            "in the trace)")
+    kernels = [k for k in split if not k.startswith("Memset")]
+    one = bwd_args[0].shape[0] > 8 or (
+        len(kernels) == 1 and all(per <= 1 for _, per in split.values()))
+    return same, (one, f"{per_call:g} device operations per call ("
+                       + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items())
+                       + ")")
+
+
 def phase_gradient_path():
     """The gradient main path at full size; returns the JSON records of B1r
     and B2, with their launches on this path."""
@@ -784,10 +827,12 @@ def phase_gradient_path():
             bwd_err64 = stream_errors(
                 bars, cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args))
             )
+            b2_same, b2_ops = b2_launch_checks(bwd_args, bars)
             kernels_ok = (
                 max(e for e, _ in res_err64) <= 5e-4
                 and max(e for e, _ in bwd_err64) <= 5e-4
                 and max(e for e, _ in res_err32[:2]) <= 5e-4
+                and b2_same and b2_ops[0]
             )
 
             res_ms = cuda_ms(lambda: cuda_loglik.fused_loglik_res(*ops32), reps=50, warmup=3)
@@ -821,7 +866,8 @@ def phase_gradient_path():
             f"float64 {[f'{e:.2e}' for e, _ in res_err64]}; B2 vs plain (dbar, psbar, "
             f"qsbar, asbar, ybar) float32 {[f'{e:.2e}' for e, _ in bwd_err32]}, "
             f"float64 {[f'{e:.2e}' for e, _ in bwd_err64]} (rtol 5e-4 against "
-            f"float64; the sums also against float32)"
+            f"float64; the sums also against float32); B2 a second launch equal bit for "
+            f"bit {b2_same}, {b2_ops[1]}"
         )
         log(
             f"gradient-path matern32_{label}: whole forward+backward {whole_ms:.4f} ms, "
@@ -1635,6 +1681,7 @@ def phase_orders_path():
         bwd_args = (*ops5[1:], *res[2:], qbar, lbar)
         bars = cuda_loglik.fused_loglik_bwd(*bwd_args)
         bwd_err = stream_errors(bars, cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args)))
+        b2_same, (b2_one, b2_report) = b2_launch_checks(bwd_args, bars)
         timings = {
             "b1": (cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*ops6), reps=10, warmup=2),
                    cuda_ms(lambda: cuda_loglik.plain_loglik_terms(*ops6), reps=1, warmup=1)),
@@ -1656,15 +1703,18 @@ def phase_orders_path():
         ("b2", "quasisep_loglik_bwd_generic_m5", "pallas_loglik.py:414"),
     ):
         rel = max(e for e, _ in errs[key])
-        ok = rel <= 5e-4
+        ok = rel <= 5e-4 and (key != "b2" or (b2_same and b2_one))
         kernels_ok = kernels_ok and ok
         (ms, plain_ms), (bound, by) = timings[key], bounds[key]
         n_op = X_1e6.shape[0] if key == "b1" else n
+        extra = (f"; a second launch equal bit for bit {b2_same}, {b2_report}"
+                 if key == "b2" else "")
         log(
             f"orders-path {key.upper()} generic m={m} N={n_op} float32 ({loglik_counts[key]} "
             f"launches on the path): {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
             f"{plain_ms:.4f} ms (one call); against the plain version in float64 rel per "
-            f"stream {[f'{e:.2e}' for e, _ in errs[key]]} (limit 5e-4) {'ok' if ok else 'FAIL'}"
+            f"stream {[f'{e:.2e}' for e, _ in errs[key]]} (limit 5e-4){extra} "
+            f"{'ok' if ok else 'FAIL'}"
         )
         records.append({
             "name": name,
@@ -2749,6 +2799,101 @@ def riccati_panel_times():
         raise AssertionError("the ill-conditioned dense route at N = 1e4 failed")
 
 
+def kernel_split(fn, calls=5):
+    """For each kernel and memset that ``fn`` enqueues, by name (template
+    arguments kept, parameters dropped), in order of first launch: device
+    milliseconds per launch and launches per call; and the device
+    operations per call; from a ``torch.profiler`` trace of ``calls``
+    calls. (None, 0) where the trace holds no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)
+    split = {}
+    for e in events:
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+        name = re.sub(r"\(.*", "", name).strip()
+        ms, count = split.get(name, (0.0, 0))
+        split[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    if not sum(ms for ms, _ in split.values()) > 0:
+        return None, 0
+    return {k: (ms / count, count / calls) for k, (ms, count) in split.items()}, len(events) / calls
+
+
+def b2_times():
+    """``--b2-times``: kernel B2 (the log-likelihood's backward) alone, on
+    the Matern32 gradient path's operands at N = 1e5 and 1e6 (m = 2), the
+    m = 5 sum's at 1e5 and random operands at m = 8 and 1e5, all float32:
+    CUDA-event time, each pass from a ``torch.profiler`` trace with the
+    device operations per call, two launches compared bit for bit and the
+    result held to the float64 plain version (5e-4); B1 and B1r on the
+    same operands; the whole gradient calls (``matern32_grad``,
+    ``sum5_value_and_grad``). Through entry points that older trees share,
+    so that one chip call can time this tree and its parent in turns."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    log_ptxas("quasisep_loglik_bwd")
+    log_ptxas("quasisep_loglik_generic", only=r"^(b2_|bwd_)")
+    (X5, y5), (X6, y6) = bench_data()
+    cases = []
+    for label, (Xn, yn), gp_of, whole in (
+        ("matern32 m=2 N=1e5", (X5, y5), lambda X: matern32_gp(X, 1.5, 2.5), matern32_grad),
+        ("matern32 m=2 N=1e6", (X6, y6), lambda X: matern32_gp(X, 1.5, 2.5), matern32_grad),
+        ("sum5 m=5 N=1e5", (X5, y5), lambda X: sum5_gp(X, SUM5_PARAMS), sum5_value_and_grad),
+    ):
+        X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
+        with torch.no_grad():
+            gp = gp_of(X)
+            ops = (*gp.solver.ssm, (y - gp.loc).contiguous())
+        cases.append((label, [x.contiguous() for x in ops], lambda X=X, y=y, f=whole: f(X, y)))
+    cases.append(("random m=8 N=1e5", random_operands(8, 100_000, torch.float32, seed=8), None))
+    for label, ops, whole in cases:
+        m, n = ops[1].shape
+        with torch.no_grad():
+            res = cuda_loglik.fused_loglik_res(*ops)
+            qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
+            bwd_args = (*ops[1:], *res[2:], qbar, lbar)
+
+            def bwd():
+                return cuda_loglik.fused_loglik_bwd(*bwd_args)
+
+            bars, again = bwd(), bwd()
+            same = all(torch.equal(a, b) for a, b in zip(bars, again))
+            errs = stream_errors(bars, cuda_loglik.plain_loglik_bwd(
+                *(x.double() for x in bwd_args)))
+            worst = max(e for e, _ in errs)
+            if not (worst <= 5e-4 and all(bool(torch.isfinite(x).all()) for x in bars)):
+                raise AssertionError(f"B2 at {label} disagrees with float64: {worst:.3e}")
+            del again
+            ms = cuda_ms(bwd, reps=20, warmup=3)
+            split, per_call = kernel_split(bwd)
+            b1r_ms = cuda_ms(lambda: cuda_loglik.fused_loglik_res(*ops), reps=20, warmup=3)
+            b1_ms = cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*ops), reps=20, warmup=3)
+        whole_ms = cuda_ms(whole, reps=10, warmup=2) if whole else None
+        shown = ("not measured (no device time in the trace)" if split is None else
+                 ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+        log(f"b2-times {label} float32 [{CARD}]: B2 {ms:.4f} ms (bound "
+            f"{bwd_bound_ms(m, n, 4)[0]:.4f} ms), two launches equal bit for bit {same}, "
+            f"against float64 plain rel per stream {[f'{e:.2e}' for e, _ in errs]} (limit 5e-4) "
+            f"ok; B1r {b1r_ms:.4f} ms, B1 {b1_ms:.4f} ms; whole gradient call "
+            + (f"{whole_ms:.4f} ms" if whole else "none (random operands)"))
+        log(f"b2-times {label} trace: {per_call:g} device operations per B2 call; ms per launch "
+            f"x launches per call: {shown}")
+        del res, bwd_args, bars
+
+
 # ---------------------------------------------------------------------------
 # Kernel B7: the tiled gram builder, on its own entry point.
 # ---------------------------------------------------------------------------
@@ -2969,6 +3114,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--riccati-panel-times"]:
         riccati_panel_times()
+        return 0
+    if sys.argv[1:] == ["--b2-times"]:
+        b2_times()
         return 0
     phase_kernel_vs_plain()
     phase_dense_check()

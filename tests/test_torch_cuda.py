@@ -934,3 +934,46 @@ def test_generic_riccati_fold_on_the_card(cuda_device, m, dtype):
                 args[0], args[1].T, args[2].T, args[3].T.reshape(n, m, m))), parallel=False)
             got = flow.double().T.reshape(n, m, m)
             assert float((got - seq).abs().max()) <= rtol * float(seq.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2 in one launch: tiles by a ticket and a deterministic look-back.
+# ---------------------------------------------------------------------------
+
+B2_ORDERS = [1, 2, 3, 4, 5, 6, 7, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", B2_ORDERS)
+def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
+    """B2 at N of one tile, a ragged many-tile N and 1e6, against its plain
+    version (rtol 1e-8 in float64; 5e-4 against float64 in float32, per
+    output relative to its largest magnitude); a second launch on the same
+    inputs gives the same bits; one launch counted per call; the library's
+    schedule is the plain tiled version's."""
+    import ctypes
+
+    tile, sub = cuda_loglik.b2_schedule(m, dtype)
+    lib = cuda_loglik._bwd_library() if m <= 4 else cuda_loglik._generic_library()
+    t, s = ctypes.c_int(), ctypes.c_int()
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    assert lib.qsl_bwd_schedule(m, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
+    assert (t.value, s.value) == (tile, sub)
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    for n in (tile, N, 1_000_000):
+        args = operands(m, n, dtype, cuda_device, seed=m + n)
+        res = cuda_loglik.fused_loglik_res(*args)
+        qbar, lbar = (torch.tensor(v, dtype=dtype, device=cuda_device) for v in (0.8, -1.1))
+        bwd_args = (*args[1:], *res[2:], qbar, lbar)
+        before = cuda_loglik.LAUNCHES_BWD
+        got = cuda_loglik.fused_loglik_bwd(*bwd_args)
+        again = cuda_loglik.fused_loglik_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        assert cuda_loglik.LAUNCHES_BWD == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args))
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and torch.isfinite(g).all()
+            assert stream_err(g, w) <= rtol, (n, stream_err(g, w))
+        del args, res, bwd_args, got, again, want

@@ -1,8 +1,9 @@
 // Shared pieces of the quasiseparable log-likelihood kernels on Hopper
 // (sm_90a): the m x m algebra with closed-form inverses, the Riccati and
 // affine monoids, the in-block Kogge-Stone scan and the single-block scan
-// of block totals. Included by quasisep_loglik.cu (kernels B1 and B1r),
-// quasisep_loglik_bwd.cu (kernel B2) and quasisep_scan.cu (kernel B3).
+// of block totals (kernels B1 and B1r in quasisep_loglik.cu, B3 in
+// quasisep_scan.cu); cp.async and the one-launch look-back of kernel B2
+// (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..8).
 // Its last section, the team-cooperative algebra at any order with a
 // pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
@@ -284,6 +285,153 @@ int scan_threads() {
   int nt = kScanThreads;
   while (nt > 32 && (long long)nt * V::S * sizeof(T) > kSharedLimit) nt /= 2;
   return nt;
+}
+
+// ------------------------------------------------------------ cp.async
+
+// Copy one 4- or 8-byte value from device to shared memory asynchronously.
+template <typename S>
+__device__ __forceinline__ void cp_async_elem(S* dst, const S* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(S) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// ------------------------------------------ the one-launch look-back (B2)
+//
+// Kernel B2 runs its two reverse scans in one launch (quasisep_loglik_bwd.cu
+// for m <= 4, quasisep_loglik_generic.cu for m = 5..8). Each block takes a
+// tile of consecutive (mirrored) elements by a ticket, so it waits only on
+// tiles that running blocks took before it. The tiles form groups of
+// kLookGroup. Per scan, a tile publishes its aggregate map (flag 1) for
+// the later tiles of its group; the last tile of a group publishes the
+// group's aggregate (flag 1) and then the scan's state after the group
+// (flag 2). A tile's state at its start is
+//
+//   start(b) = Q(b)(S(g - 1)),  Q(b) = agg(b - 1) o ... o agg(base),
+//   S(g) = GA(g)(S(g - 1)),     GA(g) = Q(base + kLookGroup),  S(-1) = 0,
+//
+// for tile b of group g whose first tile is base: Q is folded one tile at
+// a time from base on, and S(g - 1) is found from the nearest earlier
+// group j whose S(j) is published, the groups between having their
+// aggregates, by applying those aggregates to S(j) one group at a time, in
+// order. Each is the same floating-point operation on the same values
+// whichever j a block finds, so the result is bit for bit the fixed
+// association above, and two launches on the same inputs agree bit for bit
+// (a textbook decoupled look-back composes whatever it finds published
+// and rounds differently from run to run). The fold within a group keeps a
+// tile's wait short however many tiles run at once: the chain that one
+// tile may walk is over groups.
+//
+// Memory order: a writer stores the value, fences, and then sets the flag
+// with release semantics; a reader reads the flag with acquire semantics,
+// the warp synchronises and fences, and reads the value through L2
+// (ld.cg), since L1 is not coherent between multiprocessors. Every wait
+// traps after kWatchdogNs, so a broken protocol fails the launch instead
+// of hanging the card. The flags and the ticket are zeroed on the launch's
+// stream before it (cudaMemsetAsync in the C entries).
+
+constexpr int kLookGroup = 32;  // tiles a group
+
+// One scan's published values: per tile its aggregate and flag, per group
+// its aggregate, its end state and flag.
+struct LookSlots {
+  Acc *tile_agg, *group_agg, *group_state;
+  unsigned *tile_flag, *group_flag;
+};
+
+// The workspace of B2's one launch, in Acc: for each of its two scans
+// (map and state sizes given) the tiles' and groups' values, then the
+// ticket and the flags as 32-bit words.
+struct LookLayout {
+  long long nt, ng, off[2][3], flags, flag_words, total;
+  __host__ __device__ LookLayout(long long nt_, int map0, int state0, int map1, int state1)
+      : nt(nt_), ng((nt_ + kLookGroup - 1) / kLookGroup) {
+    const int map[2] = {map0, map1}, state[2] = {state0, state1};
+    long long at = 0;
+    for (int k = 0; k < 2; ++k) {
+      off[k][0] = at;
+      off[k][1] = at += nt * map[k];
+      off[k][2] = at += ng * map[k];
+      at += ng * state[k];
+    }
+    flags = at;
+    flag_words = 1 + 2 * (nt + ng);
+    total = flags + (flag_words + 1) / 2;
+  }
+  __device__ unsigned* ticket(Acc* work) const { return reinterpret_cast<unsigned*>(work + flags); }
+  __device__ LookSlots slots(Acc* work, int k) const {
+    unsigned* f = ticket(work) + 1 + k * (nt + ng);
+    return LookSlots{work + off[k][0], work + off[k][1], work + off[k][2], f, f + nt};
+  }
+};
+
+constexpr unsigned long long kWatchdogNs = 10000000000ull;
+constexpr int kLookWindow = 32;  // flags a warp examines at once
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Wait until *p is nonzero; return it.
+__device__ __forceinline__ unsigned wait_nonzero(const unsigned* p) {
+  unsigned v = ld_acquire(p);
+  if (v) return v;
+  const unsigned long long start = global_ns();
+  while (!(v = ld_acquire(p))) {
+    if (global_ns() - start > kWatchdogNs) __trap();
+  }
+  return v;
+}
+
+// By one warp: the nearest j < b with flag 2 such that every flag in (j, b)
+// is nonzero, or -1 (before the first, where every scan starts at 0). Ends
+// with the warp's lanes fenced after the flags they saw.
+__device__ inline long long lookback_find(long long b, const unsigned* flags) {
+  const int lane = threadIdx.x & 31;
+  long long j = -1;
+  for (long long lo = b; lo > 0; lo -= kLookWindow) {
+    const long long i = lo - 1 - lane;
+    const unsigned f = i >= 0 ? wait_nonzero(flags + i) : 2u;
+    const unsigned two = __ballot_sync(0xffffffffu, f == 2u);
+    if (two) {
+      j = lo - 1 - (__ffs(two) - 1);
+      break;
+    }
+  }
+  __syncwarp();
+  __threadfence();
+  return j;
+}
+
+// By one warp: the published maps [i0, i0 + cnt) of agg (size values each,
+// contiguous) into win.
+__device__ __forceinline__ void lookback_window(const Acc* agg, long long i0, int cnt, int size,
+                                                Acc* win) {
+  for (int c = threadIdx.x & 31; c < cnt * size; c += 32) win[c] = __ldcg(agg + i0 * size + c);
+  __syncwarp();
 }
 
 // ------------------------------------------- team-cooperative algebra, any m

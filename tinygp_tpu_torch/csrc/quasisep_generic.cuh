@@ -1,7 +1,8 @@
 // The generic-order monoid scan engine on Hopper (sm_90a): kernel B3 at
-// every order of the quasiseparable algebra, and the scans of B1, B1r and
-// B2 above m = 4. Included by quasisep_generic.cu (B3's entries) and
-// quasisep_loglik_generic.cu (B1, B1r and B2 for m > 4).
+// every order of the quasiseparable algebra, the scans of B1 and B1r above
+// m = 4 and those of B2 above m = 8 (B2 runs in one launch up to m = 8,
+// quasisep_loglik_generic.cu: b2_warp_kernel). Included by
+// quasisep_generic.cu (B3's entries) and quasisep_loglik_generic.cu.
 //
 // Why not quasisep_scan.cu's kernel at a larger m. There each thread keeps
 // one monoid value in registers and a Kogge-Stone pass runs over a shared
@@ -398,19 +399,6 @@ struct RicEmit {
   S* Fs;
 };
 
-template <typename S>
-__device__ __forceinline__ void ric_cp_async(S* dst, const S* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(S) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ric_cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
 // Copy the cnt elements from position pos0 on into dst (element j's
 // component c, of `total`, at dst[j * stride + c]; src(c, k) points at
 // component c of element k) asynchronously, component by component, so
@@ -421,9 +409,9 @@ __device__ void team_stage(const Team& tm, int total, int stride, long long n, i
                            long long pos0, int cnt, S* dst, Src src) {
   for (int idx = tm.rank(); idx < total * kRicBatch; idx += tm.size()) {
     const int c = idx / kRicBatch, j = idx - c * kRicBatch;
-    if (j < cnt) ric_cp_async(dst + j * stride + c, src(c, g_element_index(pos0 + j, n, reverse)));
+    if (j < cnt) cp_async_elem(dst + j * stride + c, src(c, g_element_index(pos0 + j, n, reverse)));
   }
-  ric_cp_commit();
+  cp_async_commit();
 }
 
 // A warp team's walk over its chunk [lo, hi) of elements of `total`
@@ -447,7 +435,7 @@ __device__ void team_walk(const Team& tm, int total, int stride, Acc* ast, S* ss
     if (next < hi)
       team_stage(tm, total, stride, n, reverse, next, batch(next), sst + (cur ^ 1) * half, src);
     else
-      ric_cp_commit();
+      cp_async_commit();
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     tm.sync();
     const S* staged = sst + cur * half;
@@ -688,7 +676,7 @@ ric_finish_pass(GSpec s, long long n, long long chunk, long long nb, int teams, 
 // ------------------------------------------ the affine scan, a warp per chunk
 //
 // The affine scan g' = A g + B with one column at m <= kWarpTeamMaxM (B1's
-// whitening scan, B2's reverse scan, B3's with r = 1), run as the Riccati
+// whitening scan, B3's with r = 1), run as the Riccati
 // flow runs: a warp per chunk, elements staged in batches, the order a
 // compile-time constant at 5..8. The combine is g_combine's, (A_l A_e,
 // A_l B_e + B_l), folded element by element, with the running value kept

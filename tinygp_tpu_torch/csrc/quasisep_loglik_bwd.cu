@@ -1,5 +1,5 @@
 // Backward of the quasiseparable GP log-likelihood on Hopper (sm_90a):
-// kernel B2.
+// kernel B2 at m = 1..4.
 //
 // Replaces the TPU kernel tinygp_tpu/solvers/quasisep/pallas_loglik.py:
 // _bwd_kernel (line 414), launched by _call_bwd_kernel (line 602). From the
@@ -22,48 +22,69 @@
 //
 // where the congruence load Ybar_k = Fpbar_k p_k^T needs mu_k (through
 // wdbar = mu (y - p.e)). The outputs need mu_k and Gbar_k; they are
-// elementwise in them (BwdElem::glue and out_chunk).
+// elementwise in them (TileElem::glue and phase C below).
 //
 // Operands are stacked as in the forward kernel: y, ic of length n; ps, qs,
 // e of shape (m, n); as, F of shape (m*m, n); all contiguous, in float32 or
 // float64. qbar and lbar are single values in device memory, read by the
-// kernels, so nothing waits on the host. Every scan runs in float64, as in
+// kernel, so nothing waits on the host. Every scan runs in float64, as in
 // the forward kernel; the outputs are stored in the operands' type.
 //
 // What bounds it: bytes. The function reads (2m^2 + 3m + 2) values per
 // element and writes (m^2 + 2m + 2): (3m^2 + 5m + 4) values, 104 MB at
 // n = 1e6 with m = 2 in float32, 31.0 us at 3.35 TB/s.
 //
-// Design. CUDA blocks run in no order, so, like the forward kernel, this
-// is a chunked multi-pass scan. A suffix scan is a prefix scan of the
-// mirrored sequence: thread t owns the mirrored positions
-// j = t*kChunk .. t*kChunk + kChunk - 1, i.e. the elements k = n-1-j in
-// descending order, so the forward monoids, the in-block Kogge-Stone scan
-// and the block-totals scan serve unchanged. The congruence loads need mu,
-// the outputs need mu and Gbar, so there are five passes:
+// Design: one launch, the GPU form of the TPU kernel's carried grid. A
+// suffix scan is a prefix scan of the mirrored sequence (position
+// j = n - 1 - k). Each block takes a tile of kB2Threads * sub consecutive
+// positions by a ticket (quasisep_common.cuh: the one-launch look-back);
+// thread t owns the sub positions t * sub .. t * sub + sub - 1 of it.
 //
-//   1. adj_chunk:   each thread folds its chunk's affine-adjoint elements
-//                   (A^T, ebar), recomputed elementwise from (F, e, ic),
-//                   into a chunk total; in-block scan; block totals.
-//   2. scan_totals: the affine block totals (exclusive, in place).
-//   3. cong_chunk:  each thread composes its prefix, whose B component is
-//                   mu at its chunk's start (lambda starts at 0), stores
-//                   it, and re-runs its chunk sequentially to get each mu_k
-//                   and form the congruence elements (A^T, Ybar); chunk
-//                   totals and block scan as in 1.
-//   4. scan_totals: the congruence block totals.
-//   5. out_chunk:   each thread starts from its stored mu and its Gbar
-//                   prefix, re-runs both recurrences over its chunk and
-//                   writes the m^2 + 2m + 2 cotangents of each element.
+//   staging: every operand's run for the tile is contiguous, so the block
+//            copies each component once, coalesced, with cp.async into
+//            shared memory (thread t's element jj at slot jj * kB2Threads
+//            + t, so that the phases' reads are conflict-free); nothing is
+//            read from device memory again.
+//   phase A: each thread folds its elements' (A^T, ebar) into one affine
+//            map; a warp-shuffle Kogge-Stone scan per warp, the second
+//            warp's values composed after the first warp's total, gives
+//            each thread's exclusive prefix and the tile's aggregate; the
+//            tile publishes it, and the look-back gives mu at the tile's
+//            start (lambda starts at 0 at the sequence's end).
+//   phase B: each thread walks its elements with the sequential mu
+//            recurrence, forms the congruence loads Fpbar p^T and folds
+//            each element as T' = A^T T, B' = A^T B A + Fpbar p^T (a
+//            product and an outer product, no full merge); the same scan,
+//            publication and look-back give Gbar at the tile's start.
+//   phase C: each thread walks its elements once more with both
+//            recurrences and puts the m^2 + 2m + 2 cotangents of each over
+//            its inputs in shared memory; the block writes them out
+//            coalesced.
 //
-// The ragged end is masked in the kernels; nothing is padded. The cost
-// against the bound: the inputs are read three times with strided
-// per-thread loads, five launches, float64 arithmetic, and for m = 4 more
-// live values than registers.
+// The look-back folds the aggregates of the earlier tiles of the tile's
+// group in order and applies the earlier groups' aggregates to a
+// published group state one group at a time, so its result is one fixed
+// association whichever tiles it found published, and two launches on the
+// same inputs agree bit for bit (quasisep_common.cuh).
+// cuda_loglik.plain_loglik_bwd_tiled is this association in plain
+// PyTorch. The ragged last tile is masked; nothing is padded. The cost
+// against the bound: float64 arithmetic, and the latency of a tile's
+// staging, three walks, two in-tile scans and two look-backs, with a few
+// hundred threads a multiprocessor.
 
 #include "quasisep_common.cuh"
 
 namespace {
+
+constexpr int kB2Threads = 64;  // threads (teams of one) per tile
+
+// Elements per thread: tiles of 512 elements at m <= 2, 128 at m = 3, 4.
+// A tile's fixed cost (its staging latency, two in-tile scans, two
+// look-backs) is then a smaller part of its time: at m = 2 on an H100,
+// tiles of 256 took 0.16 ms of device time at N = 1e6 against 0.13 with
+// 512, and no less at 1e5 (PERF.md §6). cuda_loglik._B2_SCHEDULE repeats
+// it.
+__host__ __device__ constexpr int b2_sub(int m) { return m <= 2 ? 8 : 2; }
 
 // The congruence recurrence G' = T G T^T + B, flattened [T | B].
 template <typename T, int M>
@@ -92,67 +113,72 @@ struct Cong {
   }
 };
 
-// One element's residuals, loaded from the storage type S into T, and the
-// forward emissions recomputed from them.
-template <typename T, int M>
-struct BwdElem {
-  static constexpr int MM = M * M;
-  T y, ic, ic2, r, alpha, alphabar;
-  T p[M], a[MM], F[MM], e[M], Fp[M], u[M], wd[M];
+// The staged components of an element, in shared memory: [y | ic | p (m) |
+// q (m) | e (m) | a (m x m) | F (m x m)], component c of slot s at
+// [c * ld + s]. Phase C puts the outputs [dbar | ybar | psbar (m) |
+// qsbar (m) | asbar (m x m)] over the first of them.
+template <int M>
+struct B2Layout {
+  static constexpr int MM = M * M, Y = 0, IC = 1, P = 2, Q = 2 + M, E = 2 + 2 * M,
+                       A = 2 + 3 * M, F = 2 + 3 * M + MM, IN = 2 + 3 * M + 2 * MM,
+                       OUT = 2 + 2 * M + MM;
+};
 
-  template <typename S>
-  __device__ __forceinline__ BwdElem(const S* ps, const S* qs, const S* as,
-                                     const S* y_, const S* Fs, const S* es,
-                                     const S* ics, T qb, long long k,
-                                     long long n) {
-    T q[M];
-    y = T(y_[k]);
-    ic = T(ics[k]);
+// One element's residuals, read from its staged column, and the forward
+// emissions recomputed from them; a and F stay in shared memory.
+template <typename S, int M, int LD>
+struct TileElem {
+  using L = B2Layout<M>;
+  static constexpr int MM = M * M;
+  const S* col;
+  Acc y, ic, ic2, r, alpha, alphabar;
+  Acc p[M], e[M], Fp[M], u[M], wd[M];
+
+  __device__ __forceinline__ Acc a(int i, int j) const { return Acc(col[(L::A + i * M + j) * LD]); }
+  __device__ __forceinline__ Acc F(int i, int j) const { return Acc(col[(L::F + i * M + j) * LD]); }
+
+  __device__ __forceinline__ TileElem(const S* col_, Acc qb) : col(col_) {
+    y = Acc(col[L::Y * LD]);
+    ic = Acc(col[L::IC * LD]);
     ic2 = ic * ic;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      p[i] = T(ps[i * n + k]);
-      q[i] = T(qs[i * n + k]);
-      e[i] = T(es[i * n + k]);
+      p[i] = Acc(col[(L::P + i) * LD]);
+      e[i] = Acc(col[(L::E + i) * LD]);
     }
-#pragma unroll
-    for (int c = 0; c < MM; ++c) {
-      a[c] = T(as[c * n + k]);
-      F[c] = T(Fs[c * n + k]);
-    }
-    T pe = T(0);
+    Acc pe = Acc(0);
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      T acc = T(0);
+      Acc acc = Acc(0);
 #pragma unroll
-      for (int j = 0; j < M; ++j) acc += F[i * M + j] * p[j];
+      for (int j = 0; j < M; ++j) acc += F(i, j) * p[j];
       Fp[i] = acc;
       pe += p[i] * e[i];
     }
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      T acc = q[i];
+      Acc acc = Acc(col[(L::Q + i) * LD]);
 #pragma unroll
-      for (int j = 0; j < M; ++j) acc -= a[i * M + j] * Fp[j];
+      for (int j = 0; j < M; ++j) acc -= a(i, j) * Fp[j];
       u[i] = acc;
       wd[i] = acc * ic2;
     }
     r = y - pe;
     alpha = r * ic;
-    alphabar = T(2) * qb * alpha;
+    alphabar = Acc(2) * qb * alpha;
   }
 
   // The transposed whitening transition A^T = (a - wd p^T)^T.
-  __device__ __forceinline__ void transition_t(T* out) const {
+  __device__ __forceinline__ void transition_t(Acc* out) const {
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < M; ++j) out[j * M + i] = a[i * M + j] - wd[i] * p[j];
+      for (int j = 0; j < M; ++j) out[j * M + i] = a(i, j) - wd[i] * p[j];
   }
 
   // The affine-adjoint element (A^T, ebar), ebar = -alphabar ic p.
-  __device__ __forceinline__ Aff<T, M> adjoint() const {
-    Aff<T, M> x;
+  __device__ __forceinline__ Aff<Acc, M> adjoint() const {
+    Aff<Acc, M> x;
     transition_t(x.v);
 #pragma unroll
     for (int i = 0; i < M; ++i) x.v[MM + i] = -(alphabar * ic) * p[i];
@@ -160,16 +186,16 @@ struct BwdElem {
   }
 
   // lambda <- A^T lambda + ebar, in place.
-  __device__ __forceinline__ void adjoint_step(T* lam) const {
-    T wl = T(0);
+  __device__ __forceinline__ void adjoint_step(Acc* lam) const {
+    Acc wl = Acc(0);
 #pragma unroll
     for (int i = 0; i < M; ++i) wl += wd[i] * lam[i];
-    T next[M];
+    Acc next[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      T acc = -(wl + alphabar * ic) * p[j];
+      Acc acc = -(wl + alphabar * ic) * p[j];
 #pragma unroll
-      for (int i = 0; i < M; ++i) acc += a[i * M + j] * lam[i];
+      for (int i = 0; i < M; ++i) acc += a(i, j) * lam[i];
       next[j] = acc;
     }
 #pragma unroll
@@ -179,221 +205,160 @@ struct BwdElem {
   // The cotangent glue from mu: ubar, c2bar and Fpbar (the congruence load
   // is Ybar = Fpbar p^T). wdbar = mu y - Abar p with Abar = mu e^T, which
   // is mu (y - p.e).
-  __device__ __forceinline__ void glue(const T* mu, T lb, T* ubar, T& c2bar,
-                                       T* Fpbar) const {
-    T uw = T(0);
+  __device__ __forceinline__ void glue(const Acc* mu, Acc lb, Acc* ubar, Acc& c2bar,
+                                       Acc* Fpbar) const {
+    Acc uw = Acc(0);
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      const T wdbar = mu[i] * r;
+      const Acc wdbar = mu[i] * r;
       ubar[i] = wdbar * ic2;
       uw += u[i] * wdbar;
     }
-    const T icbar = -lb / ic + alphabar * alpha / ic + T(2) * ic * uw;
-    c2bar = T(-0.5) * icbar * ic * ic2;
+    const Acc icbar = -lb / ic + alphabar * alpha / ic + Acc(2) * ic * uw;
+    c2bar = Acc(-0.5) * icbar * ic * ic2;
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      T acc = -c2bar * p[j];
+      Acc acc = -c2bar * p[j];
 #pragma unroll
-      for (int i = 0; i < M; ++i) acc -= a[i * M + j] * ubar[i];
+      for (int i = 0; i < M; ++i) acc -= a(i, j) * ubar[i];
       Fpbar[j] = acc;
     }
   }
 
-  // The congruence element (A^T, Fpbar p^T).
-  __device__ __forceinline__ Cong<T, M> congruence(const T* Fpbar) const {
-    Cong<T, M> x;
-    transition_t(x.v);
+  // G <- A^T G A + Fpbar p^T, in place (the congruence step, and with
+  // T <- A^T T the fold of the element into a running map).
+  __device__ __forceinline__ void cong_step(const Acc* At, const Acc* Fpbar, Acc* G) const {
+    Acc t1[MM], t2[MM];
+    mm<Acc, M>(At, G, t1);
+    mm_nt<Acc, M>(t1, At, t2);
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < M; ++j) x.v[MM + i * M + j] = Fpbar[i] * p[j];
-    return x;
+      for (int j = 0; j < M; ++j) G[i * M + j] = t2[i * M + j] + Fpbar[i] * p[j];
   }
 };
 
-// Element k of thread gt's mirrored chunk position jj, or -1 past the end.
-__device__ __forceinline__ long long mirrored(long long n, long long gt, int jj) {
-  const long long j = gt * kChunk + jj;
-  return j < n ? n - 1 - j : -1;
-}
-
-template <typename S, int M>
-__global__ void __launch_bounds__(kThreads)
-adj_chunk(long long n, const S* ps, const S* qs, const S* as, const S* y,
-          const S* Fs, const S* es, const S* ics, const S* qbar,
-          Acc* aff_local, Acc* aff_block) {
-  using T = Acc;
-  using A = Aff<T, M>;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const T qb = T(*qbar);
-  A acc = A::identity();
-  for (int jj = 0; jj < kChunk; ++jj) {
-    const long long k = mirrored(n, gt, jj);
-    if (k < 0) break;
-    acc = A::combine(acc, BwdElem<T, M>(ps, qs, as, y, Fs, es, ics, qb, k, n).adjoint());
+// The in-tile scan of the threads' values x (thread order): a Kogge-Stone
+// scan in each warp by shuffles, then the second warp's values composed
+// after the first warp's total (sm: V::S values). Returns the thread's
+// exclusive prefix; the last thread's inclusive value, the tile's
+// aggregate, goes to agg (shared memory) and is visible on return.
+template <class V>
+__device__ V tile_scan(V x, Acc* sm, Acc* agg) {
+  static_assert(kB2Threads == 64, "two warps");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    V y;
+#pragma unroll
+    for (int c = 0; c < V::S; ++c) y.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], off);
+    if (lane >= off) x = V::combine(y, x);
   }
-  const A incl = block_inclusive_scan<A>(acc, sm);
-  store(aff_local, gt, block_exclusive<A>(sm));
-  if (threadIdx.x == kThreads - 1) store(aff_block, blockIdx.x, incl);
+  V ex;
+#pragma unroll
+  for (int c = 0; c < V::S; ++c) ex.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], 1);
+  if (lane == 0) ex = V::identity();
+  if (warp == 0 && lane == 31)
+    for (int c = 0; c < V::S; ++c) sm[c] = x.v[c];
+  __syncthreads();
+  if (warp == 1) {
+    V tot;
+#pragma unroll
+    for (int c = 0; c < V::S; ++c) tot.v[c] = sm[c];
+    x = V::combine(tot, x);
+    ex = lane == 0 ? tot : V::combine(tot, ex);
+    if (lane == 31)
+      for (int c = 0; c < V::S; ++c) agg[c] = x.v[c];
+  }
+  __syncthreads();
+  return ex;
 }
 
-template <typename S, int M>
-__global__ void __launch_bounds__(kThreads)
-cong_chunk(long long n, const S* ps, const S* qs, const S* as, const S* y,
-           const S* Fs, const S* es, const S* ics, const S* qbar,
-           const S* lbar, const Acc* aff_local, const Acc* aff_block,
-           Acc* mu_start, Acc* cong_local, Acc* cong_block) {
-  using T = Acc;
-  using A = Aff<T, M>;
-  using C = Cong<T, M>;
-  constexpr int MM = M * M;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const T qb = T(*qbar), lb = T(*lbar);
-  // The adjoint state at the chunk's start: lambda starts at 0, so it is
-  // the B component of the composed prefix.
-  const A pre = A::combine(load<A>(aff_block, blockIdx.x), load<A>(aff_local, gt));
-  T lam[M];
+// The affine state s <- A s + B by one thread; map = [A | B].
+template <int M>
+__device__ __forceinline__ void aff_apply(const Acc* map, Acc* s) {
+  Acc t[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    lam[i] = pre.v[MM + i];
-    mu_start[gt * M + i] = lam[i];
+    Acc acc = map[M * M + i];
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc += map[i * M + j] * s[j];
+    t[i] = acc;
   }
-  C acc = C::identity();
-  for (int jj = 0; jj < kChunk; ++jj) {
-    const long long k = mirrored(n, gt, jj);
-    if (k < 0) break;
-    const BwdElem<T, M> el(ps, qs, as, y, Fs, es, ics, qb, k, n);
-    T ubar[M], c2bar, Fpbar[M];
-    el.glue(lam, lb, ubar, c2bar, Fpbar);
-    acc = C::combine(acc, el.congruence(Fpbar));
-    el.adjoint_step(lam);
-  }
-  const C incl = block_inclusive_scan<C>(acc, sm);
-  store(cong_local, gt, block_exclusive<C>(sm));
-  if (threadIdx.x == kThreads - 1) store(cong_block, blockIdx.x, incl);
+#pragma unroll
+  for (int i = 0; i < M; ++i) s[i] = t[i];
 }
 
-template <typename S, int M>
-__global__ void __launch_bounds__(kThreads)
-out_chunk(long long n, const S* ps, const S* qs, const S* as, const S* y,
-          const S* Fs, const S* es, const S* ics, const S* qbar,
-          const S* lbar, const Acc* mu_start, const Acc* cong_local,
-          const Acc* cong_block, S* dbar, S* psbar, S* qsbar, S* asbar,
-          S* ybar) {
-  using T = Acc;
-  using C = Cong<T, M>;
-  constexpr int MM = M * M;
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (gt * kChunk >= n) return;
-  const T qb = T(*qbar), lb = T(*lbar);
-  T lam[M], G[MM];
-#pragma unroll
-  for (int i = 0; i < M; ++i) lam[i] = mu_start[gt * M + i];
-  // Gbar at the chunk's start: the adjoint flow starts at 0.
-  const C pre = C::combine(load<C>(cong_block, blockIdx.x), load<C>(cong_local, gt));
-#pragma unroll
-  for (int c = 0; c < MM; ++c) G[c] = pre.v[MM + c];
-
-  for (int jj = 0; jj < kChunk; ++jj) {
-    const long long k = mirrored(n, gt, jj);
-    if (k < 0) break;
-    const BwdElem<T, M> el(ps, qs, as, y, Fs, es, ics, qb, k, n);
-    T ubar[M], c2bar, Fpbar[M];
-    el.glue(lam, lb, ubar, c2bar, Fpbar);  // lam is mu_k here
-
-    // The Riccati adjoint's terms, with S = Gbar + Gbar^T.
-    T Sm[MM], Su[M], aTSu[M], Sa[MM], SaF[MM];
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) Sm[i * M + j] = G[i * M + j] + G[j * M + i];
-    T uSu = T(0), wmu = T(0);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int j = 0; j < M; ++j) acc += Sm[i * M + j] * el.u[j];
-      Su[i] = acc;
-      uSu += el.u[i] * acc;
-      wmu += el.wd[i] * lam[i];
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < M; ++i) acc += el.a[i * M + j] * Su[i];
-      aTSu[j] = acc;
-    }
-    mm<T, M>(Sm, el.a, Sa);
-    mm<T, M>(Sa, el.F, SaF);
-
-    const T ic2 = el.ic2, ic4 = ic2 * ic2;
-    dbar[k] = S(c2bar - T(0.5) * uSu * ic4);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      T acc = -(el.alphabar * el.ic + wmu) * el.e[j] - c2bar * el.Fp[j] +
-              uSu * ic4 * el.Fp[j];
-      T fa = T(0);
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        acc += el.F[i * M + j] * Fpbar[i];
-        fa += el.F[j * M + i] * aTSu[i];
-      }
-      psbar[j * n + k] = S(acc - fa * ic2);
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      qsbar[i * n + k] = S(ubar[i] + Su[i] * ic2);
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        asbar[(i * M + j) * n + k] =
-            S(lam[i] * el.e[j] - ubar[i] * el.Fp[j] + SaF[i * M + j] -
-              Su[i] * el.Fp[j] * ic2);
-    }
-    ybar[k] = S(el.alphabar * el.ic + wmu);
-
-    // Step both adjoint recurrences past element k.
-    el.adjoint_step(lam);
-    T At[MM], t1[MM], next[MM];
-    el.transition_t(At);
-    mm<T, M>(At, G, t1);
-    mm_nt<T, M>(t1, At, next);
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) G[i * M + j] = next[i * M + j] + Fpbar[i] * el.p[j];
-  }
-}
-
-// ------------------------------------------------------------------- host side
-
-// Workspace layout, in elements of Acc.
+// The congruence state G <- T G T^T + B by one thread; map = [T | B].
 template <int M>
-struct BwdLayout {
-  static constexpr int MM = M * M;
-  long long nb, nt, aff_local, aff_block, mu_start, cong_local, cong_block,
-      total;
-  explicit BwdLayout(long long n) {
-    nb = num_blocks(n);
-    nt = nb * kThreads;
-    aff_local = 0;
-    aff_block = aff_local + nt * (MM + M);
-    mu_start = aff_block + nb * (MM + M);
-    cong_local = mu_start + nt * M;
-    cong_block = cong_local + nt * 2 * MM;
-    total = cong_block + nb * 2 * MM;
-  }
-};
+__device__ __forceinline__ void cong_apply(const Acc* map, Acc* G) {
+  constexpr int MM = M * M;
+  Acc t1[MM], t2[MM];
+  mm<Acc, M>(map, G, t1);
+  mm_nt<Acc, M>(t1, map, t2);
+#pragma unroll
+  for (int c = 0; c < MM; ++c) G[c] = t2[c] + map[MM + c];
+}
 
-long long bwd_workspace_elems(int m, long long n) {
-  switch (m) {
-    case 1: return BwdLayout<1>(n).total;
-    case 2: return BwdLayout<2>(n).total;
-    case 3: return BwdLayout<3>(n).total;
-    case 4: return BwdLayout<4>(n).total;
-    default: return -1;
+// One thread publishes `size` values and then sets *flag to v.
+__device__ __forceinline__ void publish1(const Acc* src, Acc* dst, int size, unsigned* flag,
+                                         unsigned v) {
+  for (int c = 0; c < size; ++c) dst[c] = src[c];
+  __threadfence();
+  st_release(flag, v);
+}
+
+// By warp 0, once the tile's aggregate agg (shared memory, a V) is final:
+// the scan's state before tile b into st (SZ values of shared memory),
+// publishing what later tiles need (quasisep_common.cuh: the one-launch
+// look-back). Lane 0 does the arithmetic, in registers.
+template <class V, int SZ, class Apply>
+__device__ void group_lookback(long long b, long long nt, const LookSlots& sl, const Acc* agg,
+                               Acc* win, Acc* st, Apply apply) {
+  const int lane = threadIdx.x & 31;
+  const long long g = b / kLookGroup, base = g * kLookGroup;
+  const bool end = b % kLookGroup == kLookGroup - 1, more = b + 1 < nt;
+  if (!end && more && lane == 0) publish1(agg, sl.tile_agg + b * V::S, V::S, sl.tile_flag + b, 1u);
+  // Q: the aggregates of the group's tiles before b, folded in order.
+  V Q = V::identity();
+  const int cnt = (int)(b - base);
+  if (cnt > 0) {
+    if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
+    __syncwarp();
+    __threadfence();
+    lookback_window(sl.tile_agg, base, cnt, V::S, win);
+    if (lane == 0)
+      for (int l = 0; l < cnt; ++l) Q = V::combine(Q, load<V>(win, l));
+    __syncwarp();
+  }
+  V GA;
+  if (end && more && lane == 0) {
+    GA = V::combine(Q, load<V>(agg, 0));
+    publish1(GA.v, sl.group_agg + g * V::S, V::S, sl.group_flag + g, 1u);
+  }
+  // S(g - 1): from the nearest group whose end state is published.
+  const long long j = lookback_find(g, sl.group_flag);
+  Acc s[SZ];
+#pragma unroll
+  for (int c = 0; c < SZ; ++c) s[c] = j >= 0 ? __ldcg(sl.group_state + j * SZ + c) : Acc(0);
+  for (long long i0 = j + 1; i0 < g; i0 += kLookWindow) {
+    const int n_win = (int)(g - i0 < kLookWindow ? g - i0 : kLookWindow);
+    lookback_window(sl.group_agg, i0, n_win, V::S, win);
+    if (lane == 0)
+      for (int l = 0; l < n_win; ++l) apply(win + l * V::S, s);
+    __syncwarp();
+  }
+  if (lane == 0) {
+    Acc t[SZ];
+#pragma unroll
+    for (int c = 0; c < SZ; ++c) t[c] = s[c];
+    apply(Q.v, t);
+#pragma unroll
+    for (int c = 0; c < SZ; ++c) st[c] = t[c];
+    if (end && more) {
+      apply(GA.v, s);
+      publish1(s, sl.group_state + g * SZ, SZ, sl.group_flag + g, 2u);
+    }
   }
 }
 
@@ -403,39 +368,233 @@ struct BwdArgs {
   S *dbar, *psbar, *qsbar, *asbar, *ybar;
 };
 
+// B2's workspace at order M (quasisep_common.cuh: LookLayout): the affine
+// scan (maps of m^2 + m, states of m), then the congruence scan (2 m^2,
+// m^2).
+template <int M>
+LookLayout b2_layout(long long n) {
+  const long long tile = kB2Threads * b2_sub(M);
+  return LookLayout((n + tile - 1) / tile, M * M + M, M, 2 * M * M, M * M);
+}
+
+// Shared memory of a block, in bytes: the look-back window, the scan's
+// warp total, the tile's aggregate and the state at the tile's start (all
+// Acc), then the staged tile.
+template <typename S, int M>
+constexpr long long b2_smem() {
+  constexpr int MM = M * M, T = kB2Threads * b2_sub(M);
+  return (long long)(kLookWindow * 2 * MM + 5 * MM) * sizeof(Acc) +
+         (long long)B2Layout<M>::IN * (T + 1) * sizeof(S);
+}
+
+template <typename S, int M>
+__global__ void __launch_bounds__(kB2Threads)
+b2_tile_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
+  using L = B2Layout<M>;
+  using A = Aff<Acc, M>;
+  using C = Cong<Acc, M>;
+  constexpr int MM = M * M, SUB = b2_sub(M), T = kB2Threads * SUB, LD = T + 1;
+  using E = TileElem<S, M, LD>;
+  __shared__ long long tile_of_block;
+  const LookSlots aff_sl = lay.slots(work, 0), cong_sl = lay.slots(work, 1);
+  Acc* win = reinterpret_cast<Acc*>(qsl_smem);
+  Acc* scan_sm = win + kLookWindow * 2 * MM;
+  Acc* agg = scan_sm + 2 * MM;
+  Acc* start = agg + 2 * MM;
+  S* st = reinterpret_cast<S*>(start + MM);
+  const int t = threadIdx.x, warp = t >> 5;
+
+  if (t == 0) tile_of_block = atomicAdd(lay.ticket(work), 1u);
+  __syncthreads();
+  const long long b = tile_of_block, p0 = b * T;
+  const int cnt = (int)(n - p0 < T ? n - p0 : T);
+
+  // Stage the tile: position i (element n - 1 - p0 - i) of component c at
+  // slot (i % SUB) * kB2Threads + i / SUB.
+  for (int c = 0; c < L::IN; ++c) {
+    const S* src = c == L::Y    ? x.y
+                   : c == L::IC ? x.ics
+                   : c < L::Q   ? x.ps + (long long)(c - L::P) * n
+                   : c < L::E   ? x.qs + (long long)(c - L::Q) * n
+                   : c < L::A   ? x.es + (long long)(c - L::E) * n
+                   : c < L::F   ? x.as + (long long)(c - L::A) * n
+                                : x.Fs + (long long)(c - L::F) * n;
+    src += n - 1 - p0;
+    for (int i = t; i < cnt; i += kB2Threads)
+      cp_async_elem(st + c * LD + (i % SUB) * kB2Threads + i / SUB, src - i);
+  }
+  cp_async_commit();
+  const Acc qb = Acc(*x.qbar), lb = Acc(*x.lbar);
+  cp_async_wait_all();
+  __syncthreads();
+  const int mine = max(0, min(SUB, cnt - t * SUB));
+  const auto col = [&](int jj) { return st + jj * kB2Threads + t; };
+
+  // Phase A: the affine adjoint. The tile's aggregate, then mu at its
+  // start from the look-back.
+  A acc = A::identity();
+  for (int jj = 0; jj < mine; ++jj) acc = A::combine(acc, E(col(jj), qb).adjoint());
+  const A pre = tile_scan<A>(acc, scan_sm, agg);
+  if (warp == 0)
+    group_lookback<A, M>(b, lay.nt, aff_sl, agg, win, start,
+                         [](const Acc* map, Acc* s) { aff_apply<M>(map, s); });
+  __syncthreads();
+  // mu at the thread's first element: its prefix applied to the tile's start.
+  Acc mu0[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) mu0[i] = start[i];
+  aff_apply<M>(pre.v, mu0);
+
+  // Phase B: the congruence adjoint, its loads from the mu recurrence.
+  C cacc = C::identity();
+  {
+    Acc lam[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) lam[i] = mu0[i];
+    for (int jj = 0; jj < mine; ++jj) {
+      const E el(col(jj), qb);
+      Acc ubar[M], c2bar, Fpbar[M], At[MM], t1[MM];
+      el.glue(lam, lb, ubar, c2bar, Fpbar);
+      el.transition_t(At);
+      mm<Acc, M>(At, cacc.v, t1);
+#pragma unroll
+      for (int c = 0; c < MM; ++c) cacc.v[c] = t1[c];
+      el.cong_step(At, Fpbar, cacc.v + MM);
+      el.adjoint_step(lam);
+    }
+  }
+  const C cpre = tile_scan<C>(cacc, scan_sm, agg);
+  if (warp == 0)
+    group_lookback<C, MM>(b, lay.nt, cong_sl, agg, win, start,
+                          [](const Acc* map, Acc* s) { cong_apply<M>(map, s); });
+  __syncthreads();
+
+  // Phase C: both recurrences again from the thread's start, and the
+  // cotangents of each element over its staged inputs.
+  Acc lam[M], G[MM];
+#pragma unroll
+  for (int i = 0; i < M; ++i) lam[i] = mu0[i];
+#pragma unroll
+  for (int c = 0; c < MM; ++c) G[c] = start[c];
+  cong_apply<M>(cpre.v, G);
+  for (int jj = 0; jj < mine; ++jj) {
+    const E el(col(jj), qb);
+    Acc ubar[M], c2bar, Fpbar[M];
+    el.glue(lam, lb, ubar, c2bar, Fpbar);  // lam is mu_k here
+
+    // The Riccati adjoint's terms, with Sm = Gbar + Gbar^T.
+    Acc Sm[MM], Su[M], aTSu[M], o[L::OUT];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) Sm[i * M + j] = G[i * M + j] + G[j * M + i];
+    Acc uSu = Acc(0), wmu = Acc(0);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Acc acc = Acc(0);
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc += Sm[i * M + j] * el.u[j];
+      Su[i] = acc;
+      uSu += el.u[i] * acc;
+      wmu += el.wd[i] * lam[i];
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      Acc acc = Acc(0);
+#pragma unroll
+      for (int i = 0; i < M; ++i) acc += el.a(i, j) * Su[i];
+      aTSu[j] = acc;
+    }
+    const Acc ic2 = el.ic2, ic4 = ic2 * ic2;
+    o[0] = c2bar - Acc(0.5) * uSu * ic4;
+    o[1] = el.alphabar * el.ic + wmu;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      Acc acc = -(el.alphabar * el.ic + wmu) * el.e[j] - c2bar * el.Fp[j] + uSu * ic4 * el.Fp[j];
+      Acc fa = Acc(0);
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        acc += el.F(i, j) * Fpbar[i];
+        fa += el.F(j, i) * aTSu[i];
+      }
+      o[2 + j] = acc - fa * ic2;
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      o[2 + M + i] = ubar[i] + Su[i] * ic2;
+      // Row i of Sm a, then of (Sm a) F.
+      Acc row[M];
+#pragma unroll
+      for (int l = 0; l < M; ++l) {
+        Acc acc = Acc(0);
+#pragma unroll
+        for (int r = 0; r < M; ++r) acc += Sm[i * M + r] * el.a(r, l);
+        row[l] = acc;
+      }
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        Acc saf = Acc(0);
+#pragma unroll
+        for (int l = 0; l < M; ++l) saf += row[l] * el.F(l, j);
+        o[2 + 2 * M + i * M + j] =
+            lam[i] * el.e[j] - ubar[i] * el.Fp[j] + saf - Su[i] * el.Fp[j] * ic2;
+      }
+    }
+
+    // Step both adjoint recurrences past the element, then put its outputs
+    // over its inputs (every read of them is done).
+    Acc At[MM];
+    el.transition_t(At);
+    el.adjoint_step(lam);
+    el.cong_step(At, Fpbar, G);
+#pragma unroll
+    for (int c = 0; c < L::OUT; ++c) col(jj)[c * LD] = S(o[c]);
+  }
+  __syncthreads();
+  for (int c = 0; c < L::OUT; ++c) {
+    S* dst = c == 0                 ? x.dbar
+             : c == 1               ? x.ybar
+             : c < 2 + M            ? x.psbar + (long long)(c - 2) * n
+             : c < 2 + 2 * M        ? x.qsbar + (long long)(c - 2 - M) * n
+                                    : x.asbar + (long long)(c - 2 - 2 * M) * n;
+    dst += n - 1 - p0;
+    for (int i = t; i < cnt; i += kB2Threads)
+      dst[-i] = st[c * LD + (i % SUB) * kB2Threads + i / SUB];
+  }
+}
+
+// ------------------------------------------------------------------- host side
+
+long long bwd_workspace_elems(int m, long long n) {
+  switch (m) {
+    case 1: return b2_layout<1>(n).total;
+    case 2: return b2_layout<2>(n).total;
+    case 3: return b2_layout<3>(n).total;
+    case 4: return b2_layout<4>(n).total;
+    default: return -1;
+  }
+}
+
+// One memset (the ticket and the flags) and one launch, on stream s.
 template <typename S, int M>
 cudaError_t run_bwd(long long n, const BwdArgs<S>& x, Acc* work, cudaStream_t s) {
-  using T = Acc;
-  using A = Aff<T, M>;
-  using C = Cong<T, M>;
-  const BwdLayout<M> L(n);
-  const int nb = (int)L.nb;
-  T* aff_local = work + L.aff_local;
-  T* aff_block = work + L.aff_block;
-  T* mu_start = work + L.mu_start;
-  T* cong_local = work + L.cong_local;
-  T* cong_block = work + L.cong_block;
-  const int at = scan_threads<A, T>(), ct = scan_threads<C, T>();
-
-  adj_chunk<S, M><<<nb, kThreads, kThreads * A::S * sizeof(T), s>>>(
-      n, x.ps, x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, aff_local,
-      aff_block);
-  scan_totals<A, T><<<1, at, at * A::S * sizeof(T), s>>>(nb, aff_block);
-  cong_chunk<S, M><<<nb, kThreads, kThreads * C::S * sizeof(T), s>>>(
-      n, x.ps, x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, x.lbar, aff_local,
-      aff_block, mu_start, cong_local, cong_block);
-  scan_totals<C, T><<<1, ct, ct * C::S * sizeof(T), s>>>(nb, cong_block);
-  out_chunk<S, M><<<nb, kThreads, 0, s>>>(
-      n, x.ps, x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, x.lbar, mu_start,
-      cong_local, cong_block, x.dbar, x.psbar, x.qsbar, x.asbar, x.ybar);
+  const LookLayout L = b2_layout<M>(n);
+  constexpr long long smem = b2_smem<S, M>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        b2_tile_kernel<S, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e = cudaMemsetAsync(work + L.flags, 0, L.flag_words * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  b2_tile_kernel<S, M><<<(unsigned)L.nt, kB2Threads, smem, s>>>(n, x, work, L);
   return cudaGetLastError();
 }
 
 template <typename S>
 int loglik_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work,
                long long work_elems, void* stream) {
-  if (n < 1 || num_blocks(n) > 0x7fffffffLL || bwd_workspace_elems(m, n) < 0 ||
-      work_elems < bwd_workspace_elems(m, n))
+  if (n < 1 || bwd_workspace_elems(m, n) < 0 || work_elems < bwd_workspace_elems(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
@@ -452,6 +611,16 @@ extern "C" {
 
 // Workspace the launch needs, in float64 elements; -1 for an unsupported m.
 long long qsl_bwd_workspace_elems(int m, int n) { return bwd_workspace_elems(m, n); }
+
+// The launch's association for operands of `bytes` bytes (the same for
+// both): elements per tile and per team (one thread) into tile[0], sub[0];
+// returns 0, or -1 for an unsupported m.
+int qsl_bwd_schedule(int m, int bytes, int* tile, int* sub) {
+  if (m < 1 || m > 4 || (bytes != 4 && bytes != 8)) return -1;
+  *sub = b2_sub(m);
+  *tile = kB2Threads * b2_sub(m);
+  return 0;
+}
 
 // The cotangents of (d, ps, qs, as, y) into dbar (n), psbar (m, n),
 // qsbar (m, n), asbar (m*m, n) and ybar (n). qbar and lbar point to one

@@ -17,13 +17,19 @@ Three kernels replace the TPU's:
 - **B2** (``csrc/quasisep_loglik_bwd.cu``) replaces
   ``pallas_loglik._bwd_kernel``: from the residuals and the two scalar
   cotangents, the cotangents of ``(d, ps, qs, as_, y)``, through a reverse
-  affine-adjoint scan and a reverse congruence scan.
+  affine-adjoint scan and a reverse congruence scan. Up to m = 8 it is one
+  launch (and one memset of its flags): tiles taken by a ticket, each
+  staged once in shared memory, and a look-back that combines the earlier
+  tiles' aggregates in one fixed order, so two launches agree bit for bit;
+  :func:`plain_loglik_bwd_tiled` is its association in plain PyTorch,
+  :func:`b2_schedule` its tiles.
 
 Those sources are templated for m = 1..4. For 4 < m <= 32 the same three
 entry points run ``csrc/quasisep_loglik_generic.cu``, which has the same C
-interface: each call is a short sequence of the generic-order scan engine
-and hand-written elementwise and reduction kernels, with the same
-arithmetic. Above 32 a CUDA operand raises (ROADMAP item N10).
+interface: B1 and B1r, and B2 above m = 8, as a short sequence of the
+generic-order scan engine and hand-written elementwise and reduction
+kernels, with the same arithmetic; B2 at m = 5..8 as the one launch with a
+warp for a team. Above 32 a CUDA operand raises (ROADMAP item N10).
 
 Every scan runs in float64 for float32 operands too: composed in float32,
 the Riccati maps of long spans lose the state (see the note in the
@@ -54,6 +60,8 @@ __all__ = [
     "plain_loglik_terms",
     "plain_loglik_terms_res",
     "plain_loglik_bwd",
+    "plain_loglik_bwd_tiled",
+    "b2_schedule",
 ]
 
 import ctypes
@@ -70,7 +78,8 @@ enqueues the kernel's six passes)."""
 LAUNCHES_RES = 0
 """Calls that launched kernel B1r, the forward with residuals."""
 LAUNCHES_BWD = 0
-"""Calls that launched kernel B2, the backward."""
+"""Calls that launched kernel B2, the backward (one kernel launch each up
+to m = 8)."""
 LAUNCHES_GENERIC = {"b1": 0, "b1r": 0, "b2": 0}
 """Of those, the calls above m = 4 (``quasisep_loglik_generic.cu``)."""
 
@@ -199,6 +208,229 @@ def plain_loglik_bwd(
     return dbar, psbar, qsbar, asbar, ybar
 
 
+# B2's association on the card, (tile, sub) by (m, bytes per value): the
+# elements of a tile and of a team's run (csrc/quasisep_loglik_bwd.cu:
+# b2_sub, one thread a team, 64 a tile; csrc/quasisep_loglik_generic.cu:
+# b2g_sub, one warp a team, 4 a tile). Above m = 8 B2 runs the generic
+# sequence, with no tiles.
+_B2_SCHEDULE = {
+    (m, nbytes): (64 * sub, sub) if m <= 4 else (4 * sub, sub)
+    for m in range(1, 9) for nbytes in (4, 8)
+    for sub in [(8 if m <= 2 else 2) if m <= 4
+                else (8 if nbytes == 8 else 16) if m == 8
+                else 16 if m == 7 or (nbytes == 8 and m == 6) else 32]
+}
+
+
+def b2_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
+    """``(tile, sub)`` of B2's one-launch kernel for order ``m`` and
+    operands of ``dtype``, or None where B2 runs the sequence (m > 8)."""
+    return _B2_SCHEDULE.get((m, torch.empty((), dtype=dtype).element_size()))
+
+
+def _team_scan(x, combine):
+    """Inclusive scan over axis 1 (a tile's teams) of the tuple of tensors
+    ``x``, in B2's association: Kogge-Stone within each run of up to 32
+    teams (a warp's shuffles, or the teams of a block), each run then
+    composed after the inclusive value of the run before it."""
+    teams = x[0].shape[1]
+    run = min(teams, 32)
+    out = []
+    prev = None
+    for r0 in range(0, teams, run):
+        v = [t[:, r0:r0 + run] for t in x]
+        off = 1
+        while off < run:
+            later = [t[:, off:] for t in v]
+            earlier = [t[:, :-off] for t in v]
+            merged = combine(earlier, later)
+            v = [torch.cat([t[:, :off], mt], dim=1) for t, mt in zip(v, merged)]
+            off *= 2
+        if prev is not None:
+            v = combine([p[:, None].expand_as(t) for p, t in zip(prev, v)], v)
+        prev = [t[:, -1] for t in v]
+        out.append(v)
+    return [torch.cat(parts, dim=1) for parts in zip(*out)]
+
+
+def _exclusive(incl, identity):
+    """Each team's exclusive prefix from the inclusive values."""
+    return [torch.cat([i0.expand_as(t[:, :1]), t[:, :-1]], dim=1)
+            for i0, t in zip(identity, incl)]
+
+
+_LOOK_GROUP = 32  # tiles a group of B2's look-back (csrc: kLookGroup)
+
+
+def _group_chain(aggs, combine, apply, state0):
+    """Each tile's state at its start, from the tiles' aggregates ``aggs``
+    (a pair of tensors, tile first) in B2's look-back association: within
+    each group of :data:`_LOOK_GROUP` tiles the aggregates folded one tile
+    at a time, ``start(b) = Q(b)(S(g - 1))``, and the state after each
+    group ``S(g) = GA(g)(S(g - 1))`` from ``S(-1) = state0``."""
+    nt = aggs[0].shape[0]
+    starts = []
+    S = state0
+    for base in range(0, nt, _LOOK_GROUP):
+        Q = None
+        for b in range(base, min(base + _LOOK_GROUP, nt)):
+            starts.append(S if Q is None else apply(*Q, S))
+            agg = [x[b] for x in aggs]
+            Q = agg if Q is None else combine(Q, agg)
+        S = apply(*Q, S)
+    return torch.stack(starts)
+
+
+def plain_loglik_bwd_tiled(
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+    Fs: torch.Tensor,
+    e: torch.Tensor,
+    ic: torch.Tensor,
+    qbar: torch.Tensor,
+    lbar: torch.Tensor,
+    tile: int,
+    sub: int,
+) -> tuple[torch.Tensor, ...]:
+    """``(dbar, psbar, qsbar, asbar, ybar)``: B2 in the association of its
+    one-launch kernel, in float64, stored in the operands' dtype.
+
+    The positions are mirrored (position ``j`` is element ``N - 1 - j``)
+    and cut into tiles of ``tile``, each into teams of ``sub`` consecutive
+    positions. Each team folds its elements one at a time (the affine
+    adjoint's ``(A^T, ebar)``; the congruence adjoint's ``T' = A^T T``,
+    ``B' = A^T B A + Fpbar p^T``); the teams of a tile are scanned
+    (:func:`_team_scan`); the tiles' aggregates reach the scans' states in
+    the kernel's look-back association (:func:`_group_chain`, from 0 at the
+    first position); each team walks its elements with the sequential
+    recurrences from its prefix. The
+    outputs are elementwise in mu and Gbar (the kernel's phase C). The
+    ragged end is padded with identity elements, which the kernel masks.
+    """
+    m, n = ps.shape
+    dtype = ps.dtype
+    teams = tile // sub
+    nt = -(-n // tile)
+    pad = nt * tile - n
+    f64 = torch.float64
+    eye = torch.eye(m, dtype=f64)
+
+    def mirror(x, rows):
+        x = torch.flip(x.to(f64).reshape(rows, n), (-1,)).T  # (n, rows)
+        return torch.cat([x, x.new_zeros(pad, rows)])
+
+    p, q, ev = (mirror(x, m) for x in (ps, qs, e))
+    a, F = (mirror(x, m * m).reshape(-1, m, m) for x in (as_, Fs))
+    yv = mirror(y, 1)[:, 0]
+    icv = torch.cat([torch.flip(ic.to(f64), (0,)), ic.new_ones(pad, dtype=f64)])
+    valid = torch.arange(nt * tile) < n
+    qb, lb = qbar.to(f64), lbar.to(f64)
+
+    # The elements' emissions (padding: A^T = I, every load 0).
+    ic2 = icv * icv
+    Fp = torch.einsum("kij,kj->ki", F, p)
+    u = q - torch.einsum("kij,kj->ki", a, Fp)
+    wd = u * ic2[:, None]
+    r = yv - torch.sum(p * ev, dim=-1)
+    alpha = r * icv
+    alphabar = 2.0 * qb * alpha
+    At = a.transpose(-1, -2) - p[:, :, None] * wd[:, None, :]
+    At = torch.where(valid[:, None, None], At, eye)
+    ebar = -(alphabar * icv)[:, None] * p
+
+    def glue(k, mu):
+        """Fpbar of elements k from their mu (index or slice on axis 0)."""
+        ubar = mu * r[k, None] * ic2[k, None]
+        uw = torch.sum(u[k] * mu * r[k, None], dim=-1)
+        icbar = -lb / icv[k] + alphabar[k] * alpha[k] / icv[k] + 2.0 * icv[k] * uw
+        c2bar = -0.5 * icbar * icv[k] * ic2[k]
+        Fpbar = -c2bar[..., None] * p[k] - torch.einsum("...ij,...i->...j", a[k], ubar)
+        return Fpbar, ubar, c2bar
+
+    def tiled(x):  # (nt * tile, ...) -> (nt, teams, sub, ...)
+        return x.reshape(nt, teams, sub, *x.shape[1:])
+
+    idx = tiled(torch.arange(nt * tile))
+    At_t, ebar_t = tiled(At), tiled(ebar)
+
+    def aff_combine(e_, l_):
+        (eA, eB), (lA, lB) = e_, l_
+        return [lA @ eA, (lA @ eB[..., None])[..., 0] + lB]
+
+    def cong_combine(e_, l_):
+        (eT, eB), (lT, lB) = e_, l_
+        return [lT @ eT, lT @ eB @ lT.transpose(-1, -2) + lB]
+
+    # Phase A: the affine adjoint, team folds, the in-tile scan, the chain.
+    TA = eye.expand(nt, teams, m, m).clone()
+    TB = torch.zeros(nt, teams, m, dtype=f64)
+    for jj in range(sub):
+        E = At_t[:, :, jj]
+        TB = (E @ TB[..., None])[..., 0] + ebar_t[:, :, jj]
+        TA = E @ TA
+    incl = _team_scan([TA, TB], aff_combine)
+    pre_A, pre_B = _exclusive(incl, [eye, torch.zeros(m, dtype=f64)])
+    start = _group_chain([t[:, -1] for t in incl], aff_combine,
+                         lambda A, B, s: A @ s + B, torch.zeros(m, dtype=f64))
+    lam = (pre_A @ start[:, None, :, None])[..., 0] + pre_B
+
+    # Phase B: the mu recurrence, the congruence loads and folds.
+    mu = torch.empty(nt, teams, sub, m, dtype=f64)
+    Fpbar = torch.empty(nt, teams, sub, m, dtype=f64)
+    CT = eye.expand(nt, teams, m, m).clone()
+    CB = torch.zeros(nt, teams, m, m, dtype=f64)
+    for jj in range(sub):
+        k = idx[:, :, jj]
+        E = At_t[:, :, jj]
+        mu[:, :, jj] = lam
+        Fpbar[:, :, jj] = glue(k, lam)[0]
+        CT = E @ CT
+        CB = E @ CB @ E.transpose(-1, -2) + Fpbar[:, :, jj, :, None] * p[k][..., None, :]
+        lam = (E @ lam[..., None])[..., 0] + ebar_t[:, :, jj]
+    incl = _team_scan([CT, CB], cong_combine)
+    pre_T, pre_B = _exclusive(incl, [eye, torch.zeros(m, m, dtype=f64)])
+    start = _group_chain([t[:, -1] for t in incl], cong_combine,
+                         lambda T, B, G: T @ G @ T.T + B, torch.zeros(m, m, dtype=f64))
+    G = pre_T @ start[:, None] @ pre_T.transpose(-1, -2) + pre_B
+
+    # Phase C: Gbar at each element, then the outputs elementwise.
+    Gbar = torch.empty(nt, teams, sub, m, m, dtype=f64)
+    for jj in range(sub):
+        k = idx[:, :, jj]
+        E = At_t[:, :, jj]
+        Gbar[:, :, jj] = G
+        G = E @ G @ E.transpose(-1, -2) + Fpbar[:, :, jj, :, None] * p[k][..., None, :]
+    mu, Fpbar, Gbar = (x.reshape(nt * tile, *x.shape[3:]) for x in (mu, Fpbar, Gbar))
+    _, ubar, c2bar = glue(slice(None), mu)
+    Sm = Gbar + Gbar.transpose(-1, -2)
+    Su = torch.einsum("kij,kj->ki", Sm, u)
+    uSu = torch.sum(u * Su, dim=-1)
+    wmu = torch.sum(wd * mu, dim=-1)
+    aTSu = torch.einsum("kij,ki->kj", a, Su)
+    SaF = Sm @ a @ F
+    ic4 = ic2 * ic2
+    dbar = c2bar - 0.5 * uSu * ic4
+    psbar = (
+        -(alphabar * icv + wmu)[:, None] * ev
+        - c2bar[:, None] * Fp
+        + (uSu * ic4)[:, None] * Fp
+        + torch.einsum("kij,ki->kj", F, Fpbar)
+        - ic2[:, None] * torch.einsum("kji,ki->kj", F, aTSu)
+    )
+    qsbar = ubar + Su * ic2[:, None]
+    asbar = (mu[:, :, None] * ev[:, None, :] - ubar[:, :, None] * Fp[:, None, :] + SaF
+             - (Su * ic2[:, None])[:, :, None] * Fp[:, None, :])
+    ybar = alphabar * icv + wmu
+
+    def unmirror(x, rows):  # (nt * tile, ...) -> (rows, n), element order
+        return torch.flip(x[:n].reshape(n, rows).T, (-1,)).contiguous().to(dtype)
+
+    return (unmirror(dbar, 1)[0], unmirror(psbar, m), unmirror(qsbar, m),
+            unmirror(asbar, m * m), unmirror(ybar, 1)[0])
+
+
 # ---------------------------------------------------------------------------
 # Kernels.
 # ---------------------------------------------------------------------------
@@ -217,6 +449,14 @@ def _bind(lib: ctypes.CDLL, prefix: str, n_ptrs: int) -> None:
         fn.restype = ctypes.c_int
     lib.qsl_error_string.argtypes = [ctypes.c_int]
     lib.qsl_error_string.restype = ctypes.c_char_p
+
+
+def _bind_schedule(lib: ctypes.CDLL) -> None:
+    """``qsl_bwd_schedule(m, bytes, *tile, *sub)``: B2's association on the
+    card, which :data:`_B2_SCHEDULE` repeats."""
+    lib.qsl_bwd_schedule.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.qsl_bwd_schedule.restype = ctypes.c_int
 
 
 @functools.cache
@@ -238,6 +478,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.qsl_bwd_workspace_elems.restype = ctypes.c_longlong
     # ps qs as y Fs e ic qbar lbar | dbar psbar qsbar asbar ybar | work
     _bind(lib, "qsl_loglik_bwd", 15)
+    _bind_schedule(lib)
     return lib
 
 
@@ -252,6 +493,7 @@ def _generic_library() -> ctypes.CDLL:
     _bind(lib, "qsl_loglik", 7)
     _bind(lib, "qsl_loglik_res", 10)
     _bind(lib, "qsl_loglik_bwd", 15)
+    _bind_schedule(lib)
     return lib
 
 
