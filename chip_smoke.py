@@ -14,10 +14,16 @@ Phases, each printing its numbers on lines of its own:
    ``quasisep_loglik_bwd.cu`` and ``quasisep_loglik_generic.cu``;
 2. each kernel against its plain PyTorch version on random operands
    (m = 1..4, and 5, 8 and 16 through the generic-order source, at
-   N = 17,161 in float64 and float32; m = 2 at N = 1e6): B1 (the
-   log-likelihood), B1r (with the residuals a gradient needs) and B2 (the
-   backward, on B1r's residuals, with random scalar cotangents; a second
-   launch equal bit for bit);
+   N = 17,161 in float64 and float32; m = 1..4 at N = 1e5 in both; m = 2
+   at N = 1e6 in both, m = 1, 3, 4 in float32): B1 (the log-likelihood),
+   B1r (with the residuals a gradient needs) and B2 (the backward, on
+   B1r's residuals, with random scalar cotangents; a second launch equal
+   bit for bit); at m <= 4 also B1 and B1r against their one launch's
+   association in plain PyTorch, each repeated bit for bit. Before it, the
+   process's first ``torch.profiler`` traces: a B1 and a B1r call at
+   m = 1..4 (N = 1e5, float32 and float64) are one kernel and one memset
+   each; the main path's, gradient path's and trainer's calls below are
+   traced too (no other kernel, no more than one launch a call);
 3. the kernel path's ``log_probability`` and its float64 gradient against
    a dense numpy/scipy Cholesky log-likelihood built from the kernels'
    closed forms and its central differences;
@@ -90,6 +96,9 @@ Phases, each printing its numbers on lines of its own:
     the native float32 route; kernel B7 launches 0 times over phases
     11-14; before them, a table of B5's 3-term order at each panel shape
     beside a float64 ``matmul`` and its bound, with the sums;
+14b. the dense path's and the conditioning path's limits again (phases
+    3, 8, 9, 11-14) with TF32 turned on globally, the yardsticks at the
+    defaults, which are restored after;
 15. kernel B7, the tiled gram builder, on its entry point
     ``ops.gram.gram_tiled``: ``benchmarks/dense_pieces.py``'s
     ``1.5 * Matern32(scale=2.5)`` at N = M = 1e4 and the gradient in
@@ -142,10 +151,15 @@ Matern32 gradient's operands at N = 1e5 and 1e6, the m = 5 sum's at 1e5,
 random m = 8 operands at 1e5): CUDA-event times, the passes of a
 ``torch.profiler`` trace, two launches compared bit for bit, B1 and B1r
 on the same operands, and the whole gradient calls.
+``python3 chip_smoke.py --b1-times`` does the same for B1 and B1r at
+m <= 4 (Matern32 at N = 1e5 and 1e6, SHO and the 2-term celerite at 1e5)
+and the whole Matern32 value and gradient calls, every CUDA-event time
+taken before any trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -287,7 +301,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
-    for stem in ("dense_tc", "dense_syrk", "quasisep_loglik_bwd", "quasisep_loglik_generic"):
+    for stem in ("dense_tc", "dense_syrk", "quasisep_loglik", "quasisep_loglik_bwd",
+                 "quasisep_loglik_generic"):
         log_ptxas(stem)
 
 
@@ -310,12 +325,15 @@ def log_ptxas(stem, only=None):
             mangled = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN", mangled)
             kind = re.search(r"tc_gemmILi(\d)E", mangled)
             plain = re.search(r"\d+([a-z_0-9]*(?:kernel|pass|gemm|chunk|totals))(.*)", mangled)
-            # Template arguments <storage type, order> as the B1-B3 kernels take them.
-            targs = plain and re.match(r"I([fd])Li(\d+)E", plain.group(2))
+            # Template arguments <storage type, order[, residuals]> as the
+            # B1-B3 kernels take them.
+            targs = plain and re.match(r"I([fd])Li(\d+)E(?:Lb([01])E)?", plain.group(2))
+            res = targs and targs.group(3) and (", true" if targs.group(3) == "1" else ", false")
             name = (f"tc_gemm for {('B5', 'B6', 'B4')[int(kind.group(1))]}" if kind
                     else "split_kernel" if "split_kernel" in mangled
                     else f"{plain.group(1)}<{'float' if targs.group(1) == 'f' else 'double'}, "
-                         f"{targs.group(2)}>" if targs
+                         f"{targs.group(2)}{res or ''}>"
+                    if targs
                     else f"{plain.group(1)} {plain.group(2)[:48]}" if plain else mangled)
             if only and not re.search(only, name):
                 name = None
@@ -344,6 +362,48 @@ def phase_dense_precision():
         raise AssertionError("float32 products would run in TF32")
 
 
+@contextlib.contextmanager
+def float32_defaults():
+    """PyTorch's default float32 product precision (TF32 off, "highest")
+    inside the block, whatever is set outside it: the yardsticks of the
+    limits are computed so under :func:`phase_tf32` too."""
+    import torch
+
+    saved = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+
+
+def phase_tf32():
+    """The dense path's and the conditioning path's limits (phases 3, 8,
+    9, 11-14) rerun with TF32 turned on globally, as a user does with
+    ``torch.set_float32_matmul_precision("high")``: the port's entry points
+    must meet them whatever the global setting, as the reference pins its
+    contractions' precision (``tinygp_tpu/helpers.py:26-34``). The
+    yardsticks stay at the defaults; the defaults are restored after."""
+    import torch
+
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    log(f"tf32: allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, float32_matmul_precision "
+        f"{torch.get_float32_matmul_precision()!r}; rerunning the dense and conditioning phases")
+    try:
+        for phase in (phase_dense_check, phase_example_condition, phase_condition_path,
+                      phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
+                      phase_dense_ill_conditioned):
+            phase()
+            log(f"tf32: {phase.__name__} passed with TF32 on")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    phase_dense_precision()
+
+
 def phase_kernel_vs_plain():
     import torch
 
@@ -353,11 +413,15 @@ def phase_kernel_vs_plain():
     # (B2 there in one launch), 16 the generic sequence.
     cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16)]
     cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16)]
-    cases += [(2, 1_000_000, torch.float64, 1e-8), (2, 1_000_000, torch.float32, 5e-4)]
+    cases += [(m, 100_000, dtype, rtol) for m in (1, 2, 3, 4)
+              for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4))]
+    cases += [(2, 1_000_000, torch.float64, 1e-8)]
+    cases += [(m, 1_000_000, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
     failures = []
     for m, n, dtype, rtol in cases:
         args = random_operands(m, n, dtype, seed=m)
-        got = [float(x) for x in cuda_loglik.fused_loglik_terms(*args)]
+        got_t = cuda_loglik.fused_loglik_terms(*args)
+        got = [float(x) for x in got_t]
         want = [float(x) for x in cuda_loglik.plain_loglik_terms(*args)]
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         ok = all(e <= rtol and math.isfinite(g) for e, g in zip(errs, got))
@@ -384,6 +448,25 @@ def phase_kernel_vs_plain():
         )
         if not ok:
             failures.append(("B1r", m, n, dtype))
+        if m <= 4:
+            # The one launch: B1 and B1r against their association in plain
+            # PyTorch, in float64 on the same values; repeated bit for bit.
+            tile, sub = cuda_loglik.b1_schedule(m, dtype)
+            tiled = cuda_loglik.plain_loglik_terms_res_tiled(
+                *(x.double() for x in args), tile, sub)
+            terrs = stream_errors(res, tiled)
+            same = all(torch.equal(a, b) for a, b in zip(
+                (*cuda_loglik.fused_loglik_terms(*args), *cuda_loglik.fused_loglik_res(*args)),
+                (*got_t, *res)))
+            ok = max(e for e, _ in terrs) <= rtol and same
+            log(
+                f"kernel-vs-plain one-launch B1/B1r m={m} N={n} {str(dtype)[6:]}: against the "
+                f"tiled plain version in float64 (tile {tile}, {sub} a thread) rel err per "
+                f"stream {[f'{e:.2e}' for e, _ in terrs]} (rtol {rtol:g}); a second launch of "
+                f"each equal bit for bit {same} {'ok' if ok else 'FAIL'}"
+            )
+            if not ok:
+                failures.append(("B1 one launch", m, n, dtype))
 
         # B2 on B1r's residuals, with random scalar cotangents on the card.
         rng = np.random.default_rng(100 + m)
@@ -657,17 +740,20 @@ def phase_main_path():
                 warmup=1,
             )
             bound_ms, bound_by = loglik_bound_ms(m, n, 4)
+            # After the timings: one B1 call is one kernel and one memset.
+            one, ops_report = b1_one_launch(
+                lambda: cuda_loglik.fused_loglik_terms(d, ps, qs, as_, r))
             shape_ok = value.shape == ()
             value = value.item()
-            ok = launches > 0 and shape_ok and math.isfinite(value) and rel <= 5e-4
+            ok = launches > 0 and shape_ok and math.isfinite(value) and rel <= 5e-4 and one
             log(
                 f"main-path {name} m={m} N={n} float32: log_probability "
                 f"{value!r}, kernel launches {launches}, kernel-vs-plain abs "
                 f"err {abs_err:.4g} rel {rel:.3e} (rtol 5e-4), whole call "
                 f"{e2e_ms:.4f} ms (constructor {construct_ms:.4f} ms), kernel "
                 f"{kernel_ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-                f"{'ok' if ok else 'FAIL'}"
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); B1's trace: "
+                f"{ops_report} {'ok' if ok else 'FAIL'}"
             )
             if not ok:
                 failures.append(name)
@@ -771,6 +857,58 @@ def b2_launch_checks(bwd_args, bars):
                        + ")")
 
 
+def b1_one_launch(fn, alone=True):
+    """From a ``torch.profiler`` trace of calls of ``fn``: whether no call
+    launches the one-launch B1/B1r kernel (``b1_tile_kernel``) more than
+    once and, alone (a B1 or B1r call), nothing but it and at most one
+    memset; or, for a call that does more (a fit step), none of the old
+    multi-pass forward's kernels. Returns that and the trace's report. A
+    trace taken late in a long process drops events (seen: 1 of 5 calls'),
+    so this is the check after :func:`phase_b1_launches`'s exact counts."""
+    split, per_call = kernel_split(fn)
+    if split is None:
+        return True, "device operations per call not measured (no device time in the trace)"
+    rest = [k for k in split if "b1_tile_kernel" not in k]
+    one = all(per <= 1 for k, (_, per) in split.items() if "b1_tile_kernel" in k)
+    if alone:
+        one = one and all(k.startswith("Memset") and split[k][1] <= 1 for k in rest)
+    else:
+        one = one and not any(old in k for k in rest for old in (
+            "ric_chunk", "aff_chunk", "finish_chunk", "reduce_partials"))
+    return one, (f"{per_call:g} device operations per call ("
+                 + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()) + ")")
+
+
+def phase_b1_launches():
+    """B1 and B1r at m = 1..4 in float32 and float64 (random operands,
+    N = 1e5): one call of each is exactly one ``b1_tile_kernel`` launch
+    and one memset in a ``torch.profiler`` trace. Run first, in eight
+    trace sessions, while the process's traces still hold every event."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    failures = []
+    for dtype in (torch.float32, torch.float64):
+        for m in (1, 2, 3, 4):
+            args = random_operands(m, 100_000, dtype, seed=m)
+            split, per_call = kernel_split(lambda: (cuda_loglik.fused_loglik_terms(*args),
+                                                    cuda_loglik.fused_loglik_res(*args)))
+            want = {f"b1_tile_kernel<{'float' if dtype == torch.float32 else 'double'}, {m}, "
+                    f"{res}>": 1.0 for res in ("false", "true")}
+            want["Memset"] = 2.0
+            got = None if split is None else {k: per for k, (_, per) in split.items()}
+            ok = got == want
+            shown = ("no device time in the trace" if split is None else
+                     ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()))
+            log(f"b1-launches m={m} N=100000 {str(dtype)[6:]}: a B1 call and a B1r call, "
+                f"{per_call:g} device operations ({shown}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append((m, dtype))
+    if failures:
+        raise AssertionError(f"B1/B1r is not one kernel and one memset a call: {failures}")
+
+
 def phase_gradient_path():
     """The gradient main path at full size; returns the JSON records of B1r
     and B2, with their launches on this path."""
@@ -843,10 +981,11 @@ def phase_gradient_path():
             plain_bwd_ms = cuda_ms(
                 lambda: cuda_loglik.plain_loglik_bwd(*bwd_args), reps=3, warmup=1
             )
+            b1r_one, b1r_ops = b1_one_launch(lambda: cuda_loglik.fused_loglik_res(*ops32))
         m = ps.shape[0]
         res_bound, res_by = loglik_bound_ms(m, n, 4, residuals=True)
         bwd_bound, bwd_by = bwd_bound_ms(m, n, 4)
-        ok = counts == [0, 1, 1] and finite and grad_ok and kernels_ok
+        ok = counts == [0, 1, 1] and finite and grad_ok and kernels_ok and b1r_one
         log(
             f"gradient-path matern32_{label} m={m} N={n} float32: grad (amp, scale) "
             f"{[float(g) for g in g32]}, float64 kernel {[float(g) for g in g64]}, "
@@ -867,7 +1006,7 @@ def phase_gradient_path():
             f"qsbar, asbar, ybar) float32 {[f'{e:.2e}' for e, _ in bwd_err32]}, "
             f"float64 {[f'{e:.2e}' for e, _ in bwd_err64]} (rtol 5e-4 against "
             f"float64; the sums also against float32); B2 a second launch equal bit for "
-            f"bit {b2_same}, {b2_ops[1]}"
+            f"bit {b2_same}, {b2_ops[1]}; B1r {b1r_ops}"
         )
         log(
             f"gradient-path matern32_{label}: whole forward+backward {whole_ms:.4f} ms, "
@@ -942,8 +1081,15 @@ def phase_trainer():
         with torch.no_grad():
             again = float(loss_fn(res.params))
         best = float(res.loss)
+
+        def step():
+            p = {k: v.detach().requires_grad_() for k, v in res.params.items()}
+            return torch.autograd.grad(loss_fn(p), list(p.values()))
+
+        b1r_one, b1r_ops = b1_one_launch(step, alone=False)
         ok = (
-            all(math.isfinite(x) for x in losses)
+            b1r_one
+            and all(math.isfinite(x) for x in losses)
             and all(v.is_cuda and v.dtype == torch.float32 for v in res.params.values())
             and best < losses[0]
             and rel_err(again, best) <= 5e-4
@@ -954,8 +1100,8 @@ def phase_trainer():
             f"lr 0.05: losses {losses[0]!r} -> {losses[-1]!r}, best {best!r} at "
             f"{ {k: float(v) for k, v in res.params.items()} }, re-evaluated "
             f"{again!r}; {step_ms:.4f} ms per step (host clock, forward and "
-            f"backward); launches B1 {counts[0]} B1r {counts[1]} B2 {counts[2]} "
-            f"{'ok' if ok else 'FAIL'}"
+            f"backward); launches B1 {counts[0]} B1r {counts[1]} B2 {counts[2]}; a step's "
+            f"trace: {b1r_ops} {'ok' if ok else 'FAIL'}"
         )
         if not ok:
             raise AssertionError(f"trainer failed at N={X.shape[0]}")
@@ -2410,10 +2556,11 @@ def phase_dense_condition():
     # factor, and everything after it the same (the downdate Kss - A^T A is
     # one float32 product on both). The torch.linalg route with pairwise
     # column sums for the variance is printed beside it.
-    nat_gp = dense_gp(X, blocked=False)
-    _, nat_post = nat_gp.condition(y)
-    native = [nat_post.loc, nat_post.variance, *nat_gp.predict(y, X_test, return_var=True)]
-    colsum = posterior_f64(X, y, X_test, jitter, torch.float32)
+    with float32_defaults():
+        nat_gp = dense_gp(X, blocked=False)
+        _, nat_post = nat_gp.condition(y)
+        native = [nat_post.loc, nat_post.variance, *nat_gp.predict(y, X_test, return_var=True)]
+        colsum = posterior_f64(X, y, X_test, jitter, torch.float32)
     floor = 1e-6 * 1.6  # of the largest prior variance
     parts, ok = [], True
     for label, g, w, nat, cs in zip(("loc", "variance", "predict mean", "predict variance"),
@@ -2750,13 +2897,14 @@ def ill_conditioned_dense(Xn, yn):
             n, dtype=dtype, device="cuda")
 
     want = float(f64_loglik(K(torch.float64), y.double()))
-    L32, info = torch.linalg.cholesky_ex(K(torch.float32))
-    if int(info) == 0:
-        a = torch.linalg.solve_triangular(L32, y[:, None], upper=False)
-        native = float(-0.5 * (a * a).sum() - torch.log(torch.diagonal(L32)).sum()
-                       - 0.5 * n * math.log(2 * math.pi))
-    else:
-        native = -math.inf
+    with float32_defaults():
+        L32, info = torch.linalg.cholesky_ex(K(torch.float32))
+        if int(info) == 0:
+            a = torch.linalg.solve_triangular(L32, y[:, None], upper=False)
+            native = float(-0.5 * (a * a).sum() - torch.log(torch.diagonal(L32)).sum()
+                           - 0.5 * n * math.log(2 * math.pi))
+        else:
+            native = -math.inf
     return gp, X, y, got, want, native
 
 
@@ -2892,6 +3040,79 @@ def b2_times():
         log(f"b2-times {label} trace: {per_call:g} device operations per B2 call; ms per launch "
             f"x launches per call: {shown}")
         del res, bwd_args, bars
+
+
+def b1_times():
+    """``--b1-times``: kernels B1 and B1r alone at the main path's shapes,
+    float32: B1 on the Matern32 operands at N = 1e5 and 1e6 and on the
+    SHO's and the 2-term celerite's (m = 4) at 1e5, B1r on the Matern32
+    operands at 1e5 and 1e6; and the whole Matern32 value and gradient
+    calls at 1e5 and 1e6. Every CUDA-event time is taken first, before any
+    ``torch.profiler`` trace; then each kernel's device time and device
+    operations per call from a trace, two launches compared bit for bit
+    and the result held to the float64 plain version (5e-4). Also the
+    registers and spills of ``quasisep_loglik.cu``'s kernels. Through entry
+    points that older trees share, so that one chip call can time this
+    tree and its parent in turns."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    log_ptxas("quasisep_loglik")
+    (X5, y5), (X6, y6) = bench_data()
+    data = {}
+    for label, (Xn, yn) in (("1e5", (X5, y5)), ("1e6", (X6, y6))):
+        data[label] = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                            for a in (Xn, yn))
+    models = {"matern32": lambda: 1.5 * quasisep.Matern32(scale=2.5),
+              "sho": lambda: 1.2 * quasisep.SHO(omega=1.5, quality=3.0),
+              "celerite2": celerite2}
+    cases = []
+    for key, model, label in (("B1", "matern32", "1e5"), ("B1", "matern32", "1e6"),
+                              ("B1", "sho", "1e5"), ("B1", "celerite2", "1e5"),
+                              ("B1r", "matern32", "1e5"), ("B1r", "matern32", "1e6")):
+        X, y = data[label]
+        with torch.no_grad():
+            gp = GaussianProcess(models[model](), X, diag=0.1, assume_sorted=True)
+            ops = tuple(x.contiguous() for x in (*gp.solver.ssm, y - gp.loc))
+        fn = cuda_loglik.fused_loglik_terms if key == "B1" else cuda_loglik.fused_loglik_res
+        cases.append((f"{key} {model} m={ops[1].shape[0]} N={label}", ops,
+                      lambda fn=fn, ops=ops: fn(*ops)))
+    whole = {f"{what} N={label}": (lambda X=X, y=y, what=what: (
+        matern32_gp(X, 1.5, 2.5).log_probability(y) if what == "matern32 value"
+        else matern32_grad(X, y))) for what in ("matern32 value", "matern32 gradient")
+        for label, (X, y) in data.items()}
+
+    # The clocks first: no trace has run in this process yet.
+    event_ms = {label: cuda_ms(fn, reps=50, warmup=5) for label, _, fn in cases}
+    whole_ms = {label: cuda_ms(fn, reps=20, warmup=3) for label, fn in whole.items()}
+    for label, ops, fn in cases:
+        m, n = ops[1].shape
+        with torch.no_grad():
+            got, again = fn(), fn()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = cuda_loglik.plain_loglik_terms_res(*(x.double() for x in ops))
+            errs = stream_errors(got, want)
+            worst = max(e for e, _ in errs)
+            if not (worst <= 5e-4 and all(bool(torch.isfinite(x).all()) for x in got)):
+                raise AssertionError(f"{label} disagrees with float64: {worst:.3e}")
+            del got, again, want
+            split, per_call = kernel_split(fn)
+        device = ("not measured (no device time in the trace)" if split is None else
+                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+        shown = ("" if split is None else
+                 ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+        bound = loglik_bound_ms(m, n, 4, residuals=label.startswith("B1r"))[0]
+        log(f"b1-times {label} float32 [{CARD}]: events {event_ms[label]:.4f} ms, device "
+            f"{device} (bound {bound:.4f} ms); two launches equal bit for bit {same}; against "
+            f"float64 plain rel per stream {[f'{e:.2e}' for e, _ in errs]} (limit 5e-4) ok")
+        log(f"b1-times {label} trace: {per_call:g} device operations per call; ms per launch "
+            f"x launches per call: {shown}")
+    for label, ms in whole_ms.items():
+        log(f"b1-times whole {label} float32 [{CARD}]: {ms:.4f} ms (events, constructor "
+            f"included)")
 
 
 # ---------------------------------------------------------------------------
@@ -3118,6 +3339,10 @@ def main() -> int:
     if sys.argv[1:] == ["--b2-times"]:
         b2_times()
         return 0
+    if sys.argv[1:] == ["--b1-times"]:
+        b1_times()
+        return 0
+    phase_b1_launches()
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()
@@ -3145,6 +3370,7 @@ def main() -> int:
     log(f"dense main path launches: {launches}, B7 {gram.LAUNCHES['gram']} (B6 lies on no entry "
         f"point's path; its launches in the kernels line are those at dense_micro.py's shapes; "
         f"the strip build does not route through B7)")
+    phase_tf32()
     gram_record = phase_gram()
     generic_records = phase_orders_path()
     generic_loglik_times()

@@ -977,3 +977,53 @@ def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
             assert g.dtype == dtype and torch.isfinite(g).all()
             assert stream_err(g, w) <= rtol, (n, stream_err(g, w))
         del args, res, bwd_args, got, again, want
+
+
+# ---------------------------------------------------------------------------
+# Kernels B1 and B1r in one launch at m <= 4: the forward's tiles by a ticket
+# and a deterministic look-back.
+# ---------------------------------------------------------------------------
+
+B1_ORDERS = [1, 2, 3, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", B1_ORDERS)
+def test_b1_one_launch_matches_tiled_plain_and_repeats(cuda_device, m, dtype):
+    """B1 and B1r at N of one tile, a ragged N across a look-back group and
+    1e5, against the plain version in the kernel's association
+    (``plain_loglik_terms_res_tiled``) and the sequential plain version,
+    both in float64 on the same values (rtol 1e-8 in float64, 5e-4 in
+    float32, per output relative to its largest magnitude); B1's sums are
+    B1r's; a second launch on the same inputs gives the same bits; one
+    launch counted per call; the library's schedule is the plain tiled
+    version's."""
+    import ctypes
+
+    tile, sub = cuda_loglik.b1_schedule(m, dtype)
+    lib = cuda_loglik._library()
+    t, s = ctypes.c_int(), ctypes.c_int()
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    assert lib.qsl_fwd_schedule(m, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
+    assert (t.value, s.value) == (tile, sub)
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    for n in (tile, 33 * tile + 7, 100_000):
+        args = operands(m, n, dtype, cuda_device, seed=m + n)
+        before = (cuda_loglik.LAUNCHES, cuda_loglik.LAUNCHES_RES)
+        value = cuda_loglik.fused_loglik_terms(*args)
+        res = cuda_loglik.fused_loglik_res(*args)
+        value2 = cuda_loglik.fused_loglik_terms(*args)
+        res2 = cuda_loglik.fused_loglik_res(*args)
+        torch.cuda.synchronize()
+        assert (cuda_loglik.LAUNCHES, cuda_loglik.LAUNCHES_RES) == (before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, b) for a, b in zip(value, value2))
+        assert all(torch.equal(a, b) for a, b in zip(res, res2))
+        assert all(torch.equal(a, b) for a, b in zip(value, res[:2]))
+        f64 = [x.double() for x in args]
+        for want in (cuda_loglik.plain_loglik_terms_res_tiled(*f64, tile, sub),
+                     cuda_loglik.plain_loglik_terms_res(*f64)):
+            for g, w in zip(res, want):
+                assert g.dtype == dtype and torch.isfinite(g).all()
+                assert stream_err(g, w) <= rtol, (n, stream_err(g, w))
+        del args, value, res, value2, res2, f64, want

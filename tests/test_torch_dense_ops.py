@@ -137,6 +137,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("transpose_y", [False, True])
+def test_split_matmul_accuracy(transpose_y):
+    """``tests/test_ops_dense.py:24-40`` on the same inputs: within 1e-6 of
+    the float64 product, and within 1e-6 of the JAX function's result, both
+    relative to the largest entry."""
+    rng = np.random.default_rng(1 if transpose_y else 0)
+    if transpose_y:
+        X, Y = rng.normal(size=(64, 128)), rng.normal(size=(96, 128))
+    else:
+        X, Y = rng.normal(size=(256, 128)), rng.normal(size=(128, 192))
+    X, Y = X.astype(np.float32), Y.astype(np.float32)
+    exact = X.astype(np.float64) @ (Y.T if transpose_y else Y).astype(np.float64)
+    got = tdense.split_matmul(t32(X), t32(Y), transpose_y=transpose_y)
+    want = jdense.split_matmul(jnp.asarray(X), jnp.asarray(Y), transpose_y=transpose_y)
+    assert got.dtype == torch.float32 and got.shape == exact.shape
+    assert rel(got, exact) < 1e-6 and rel(want, exact) < 1e-6 and rel(got, want) < 1e-6
+
+
+def test_split_matmul_other_dtypes_take_a_plain_product():
+    rng = np.random.default_rng(3)
+    X, Y = rng.normal(size=(20, 30)), rng.normal(size=(40, 30))
+    got = tdense.split_matmul(torch.tensor(X), torch.tensor(Y), transpose_y=True)
+    np.testing.assert_allclose(got.numpy(), X @ Y.T, rtol=1e-12, atol=1e-12)
+
+
 def test_split_syrk_accuracy():
     rng = np.random.default_rng(2)
     L = rng.normal(size=(384, 256)).astype(np.float32)

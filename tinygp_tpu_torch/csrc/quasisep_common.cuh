@@ -1,9 +1,10 @@
 // Shared pieces of the quasiseparable log-likelihood kernels on Hopper
 // (sm_90a): the m x m algebra with closed-form inverses, the Riccati and
 // affine monoids, the in-block Kogge-Stone scan and the single-block scan
-// of block totals (kernels B1 and B1r in quasisep_loglik.cu, B3 in
-// quasisep_scan.cu); cp.async and the one-launch look-back of kernel B2
-// (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..8).
+// of block totals (kernel B3 in quasisep_scan.cu); cp.async, the in-tile
+// scan and the one-launch look-back of kernels B1 and B1r
+// (quasisep_loglik.cu) and B2 (quasisep_loglik_bwd.cu, and
+// quasisep_loglik_generic.cu at m = 5..8).
 // Its last section, the team-cooperative algebra at any order with a
 // pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
@@ -307,12 +308,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// ------------------------------------------ the one-launch look-back (B2)
+// --------------------------------------- the one-launch look-back (B1, B2)
 //
-// Kernel B2 runs its two reverse scans in one launch (quasisep_loglik_bwd.cu
+// Kernels B1 and B1r run their two forward scans in one launch at m <= 4
+// (quasisep_loglik.cu), and B2 its two reverse scans (quasisep_loglik_bwd.cu
 // for m <= 4, quasisep_loglik_generic.cu for m = 5..8). Each block takes a
-// tile of consecutive (mirrored) elements by a ticket, so it waits only on
-// tiles that running blocks took before it. The tiles form groups of
+// tile of consecutive (for B2 mirrored) elements by a ticket, so it waits
+// only on tiles that running blocks took before it. The tiles form groups of
 // kLookGroup. Per scan, a tile publishes its aggregate map (flag 1) for
 // the later tiles of its group; the last tile of a group publishes the
 // group's aggregate (flag 1) and then the scan's state after the group
@@ -342,6 +344,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // stream before it (cudaMemsetAsync in the C entries).
 
 constexpr int kLookGroup = 32;  // tiles a group
+constexpr int kTileThreads = 64;  // threads (teams of one) a tile of the m <= 4 kernels
 
 // One scan's published values: per tile its aggregate and flag, per group
 // its aggregate, its end state and flag.
@@ -350,7 +353,7 @@ struct LookSlots {
   unsigned *tile_flag, *group_flag;
 };
 
-// The workspace of B2's one launch, in Acc: for each of its two scans
+// The workspace of a one-launch kernel, in Acc: for each of its two scans
 // (map and state sizes given) the tiles' and groups' values, then the
 // ticket and the flags as 32-bit words.
 struct LookLayout {
@@ -432,6 +435,144 @@ __device__ __forceinline__ void lookback_window(const Acc* agg, long long i0, in
                                                 Acc* win) {
   for (int c = threadIdx.x & 31; c < cnt * size; c += 32) win[c] = __ldcg(agg + i0 * size + c);
   __syncwarp();
+}
+
+// The inclusive Kogge-Stone scan of the warp's values x (lane order), by
+// shuffles.
+template <class V>
+__device__ __forceinline__ V warp_inclusive_scan(V x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    V y;
+#pragma unroll
+    for (int c = 0; c < V::S; ++c) y.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], off);
+    if (lane >= off) x = V::combine(y, x);
+  }
+  return x;
+}
+
+// The in-tile scan of the threads' values x (thread order): a Kogge-Stone
+// scan in each warp by shuffles, then the second warp's values composed
+// after the first warp's total (sm: V::S values). Returns the thread's
+// exclusive prefix; the last thread's inclusive value, the tile's
+// aggregate, goes to agg (shared memory) and is visible on return.
+template <class V>
+__device__ V tile_scan(V x, Acc* sm, Acc* agg) {
+  static_assert(kTileThreads == 64, "two warps");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_inclusive_scan<V>(x);
+  V ex;
+#pragma unroll
+  for (int c = 0; c < V::S; ++c) ex.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], 1);
+  if (lane == 0) ex = V::identity();
+  if (warp == 0 && lane == 31)
+    for (int c = 0; c < V::S; ++c) sm[c] = x.v[c];
+  __syncthreads();
+  if (warp == 1) {
+    V tot;
+#pragma unroll
+    for (int c = 0; c < V::S; ++c) tot.v[c] = sm[c];
+    x = V::combine(tot, x);
+    ex = lane == 0 ? tot : V::combine(tot, ex);
+    if (lane == 31)
+      for (int c = 0; c < V::S; ++c) agg[c] = x.v[c];
+  }
+  __syncthreads();
+  return ex;
+}
+
+// The affine state s <- A s + B by one thread; map = [A | B].
+template <int M>
+__device__ __forceinline__ void aff_apply(const Acc* map, Acc* s) {
+  Acc t[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    Acc acc = map[M * M + i];
+#pragma unroll
+    for (int j = 0; j < M; ++j) acc += map[i * M + j] * s[j];
+    t[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) s[i] = t[i];
+}
+
+// One thread publishes `size` values and then sets *flag to v.
+__device__ __forceinline__ void publish1(const Acc* src, Acc* dst, int size, unsigned* flag,
+                                         unsigned v) {
+  for (int c = 0; c < size; ++c) dst[c] = src[c];
+  __threadfence();
+  st_release(flag, v);
+}
+
+// By warp 0, once the tile's aggregate agg (shared memory, a V) is final:
+// the scan's state before tile b into st (SZ values of shared memory),
+// publishing what later tiles need (the one-launch look-back above). Lane
+// 0 applies the maps to the state, in registers.
+//
+// Q, the composition of the aggregates of the group's tiles before b, is
+// folded one tile at a time by lane 0 (kWarpFold false: B2), or by a
+// Kogge-Stone scan of those aggregates over the warp's lanes, lane l
+// holding tile base + l's, Q being lane b - base - 1's inclusive value
+// (kWarpFold true: B1, whose Riccati maps are costly to compose, so that
+// the fold takes 5 rounds and not up to 31 steps). Either is one fixed
+// association.
+template <class V, int SZ, bool kWarpFold = false, class Apply>
+__device__ void group_lookback(long long b, long long nt, const LookSlots& sl, const Acc* agg,
+                               Acc* win, Acc* st, Apply apply) {
+  const int lane = threadIdx.x & 31;
+  const long long g = b / kLookGroup, base = g * kLookGroup;
+  const bool end = b % kLookGroup == kLookGroup - 1, more = b + 1 < nt;
+  if (!end && more && lane == 0) publish1(agg, sl.tile_agg + b * V::S, V::S, sl.tile_flag + b, 1u);
+  V Q = V::identity();
+  const int cnt = (int)(b - base);
+  if (cnt > 0) {
+    if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
+    __syncwarp();
+    __threadfence();
+    if constexpr (kWarpFold) {
+      V x = V::identity();
+      if (lane < cnt)
+        for (int c = 0; c < V::S; ++c) x.v[c] = __ldcg(sl.tile_agg + (base + lane) * V::S + c);
+      x = warp_inclusive_scan<V>(x);
+#pragma unroll
+      for (int c = 0; c < V::S; ++c) Q.v[c] = __shfl_sync(0xffffffffu, x.v[c], cnt - 1);
+    } else {
+      lookback_window(sl.tile_agg, base, cnt, V::S, win);
+      if (lane == 0)
+        for (int l = 0; l < cnt; ++l) Q = V::combine(Q, load<V>(win, l));
+      __syncwarp();
+    }
+  }
+  V GA;
+  if (end && more && lane == 0) {
+    GA = V::combine(Q, load<V>(agg, 0));
+    publish1(GA.v, sl.group_agg + g * V::S, V::S, sl.group_flag + g, 1u);
+  }
+  // S(g - 1): from the nearest group whose end state is published.
+  const long long j = lookback_find(g, sl.group_flag);
+  Acc s[SZ];
+#pragma unroll
+  for (int c = 0; c < SZ; ++c) s[c] = j >= 0 ? __ldcg(sl.group_state + j * SZ + c) : Acc(0);
+  for (long long i0 = j + 1; i0 < g; i0 += kLookWindow) {
+    const int n_win = (int)(g - i0 < kLookWindow ? g - i0 : kLookWindow);
+    lookback_window(sl.group_agg, i0, n_win, V::S, win);
+    if (lane == 0)
+      for (int l = 0; l < n_win; ++l) apply(win + l * V::S, s);
+    __syncwarp();
+  }
+  if (lane == 0) {
+    Acc t[SZ];
+#pragma unroll
+    for (int c = 0; c < SZ; ++c) t[c] = s[c];
+    apply(Q.v, t);
+#pragma unroll
+    for (int c = 0; c < SZ; ++c) st[c] = t[c];
+    if (end && more) {
+      apply(GA.v, s);
+      publish1(s, sl.group_state + g * SZ, SZ, sl.group_flag + g, 2u);
+    }
+  }
 }
 
 // ------------------------------------------- team-cooperative algebra, any m

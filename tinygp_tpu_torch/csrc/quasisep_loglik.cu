@@ -1,5 +1,5 @@
 // Quasiseparable GP log-likelihood terms on Hopper (sm_90a): kernels B1 and
-// B1r.
+// B1r at m = 1..4.
 //
 // Replaces the TPU kernel tinygp_tpu/solvers/quasisep/pallas_loglik.py:
 // _loglik_kernel (line 86), launched by _call_kernel (line 275): with
@@ -24,8 +24,7 @@
 // long spans in float32 loses the state: on the Matern-3/2 benchmark at
 // n = 1e6 (sorted uniform points on [0, 10], diag 0.1), a float32 build of
 // this kernel started its chunks from an F far from the float64 flow and
-// returned NaN. The card's float64 rate costs little here, since the
-// kernel is bound by its passes and not by its arithmetic.
+// returned NaN.
 //
 // What bounds it: bytes. The function must read (m*m + 2m + 2) values per
 // element once and writes two scalars: 40 MB at n = 1e6, m = 2 in float32,
@@ -33,98 +32,108 @@
 // 68 MB and 20.3 us. The sequential algorithm's arithmetic, about 100
 // flops per element for m = 2, would take 1.4 us at the float32 peak.
 //
-// Design. The TPU kernel carries the scan state from one grid step to the
-// next in VMEM, which relies on the TPU grid running in order. CUDA blocks
-// run in no order, so this is a chunked multi-pass scan, with the two
-// dependent scans (the whitening elements need F) as two global phases:
+// Design: one launch (and one memset of its flags), the GPU form of the
+// TPU kernel's carried grid, as B2's (quasisep_loglik_bwd.cu) run forwards.
+// Each block takes a tile of kTileThreads * sub consecutive elements by a
+// ticket (quasisep_common.cuh: the one-launch look-back); thread t owns the
+// sub elements t * sub .. t * sub + sub - 1 of it.
 //
-//   1. ric_chunk:   each thread folds its chunk of kChunk consecutive
-//                   elements into one Riccati Moebius triple (A, F, G)
-//                   (the combine of scan.py:566-590); a Kogge-Stone scan in
-//                   shared memory gives each thread its in-block exclusive
-//                   prefix, and the last thread writes the block total.
-//   2. scan_totals: one block scans the block totals (exclusive, in place).
-//   3. aff_chunk:   each thread composes its prefix, whose F component is
-//                   the state at its chunk's start (the flow starts at
-//                   F = 0), stores that F, and re-runs its chunk with the
-//                   SEQUENTIAL recurrence F' = a F a^T + u u^T / c2
-//                   (scan.py:962-968), forming the affine elements and
-//                   folding them into a chunk total; block scan as in 1.
-//   4. scan_totals: the affine block totals.
-//   5. finish:      each thread starts from its stored F and its e prefix,
-//                   re-runs its chunk for alpha and log c (B1r: and writes
-//                   each element's F, e and 1/c), and the block writes its
-//                   partial sums.
-//   6. reduce:      one block sums the partials in a fixed order, so the
-//                   result is deterministic (no float atomics).
+//   staging: every operand's run for the tile is contiguous, so the block
+//            copies each component once, coalesced, with cp.async into
+//            shared memory (thread t's element jj at slot jj * kTileThreads
+//            + t, so that the phases' reads are conflict-free); nothing is
+//            read from device memory again.
+//   phase A: each thread folds its elements' Riccati maps into one Moebius
+//            triple (A, F, G) with the rank-one step (no inverse:
+//            A' = a A - u w^T / c, F' = a F a^T + u u^T / c,
+//            G' = G - w w^T / c, with f = F p, c = d - p^T f, u = q - a f
+//            and w = A^T p; quasisep_generic.cuh derives it); a
+//            warp-shuffle scan gives each thread its exclusive prefix and
+//            the tile its aggregate; the tile publishes it, and the
+//            look-back gives F at the tile's start (the flow starts at
+//            F = 0).
+//   phase B: each thread walks its elements with the sequential recurrence
+//            F' = a F a^T + u u^T / c2 from its prefix's state, forms the
+//            whitening elements (a - wd p^T, wd y), wd = u / c2, and folds
+//            them; the same scan, publication and look-back give e at the
+//            tile's start (from e = 0).
+//   phase C: each thread walks its elements once more for alpha and log c
+//            (B1r: and puts each element's F, e and 1/c over its staged
+//            inputs; the block writes them out coalesced). The threads'
+//            partial sums are reduced over the tile in a fixed order; the
+//            last tile to finish, counted on a second ticket, sums the
+//            tiles' partials in tile order. So the result is deterministic,
+//            with no float atomics.
 //
-// Since the chunks run the sequential recurrence while the prefixes compose
-// Moebius maps, agreement with the plain version checks the algorithm and
-// not only the code. The ragged end is masked in the kernel; nothing is
-// padded. The cost of this design against the bound: the inputs are read
-// three times (passes 1, 3 and 5) with strided per-thread loads, and each
-// call is six launches. Coalescing through shared memory and a single pass
-// with a decoupled look-back are later work.
+// The look-back folds the earlier tiles' aggregates of the tile's group in
+// order and applies the earlier groups' aggregates to a published group
+// state one group at a time, so its result is one fixed association
+// whichever tiles it found published, and two launches on the same inputs
+// agree bit for bit. cuda_loglik.plain_loglik_terms_res_tiled is this
+// association in plain PyTorch. Since the walks run the sequential
+// recurrence while the scans compose Moebius maps, agreement with the plain
+// sequential version checks the algorithm and not only the code. The
+// ragged last tile is masked; nothing is padded. The cost against the
+// bound: float64 arithmetic, and the latency of a tile's staging, three
+// walks, two in-tile scans and two look-backs (the Riccati one composing
+// full Moebius maps, with an m x m inverse each).
 
 #include "quasisep_common.cuh"
 
 namespace {
 
-// ------------------------------------------------------------ per-element math
+// Elements per thread: tiles of 512 elements at m <= 2, 256 at m = 3, 4.
+// cuda_loglik._B1_SCHEDULE repeats it.
+__host__ __device__ constexpr int b1_sub(int m) { return m <= 2 ? 8 : 4; }
 
-// One element's operands, loaded from the storage type S into T.
-template <typename T, int M>
+// The staged components of an element, in shared memory: [d | y | p (m) |
+// q (m) | a (m x m)], component c of slot s at [c * ld + s]. B1r's phase C
+// puts the outputs [F (m x m) | e (m) | 1/c] over the first of them.
+template <int M>
+struct B1Layout {
+  static constexpr int MM = M * M, D = 0, Y = 1, P = 2, Q = 2 + M, A = 2 + 2 * M,
+                       IN = 2 + 2 * M + MM, OUT = MM + M + 1;
+};
+
+// One element's operands, read from its staged column into Acc.
+template <int M>
 struct Elem {
-  T d, y, p[M], q[M], a[M * M];
+  static constexpr int MM = M * M;
+  Acc d, y, p[M], q[M], a[MM];
 
-  template <typename S>
-  __device__ __forceinline__ Elem(const S* d_, const S* ps, const S* qs,
-                                  const S* as, const S* y_, long long k,
-                                  long long n) {
-    d = T(d_[k]);
-    y = y_ ? T(y_[k]) : T(0);
+  template <int LD, typename S>
+  __device__ __forceinline__ static Elem at(const S* col) {
+    using L = B1Layout<M>;
+    Elem el;
+    el.d = Acc(col[L::D * LD]);
+    el.y = Acc(col[L::Y * LD]);
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      p[i] = T(ps[i * n + k]);
-      q[i] = T(qs[i * n + k]);
+      el.p[i] = Acc(col[(L::P + i) * LD]);
+      el.q[i] = Acc(col[(L::Q + i) * LD]);
     }
 #pragma unroll
-    for (int c = 0; c < M * M; ++c) a[c] = T(as[c * n + k]);
-  }
-
-  // The step's Moebius map: A = a - q p^T / d, F = q q^T / d,
-  // G = -p p^T / d.
-  __device__ __forceinline__ Ric<T, M> moebius() const {
-    Ric<T, M> r;
-    const T inv_d = T(1) / d;
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        r.v[i * M + j] = a[i * M + j] - q[i] * p[j] * inv_d;
-        r.v[M * M + i * M + j] = q[i] * q[j] * inv_d;
-        r.v[2 * M * M + i * M + j] = -(p[i] * p[j]) * inv_d;
-      }
-    return r;
+    for (int c = 0; c < MM; ++c) el.a[c] = Acc(col[(L::A + c) * LD]);
+    return el;
   }
 
   // Cholesky emission from the state F before this step:
   // c2 = d - p^T F p and u = q - a F p (so w = u / c).
-  __device__ __forceinline__ T emit(const T* F, T* u) const {
-    T Fp[M];
+  __device__ __forceinline__ Acc emit(const Acc* F, Acc* u) const {
+    Acc Fp[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      T acc = F[i * M] * p[0];
+      Acc acc = F[i * M] * p[0];
 #pragma unroll
       for (int j = 1; j < M; ++j) acc += F[i * M + j] * p[j];
       Fp[i] = acc;
     }
-    T c2 = d;
+    Acc c2 = d;
 #pragma unroll
     for (int i = 0; i < M; ++i) c2 -= p[i] * Fp[i];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      T acc = q[i];
+      Acc acc = q[i];
 #pragma unroll
       for (int j = 0; j < M; ++j) acc -= a[i * M + j] * Fp[j];
       u[i] = acc;
@@ -132,278 +141,347 @@ struct Elem {
     return c2;
   }
 
-  // The whitening step's affine element: wd = w / c = u / c2,
-  // A = a - wd p^T, B = wd y.
-  __device__ __forceinline__ Aff<T, M> affine(const T* u, T c2) const {
-    Aff<T, M> r;
-    const T inv_c2 = T(1) / c2;
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const T wd = u[i] * inv_c2;
-#pragma unroll
-      for (int j = 0; j < M; ++j) r.v[i * M + j] = a[i * M + j] - wd * p[j];
-      r.v[M * M + i] = wd * y;
-    }
-    return r;
-  }
-
   // The sequential Riccati step F <- a F a^T + u u^T / c2.
-  __device__ __forceinline__ void advance(T* F, const T* u, T c2) const {
-    T aF[M * M], next[M * M];
-    mm<T, M>(a, F, aF);
-    mm_nt<T, M>(aF, a, next);
-    const T inv_c2 = T(1) / c2;
+  __device__ __forceinline__ void advance(Acc* F, const Acc* u, Acc c2) const {
+    Acc aF[MM], next[MM];
+    mm<Acc, M>(a, F, aF);
+    mm_nt<Acc, M>(aF, a, next);
+    const Acc inv_c2 = Acc(1) / c2;
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll
       for (int j = 0; j < M; ++j) F[i * M + j] = next[i * M + j] + u[i] * u[j] * inv_c2;
   }
-};
 
-// ------------------------------------------------------------------- kernels
-
-template <typename S, int M>
-__global__ void __launch_bounds__(kThreads)
-ric_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
-          Acc* ric_local, Acc* ric_block) {
-  using T = Acc;
-  using R = Ric<T, M>;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long k0 = gt * kChunk;
-  R acc = R::identity();
-  for (int j = 0; j < kChunk; ++j) {
-    const long long k = k0 + j;
-    if (k >= n) break;
-    acc = R::combine(acc, Elem<T, M>(d, ps, qs, as, (const S*)nullptr, k, n).moebius());
-  }
-  const R incl = block_inclusive_scan<R>(acc, sm);
-  store(ric_local, gt, block_exclusive<R>(sm));
-  if (threadIdx.x == kThreads - 1) store(ric_block, blockIdx.x, incl);
-}
-
-template <typename S, int M>
-__global__ void __launch_bounds__(kThreads)
-aff_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
-          const S* y, const Acc* ric_local, const Acc* ric_block, Acc* f_start,
-          Acc* aff_local, Acc* aff_block) {
-  using T = Acc;
-  using R = Ric<T, M>;
-  using A = Aff<T, M>;
-  constexpr int MM = M * M;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long k0 = gt * kChunk;
-  // The state at the chunk's start is the F of the composed prefix.
-  const R pre = R::combine(load<R>(ric_block, blockIdx.x), load<R>(ric_local, gt));
-  T F[MM];
+  // The element's Riccati map folded after the running value r, by the
+  // rank-one step (scan.py:riccati_fold_rank_one).
+  __device__ __forceinline__ void fold(Ric<Acc, M>& r) const {
+    Acc* A = r.v;
+    Acc* F = r.v + MM;
+    Acc* G = r.v + 2 * MM;
+    Acc u[M], w[M], aA[MM];
+    const Acc c = emit(F, u);
 #pragma unroll
-  for (int c = 0; c < MM; ++c) {
-    F[c] = pre.v[MM + c];
-    f_start[gt * MM + c] = F[c];
-  }
-  A acc = A::identity();
-  for (int j = 0; j < kChunk; ++j) {
-    const long long k = k0 + j;
-    if (k >= n) break;
-    const Elem<T, M> el(d, ps, qs, as, y, k, n);
-    T u[M];
-    const T c2 = el.emit(F, u);
-    acc = A::combine(acc, el.affine(u, c2));
-    el.advance(F, u, c2);
-  }
-  const A incl = block_inclusive_scan<A>(acc, sm);
-  store(aff_local, gt, block_exclusive<A>(sm));
-  if (threadIdx.x == kThreads - 1) store(aff_block, blockIdx.x, incl);
-}
-
-// kRes: also write each element's residuals F_k, e_k and 1/c_k (B1r).
-template <typename S, int M, bool kRes>
-__global__ void __launch_bounds__(kThreads)
-finish_chunk(long long n, const S* d, const S* ps, const S* qs, const S* as,
-             const S* y, const Acc* f_start, const Acc* aff_local,
-             const Acc* aff_block, Acc* partials, S* Fs, S* es, S* ics) {
-  using T = Acc;
-  using A = Aff<T, M>;
-  constexpr int MM = M * M;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long k0 = gt * kChunk;
-  T F[MM];
+    for (int j = 0; j < M; ++j) {
+      Acc acc = A[j] * p[0];
 #pragma unroll
-  for (int c = 0; c < MM; ++c) F[c] = f_start[gt * MM + c];
-  // The whitening state at the chunk's start: the flow starts at e = 0,
-  // so the block prefix's B is the state at the block's start.
-  const A blk = load<A>(aff_block, blockIdx.x);
-  const A loc = load<A>(aff_local, gt);
-  T e[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    T acc = loc.v[MM + i];
-#pragma unroll
-    for (int j = 0; j < M; ++j) acc += loc.v[i * M + j] * blk.v[MM + j];
-    e[i] = acc;
-  }
-  T quad = T(0), logdet = T(0);
-  for (int j = 0; j < kChunk; ++j) {
-    const long long k = k0 + j;
-    if (k >= n) break;
-    const Elem<T, M> el(d, ps, qs, as, y, k, n);
-    T u[M];
-    const T c2 = el.emit(F, u);
-    const T c = sqrt(c2);
-    if constexpr (kRes) {
-#pragma unroll
-      for (int r = 0; r < MM; ++r) Fs[r * n + k] = S(F[r]);
-#pragma unroll
-      for (int i = 0; i < M; ++i) es[i * n + k] = S(e[i]);
-      ics[k] = S(T(1) / c);
+      for (int i = 1; i < M; ++i) acc += A[i * M + j] * p[i];
+      w[j] = acc;
     }
-    T pe = T(0);
+    const Acc inv_c = Acc(1) / c;
+    mm<Acc, M>(a, A, aA);
 #pragma unroll
-    for (int i = 0; i < M; ++i) pe += el.p[i] * e[i];
-    const T alpha = (el.y - pe) / c;
-    quad += alpha * alpha;
-    logdet += log(c);
-    const A step = el.affine(u, c2);
-    T next[M];
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        A[i * M + j] = aA[i * M + j] - u[i] * w[j] * inv_c;
+        G[i * M + j] -= w[i] * w[j] * inv_c;
+      }
+    advance(F, u, c);
+  }
+
+  // The whitening element (a - wd p^T, wd y), wd = u / c2, folded after
+  // the running map x: A' = A_el A, B' = A_el B + B_el.
+  __device__ __forceinline__ void fold_affine(Aff<Acc, M>& x, const Acc* u, Acc c2) const {
+    const Acc inv_c2 = Acc(1) / c2;
+    Acc step[MM], wd[M], nA[MM], nB[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      T acc = step.v[MM + i];
+      wd[i] = u[i] * inv_c2;
 #pragma unroll
-      for (int l = 0; l < M; ++l) acc += step.v[i * M + l] * e[l];
-      next[i] = acc;
+      for (int j = 0; j < M; ++j) step[i * M + j] = a[i * M + j] - wd[i] * p[j];
+    }
+    mm<Acc, M>(step, x.v, nA);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Acc acc = wd[i] * y;
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc += step[i * M + j] * x.v[MM + j];
+      nB[i] = acc;
     }
 #pragma unroll
-    for (int i = 0; i < M; ++i) e[i] = next[i];
-    el.advance(F, u, c2);
+    for (int c = 0; c < MM; ++c) x.v[c] = nA[c];
+#pragma unroll
+    for (int i = 0; i < M; ++i) x.v[MM + i] = nB[i];
   }
-  // Tree reduction of the block's two partial sums.
-  const int t = threadIdx.x;
-  sm[t] = quad;
-  sm[kThreads + t] = logdet;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      sm[t] += sm[t + s];
-      sm[kThreads + t] += sm[kThreads + t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    partials[2 * (long long)blockIdx.x] = sm[0];
-    partials[2 * (long long)blockIdx.x + 1] = sm[kThreads];
-  }
+};
+
+// The Riccati state X <- F + A (I + X G)^-1 X A^T by one thread; map =
+// [A | F | G].
+template <int M>
+__device__ __forceinline__ void ric_apply(const Acc* map, Acc* X) {
+  constexpr int MM = M * M;
+  Acc mat[MM], minv[MM], t1[MM], t2[MM];
+  mm<Acc, M>(X, map + 2 * MM, mat);
+#pragma unroll
+  for (int i = 0; i < M; ++i) mat[i * (M + 1)] += Acc(1);
+  inverse<Acc, M>(mat, minv);
+  mm<Acc, M>(minv, X, t1);
+  mm<Acc, M>(map, t1, t2);
+  mm_nt<Acc, M>(t2, map, t1);
+#pragma unroll
+  for (int c = 0; c < MM; ++c) X[c] = map[MM + c] + t1[c];
 }
 
 template <typename S>
-__global__ void reduce_partials(int nb, const Acc* partials, S* out) {
-  using T = Acc;
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  const int t = threadIdx.x;
-  T quad = T(0), logdet = T(0);
-  for (int i = t; i < nb; i += kScanThreads) {
-    quad += partials[2 * (long long)i];
-    logdet += partials[2 * (long long)i + 1];
+struct FwdArgs {
+  const S *d, *ps, *qs, *as, *y;
+  S *out, *Fs, *es, *ics;  // Fs, es, ics: B1r's residuals, null for B1
+};
+
+// B1's workspace at order m: the look-back's (the Riccati scan, maps of
+// 3 m^2 and states of m^2; the whitening scan, m^2 + m and m), one more
+// 32-bit word after its flags (the finish ticket, zeroed with them), and
+// each tile's two partial sums.
+struct B1Work {
+  LookLayout look;
+  long long partials, total;
+  __host__ __device__ B1Work(long long nt, int m)
+      : look(nt, 3 * m * m, m * m, m * m + m, m) {
+    partials = look.flags + (look.flag_words + 2) / 2;
+    total = partials + 2 * nt;
   }
-  sm[t] = quad;
-  sm[kScanThreads + t] = logdet;
+  __device__ unsigned* finished(Acc* work) const { return look.ticket(work) + look.flag_words; }
+};
+
+template <int M>
+B1Work b1_work(long long n) {
+  const long long tile = kTileThreads * b1_sub(M);
+  return B1Work((n + tile - 1) / tile, M);
+}
+
+// Shared memory of a block, in bytes: the look-back window (also the final
+// reduction's scratch), the scan's warp total, the tile's aggregate and
+// the state at the tile's start (all Acc), then the staged tile.
+template <int M>
+__host__ __device__ constexpr int b1_window() {
+  return kLookWindow * 3 * M * M > 2 * kTileThreads ? kLookWindow * 3 * M * M
+                                                     : 2 * kTileThreads;
+}
+
+template <typename S, int M>
+constexpr long long b1_smem() {
+  constexpr int MM = M * M, T = kTileThreads * b1_sub(M);
+  return (long long)(b1_window<M>() + 7 * MM) * sizeof(Acc) +
+         (long long)B1Layout<M>::IN * (T + 1) * sizeof(S);
+}
+
+// The two sums of the tile's threads into red[0], red[kTileThreads], in a
+// fixed order (red: 2 kTileThreads values of shared memory).
+__device__ __forceinline__ void tile_sum2(Acc* red, Acc x0, Acc x1) {
+  const int t = threadIdx.x;
+  red[t] = x0;
+  red[kTileThreads + t] = x1;
   __syncthreads();
-  for (int s = kScanThreads / 2; s > 0; s >>= 1) {
+  for (int s = kTileThreads / 2; s > 0; s >>= 1) {
     if (t < s) {
-      sm[t] += sm[t + s];
-      sm[kScanThreads + t] += sm[kScanThreads + t + s];
+      red[t] += red[t + s];
+      red[kTileThreads + t] += red[kTileThreads + t + s];
     }
     __syncthreads();
   }
+}
+
+template <typename S, int M, bool kRes>
+__global__ void __launch_bounds__(kTileThreads)
+b1_tile_kernel(long long n, FwdArgs<S> x, Acc* work, B1Work lay) {
+  using L = B1Layout<M>;
+  using R = Ric<Acc, M>;
+  using A = Aff<Acc, M>;
+  constexpr int MM = M * M, SUB = b1_sub(M), T = kTileThreads * SUB, LD = T + 1;
+  using E = Elem<M>;
+  __shared__ long long tile_of_block;
+  __shared__ bool last_tile;
+  const long long nt = lay.look.nt;
+  const LookSlots ric_sl = lay.look.slots(work, 0), aff_sl = lay.look.slots(work, 1);
+  Acc* win = reinterpret_cast<Acc*>(qsl_smem);
+  Acc* scan_sm = win + b1_window<M>();
+  Acc* agg = scan_sm + R::S;
+  Acc* start = agg + R::S;
+  S* st = reinterpret_cast<S*>(start + MM);
+  const int t = threadIdx.x, warp = t >> 5;
+
+  if (t == 0) tile_of_block = atomicAdd(lay.look.ticket(work), 1u);
+  __syncthreads();
+  const long long b = tile_of_block, k0 = b * T;
+  const int cnt = (int)(n - k0 < T ? n - k0 : T);
+
+  // Stage the tile: element k0 + i of component c at slot
+  // (i % SUB) * kTileThreads + i / SUB.
+  for (int c = 0; c < L::IN; ++c) {
+    const S* src = c == L::D   ? x.d
+                   : c == L::Y ? x.y
+                   : c < L::Q  ? x.ps + (long long)(c - L::P) * n
+                   : c < L::A  ? x.qs + (long long)(c - L::Q) * n
+                               : x.as + (long long)(c - L::A) * n;
+    src += k0;
+    for (int i = t; i < cnt; i += kTileThreads)
+      cp_async_elem(st + c * LD + (i % SUB) * kTileThreads + i / SUB, src + i);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const int mine = max(0, min(SUB, cnt - t * SUB));
+  const auto col = [&](int jj) { return st + jj * kTileThreads + t; };
+
+  // Phase A: the Riccati flow. The tile's aggregate, then F at its start
+  // from the look-back.
+  R racc = R::identity();
+  for (int jj = 0; jj < mine; ++jj) E::template at<LD>(col(jj)).fold(racc);
+  const R rpre = tile_scan<R>(racc, scan_sm, agg);
+  if (warp == 0)
+    group_lookback<R, MM, true>(b, nt, ric_sl, agg, win, start,
+                          [](const Acc* map, Acc* s) { ric_apply<M>(map, s); });
+  __syncthreads();
+  // F at the thread's first element: its prefix applied to the tile's start.
+  Acc F0[MM];
+#pragma unroll
+  for (int c = 0; c < MM; ++c) F0[c] = start[c];
+  ric_apply<M>(rpre.v, F0);
+
+  // Phase B: the whitening elements from the sequential flow.
+  A aacc = A::identity();
+  {
+    Acc F[MM];
+#pragma unroll
+    for (int c = 0; c < MM; ++c) F[c] = F0[c];
+    for (int jj = 0; jj < mine; ++jj) {
+      const E el = E::template at<LD>(col(jj));
+      Acc u[M];
+      const Acc c2 = el.emit(F, u);
+      el.fold_affine(aacc, u, c2);
+      el.advance(F, u, c2);
+    }
+  }
+  const A apre = tile_scan<A>(aacc, scan_sm, agg);
+  if (warp == 0)
+    group_lookback<A, M, true>(b, nt, aff_sl, agg, win, start,
+                         [](const Acc* map, Acc* s) { aff_apply<M>(map, s); });
+  __syncthreads();
+  Acc e[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) e[i] = start[i];
+  aff_apply<M>(apre.v, e);
+
+  // Phase C: alpha and log c from both recurrences (B1r: the residuals of
+  // each element over its staged inputs).
+  Acc quad = Acc(0), logdet = Acc(0);
+  for (int jj = 0; jj < mine; ++jj) {
+    const E el = E::template at<LD>(col(jj));
+    Acc u[M];
+    const Acc c2 = el.emit(F0, u);
+    const Acc c = sqrt(c2), ic = Acc(1) / c;
+    Acc pe = Acc(0);
+#pragma unroll
+    for (int i = 0; i < M; ++i) pe += el.p[i] * e[i];
+    const Acc r = el.y - pe, alpha = r * ic;
+    quad += alpha * alpha;
+    logdet += log(c);
+    if constexpr (kRes) {
+      S* o = col(jj);
+#pragma unroll
+      for (int k = 0; k < MM; ++k) o[k * LD] = S(F0[k]);
+#pragma unroll
+      for (int i = 0; i < M; ++i) o[(MM + i) * LD] = S(e[i]);
+      o[(MM + M) * LD] = S(ic);
+    }
+    // e <- (a - wd p^T) e + wd y = a e + wd (y - p.e), wd = u / c2.
+    const Acc rc = r / c2;
+    Acc ne[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Acc acc = u[i] * rc;
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc += el.a[i * M + j] * e[j];
+      ne[i] = acc;
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) e[i] = ne[i];
+    el.advance(F0, u, c2);
+  }
+  if constexpr (kRes) {
+    __syncthreads();
+    for (int c = 0; c < L::OUT; ++c) {
+      S* dst = c < MM       ? x.Fs + (long long)c * n
+               : c < MM + M ? x.es + (long long)(c - MM) * n
+                            : x.ics;
+      dst += k0;
+      for (int i = t; i < cnt; i += kTileThreads)
+        dst[i] = st[c * LD + (i % SUB) * kTileThreads + i / SUB];
+    }
+  }
+
+  // The tile's partial sums, then the last tile to finish sums them all in
+  // tile order.
+  tile_sum2(win, quad, logdet);
+  Acc* partials = work + lay.partials;
   if (t == 0) {
-    out[0] = S(sm[0]);
-    out[1] = S(sm[kScanThreads]);
+    partials[2 * b] = win[0];
+    partials[2 * b + 1] = win[kTileThreads];
+    __threadfence();
+    last_tile = atomicAdd(lay.finished(work), 1u) == (unsigned)(nt - 1);
+  }
+  __syncthreads();
+  if (!last_tile) return;
+  __threadfence();
+  quad = logdet = Acc(0);
+  for (long long i = t; i < nt; i += kTileThreads) {
+    quad += __ldcg(partials + 2 * i);
+    logdet += __ldcg(partials + 2 * i + 1);
+  }
+  tile_sum2(win, quad, logdet);
+  if (t == 0) {
+    x.out[0] = S(win[0]);
+    x.out[1] = S(win[kTileThreads]);
   }
 }
 
 // ------------------------------------------------------------------- host side
 
-// Workspace layout, in elements of Acc.
-template <int M>
-struct Layout {
-  static constexpr int MM = M * M;
-  long long nb, nt, ric_local, ric_block, f_start, aff_local, aff_block,
-      partials, total;
-  explicit Layout(long long n) {
-    nb = num_blocks(n);
-    nt = nb * kThreads;
-    ric_local = 0;
-    ric_block = ric_local + nt * 3 * MM;
-    f_start = ric_block + nb * 3 * MM;
-    aff_local = f_start + nt * MM;
-    aff_block = aff_local + nt * (MM + M);
-    partials = aff_block + nb * (MM + M);
-    total = partials + nb * 2;
-  }
-};
-
 long long workspace_elems(int m, long long n) {
   switch (m) {
-    case 1: return Layout<1>(n).total;
-    case 2: return Layout<2>(n).total;
-    case 3: return Layout<3>(n).total;
-    case 4: return Layout<4>(n).total;
+    case 1: return b1_work<1>(n).total;
+    case 2: return b1_work<2>(n).total;
+    case 3: return b1_work<3>(n).total;
+    case 4: return b1_work<4>(n).total;
     default: return -1;
   }
 }
 
-// Fs, es, ics: B1r's residual outputs, or null for B1.
-template <typename S, int M>
-cudaError_t run(long long n, const S* d, const S* ps, const S* qs,
-                const S* as, const S* y, S* out, S* Fs, S* es, S* ics,
-                Acc* work, cudaStream_t s) {
-  using T = Acc;
-  using R = Ric<T, M>;
-  using A = Aff<T, M>;
-  const Layout<M> L(n);
-  const int nb = (int)L.nb;
-  T* ric_local = work + L.ric_local;
-  T* ric_block = work + L.ric_block;
-  T* f_start = work + L.f_start;
-  T* aff_local = work + L.aff_local;
-  T* aff_block = work + L.aff_block;
-  T* partials = work + L.partials;
-  const int rt = scan_threads<R, T>(), at = scan_threads<A, T>();
-
-  ric_chunk<S, M><<<nb, kThreads, kThreads * R::S * sizeof(T), s>>>(
-      n, d, ps, qs, as, ric_local, ric_block);
-  scan_totals<R, T><<<1, rt, rt * R::S * sizeof(T), s>>>(nb, ric_block);
-  aff_chunk<S, M><<<nb, kThreads, kThreads * A::S * sizeof(T), s>>>(
-      n, d, ps, qs, as, y, ric_local, ric_block, f_start, aff_local,
-      aff_block);
-  scan_totals<A, T><<<1, at, at * A::S * sizeof(T), s>>>(nb, aff_block);
-  if (Fs)
-    finish_chunk<S, M, true><<<nb, kThreads, 2 * kThreads * sizeof(T), s>>>(
-        n, d, ps, qs, as, y, f_start, aff_local, aff_block, partials, Fs, es,
-        ics);
-  else
-    finish_chunk<S, M, false><<<nb, kThreads, 2 * kThreads * sizeof(T), s>>>(
-        n, d, ps, qs, as, y, f_start, aff_local, aff_block, partials, Fs, es,
-        ics);
-  reduce_partials<S><<<1, kScanThreads, 2 * kScanThreads * sizeof(T), s>>>(
-      nb, partials, out);
+// One memset (the ticket, the flags and the finish ticket) and one launch,
+// on stream s.
+template <typename S, int M, bool kRes>
+cudaError_t launch(long long n, const FwdArgs<S>& x, Acc* work, cudaStream_t s) {
+  const B1Work W = b1_work<M>(n);
+  constexpr long long smem = b1_smem<S, M>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        b1_tile_kernel<S, M, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e =
+      cudaMemsetAsync(work + W.look.flags, 0, (W.look.flag_words + 1) * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  b1_tile_kernel<S, M, kRes><<<(unsigned)W.look.nt, kTileThreads, smem, s>>>(n, x, work, W);
   return cudaGetLastError();
 }
 
+template <typename S, int M>
+cudaError_t run(long long n, const FwdArgs<S>& x, Acc* work, cudaStream_t s) {
+  return x.Fs ? launch<S, M, true>(n, x, work, s) : launch<S, M, false>(n, x, work, s);
+}
+
 template <typename S>
-int loglik(int m, long long n, const S* d, const S* ps, const S* qs,
-           const S* as, const S* y, S* out, S* Fs, S* es, S* ics, Acc* work,
-           long long work_elems, void* stream) {
-  if (n < 1 || num_blocks(n) > 0x7fffffffLL || workspace_elems(m, n) < 0 ||
-      work_elems < workspace_elems(m, n))
+int loglik(int m, long long n, const FwdArgs<S>& x, Acc* work, long long work_elems,
+           void* stream) {
+  if (n < 1 || workspace_elems(m, n) < 0 || work_elems < workspace_elems(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return (int)run<S, 1>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
-    case 2: return (int)run<S, 2>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
-    case 3: return (int)run<S, 3>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
-    default: return (int)run<S, 4>(n, d, ps, qs, as, y, out, Fs, es, ics, work, s);
+    case 1: return (int)run<S, 1>(n, x, work, s);
+    case 2: return (int)run<S, 2>(n, x, work, s);
+    case 3: return (int)run<S, 3>(n, x, work, s);
+    default: return (int)run<S, 4>(n, x, work, s);
   }
 }
 
@@ -414,22 +492,32 @@ extern "C" {
 // Workspace the launch needs, in float64 elements; -1 for an unsupported m.
 long long qsl_workspace_elems(int m, int n) { return workspace_elems(m, n); }
 
+// The launch's association for operands of `bytes` bytes: elements per
+// tile and per team (one thread) into tile[0], sub[0]; returns 0, or -1
+// for an unsupported m.
+int qsl_fwd_schedule(int m, int bytes, int* tile, int* sub) {
+  if (m < 1 || m > 4 || (bytes != 4 && bytes != 8)) return -1;
+  *sub = b1_sub(m);
+  *tile = kTileThreads * b1_sub(m);
+  return 0;
+}
+
 // (quad, logdet) into out[0], out[1]. Returns a cudaError_t code: nonzero
 // if an argument is refused or a launch failed.
 int qsl_loglik_f32(int m, int n, const float* d, const float* ps,
                    const float* qs, const float* as, const float* y,
                    float* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<float>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
-                       work, work_elems, stream);
+  const FwdArgs<float> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
+  return loglik<float>(m, n, x, work, work_elems, stream);
 }
 
 int qsl_loglik_f64(int m, int n, const double* d, const double* ps,
                    const double* qs, const double* as, const double* y,
                    double* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<double>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
-                        work, work_elems, stream);
+  const FwdArgs<double> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
+  return loglik<double>(m, n, x, work, work_elems, stream);
 }
 
 // B1r: (quad, logdet) as above, and the residuals F (m*m, n), e (m, n) and
@@ -438,16 +526,16 @@ int qsl_loglik_res_f32(int m, int n, const float* d, const float* ps,
                        const float* qs, const float* as, const float* y,
                        float* out, float* Fs, float* es, float* ics,
                        double* work, long long work_elems, void* stream) {
-  return loglik<float>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
-                       work_elems, stream);
+  const FwdArgs<float> x{d, ps, qs, as, y, out, Fs, es, ics};
+  return loglik<float>(m, n, x, work, work_elems, stream);
 }
 
 int qsl_loglik_res_f64(int m, int n, const double* d, const double* ps,
                        const double* qs, const double* as, const double* y,
                        double* out, double* Fs, double* es, double* ics,
                        double* work, long long work_elems, void* stream) {
-  return loglik<double>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
-                        work_elems, stream);
+  const FwdArgs<double> x{d, ps, qs, as, y, out, Fs, es, ics};
+  return loglik<double>(m, n, x, work, work_elems, stream);
 }
 
 const char* qsl_error_string(int code) {

@@ -76,7 +76,7 @@
 
 namespace {
 
-constexpr int kB2Threads = 64;  // threads (teams of one) per tile
+constexpr int kB2Threads = kTileThreads;  // threads (teams of one) per tile
 
 // Elements per thread: tiles of 512 elements at m <= 2, 128 at m = 3, 4.
 // A tile's fixed cost (its staging latency, two in-tile scans, two
@@ -238,57 +238,6 @@ struct TileElem {
   }
 };
 
-// The in-tile scan of the threads' values x (thread order): a Kogge-Stone
-// scan in each warp by shuffles, then the second warp's values composed
-// after the first warp's total (sm: V::S values). Returns the thread's
-// exclusive prefix; the last thread's inclusive value, the tile's
-// aggregate, goes to agg (shared memory) and is visible on return.
-template <class V>
-__device__ V tile_scan(V x, Acc* sm, Acc* agg) {
-  static_assert(kB2Threads == 64, "two warps");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    V y;
-#pragma unroll
-    for (int c = 0; c < V::S; ++c) y.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], off);
-    if (lane >= off) x = V::combine(y, x);
-  }
-  V ex;
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) ex.v[c] = __shfl_up_sync(0xffffffffu, x.v[c], 1);
-  if (lane == 0) ex = V::identity();
-  if (warp == 0 && lane == 31)
-    for (int c = 0; c < V::S; ++c) sm[c] = x.v[c];
-  __syncthreads();
-  if (warp == 1) {
-    V tot;
-#pragma unroll
-    for (int c = 0; c < V::S; ++c) tot.v[c] = sm[c];
-    x = V::combine(tot, x);
-    ex = lane == 0 ? tot : V::combine(tot, ex);
-    if (lane == 31)
-      for (int c = 0; c < V::S; ++c) agg[c] = x.v[c];
-  }
-  __syncthreads();
-  return ex;
-}
-
-// The affine state s <- A s + B by one thread; map = [A | B].
-template <int M>
-__device__ __forceinline__ void aff_apply(const Acc* map, Acc* s) {
-  Acc t[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    Acc acc = map[M * M + i];
-#pragma unroll
-    for (int j = 0; j < M; ++j) acc += map[i * M + j] * s[j];
-    t[i] = acc;
-  }
-#pragma unroll
-  for (int i = 0; i < M; ++i) s[i] = t[i];
-}
-
 // The congruence state G <- T G T^T + B by one thread; map = [T | B].
 template <int M>
 __device__ __forceinline__ void cong_apply(const Acc* map, Acc* G) {
@@ -298,68 +247,6 @@ __device__ __forceinline__ void cong_apply(const Acc* map, Acc* G) {
   mm_nt<Acc, M>(t1, map, t2);
 #pragma unroll
   for (int c = 0; c < MM; ++c) G[c] = t2[c] + map[MM + c];
-}
-
-// One thread publishes `size` values and then sets *flag to v.
-__device__ __forceinline__ void publish1(const Acc* src, Acc* dst, int size, unsigned* flag,
-                                         unsigned v) {
-  for (int c = 0; c < size; ++c) dst[c] = src[c];
-  __threadfence();
-  st_release(flag, v);
-}
-
-// By warp 0, once the tile's aggregate agg (shared memory, a V) is final:
-// the scan's state before tile b into st (SZ values of shared memory),
-// publishing what later tiles need (quasisep_common.cuh: the one-launch
-// look-back). Lane 0 does the arithmetic, in registers.
-template <class V, int SZ, class Apply>
-__device__ void group_lookback(long long b, long long nt, const LookSlots& sl, const Acc* agg,
-                               Acc* win, Acc* st, Apply apply) {
-  const int lane = threadIdx.x & 31;
-  const long long g = b / kLookGroup, base = g * kLookGroup;
-  const bool end = b % kLookGroup == kLookGroup - 1, more = b + 1 < nt;
-  if (!end && more && lane == 0) publish1(agg, sl.tile_agg + b * V::S, V::S, sl.tile_flag + b, 1u);
-  // Q: the aggregates of the group's tiles before b, folded in order.
-  V Q = V::identity();
-  const int cnt = (int)(b - base);
-  if (cnt > 0) {
-    if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
-    __syncwarp();
-    __threadfence();
-    lookback_window(sl.tile_agg, base, cnt, V::S, win);
-    if (lane == 0)
-      for (int l = 0; l < cnt; ++l) Q = V::combine(Q, load<V>(win, l));
-    __syncwarp();
-  }
-  V GA;
-  if (end && more && lane == 0) {
-    GA = V::combine(Q, load<V>(agg, 0));
-    publish1(GA.v, sl.group_agg + g * V::S, V::S, sl.group_flag + g, 1u);
-  }
-  // S(g - 1): from the nearest group whose end state is published.
-  const long long j = lookback_find(g, sl.group_flag);
-  Acc s[SZ];
-#pragma unroll
-  for (int c = 0; c < SZ; ++c) s[c] = j >= 0 ? __ldcg(sl.group_state + j * SZ + c) : Acc(0);
-  for (long long i0 = j + 1; i0 < g; i0 += kLookWindow) {
-    const int n_win = (int)(g - i0 < kLookWindow ? g - i0 : kLookWindow);
-    lookback_window(sl.group_agg, i0, n_win, V::S, win);
-    if (lane == 0)
-      for (int l = 0; l < n_win; ++l) apply(win + l * V::S, s);
-    __syncwarp();
-  }
-  if (lane == 0) {
-    Acc t[SZ];
-#pragma unroll
-    for (int c = 0; c < SZ; ++c) t[c] = s[c];
-    apply(Q.v, t);
-#pragma unroll
-    for (int c = 0; c < SZ; ++c) st[c] = t[c];
-    if (end && more) {
-      apply(GA.v, s);
-      publish1(s, sl.group_state + g * SZ, SZ, sl.group_flag + g, 2u);
-    }
-  }
 }
 
 template <typename S>

@@ -22,7 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from tinygp_tpu_torch.helpers import as_hyper, resolve_device
+from tinygp_tpu_torch.helpers import as_hyper, pinned, resolve_device
 
 Params = dict[str, torch.Tensor]
 
@@ -43,6 +43,7 @@ class FitResult(NamedTuple):
     flat-but-diverged tail does not count)."""
 
 
+@pinned
 def fit_map(
     loss_fn: Callable[[Params], torch.Tensor],
     init_params: Params,

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from tinygp_tpu_torch import means
-from tinygp_tpu_torch.helpers import as_tensor, resolve_device
+from tinygp_tpu_torch.helpers import as_tensor, pinned, resolve_device
 from tinygp_tpu_torch.kernels.base import Conditioned, Kernel
 from tinygp_tpu_torch.noise import Diagonal, Noise
 
@@ -70,6 +70,7 @@ class GaussianProcess(nn.Module):
         torch.Size([500])
     """
 
+    @pinned
     def __init__(
         self,
         kernel: Kernel,
@@ -147,6 +148,7 @@ class GaussianProcess(nn.Module):
         """The dense marginal covariance at the input points."""
         return self.solver.covariance()
 
+    @pinned
     def log_probability(self, y: Any) -> torch.Tensor:
         """The marginal log probability of ``y`` under this process.
 
@@ -157,6 +159,7 @@ class GaussianProcess(nn.Module):
         lp = self.solver.log_likelihood(y - self.loc)
         return torch.where(torch.isfinite(lp), lp, -torch.inf)
 
+    @pinned
     def condition(
         self,
         y: Any,
@@ -202,6 +205,7 @@ class GaussianProcess(nn.Module):
         )
         return ConditionResult(log_prob, post)
 
+    @pinned
     def predict(
         self,
         y: Any,
@@ -228,6 +232,7 @@ class GaussianProcess(nn.Module):
             return post.loc, post.variance
         return post.loc, post.covariance
 
+    @pinned
     def sample(
         self,
         generator: torch.Generator | None = None,

@@ -1,20 +1,59 @@
-"""Shared helpers: device resolution and tensor coercion.
+"""Shared helpers: device resolution, tensor coercion and the float32
+product precision.
 
-Counterpart of ``tinygp_tpu/helpers.py``. The JAX package needs a
-precision-pinned matmul (``pdot``) because the TPU demotes f32 products to
-bf16; PyTorch's CUDA matmuls run in full f32 by default and the port's
-structural contractions are elementwise multiply-adds anyway, so nothing
-here replaces it.
+Counterpart of ``tinygp_tpu/helpers.py``. The JAX package pins the
+precision of its contractions (``pdot``, ``Precision.HIGHEST``) because
+the TPU demotes float32 products by default. PyTorch runs float32 products
+in full float32 by default, but a caller may turn TF32 on globally
+(``torch.set_float32_matmul_precision("high")``), which on an H100 broke
+the dense gradient's and posterior's limits (ROADMAP.md, C5). So the
+port's entry points run under :func:`full_float32` (:func:`pinned`), which
+restores the caller's setting on return.
 """
 
 from __future__ import annotations
 
-__all__ = ["resolve_device", "as_tensor", "as_hyper"]
+__all__ = ["resolve_device", "as_tensor", "as_hyper", "full_float32", "pinned"]
 
-from typing import Any
+import contextlib
+import functools
+from collections.abc import Callable, Iterator
+from typing import Any, TypeVar
 
 import numpy as np
 import torch
+
+_F = TypeVar("_F", bound=Callable[..., Any])
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 matrix products in full float32 inside the block (TF32 off,
+    precision ``"highest"``), whatever the caller set; the caller's
+    setting is restored on exit. A no-op under PyTorch's defaults."""
+    precision = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if precision == "highest" and not tf32:
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def pinned(fn: _F) -> _F:
+    """``fn`` run under :func:`full_float32`."""
+
+    @functools.wraps(fn)
+    def wrapper(*args: Any, **kwargs: Any) -> Any:
+        with full_float32():
+            return fn(*args, **kwargs)
+
+    return wrapper  # type: ignore[return-value]
 
 
 def resolve_device(device: Any = None) -> torch.device:

@@ -39,7 +39,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from tinygp_tpu_torch.helpers import as_hyper
+from tinygp_tpu_torch.helpers import as_hyper, pinned
 
 
 def _points(X: torch.Tensor) -> torch.Tensor:
@@ -93,6 +93,7 @@ class Kernel(nn.Module):
                 raise TypeError("matmul() needs a right-hand side `y`")
         return self(X1, X1 if X2 is None else X2) @ y
 
+    @pinned
     def forward(
         self, X1: torch.Tensor, X2: torch.Tensor | None = None
     ) -> torch.Tensor:

@@ -23,7 +23,8 @@ products with float32 sums for either, and so does B5 at 2 terms
 (``csrc/dense_tc.cu``); B5 at 3 terms sums in float64
 (``csrc/dense_syrk.cu``). The plain float32 products
 here (``split_syrk``, the 512 x 512 steps, the backward) run in full
-float32: PyTorch's default, with TF32 off.
+float32 whatever the global setting: the public functions and the
+backwards are :func:`~tinygp_tpu_torch.helpers.pinned`.
 
 Each ``jax.custom_vjp`` is a ``torch.autograd.Function`` whose backward is
 the JAX backward written out; its forward's panel loop runs without grad,
@@ -38,11 +39,13 @@ __all__ = [
     "blocked_loglik_terms",
     "cholesky_with_fallback",
     "kernel_loglik_terms",
+    "split_matmul",
     "split_syrk",
 ]
 
 import torch
 
+from tinygp_tpu_torch.helpers import pinned
 from tinygp_tpu_torch.ops import cuda_dense
 
 # Panel width (measured best for the TPU at N ~ 1e4; kept for parity).
@@ -83,6 +86,22 @@ def _solve_lower(L: torch.Tensor, b: torch.Tensor, *, trans: bool = False) -> to
     return torch.linalg.solve_triangular(A, b, upper=trans)
 
 
+@pinned
+def split_matmul(X: torch.Tensor, Y: torch.Tensor, *, transpose_y: bool = False) -> torch.Tensor:
+    """``X @ Y`` (or ``X @ Y.T``) by the three-term bf16 split: the six
+    products of the pieces (:func:`cuda_dense.split_pieces`) summed in the
+    JAX package's order, each exact in float32 and accumulated in float32
+    (about 6e-8 relative operand error). Other dtypes take a plain
+    product."""
+    Yt = Y.mT if transpose_y else Y
+    if X.dtype != torch.float32 or Y.dtype != torch.float32:
+        return X @ Yt
+    Xh, Xm, Xl = (x.float() for x in cuda_dense.split_pieces(X, 3))
+    Yh, Ym, Yl = (y.float() for y in cuda_dense.split_pieces(Yt, 3))
+    return Xh @ Yh + (Xh @ Ym + Xm @ Yh) + (Xh @ Yl + Xl @ Yh + Xm @ Ym)
+
+
+@pinned
 def split_syrk(L: torch.Tensor) -> torch.Tensor:
     """``L @ L.T``: the JAX package's split product, here one float32
     product (full float32 on the card, TF32 being off)."""
@@ -101,6 +120,7 @@ def _pad_identity(K: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.block_diag(K, torch.eye(pad, dtype=K.dtype, device=K.device))
 
 
+@pinned
 def blocked_cholesky(
     K: torch.Tensor,
     *,
@@ -129,6 +149,7 @@ class _BlockedChol(torch.autograd.Function):
         return L
 
     @staticmethod
+    @pinned
     def backward(ctx, Lbar: torch.Tensor):
         # With X = L^T Lbar and P = tril(X) - diag(X)/2,
         # Kbar = sym(L^-T P L^-1).
@@ -167,6 +188,7 @@ def _blocked_cholesky_impl(K: torch.Tensor, block: int, terms: int) -> torch.Ten
     return L[:n, :n] * (1.0 / s)[:, None]
 
 
+@pinned
 def cholesky_with_fallback(
     K: torch.Tensor,
     *,
@@ -293,6 +315,7 @@ class _ScaledLoglik(torch.autograd.Function):
         return quad, half_logdet
 
     @staticmethod
+    @pinned
     def backward(ctx, qbar, lbar):
         # quad = rs^T T^-1 rs, half_logdet = 0.5 log|T|: with cotangents
         # (qbar, lbar), Tbar = -qbar beta beta^T + 0.5 lbar T^-1 and
@@ -325,6 +348,7 @@ def _scaled_terms_dispatch(T, rs, block, terms, rel_floor, lower_only=False):
     return _ScaledLoglik.apply(T, rs, block, terms, lower_only)
 
 
+@pinned
 def blocked_loglik_terms(
     K: torch.Tensor,
     r: torch.Tensor,
@@ -349,6 +373,7 @@ def blocked_loglik_terms(
     return quad, hld_scaled - torch.sum(torch.log(s))
 
 
+@pinned
 def kernel_loglik_terms(
     kernel,
     X: torch.Tensor,

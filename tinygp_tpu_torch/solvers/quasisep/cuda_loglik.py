@@ -13,14 +13,17 @@ Three kernels replace the TPU's:
 - **B1r** (the same source, entries ``qsl_loglik_res_*``) replaces it with
   ``residuals=True``: the value plus the residuals the backward reads,
   the Riccati prefix ``Fs (m*m, N)``, the whitening states ``e (m, N)``
-  and ``ic = 1/c (N,)``.
+  and ``ic = 1/c (N,)``. Up to m = 4 each is one launch (and one memset
+  of its flags): tiles taken by a ticket, each staged once in shared
+  memory, the Riccati flow folded with the rank-one step, and a look-back
+  that combines the earlier tiles' aggregates in one fixed order, so two
+  launches agree bit for bit; :func:`plain_loglik_terms_res_tiled` is its
+  association in plain PyTorch, :func:`b1_schedule` its tiles.
 - **B2** (``csrc/quasisep_loglik_bwd.cu``) replaces
   ``pallas_loglik._bwd_kernel``: from the residuals and the two scalar
   cotangents, the cotangents of ``(d, ps, qs, as_, y)``, through a reverse
   affine-adjoint scan and a reverse congruence scan. Up to m = 8 it is one
-  launch (and one memset of its flags): tiles taken by a ticket, each
-  staged once in shared memory, and a look-back that combines the earlier
-  tiles' aggregates in one fixed order, so two launches agree bit for bit;
+  launch, in the same design run backwards;
   :func:`plain_loglik_bwd_tiled` is its association in plain PyTorch,
   :func:`b2_schedule` its tiles.
 
@@ -60,7 +63,10 @@ __all__ = [
     "plain_loglik_terms",
     "plain_loglik_terms_res",
     "plain_loglik_bwd",
+    "plain_loglik_terms_tiled",
+    "plain_loglik_terms_res_tiled",
     "plain_loglik_bwd_tiled",
+    "b1_schedule",
     "b2_schedule",
 ]
 
@@ -73,8 +79,8 @@ from tinygp_tpu_torch import cuda_build
 from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
 LAUNCHES = 0
-"""Calls that launched kernel B1 (one per call of its C entry, which
-enqueues the kernel's six passes)."""
+"""Calls that launched kernel B1 (one per call of its C entry: one kernel
+launch up to m = 4, the generic sequence above)."""
 LAUNCHES_RES = 0
 """Calls that launched kernel B1r, the forward with residuals."""
 LAUNCHES_BWD = 0
@@ -222,6 +228,22 @@ _B2_SCHEDULE = {
 }
 
 
+# B1 and B1r's association on the card at m <= 4, (tile, sub) by (m, bytes
+# per value) (csrc/quasisep_loglik.cu: b1_sub, one thread a team, 64 a
+# tile). Above m = 4 they run the generic sequence, with no tiles.
+_B1_SCHEDULE = {
+    (m, nbytes): (64 * sub, sub)
+    for m in range(1, 5) for nbytes in (4, 8) for sub in [8 if m <= 2 else 4]
+}
+
+
+def b1_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
+    """``(tile, sub)`` of the one-launch B1 and B1r for order ``m`` and
+    operands of ``dtype``, or None where they run the generic sequence
+    (m > 4)."""
+    return _B1_SCHEDULE.get((m, torch.empty((), dtype=dtype).element_size()))
+
+
 def b2_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
     """``(tile, sub)`` of B2's one-launch kernel for order ``m`` and
     operands of ``dtype``, or None where B2 runs the sequence (m > 8)."""
@@ -230,9 +252,10 @@ def b2_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
 
 def _team_scan(x, combine):
     """Inclusive scan over axis 1 (a tile's teams) of the tuple of tensors
-    ``x``, in B2's association: Kogge-Stone within each run of up to 32
-    teams (a warp's shuffles, or the teams of a block), each run then
-    composed after the inclusive value of the run before it."""
+    ``x``, in the one-launch kernels' association: Kogge-Stone within each
+    run of up to 32 teams (a warp's shuffles, or the teams of a block),
+    each run then composed after the inclusive value of the run before
+    it."""
     teams = x[0].shape[1]
     run = min(teams, 32)
     out = []
@@ -259,26 +282,189 @@ def _exclusive(incl, identity):
             for i0, t in zip(identity, incl)]
 
 
-_LOOK_GROUP = 32  # tiles a group of B2's look-back (csrc: kLookGroup)
+_LOOK_GROUP = 32  # tiles a group of the look-back (csrc: kLookGroup)
 
 
-def _group_chain(aggs, combine, apply, state0):
+def _aff_combine(e_, l_):
+    """The affine maps ``(A, B)`` composed, earlier then later."""
+    (eA, eB), (lA, lB) = e_, l_
+    return [lA @ eA, (lA @ eB[..., None])[..., 0] + lB]
+
+
+def _aff_apply(A, B, s):
+    return (A @ s[..., None])[..., 0] + B
+
+
+def _ric_combine(e_, l_):
+    """The Riccati flow's Moebius maps ``(A, F, G)`` composed, earlier then
+    later: :func:`scan._riccati_combine` on stacked ``(..., m, m)``."""
+    (Ae, Fe, Ge), (Al, Fl, Gl) = e_, l_
+    Minv = torch.linalg.inv(torch.eye(Ae.shape[-1], dtype=Ae.dtype, device=Ae.device) + Fe @ Gl)
+    return [Al @ Minv @ Ae, Fl + Al @ Minv @ Fe @ Al.mT, Ge + Ae.mT @ Minv.mT @ Gl @ Ae]
+
+
+def _ric_apply(A, F, G, X):
+    """The state ``X`` after the map ``(A, F, G)``:
+    ``F + A (I + X G)^-1 X A^T``."""
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    return F + A @ torch.linalg.solve(eye + X @ G, X) @ A.mT
+
+
+def _group_chain(aggs, combine, apply, state0, warp_fold=False):
     """Each tile's state at its start, from the tiles' aggregates ``aggs``
-    (a pair of tensors, tile first) in B2's look-back association: within
-    each group of :data:`_LOOK_GROUP` tiles the aggregates folded one tile
-    at a time, ``start(b) = Q(b)(S(g - 1))``, and the state after each
-    group ``S(g) = GA(g)(S(g - 1))`` from ``S(-1) = state0``."""
+    (tensors, tile first) in the one-launch kernels' look-back association:
+    within each group of :data:`_LOOK_GROUP` tiles ``start(b) =
+    Q(b)(S(g - 1))``, and the state after each group ``S(g) = GA(g)(S(g -
+    1))`` from ``S(-1) = state0``, where ``Q(b)`` composes the aggregates
+    of the group's tiles before ``b`` one tile at a time (B2) or, with
+    ``warp_fold``, by a Kogge-Stone scan over them (B1: a warp's lanes),
+    and ``GA(g)`` is ``Q`` of the group's last tile composed with its
+    aggregate."""
     nt = aggs[0].shape[0]
     starts = []
     S = state0
     for base in range(0, nt, _LOOK_GROUP):
+        end = min(base + _LOOK_GROUP, nt)
+        if warp_fold:
+            prefix = [x[0] for x in _team_scan([x[None, base:end] for x in aggs], combine)]
         Q = None
-        for b in range(base, min(base + _LOOK_GROUP, nt)):
+        for b in range(base, end):
             starts.append(S if Q is None else apply(*Q, S))
             agg = [x[b] for x in aggs]
-            Q = agg if Q is None else combine(Q, agg)
+            if warp_fold and b + 1 < end:
+                Q = [x[b - base] for x in prefix]
+            else:
+                Q = agg if Q is None else combine(Q, agg)
         S = apply(*Q, S)
     return torch.stack(starts)
+
+
+def plain_loglik_terms_res_tiled(
+    d: torch.Tensor,
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+    tile: int,
+    sub: int,
+) -> tuple[torch.Tensor, ...]:
+    """``(quad, logdet, Fs, e, ic)``: B1r in the association of its
+    one-launch kernel at m <= 4, in float64, stored in the operands' dtype.
+
+    The elements are cut into tiles of ``tile``, each into teams of ``sub``
+    consecutive elements. Phase A: each team folds its elements' Riccati
+    maps with the rank-one step (:func:`scan.riccati_fold_rank_one`), the
+    teams of a tile are scanned (:func:`_team_scan`, the Moebius merge),
+    and the tiles' aggregates reach the flow's state from ``F = 0`` in the
+    look-back association (:func:`_group_chain`); each team's start is its
+    prefix applied to its tile's. Phase B: each team walks its elements
+    with the sequential recurrence ``F' = a F a^T + u u^T / c2`` and folds
+    the whitening elements ``(a - wd p^T, wd y)``; the same scan and chain
+    give ``e`` from 0. Phase C: each team walks its elements once more for
+    ``alpha``, ``log c`` and the residuals. The ragged end is padded with
+    identity elements (``d = 1``, ``p = q = 0``, ``a = I``, ``y = 0``),
+    which the kernel masks and which add nothing.
+    """
+    m, n = ps.shape
+    dtype = ps.dtype
+    teams = tile // sub
+    nt = -(-n // tile)
+    pad = nt * tile - n
+    f64 = {"dtype": torch.float64, "device": ps.device}
+    eye = torch.eye(m, **f64)
+
+    def tiled(x, rows, fill):  # (rows, n) -> (nt, teams, sub, rows)
+        x = x.to(**f64).reshape(rows, n).T
+        x = torch.cat([x, torch.as_tensor(fill, **f64).expand(pad, rows)])
+        return x.reshape(nt, teams, sub, rows)
+
+    dv, yv = tiled(d, 1, 1.0)[..., 0], tiled(y, 1, 0.0)[..., 0]
+    p, q = tiled(ps, m, 0.0), tiled(qs, m, 0.0)
+    a = tiled(as_, m * m, eye.reshape(m * m)).reshape(nt, teams, sub, m, m)
+
+    def outer(u, v):
+        return u[..., :, None] * v[..., None, :]
+
+    def mv(A, v):
+        return (A @ v[..., None])[..., 0]
+
+    def step(F, jj):
+        """The emission from the state F before element jj, the whitening
+        element and the state after it."""
+        pj, aj = p[:, :, jj], a[:, :, jj]
+        Fp = mv(F, pj)
+        c2 = dv[:, :, jj] - torch.sum(pj * Fp, dim=-1)
+        u = q[:, :, jj] - mv(aj, Fp)
+        wd = u / c2[..., None]
+        return c2, aj - outer(wd, pj), wd * yv[:, :, jj, None], aj @ F @ aj.mT + outer(u, wd)
+
+    # Phase A: the rank-one fold, the in-tile scan and the chain of tiles.
+    A = eye.expand(nt, teams, m, m).clone()
+    F = torch.zeros(nt, teams, m, m, **f64)
+    G = torch.zeros(nt, teams, m, m, **f64)
+    for jj in range(sub):
+        pj, aj = p[:, :, jj], a[:, :, jj]
+        f = mv(F, pj)
+        c = (dv[:, :, jj] - torch.sum(pj * f, dim=-1))[..., None, None]
+        u = q[:, :, jj] - mv(aj, f)
+        w = mv(A.mT, pj)
+        A = aj @ A - outer(u, w) / c
+        F = aj @ F @ aj.mT + outer(u, u) / c
+        G = G - outer(w, w) / c
+    zeros = torch.zeros(m, m, **f64)
+    incl = _team_scan([A, F, G], _ric_combine)
+    pre = _exclusive(incl, [eye, zeros, zeros])
+    start = _group_chain([t[:, -1] for t in incl], _ric_combine, _ric_apply, zeros,
+                         warp_fold=True)
+    F0 = _ric_apply(*pre, start[:, None])
+
+    # Phase B: the sequential flow and the whitening elements' folds.
+    TA = eye.expand(nt, teams, m, m).clone()
+    TB = torch.zeros(nt, teams, m, **f64)
+    F = F0
+    for jj in range(sub):
+        _, At, Bt, F = step(F, jj)
+        TA, TB = At @ TA, mv(At, TB) + Bt
+    incl = _team_scan([TA, TB], _aff_combine)
+    pre_A, pre_B = _exclusive(incl, [eye, torch.zeros(m, **f64)])
+    start = _group_chain([t[:, -1] for t in incl], _aff_combine, _aff_apply,
+                         torch.zeros(m, **f64), warp_fold=True)
+    e = _aff_apply(pre_A, pre_B, start[:, None])
+
+    # Phase C: alpha, log c and the residuals at each element.
+    Fs = torch.empty(nt, teams, sub, m, m, **f64)
+    es = torch.empty(nt, teams, sub, m, **f64)
+    ic = torch.empty(nt, teams, sub, **f64)
+    alpha = torch.empty(nt, teams, sub, **f64)
+    F = F0
+    for jj in range(sub):
+        Fs[:, :, jj], es[:, :, jj] = F, e
+        c2, At, Bt, F = step(F, jj)
+        ic[:, :, jj] = 1.0 / torch.sqrt(c2)
+        alpha[:, :, jj] = (yv[:, :, jj] - torch.sum(p[:, :, jj] * e, dim=-1)) * ic[:, :, jj]
+        e = mv(At, e) + Bt
+
+    def untiled(x, rows):  # (nt, teams, sub, ...) -> (rows, n)
+        return x.reshape(nt * tile, rows)[:n].T.contiguous().to(dtype)
+
+    quad = torch.sum(torch.square(alpha))
+    logdet = -torch.sum(torch.log(ic))
+    return (quad.to(dtype), logdet.to(dtype), untiled(Fs, m * m), untiled(es, m),
+            untiled(ic, 1)[0])
+
+
+def plain_loglik_terms_tiled(
+    d: torch.Tensor,
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+    tile: int,
+    sub: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(quad, logdet)``: B1 in the association of its one-launch kernel
+    (:func:`plain_loglik_terms_res_tiled`)."""
+    return plain_loglik_terms_res_tiled(d, ps, qs, as_, y, tile, sub)[:2]
 
 
 def plain_loglik_bwd_tiled(
@@ -355,10 +541,6 @@ def plain_loglik_bwd_tiled(
     idx = tiled(torch.arange(nt * tile))
     At_t, ebar_t = tiled(At), tiled(ebar)
 
-    def aff_combine(e_, l_):
-        (eA, eB), (lA, lB) = e_, l_
-        return [lA @ eA, (lA @ eB[..., None])[..., 0] + lB]
-
     def cong_combine(e_, l_):
         (eT, eB), (lT, lB) = e_, l_
         return [lT @ eT, lT @ eB @ lT.transpose(-1, -2) + lB]
@@ -370,10 +552,10 @@ def plain_loglik_bwd_tiled(
         E = At_t[:, :, jj]
         TB = (E @ TB[..., None])[..., 0] + ebar_t[:, :, jj]
         TA = E @ TA
-    incl = _team_scan([TA, TB], aff_combine)
+    incl = _team_scan([TA, TB], _aff_combine)
     pre_A, pre_B = _exclusive(incl, [eye, torch.zeros(m, dtype=f64)])
-    start = _group_chain([t[:, -1] for t in incl], aff_combine,
-                         lambda A, B, s: A @ s + B, torch.zeros(m, dtype=f64))
+    start = _group_chain([t[:, -1] for t in incl], _aff_combine, _aff_apply,
+                         torch.zeros(m, dtype=f64))
     lam = (pre_A @ start[:, None, :, None])[..., 0] + pre_B
 
     # Phase B: the mu recurrence, the congruence loads and folds.
@@ -451,12 +633,14 @@ def _bind(lib: ctypes.CDLL, prefix: str, n_ptrs: int) -> None:
     lib.qsl_error_string.restype = ctypes.c_char_p
 
 
-def _bind_schedule(lib: ctypes.CDLL) -> None:
-    """``qsl_bwd_schedule(m, bytes, *tile, *sub)``: B2's association on the
-    card, which :data:`_B2_SCHEDULE` repeats."""
-    lib.qsl_bwd_schedule.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.qsl_bwd_schedule.restype = ctypes.c_int
+def _bind_schedule(lib: ctypes.CDLL, name: str = "qsl_bwd_schedule") -> None:
+    """``<name>(m, bytes, *tile, *sub)``: a one-launch kernel's association
+    on the card (``qsl_fwd_schedule``: B1's, which :data:`_B1_SCHEDULE`
+    repeats; ``qsl_bwd_schedule``: B2's, :data:`_B2_SCHEDULE`)."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
 
 
 @functools.cache
@@ -467,6 +651,7 @@ def _library() -> ctypes.CDLL:
     lib.qsl_workspace_elems.restype = ctypes.c_longlong
     _bind(lib, "qsl_loglik", 7)  # d ps qs as y | out | work
     _bind(lib, "qsl_loglik_res", 10)  # d ps qs as y | out Fs e ic | work
+    _bind_schedule(lib, "qsl_fwd_schedule")
     return lib
 
 

@@ -8,7 +8,12 @@ quasiseparable matrices, as numpy arrays that both packages take.
 
 from __future__ import annotations
 
-__all__ = ["assert_allclose", "random_qsm_operands", "random_qsm_tree"]
+__all__ = [
+    "assert_allclose",
+    "assert_pytrees_allclose",
+    "random_qsm_operands",
+    "random_qsm_tree",
+]
 
 from typing import Any
 
@@ -53,6 +58,25 @@ def assert_allclose(calculated: Any, expected: Any, **kwargs: Any) -> None:
         rtol=rtol,
         **kwargs,
     )
+
+
+def assert_pytrees_allclose(calculated: Any, expected: Any, **kwargs: Any) -> None:
+    """:func:`assert_allclose` leaf by leaf over nested dicts, lists and
+    tuples of the same structure (the JAX package's pytrees)."""
+    if isinstance(expected, dict):
+        assert isinstance(calculated, dict) and calculated.keys() == expected.keys(), (
+            f"dict keys differ: {calculated!r} vs {expected!r}"
+        )
+        for key in expected:
+            assert_pytrees_allclose(calculated[key], expected[key], **kwargs)
+    elif isinstance(expected, list | tuple):
+        assert isinstance(calculated, type(expected)) and len(calculated) == len(expected), (
+            f"sequences differ: {calculated!r} vs {expected!r}"
+        )
+        for c, e in zip(calculated, expected):
+            assert_pytrees_allclose(c, e, **kwargs)
+    else:
+        assert_allclose(calculated, expected, **kwargs)
 
 
 def random_qsm_operands(
