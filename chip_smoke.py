@@ -22,8 +22,11 @@ Phases, each printing its numbers on lines of its own:
    association in plain PyTorch, each repeated bit for bit. Before it, the
    process's first ``torch.profiler`` traces: a B1 and a B1r call at
    m = 1..4 (N = 1e5, float32 and float64) are one kernel and one memset
-   each; the main path's, gradient path's and trainer's calls below are
-   traced too (no other kernel, no more than one launch a call);
+   each, and so is each B3 scan at m = 1..4 (the affine scan with 1 and
+   16 columns, the congruence, the Riccati flow, the coupling) and each
+   coupling (2, 4), (4, 8), (6, 6), (8, 8); the main path's, gradient
+   path's and trainer's calls below are traced too (no other kernel, no
+   more than one launch a call);
 3. the kernel path's ``log_probability`` and its float64 gradient against
    a dense numpy/scipy Cholesky log-likelihood built from the kernels'
    closed forms and its central differences;
@@ -154,7 +157,11 @@ on the same operands, and the whole gradient calls.
 ``python3 chip_smoke.py --b1-times`` does the same for B1 and B1r at
 m <= 4 (Matern32 at N = 1e5 and 1e6, SHO and the 2-term celerite at 1e5)
 and the whole Matern32 value and gradient calls, every CUDA-event time
-taken before any trace.
+taken before any trace. ``python3 chip_smoke.py --b3-times`` does the same
+for B3: the Matern32 conditioning path's scans at N = 1e5, the m = 2
+scans at 1e6, Matern52's and the celerite's couplings (6, 6) and (8, 8),
+the couplings (2, 2) and (4, 4) through either source, and the whole
+Matern32, Matern52 and celerite ``condition`` calls.
 """
 
 from __future__ import annotations
@@ -907,6 +914,62 @@ def phase_b1_launches():
                 failures.append((m, dtype))
     if failures:
         raise AssertionError(f"B1/B1r is not one kernel and one memset a call: {failures}")
+
+
+# B3's one-launch scans, as phase_b3_launches traces them: (monoid, r,
+# reverse, inclusive) at each m = 1..4, and the generic couplings.
+B3_TRACED = (("aff", 1, False, False), ("aff", 16, True, True), ("cong", 1, True, False),
+             ("ric", 1, False, False), ("cpl", 1, False, False))
+B3_TRACED_COUPLINGS = ((2, 4), (4, 8), (6, 6), (8, 8))
+
+
+def b3_one_launch(calls, name):
+    """From a ``torch.profiler`` trace of the scans ``calls`` (each
+    ``(monoid, m, m2, r, reverse, inclusive, operands)``): whether each is
+    one launch of a kernel whose name holds ``name`` and one memset, and
+    nothing else runs; and the trace's report."""
+    split, per_call = kernel_split(lambda: [
+        scan_kernel(monoid, m, r, reverse, inclusive, ops, m2=m2)
+        for monoid, m, m2, r, reverse, inclusive, ops in calls])
+    if split is None:
+        return False, "no device time in the trace"
+    kernels = sum(per for k, (_, per) in split.items() if name in k)
+    memsets = sum(per for k, (_, per) in split.items() if k.startswith("Memset"))
+    others = [k for k in split if name not in k and not k.startswith("Memset")]
+    ok = kernels == memsets == len(calls) == per_call / 2 and not others
+    return ok, (f"{len(calls)} scans, {per_call:g} device operations per set ("
+                + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()) + ")")
+
+
+def phase_b3_launches():
+    """B3's one-launch scans on random operands at N = 1e5, in float32 and
+    float64: at each m = 1..4 the affine scan with 1 and 16 columns, the
+    congruence, the Riccati flow and the coupling (``b3_tile_kernel``), and
+    the couplings (2, 4), (4, 8), (6, 6) and (8, 8) (``cpl_tile_kernel``):
+    in a ``torch.profiler`` trace each scan is one kernel and one memset.
+    Five traces, run first with B1's, while the process's traces still hold
+    every event."""
+    import torch
+
+    n, failures = 100_000, []
+    sets = [(f"m={m}", "b3_tile_kernel",
+             [(monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
+              for dtype in (torch.float32, torch.float64)
+              for monoid, r, rev, incl in B3_TRACED]) for m in (1, 2, 3, 4)]
+    sets.append(("couplings " + ", ".join(f"{a}x{b}" for a, b in B3_TRACED_COUPLINGS),
+                 "cpl_tile_kernel",
+                 [("cpl", a, b, 1, rev, rev,
+                   scan_operands("cpl", a, n, 1, dtype, seed=a + b, m2=b))
+                  for dtype in (torch.float32, torch.float64)
+                  for (a, b), rev in zip(B3_TRACED_COUPLINGS, (False, True, False, True))]))
+    for label, name, calls in sets:
+        ok, report = b3_one_launch(calls, name)
+        log(f"b3-launches {label} N={n} float32 and float64: {report} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        del calls
+    if failures:
+        raise AssertionError(f"B3 is not one kernel and one memset a scan: {failures}")
 
 
 def phase_gradient_path():
@@ -3115,6 +3178,132 @@ def b1_times():
             f"included)")
 
 
+def generic_coupling(operands, m1, m2, reverse, inclusive):
+    """The coupling through the generic-order source's C entry, whatever
+    the orders (the wrapper sends two equal orders up to 4 to the templated
+    source): to time one source against the other. Counts no launch."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    lib = cuda_scan._generic_library()
+    n = operands[0].shape[-1]
+    work = torch.empty(lib.qsg_workspace_elems(3, m1, m2, n, 1), dtype=torch.float64,
+                       device=operands[0].device)
+    out = operands[0].new_empty(m1 * m2, n)
+    fn = lib.qsg_scan_f32 if operands[0].dtype == torch.float32 else lib.qsg_scan_f64
+    err = fn(3, m1, m2, n, 1, int(reverse), int(inclusive), *[x.data_ptr() for x in operands],
+             None, out.data_ptr(), work.data_ptr(), work.numel(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the generic coupling failed: cudaError {err}")
+    return out
+
+
+def b3_times():
+    """``--b3-times``: kernel B3 alone at the main paths' shapes, float32:
+    each monoid and shape that the Matern32 conditioning path (``condition``,
+    ``predict`` at 1000 points, ``sample`` of 16) gives it at N = 1e5, the
+    m = 2 scans of phase 7 at N = 1e6 (random operands: the affine scan
+    with 1 and 16 columns, the congruence, the Riccati flow, the coupling),
+    and the generic couplings of Matern52's (6, 6) and the 2-term
+    celerite's (8, 8) ``condition`` at 1e5; and the whole Matern32,
+    Matern52 and celerite ``condition`` calls at 1e5. Every CUDA-event time
+    is taken first, before any ``torch.profiler`` trace; then each scan's
+    device time and device operations per call from a trace, two launches
+    compared bit for bit and the result held to the float64 plain version
+    (5e-4). Also the registers and spills of B3's kernels. Through entry
+    points that older trees share, so that one chip call can time this tree
+    and its parent in turns."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    log_ptxas("quasisep_scan")
+    log_ptxas("quasisep_generic", only=r"^cpl_")
+    (X5, y5), _ = bench_data()
+    X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (X5, y5))
+    X_test = torch.linspace(0, 10, 1000, dtype=torch.float32, device="cuda")
+
+    def model(kernel):
+        return GaussianProcess(kernel, X, diag=0.1, assume_sorted=True)
+
+    # B3's calls on each path, the first of each monoid and shape with its
+    # operands.
+    calls = {}
+    launch = cuda_scan._launch
+
+    def recording(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+        m2 = m if m2 is None else m2
+        if keep(monoid, m, m2):
+            calls.setdefault(f"{monoid} m={m}" + (f"x{m2}" if monoid == "cpl" else "")
+                             + (f" r={r}" if r > 1 else "") + " N=1e5",
+                             (monoid, m, m2, r, reverse, inclusive, operands))
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+    cuda_scan._launch = recording
+    try:
+        with torch.no_grad():
+            keep = lambda *_: True  # noqa: E731
+            gp = model(matern32_kernel())
+            gp.condition(y)
+            gp.predict(y, X_test)
+            gp.sample(torch.Generator(device="cuda").manual_seed(0), (16,))
+            keep = lambda monoid, m, m2: monoid == "cpl" and max(m, m2) > 4  # noqa: E731
+            model(matern52_kernel()).condition(y)
+            model(celerite2()).condition(y)
+    finally:
+        cuda_scan._launch = launch
+    n6 = 1_000_000
+    for monoid, r, reverse, inclusive in (("aff", 1, False, False), ("aff", 16, True, True),
+                                          ("cong", 1, False, False), ("ric", 1, False, False),
+                                          ("cpl", 1, False, False)):
+        calls[f"{monoid} m=2" + (f" r={r}" if r > 1 else "") + " N=1e6 (random)"] = (
+            monoid, 2, 2, r, reverse, inclusive, scan_operands(monoid, 2, n6, r, torch.float32, 7))
+    cases = {label: (c, lambda c=c: scan_kernel(c[0], c[1], c[3], c[4], c[5], c[6], m2=c[2]))
+             for label, c in calls.items()}
+    # The couplings (2, 2) and (4, 4) through either source, on the same
+    # random operands.
+    for m in (2, 4):
+        c = ("cpl", m, m, 1, False, False, scan_operands("cpl", m, 100_000, 1, torch.float32, 3))
+        cases[f"cpl m={m}x{m} N=1e5 (random) templated source"] = (
+            c, lambda c=c: scan_kernel("cpl", c[1], 1, False, False, c[6]))
+        cases[f"cpl m={m}x{m} N=1e5 (random) generic source"] = (
+            c, lambda c=c: generic_coupling(c[6], c[1], c[1], False, False))
+    whole = {f"{name} condition N=1e5": lambda k=kernel: (lambda res: (
+        res[0], res[1].loc, res[1].variance))(model(k()).condition(y))
+        for name, kernel in (("matern32", matern32_kernel), ("matern52", matern52_kernel),
+                             ("celerite2", celerite2))}
+
+    # The clocks first: no trace has run in this process yet.
+    event_ms = {label: cuda_ms(fn, reps=50, warmup=5) for label, (_, fn) in cases.items()}
+    whole_ms = {label: cuda_ms(fn, reps=20, warmup=3) for label, fn in whole.items()}
+    for label, ((monoid, m, m2, r, reverse, inclusive, ops), fn) in cases.items():
+        got, again = fn(), fn()
+        same = torch.equal(got, again)
+        want = scan_plain(monoid, m, r, reverse, inclusive, [x.double() for x in ops], m2=m2)
+        (err, _), = stream_errors([got], [want])
+        if not (err <= 5e-4 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"B3 {label} disagrees with float64: {err:.3e}")
+        del got, again, want
+        split, per_call = kernel_split(fn)
+        device = ("not measured (no device time in the trace)" if split is None else
+                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+        shown = ("" if split is None else
+                 ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+        bound = scan_bound_ms(monoid, m, r, ops[0].shape[-1], 4, m2=m2)[0]
+        way = f"{'reverse' if reverse else 'forward'} {'inclusive' if inclusive else 'exclusive'}"
+        log(f"b3-times {label} ({way}) float32 [{CARD}]: events {event_ms[label]:.4f} ms, device "
+            f"{device} (bound {bound:.4f} ms); two launches equal bit for bit {same}; against "
+            f"float64 plain rel {err:.2e} (limit 5e-4) ok")
+        log(f"b3-times {label} trace: {per_call:g} device operations per call; ms per launch x "
+            f"launches per call: {shown}")
+    for label, ms in whole_ms.items():
+        log(f"b3-times whole {label} float32 [{CARD}]: {ms:.4f} ms (events, constructor "
+            f"included)")
+
+
 # ---------------------------------------------------------------------------
 # Kernel B7: the tiled gram builder, on its own entry point.
 # ---------------------------------------------------------------------------
@@ -3342,7 +3531,11 @@ def main() -> int:
     if sys.argv[1:] == ["--b1-times"]:
         b1_times()
         return 0
+    if sys.argv[1:] == ["--b3-times"]:
+        b3_times()
+        return 0
     phase_b1_launches()
+    phase_b3_launches()
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()

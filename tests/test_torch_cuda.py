@@ -1027,3 +1027,67 @@ def test_b1_one_launch_matches_tiled_plain_and_repeats(cuda_device, m, dtype):
                 assert g.dtype == dtype and torch.isfinite(g).all()
                 assert stream_err(g, w) <= rtol, (n, stream_err(g, w))
         del args, value, res, value2, res2, f64, want
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3 in one launch: the templated scan at m <= 4 and the coupling of
+# orders up to 8, tiles by a ticket and a deterministic look-back.
+# ---------------------------------------------------------------------------
+
+# (monoid, m, m2, r, reverse, exclusive)
+B3_ONE_LAUNCH = [
+    (monoid, m, m, r, reverse, exclusive)
+    for m in (1, 2, 3, 4)
+    for monoid, r, reverse, exclusive in (
+        ("aff", 1, False, True), ("aff", 16, True, False), ("cong", 1, True, True),
+        ("ric", 1, False, True), ("cpl", 1, False, True), ("cpl", 1, True, False))
+] + [("cpl", m, m2, 1, reverse, not reverse) for m, m2 in ((2, 4), (4, 8), (6, 6), (8, 8))
+     for reverse in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", B3_ONE_LAUNCH, ids=lambda c: "-".join(map(str, c)))
+def test_b3_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype):
+    """B3 at N of one tile, a ragged N across a look-back group and 1e5,
+    against the plain version in the kernel's association
+    (``plain_scan_tiled``) and the plain blocked scan, both in float64 on
+    the same values (rtol 1e-8 in float64, 5e-4 in float32, relative to the
+    output's largest magnitude); a second launch on the same inputs gives
+    the same bits; one launch counted per call; the library's schedule is
+    the plain tiled version's."""
+    import ctypes
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    monoid, m, m2, r, reverse, exclusive = case
+    generic = m != m2 or m > 4
+    schedule = cuda_scan.b3_schedule(monoid, m, r, dtype, m2)
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    t, s, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if generic:
+        lib = cuda_scan._generic_library()
+        assert lib.qsg_cpl_schedule(m, m2, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
+    else:
+        lib = cuda_scan._library()
+        assert lib.qss_schedule(cuda_scan._KIND[monoid], m, r, nbytes, ctypes.byref(t),
+                                ctypes.byref(s), ctypes.byref(c)) == 0
+    assert (t.value, s.value) == schedule[:2]
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    tile = schedule[0]
+    for n in (tile, 33 * tile + 7, 100_000):
+        operands, _, _ = scan_case(monoid, m, n, r, dtype, cuda_device, seed=m + n, m2=m2)
+        before = cuda_scan.LAUNCHES[monoid], cuda_scan.LAUNCHES_GENERIC[monoid]
+        got = run_scan(monoid, operands, m, r, reverse, exclusive, m2=m2)
+        again = run_scan(monoid, operands, m, r, reverse, exclusive, m2=m2)
+        torch.cuda.synchronize()
+        assert (cuda_scan.LAUNCHES[monoid], cuda_scan.LAUNCHES_GENERIC[monoid]) == (
+            before[0] + 2, before[1] + 2 * generic)
+        assert torch.equal(got, again)
+        f64 = [x.double().cpu() for x in operands]
+        for want in (cuda_scan.plain_scan_tiled(monoid, f64, m, r=r, m2=m2, reverse=reverse,
+                                                exclusive=exclusive, schedule=schedule),
+                     run_scan(monoid, f64, m, r, reverse, exclusive, m2=m2)):
+            assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
+            assert stream_err(got, want) <= rtol, (n, stream_err(got, want))
+        del operands, got, again, f64, want

@@ -1,10 +1,9 @@
-// Shared pieces of the quasiseparable log-likelihood kernels on Hopper
-// (sm_90a): the m x m algebra with closed-form inverses, the Riccati and
-// affine monoids, the in-block Kogge-Stone scan and the single-block scan
-// of block totals (kernel B3 in quasisep_scan.cu); cp.async, the in-tile
-// scan and the one-launch look-back of kernels B1 and B1r
-// (quasisep_loglik.cu) and B2 (quasisep_loglik_bwd.cu, and
-// quasisep_loglik_generic.cu at m = 5..8).
+// Shared pieces of the quasiseparable kernels on Hopper (sm_90a): the m x m
+// algebra with closed-form inverses, the Riccati and affine monoids and the
+// Riccati element's sequential step; cp.async, the in-tile scan and the
+// one-launch look-back of kernels B1 and B1r (quasisep_loglik.cu), B2
+// (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..8) and
+// B3 (quasisep_scan.cu, and quasisep_generic.cu's coupling up to order 8).
 // Its last section, the team-cooperative algebra at any order with a
 // pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
@@ -16,10 +15,7 @@ extern __shared__ __align__(16) unsigned char qsl_smem[];
 
 namespace {
 
-constexpr int kThreads = 64;  // threads per block of the chunk passes
-constexpr int kChunk = 8;     // consecutive elements per thread
-constexpr int kScanThreads = 256;
-constexpr int kSharedLimit = 48 * 1024;
+constexpr int kScanThreads = 256;  // threads of the generic engine's single-block reduction
 
 // The arithmetic type of every scan (see Precision in quasisep_loglik.cu).
 using Acc = double;
@@ -171,11 +167,12 @@ struct Ric {
   }
 };
 
-// The affine recurrence g' = A g + B, flattened [A | B].
-template <typename T, int M>
+// The affine recurrence g' = A g + B with C columns sharing A, flattened
+// [A (M x M) | B (M x C)], B row-major.
+template <typename T, int M, int C = 1>
 struct Aff {
   static constexpr int MM = M * M;
-  static constexpr int S = MM + M;
+  static constexpr int S = MM + M * C;
   T v[S];
 
   __device__ static Aff identity() {
@@ -190,13 +187,89 @@ struct Aff {
     Aff out;
     mm<T, M>(l.v, e.v, out.v);
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      T acc = l.v[MM + i];
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < M; ++j) acc += l.v[i * M + j] * e.v[MM + j];
-      out.v[MM + i] = acc;
-    }
+      for (int k = 0; k < C; ++k) {
+        T acc = l.v[MM + i * C + k];
+#pragma unroll
+        for (int j = 0; j < M; ++j) acc += l.v[i * M + j] * e.v[MM + j * C + k];
+        out.v[MM + i * C + k] = acc;
+      }
     return out;
+  }
+};
+
+// A Riccati element (d, p, q, a) in Acc, with the flow's sequential step
+// and its rank-one fold into a Moebius map (B1's phase A, B3's Riccati
+// scan).
+template <int M>
+struct RicElem {
+  static constexpr int MM = M * M;
+  Acc d, p[M], q[M], a[MM];
+
+  // Cholesky emission from the state F before this step:
+  // c2 = d - p^T F p and u = q - a F p (so w = u / c).
+  __device__ __forceinline__ Acc emit(const Acc* F, Acc* u) const {
+    Acc Fp[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Acc acc = F[i * M] * p[0];
+#pragma unroll
+      for (int j = 1; j < M; ++j) acc += F[i * M + j] * p[j];
+      Fp[i] = acc;
+    }
+    Acc c2 = d;
+#pragma unroll
+    for (int i = 0; i < M; ++i) c2 -= p[i] * Fp[i];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Acc acc = q[i];
+#pragma unroll
+      for (int j = 0; j < M; ++j) acc -= a[i * M + j] * Fp[j];
+      u[i] = acc;
+    }
+    return c2;
+  }
+
+  // The sequential Riccati step F <- a F a^T + u u^T / c2.
+  __device__ __forceinline__ void advance(Acc* F, const Acc* u, Acc c2) const {
+    Acc aF[MM], next[MM];
+    mm<Acc, M>(a, F, aF);
+    mm_nt<Acc, M>(aF, a, next);
+    const Acc inv_c2 = Acc(1) / c2;
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) F[i * M + j] = next[i * M + j] + u[i] * u[j] * inv_c2;
+  }
+
+  // The element's Riccati map folded after the running value r, by the
+  // rank-one step (scan.py:riccati_fold_rank_one):
+  // A' = a A - u w^T / c, F' = a F a^T + u u^T / c, G' = G - w w^T / c,
+  // with f = F p, c = d - p^T f, u = q - a f and w = A^T p.
+  __device__ __forceinline__ void fold(Ric<Acc, M>& r) const {
+    Acc* A = r.v;
+    Acc* F = r.v + MM;
+    Acc* G = r.v + 2 * MM;
+    Acc u[M], w[M], aA[MM];
+    const Acc c = emit(F, u);
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      Acc acc = A[j] * p[0];
+#pragma unroll
+      for (int i = 1; i < M; ++i) acc += A[i * M + j] * p[i];
+      w[j] = acc;
+    }
+    const Acc inv_c = Acc(1) / c;
+    mm<Acc, M>(a, A, aA);
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        A[i * M + j] = aA[i * M + j] - u[i] * w[j] * inv_c;
+        G[i * M + j] -= w[i] * w[j] * inv_c;
+      }
+    advance(F, u, c);
   }
 };
 
@@ -206,86 +279,6 @@ __device__ __forceinline__ V load(const T* src, long long idx) {
 #pragma unroll
   for (int c = 0; c < V::S; ++c) x.v[c] = src[idx * V::S + c];
   return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ void store(T* dst, long long idx, const V& x) {
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) dst[idx * V::S + c] = x.v[c];
-}
-
-// Shared memory holds one value per thread and component, component-major
-// (sm[c * nt + t]) so that neighbouring threads hit neighbouring banks.
-template <class V, typename T>
-__device__ __forceinline__ V sm_load(const T* sm, int t, int nt) {
-  V x;
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) x.v[c] = sm[c * nt + t];
-  return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ void sm_store(T* sm, int t, int nt, const V& x) {
-#pragma unroll
-  for (int c = 0; c < V::S; ++c) sm[c * nt + t] = x.v[c];
-}
-
-// Kogge-Stone inclusive scan over the block's threads. On return the
-// shared array holds every thread's inclusive value.
-template <class V, typename T>
-__device__ V block_inclusive_scan(V x, T* sm) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  sm_store<V>(sm, t, nt, x);
-  __syncthreads();
-  for (int off = 1; off < nt; off <<= 1) {
-    V y = x;
-    if (t >= off) y = V::combine(sm_load<V>(sm, t - off, nt), x);
-    __syncthreads();
-    if (t >= off) {
-      x = y;
-      sm_store<V>(sm, t, nt, x);
-    }
-    __syncthreads();
-  }
-  return x;
-}
-
-template <class V, typename T>
-__device__ __forceinline__ V block_exclusive(const T* sm) {
-  const int t = threadIdx.x;
-  return t == 0 ? V::identity() : sm_load<V>(sm, t - 1, blockDim.x);
-}
-
-// Exclusive scan of `nb` block totals, in place, by one block. With a grid
-// of several blocks along y, block y scans the y-th run of nb totals.
-template <class V, typename T>
-__global__ void scan_totals(int nb, T* tot) {
-  T* sm = reinterpret_cast<T*>(qsl_smem);
-  tot += (long long)blockIdx.y * nb * V::S;
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int per = (nb + nt - 1) / nt;
-  const int lo = min(t * per, nb), hi = min(lo + per, nb);
-  V acc = V::identity();
-  for (int i = lo; i < hi; ++i) acc = V::combine(acc, load<V>(tot, i));
-  block_inclusive_scan<V>(acc, sm);
-  V pre = block_exclusive<V>(sm);
-  for (int i = lo; i < hi; ++i) {
-    const V x = load<V>(tot, i);
-    store(tot, i, pre);
-    pre = V::combine(pre, x);
-  }
-}
-
-long long num_blocks(long long n) {
-  return (n + (long long)kThreads * kChunk - 1) / ((long long)kThreads * kChunk);
-}
-
-// Threads of a single-block scan: as many as fit the default shared limit.
-template <class V, typename T>
-int scan_threads() {
-  int nt = kScanThreads;
-  while (nt > 32 && (long long)nt * V::S * sizeof(T) > kSharedLimit) nt /= 2;
-  return nt;
 }
 
 // ------------------------------------------------------------ cp.async
@@ -308,12 +301,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// --------------------------------------- the one-launch look-back (B1, B2)
+// ----------------------------------- the one-launch look-back (B1, B2, B3)
 //
 // Kernels B1 and B1r run their two forward scans in one launch at m <= 4
-// (quasisep_loglik.cu), and B2 its two reverse scans (quasisep_loglik_bwd.cu
-// for m <= 4, quasisep_loglik_generic.cu for m = 5..8). Each block takes a
-// tile of consecutive (for B2 mirrored) elements by a ticket, so it waits
+// (quasisep_loglik.cu), B2 its two reverse scans (quasisep_loglik_bwd.cu
+// for m <= 4, quasisep_loglik_generic.cu for m = 5..8), and B3 its one scan
+// (quasisep_scan.cu for m <= 4, quasisep_generic.cu's coupling up to order
+// 8). Each block takes a tile of consecutive (for a reverse scan mirrored)
+// elements by a ticket, so it waits
 // only on tiles that running blocks took before it. The tiles form groups of
 // kLookGroup. Per scan, a tile publishes its aggregate map (flag 1) for
 // the later tiles of its group; the last tile of a group publishes the
@@ -376,6 +371,27 @@ struct LookLayout {
   __device__ LookSlots slots(Acc* work, int k) const {
     unsigned* f = ticket(work) + 1 + k * (nt + ng);
     return LookSlots{work + off[k][0], work + off[k][1], work + off[k][2], f, f + nt};
+  }
+};
+
+// The workspace of a one-launch scan with `chains` independent chains of
+// tiles (B3: one per group of affine columns), in Acc: per chain the
+// tiles' aggregates, the groups' aggregates and end states; then the
+// ticket and each chain's tile and group flags as 32-bit words.
+struct ChainLayout {
+  long long nt, ng, per, flags, flag_words, total;
+  __host__ __device__ ChainLayout(long long nt_, int chains, int map, int state)
+      : nt(nt_), ng((nt_ + kLookGroup - 1) / kLookGroup) {
+    per = nt * map + ng * map + ng * state;
+    flags = chains * per;
+    flag_words = 1 + chains * (nt + ng);
+    total = flags + (flag_words + 1) / 2;
+  }
+  __device__ unsigned* ticket(Acc* work) const { return reinterpret_cast<unsigned*>(work + flags); }
+  __device__ LookSlots slots(Acc* work, int k, int map) const {
+    Acc* base = work + k * per;
+    unsigned* f = ticket(work) + 1 + k * (nt + ng);
+    return LookSlots{base, base + nt * map, base + (nt + ng) * map, f, f + nt};
   }
 };
 
@@ -482,19 +498,39 @@ __device__ V tile_scan(V x, Acc* sm, Acc* agg) {
   return ex;
 }
 
-// The affine state s <- A s + B by one thread; map = [A | B].
-template <int M>
+// The affine state s <- A s + B by one thread, s of M x C (row-major);
+// map = [A | B].
+template <int M, int C = 1>
 __device__ __forceinline__ void aff_apply(const Acc* map, Acc* s) {
-  Acc t[M];
+  Acc t[M * C];
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    Acc acc = map[M * M + i];
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < M; ++j) acc += map[i * M + j] * s[j];
-    t[i] = acc;
-  }
+    for (int k = 0; k < C; ++k) {
+      Acc acc = map[M * M + i * C + k];
 #pragma unroll
-  for (int i = 0; i < M; ++i) s[i] = t[i];
+      for (int j = 0; j < M; ++j) acc += map[i * M + j] * s[j * C + k];
+      t[i * C + k] = acc;
+    }
+#pragma unroll
+  for (int c = 0; c < M * C; ++c) s[c] = t[c];
+}
+
+// The Riccati state X <- F + A (I + X G)^-1 X A^T by one thread; map =
+// [A | F | G].
+template <int M>
+__device__ __forceinline__ void ric_apply(const Acc* map, Acc* X) {
+  constexpr int MM = M * M;
+  Acc mat[MM], minv[MM], t1[MM], t2[MM];
+  mm<Acc, M>(X, map + 2 * MM, mat);
+#pragma unroll
+  for (int i = 0; i < M; ++i) mat[i * (M + 1)] += Acc(1);
+  inverse<Acc, M>(mat, minv);
+  mm<Acc, M>(minv, X, t1);
+  mm<Acc, M>(map, t1, t2);
+  mm_nt<Acc, M>(t2, map, t1);
+#pragma unroll
+  for (int c = 0; c < MM; ++c) X[c] = map[MM + c] + t1[c];
 }
 
 // One thread publishes `size` values and then sets *flag to v.

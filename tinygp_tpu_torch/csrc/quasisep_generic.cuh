@@ -1,7 +1,8 @@
 // The generic-order monoid scan engine on Hopper (sm_90a): kernel B3 at
 // every order of the quasiseparable algebra, the scans of B1 and B1r above
 // m = 4 and those of B2 above m = 8 (B2 runs in one launch up to m = 8,
-// quasisep_loglik_generic.cu: b2_warp_kernel). Included by
+// quasisep_loglik_generic.cu: b2_warp_kernel; B3's coupling up to order 8
+// too, quasisep_generic.cu: cpl_tile_kernel). Included by
 // quasisep_generic.cu (B3's entries) and quasisep_loglik_generic.cu.
 //
 // Why not quasisep_scan.cu's kernel at a larger m. There each thread keeps
@@ -71,9 +72,9 @@
 // warp team stages them kRicBatch elements at a time with cp.async, so a
 // warp's copies of one component are consecutive, and gathers its
 // outputs the same way, while a block team loads one element ahead into
-// registers; every product waits on a barrier; the congruence and coupling
-// scans, and the affine scans with more columns or above kWarpTeamMaxM, run
-// a block per chunk and compose full maps.
+// registers; every product waits on a barrier; the congruence scans, the
+// couplings above order 8 and the affine scans with more columns or above
+// kWarpTeamMaxM run a block per chunk and compose full maps.
 
 #pragma once
 

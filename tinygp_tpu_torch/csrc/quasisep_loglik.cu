@@ -95,11 +95,12 @@ struct B1Layout {
                        IN = 2 + 2 * M + MM, OUT = MM + M + 1;
 };
 
-// One element's operands, read from its staged column into Acc.
+// One element's operands, read from its staged column into Acc: the
+// Riccati element and y.
 template <int M>
-struct Elem {
+struct Elem : RicElem<M> {
   static constexpr int MM = M * M;
-  Acc d, y, p[M], q[M], a[MM];
+  Acc y;
 
   template <int LD, typename S>
   __device__ __forceinline__ static Elem at(const S* col) {
@@ -117,69 +118,6 @@ struct Elem {
     return el;
   }
 
-  // Cholesky emission from the state F before this step:
-  // c2 = d - p^T F p and u = q - a F p (so w = u / c).
-  __device__ __forceinline__ Acc emit(const Acc* F, Acc* u) const {
-    Acc Fp[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      Acc acc = F[i * M] * p[0];
-#pragma unroll
-      for (int j = 1; j < M; ++j) acc += F[i * M + j] * p[j];
-      Fp[i] = acc;
-    }
-    Acc c2 = d;
-#pragma unroll
-    for (int i = 0; i < M; ++i) c2 -= p[i] * Fp[i];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      Acc acc = q[i];
-#pragma unroll
-      for (int j = 0; j < M; ++j) acc -= a[i * M + j] * Fp[j];
-      u[i] = acc;
-    }
-    return c2;
-  }
-
-  // The sequential Riccati step F <- a F a^T + u u^T / c2.
-  __device__ __forceinline__ void advance(Acc* F, const Acc* u, Acc c2) const {
-    Acc aF[MM], next[MM];
-    mm<Acc, M>(a, F, aF);
-    mm_nt<Acc, M>(aF, a, next);
-    const Acc inv_c2 = Acc(1) / c2;
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) F[i * M + j] = next[i * M + j] + u[i] * u[j] * inv_c2;
-  }
-
-  // The element's Riccati map folded after the running value r, by the
-  // rank-one step (scan.py:riccati_fold_rank_one).
-  __device__ __forceinline__ void fold(Ric<Acc, M>& r) const {
-    Acc* A = r.v;
-    Acc* F = r.v + MM;
-    Acc* G = r.v + 2 * MM;
-    Acc u[M], w[M], aA[MM];
-    const Acc c = emit(F, u);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      Acc acc = A[j] * p[0];
-#pragma unroll
-      for (int i = 1; i < M; ++i) acc += A[i * M + j] * p[i];
-      w[j] = acc;
-    }
-    const Acc inv_c = Acc(1) / c;
-    mm<Acc, M>(a, A, aA);
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        A[i * M + j] = aA[i * M + j] - u[i] * w[j] * inv_c;
-        G[i * M + j] -= w[i] * w[j] * inv_c;
-      }
-    advance(F, u, c);
-  }
-
   // The whitening element (a - wd p^T, wd y), wd = u / c2, folded after
   // the running map x: A' = A_el A, B' = A_el B + B_el.
   __device__ __forceinline__ void fold_affine(Aff<Acc, M>& x, const Acc* u, Acc c2) const {
@@ -189,7 +127,7 @@ struct Elem {
     for (int i = 0; i < M; ++i) {
       wd[i] = u[i] * inv_c2;
 #pragma unroll
-      for (int j = 0; j < M; ++j) step[i * M + j] = a[i * M + j] - wd[i] * p[j];
+      for (int j = 0; j < M; ++j) step[i * M + j] = this->a[i * M + j] - wd[i] * this->p[j];
     }
     mm<Acc, M>(step, x.v, nA);
 #pragma unroll
@@ -205,23 +143,6 @@ struct Elem {
     for (int i = 0; i < M; ++i) x.v[MM + i] = nB[i];
   }
 };
-
-// The Riccati state X <- F + A (I + X G)^-1 X A^T by one thread; map =
-// [A | F | G].
-template <int M>
-__device__ __forceinline__ void ric_apply(const Acc* map, Acc* X) {
-  constexpr int MM = M * M;
-  Acc mat[MM], minv[MM], t1[MM], t2[MM];
-  mm<Acc, M>(X, map + 2 * MM, mat);
-#pragma unroll
-  for (int i = 0; i < M; ++i) mat[i * (M + 1)] += Acc(1);
-  inverse<Acc, M>(mat, minv);
-  mm<Acc, M>(minv, X, t1);
-  mm<Acc, M>(map, t1, t2);
-  mm_nt<Acc, M>(t2, map, t1);
-#pragma unroll
-  for (int c = 0; c < MM; ++c) X[c] = map[MM + c] + t1[c];
-}
 
 template <typename S>
 struct FwdArgs {

@@ -310,19 +310,34 @@ def _ric_apply(A, F, G, X):
     return F + A @ torch.linalg.solve(eye + X @ G, X) @ A.mT
 
 
-def _group_chain(aggs, combine, apply, state0, warp_fold=False):
+def _group_chain(aggs, combine, apply, state0, warp_fold=False, runs=None):
     """Each tile's state at its start, from the tiles' aggregates ``aggs``
     (tensors, tile first) in the one-launch kernels' look-back association:
     within each group of :data:`_LOOK_GROUP` tiles ``start(b) =
     Q(b)(S(g - 1))``, and the state after each group ``S(g) = GA(g)(S(g -
     1))`` from ``S(-1) = state0``, where ``Q(b)`` composes the aggregates
-    of the group's tiles before ``b`` one tile at a time (B2) or, with
-    ``warp_fold``, by a Kogge-Stone scan over them (B1: a warp's lanes),
-    and ``GA(g)`` is ``Q`` of the group's last tile composed with its
+    of the group's tiles before ``b`` one tile at a time (B2), or with
+    ``warp_fold`` by a Kogge-Stone scan over them (B1: a warp's lanes), or
+    with ``runs`` in runs of that many tiles, each folded in order, the runs
+    composed pairwise, then the pairs (B3's coupling: a warp a run), and
+    ``GA(g)`` is ``Q`` of the group's last tile composed with its
     aggregate."""
     nt = aggs[0].shape[0]
     starts = []
     S = state0
+
+    def fold_runs(lo, hi):
+        parts = []
+        for r0 in range(lo, hi, runs):
+            P = [x[r0] for x in aggs]
+            for k in range(r0 + 1, min(r0 + runs, hi)):
+                P = combine(P, [x[k] for x in aggs])
+            parts.append(P)
+        while len(parts) > 1:
+            parts = [combine(parts[k], parts[k + 1]) if k + 1 < len(parts) else parts[k]
+                     for k in range(0, len(parts), 2)]
+        return parts[0]
+
     for base in range(0, nt, _LOOK_GROUP):
         end = min(base + _LOOK_GROUP, nt)
         if warp_fold:
@@ -333,6 +348,8 @@ def _group_chain(aggs, combine, apply, state0, warp_fold=False):
             agg = [x[b] for x in aggs]
             if warp_fold and b + 1 < end:
                 Q = [x[b - base] for x in prefix]
+            elif runs and b + 1 < end:
+                Q = fold_runs(base, b + 1)
             else:
                 Q = agg if Q is None else combine(Q, agg)
         S = apply(*Q, S)

@@ -23,13 +23,28 @@ tensors, or raises; none falls back. An order above 32 on the card raises
 with ROADMAP item N10. B3 has no backward: a CUDA operand that requires a
 gradient raises instead of returning a result that autograd would cut.
 
+Up to m = 4 (the coupling's two equal orders), and for the coupling of any
+two orders up to 8, a scan is one kernel and one memset of its flags: tiles
+taken by a ticket, a deterministic look-back. :func:`b3_schedule` gives
+its tiles, and :func:`plain_scan_tiled` repeats its association in plain
+PyTorch.
+
 Every launch adds one to :data:`LAUNCHES` under its monoid's name, and a
 launch of the generic engine also to :data:`LAUNCHES_GENERIC`.
 """
 
 from __future__ import annotations
 
-__all__ = ["LAUNCHES", "LAUNCHES_GENERIC", "affine", "congruence", "riccati", "coupling"]
+__all__ = [
+    "LAUNCHES",
+    "LAUNCHES_GENERIC",
+    "affine",
+    "congruence",
+    "riccati",
+    "coupling",
+    "b3_schedule",
+    "plain_scan_tiled",
+]
 
 import ctypes
 import functools
@@ -37,16 +52,18 @@ import functools
 import torch
 
 from tinygp_tpu_torch import cuda_build
+from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as _loglik
 from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
 LAUNCHES = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Calls that launched kernel B3, by monoid (one per call of its C entry,
-which enqueues the kernel's passes)."""
+which enqueues one kernel and a memset, or the engine's passes)."""
 LAUNCHES_GENERIC = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Of those, the calls that went to the generic-order engine."""
 
 _KIND = {"aff": 0, "cong": 1, "ric": 2, "cpl": 3}
 _MAX_M = 4  # the templated kernel's orders
+_MAX_CPL_M = 8  # the generic source's one-launch coupling
 _MAX_GENERIC_M = 32
 _MAX_COLUMNS = 65535
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -70,6 +87,8 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_longlong, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+    lib.qss_schedule.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.qss_schedule.restype = ctypes.c_int
     lib.qss_error_string.argtypes = [ctypes.c_int]
     lib.qss_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,6 +108,8 @@ def _generic_library() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+    lib.qsg_cpl_schedule.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.qsg_cpl_schedule.restype = ctypes.c_int
     lib.qsg_error_string.argtypes = [ctypes.c_int]
     lib.qsg_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,7 +124,8 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
     stream with a float64 workspace, and return the ``(out_rows, N)``
     output; raise on anything the kernel does not take. ``m2`` is the
     coupling's second order. Orders up to 4 (the coupling's equal) go to
-    the templated kernel, the rest to the generic-order engine."""
+    the templated kernel, the rest to the generic-order source (whose C
+    entry runs the couplings up to order 8 in one launch)."""
     m2 = m if m2 is None else m2
     ref = operands[0]
     n = ref.shape[-1]
@@ -236,3 +258,194 @@ def coupling(
     _check_rows("Bs", Bs, m2 * m2)
     _check_rows("Cs", Cs, m1 * m2)
     return _launch("cpl", m1, 1, reverse, not exclusive, (As, Bs, Cs), m1 * m2, m2=m2)
+
+
+# ---------------------------------------------------------------------------
+# The one-launch kernels' association, in plain PyTorch.
+# ---------------------------------------------------------------------------
+
+_AFF_COLS = 8  # affine columns a block of the templated kernel takes (r > 1)
+_CPL_TEAMS = 4  # warp teams a tile of the one-launch coupling
+_CPL_STAGE_BYTES = 32 * 1024
+_CPL_RUN = 8  # look-back aggregates a warp of the coupling folds
+
+
+def _staged(monoid: str, m: int, cols: int) -> int:
+    """Components the templated kernel stages an element."""
+    return {"aff": m * m + m * cols, "cong": 2 * m * m, "ric": 1 + 2 * m + m * m,
+            "cpl": 3 * m * m}[monoid]
+
+
+def b3_schedule(
+    monoid: str, m: int, r: int, dtype: torch.dtype, m2: int | None = None
+) -> tuple[int, int, str | int] | None:
+    """``(tile, sub, fold)`` of B3's one-launch kernel for this scan on
+    operands of ``dtype``: the elements of a tile and of a team's run, and
+    how the look-back folds a group's aggregates: ``"warp"``, by a scan
+    over a warp's lanes (the templated kernel, ``csrc/quasisep_scan.cu``: a
+    thread a team, 64 a tile, the largest of 8, 4, 2 elements a thread
+    whose staged tile fits 64 KB), or in runs of that many tiles (the
+    coupling of ``csrc/quasisep_generic.cu``: a warp a team, 4 a tile, the
+    largest of 32, 16, 8 whose tile fits 32 KB, a warp a run of 8). None
+    where the scan runs the three-phase engine. The C entries
+    ``qss_schedule`` and ``qsg_cpl_schedule`` report the tiles."""
+    m2 = m if m2 is None else m2
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    if m == m2 and m <= _MAX_M:
+        comps = _staged(monoid, m, _AFF_COLS if monoid == "aff" and r > 1 else 1) * nbytes
+        sub = 8 if comps <= 128 else 4 if comps <= 256 else 2
+        return 64 * sub, sub, "warp"
+    if monoid == "cpl" and max(m, m2) <= _MAX_CPL_M:
+        comps = m * m + m2 * m2 + m * m2
+        sub = 32
+        while sub > 8 and comps * (_CPL_TEAMS * sub + 1) * nbytes > _CPL_STAGE_BYTES:
+            sub //= 2
+        return _CPL_TEAMS * sub, sub, _CPL_RUN
+    return None
+
+
+def _monoid(monoid: str, m: int, m2: int, r: int, f64: dict):
+    """``(combine, apply, identity)`` of a monoid on batched matrices:
+    ``combine(earlier, later)`` composes two maps (lists of tensors),
+    ``apply(*map, state)`` is the state after a map."""
+    eye, zeros = torch.eye(m, **f64), torch.zeros(m, m, **f64)
+    if monoid == "aff":
+        def combine(e_, l_):
+            (eA, eB), (lA, lB) = e_, l_
+            return [lA @ eA, lA @ eB + lB]
+
+        def apply(A, B, s):
+            return A @ s + B
+
+        return combine, apply, [eye, torch.zeros(m, r, **f64)]
+    if monoid == "cong":
+        def combine(e_, l_):
+            (eA, eB), (lA, lB) = e_, l_
+            return [lA @ eA, lA @ eB @ lA.mT + lB]
+
+        def apply(A, B, s):
+            return A @ s @ A.mT + B
+
+        return combine, apply, [eye, zeros]
+    if monoid == "cpl":
+        def combine(e_, l_):
+            (eA, eB, eC), (lA, lB, lC) = e_, l_
+            return [lA @ eA, lB @ eB, lA @ eC @ lB.mT + lC]
+
+        def apply(A, B, C, g):
+            return A @ g @ B.mT + C
+
+        return combine, apply, [eye, torch.eye(m2, **f64), torch.zeros(m, m2, **f64)]
+    return _loglik._ric_combine, _loglik._ric_apply, [eye, zeros, zeros]
+
+
+def plain_scan_tiled(
+    monoid: str,
+    operands,
+    m: int,
+    *,
+    r: int = 1,
+    m2: int | None = None,
+    reverse: bool = False,
+    exclusive: bool = True,
+    schedule: tuple[int, int, str | int],
+) -> torch.Tensor:
+    """B3's scan in the association of its one-launch kernels, in float64,
+    stored in the operands' dtype: the same operands and output as the
+    wrapper of ``monoid`` (:func:`affine` with ``r`` columns,
+    :func:`congruence`, :func:`riccati`, :func:`coupling` with orders
+    ``(m, m2)``), ``schedule`` from :func:`b3_schedule`.
+
+    A reverse scan mirrors the data axis. The positions are cut into tiles
+    of ``tile``, each into teams of ``sub`` consecutive positions. Each team
+    folds its elements into one map (the Riccati flow with the rank-one
+    step, :func:`scan.riccati_fold_rank_one`; the others with their
+    combine); the teams of a tile are scanned (``cuda_loglik._team_scan``),
+    and the tiles' aggregates reach the state from 0 in the look-back
+    association (``cuda_loglik._group_chain``, its group fold over a warp's
+    lanes, or in runs of tiles, as ``schedule`` says). Each team applies its prefix to its tile's
+    start and walks its elements with the sequential step, keeping the
+    state before (``exclusive``) or after each. The ragged end is padded
+    with identity elements, which the kernels mask and which change
+    nothing.
+    """
+    tile, sub, fold = schedule
+    m2 = m if m2 is None else m2
+    ref = operands[0]
+    dtype, n = ref.dtype, ref.shape[-1]
+    teams, nt = tile // sub, -(-n // tile)
+    pad = nt * tile - n
+    f64 = {"dtype": torch.float64, "device": ref.device}
+    combine, apply, identity = _monoid(monoid, m, m2, r, f64)
+
+    def tiled(x, shape, fill):  # (rows, n) -> (nt, teams, sub, *shape)
+        x = x.to(**f64).reshape(-1, n)
+        x = (x.flip(-1) if reverse else x).T.reshape(n, *shape)
+        fill = torch.as_tensor(fill, **f64).expand(pad, *shape)
+        return torch.cat([x, fill]).reshape(nt, teams, sub, *shape)
+
+    if monoid == "ric":
+        ps, qs, as_ = operands[1:]
+        d = tiled(operands[0], (), 1.0)
+        p, q = tiled(ps, (m,), 0.0), tiled(qs, (m,), 0.0)
+        a = tiled(as_, (m, m), torch.eye(m, **f64))
+        state_shape = (m, m)
+    else:
+        # Each component padded with the identity's.
+        elems = [tiled(x, i.shape, i) for x, i in zip(operands, identity)]
+        state_shape = identity[-1].shape
+
+    def outer(u, v):
+        return u[..., :, None] * v[..., None, :]
+
+    def mv(A, v):
+        return (A @ v[..., None])[..., 0]
+
+    # The teams' folds.
+    if monoid == "ric":
+        A = torch.eye(m, **f64).expand(nt, teams, m, m).clone()
+        F = torch.zeros(nt, teams, m, m, **f64)
+        G = torch.zeros(nt, teams, m, m, **f64)
+        for jj in range(sub):
+            pj, aj = p[:, :, jj], a[:, :, jj]
+            f = mv(F, pj)
+            c = (d[:, :, jj] - torch.sum(pj * f, dim=-1))[..., None, None]
+            u = q[:, :, jj] - mv(aj, f)
+            w = mv(A.mT, pj)
+            A = aj @ A - outer(u, w) / c
+            F = aj @ F @ aj.mT + outer(u, u) / c
+            G = G - outer(w, w) / c
+        folded = [A, F, G]
+
+        def step(F, jj):
+            pj, aj = p[:, :, jj], a[:, :, jj]
+            Fp = mv(F, pj)
+            c2 = d[:, :, jj] - torch.sum(pj * Fp, dim=-1)
+            u = q[:, :, jj] - mv(aj, Fp)
+            return aj @ F @ aj.mT + outer(u, u) / c2[..., None, None]
+    else:
+        folded = [i.expand(nt, teams, *i.shape).clone() for i in identity]
+        for jj in range(sub):
+            folded = combine(folded, [x[:, :, jj] for x in elems])
+
+        def step(s, jj):
+            return apply(*[x[:, :, jj] for x in elems], s)
+
+    # The in-tile scan, the look-back and each team's start.
+    incl = _loglik._team_scan(folded, combine)
+    pre = _loglik._exclusive(incl, identity)
+    state0 = torch.zeros(state_shape, **f64)
+    start = _loglik._group_chain([t[:, -1] for t in incl], combine, apply, state0,
+                                 warp_fold=fold == "warp",
+                                 runs=None if fold == "warp" else fold)
+    s = apply(*pre, start[:, None])
+
+    # The walk.
+    out = torch.empty(nt, teams, sub, *state_shape, **f64)
+    for jj in range(sub):
+        after = step(s, jj)
+        out[:, :, jj] = s if exclusive else after
+        s = after
+    out = out.reshape(nt * tile, -1)[:n]
+    out = (out.flip(0) if reverse else out).T
+    return out.contiguous().to(dtype)
