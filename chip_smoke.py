@@ -921,6 +921,11 @@ def phase_b1_launches():
 B3_TRACED = (("aff", 1, False, False), ("aff", 16, True, True), ("cong", 1, True, False),
              ("ric", 1, False, False), ("cpl", 1, False, False))
 B3_TRACED_COUPLINGS = ((2, 4), (4, 8), (6, 6), (8, 8))
+# The generic source's one-launch Riccati flow and affine scan: (kernel,
+# (monoid, r, reverse, inclusive) ...) at each of these orders.
+B3_TRACED_GENERIC = (("ric_tile_kernel", (("ric", 1, False, False),)),
+                     ("aff_tile_kernel", (("aff", 1, False, False), ("aff", 16, True, True))))
+B3_TRACED_GENERIC_ORDERS = (5, 8, 12, 16)
 
 
 def b3_one_launch(calls, name):
@@ -945,9 +950,11 @@ def phase_b3_launches():
     """B3's one-launch scans on random operands at N = 1e5, in float32 and
     float64: at each m = 1..4 the affine scan with 1 and 16 columns, the
     congruence, the Riccati flow and the coupling (``b3_tile_kernel``), and
-    the couplings (2, 4), (4, 8), (6, 6) and (8, 8) (``cpl_tile_kernel``):
-    in a ``torch.profiler`` trace each scan is one kernel and one memset.
-    Five traces, run first with B1's, while the process's traces still hold
+    the couplings (2, 4), (4, 8), (6, 6) and (8, 8) (``cpl_tile_kernel``),
+    and at m = 5, 8, 12 and 16 the Riccati flow (``ric_tile_kernel``) and
+    the affine scan with 1 and 16 columns (``aff_tile_kernel``): in a
+    ``torch.profiler`` trace each scan is one kernel and one memset. Seven
+    traces, run first with B1's, while the process's traces still hold
     every event."""
     import torch
 
@@ -962,6 +969,13 @@ def phase_b3_launches():
                    scan_operands("cpl", a, n, 1, dtype, seed=a + b, m2=b))
                   for dtype in (torch.float32, torch.float64)
                   for (a, b), rev in zip(B3_TRACED_COUPLINGS, (False, True, False, True))]))
+    for name, variants in B3_TRACED_GENERIC:
+        sets.append((name.split("_")[0] + " m=" + ", ".join(map(str, B3_TRACED_GENERIC_ORDERS)),
+                     name,
+                     [(monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
+                      for dtype in (torch.float32, torch.float64)
+                      for m in B3_TRACED_GENERIC_ORDERS
+                      for monoid, r, rev, incl in variants]))
     for label, name, calls in sets:
         ok, report = b3_one_launch(calls, name)
         log(f"b3-launches {label} N={n} float32 and float64: {report} {'ok' if ok else 'FAIL'}")
@@ -3015,7 +3029,8 @@ def kernel_split(fn, calls=5):
     arguments kept, parameters dropped), in order of first launch: device
     milliseconds per launch and launches per call; and the device
     operations per call; from a ``torch.profiler`` trace of ``calls``
-    calls. (None, 0) where the trace holds no device time."""
+    calls, counting what starts after the spin kernels that open it.
+    (None, 0) where the trace holds no device time."""
     import re
 
     import torch
@@ -3024,12 +3039,21 @@ def kernel_split(fn, calls=5):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # A trace can lose the first launches it should hold (seen on an
+        # H100 with several GB of operands allocated: the first scan of a
+        # set missing from one call in five), so three spin kernels open
+        # the window and only what starts after the last of them counts.
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = sorted(
-        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.time_range.start)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    opened = max((e.time_range.end for e in events if "spin_kernel" in e.name), default=None)
+    events = sorted((e for e in events if "spin_kernel" not in e.name
+                     and (opened is None or e.time_range.start >= opened)),
+                    key=lambda e: e.time_range.start)
     split = {}
     for e in events:
         name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
@@ -3302,6 +3326,105 @@ def b3_times():
     for label, ms in whole_ms.items():
         log(f"b3-times whole {label} float32 [{CARD}]: {ms:.4f} ms (events, constructor "
             f"included)")
+    b3_generic_times()
+
+
+def posterior_scan_shapes():
+    """``(monoid, m, r, reverse, inclusive)`` of every generic-order B3 call
+    that the posterior processes' ``log_probability`` and ``sample``
+    (:func:`posterior_path`, given ``diag=1e-3`` at N = 5000, float64)
+    make, in the order of their first call."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    (X5, y5), _ = bench_data()
+    Xs, ys = (torch.as_tensor(a[::20], dtype=torch.float64, device="cuda") for a in (X5, y5))
+    noise = torch.as_tensor(np.random.default_rng(3).normal(size=(Xs.shape[0], 16)),
+                            device="cuda")
+    shapes = {}
+    launch = cuda_scan._launch
+
+    def recording(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+        if m > 4 and monoid in ("ric", "aff"):
+            shapes.setdefault((monoid, m, r, reverse, inclusive), None)
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+    cuda_scan._launch = recording
+    try:
+        with torch.no_grad():
+            posterior_path(Xs, ys, 1e-3, noise=noise)
+    finally:
+        cuda_scan._launch = launch
+    return list(shapes)
+
+
+def b3_generic_times():
+    """B3's generic-order Riccati flow and affine scan at the posterior
+    processes' shapes (order 8, 12 and 16; the affine scan with 1 and 16
+    columns, in the directions the path takes) on random float64 operands
+    at N = 1e5 and 5000: CUDA-event times of every case first, and of the
+    whole posterior calls (``condition`` then ``log_probability`` or
+    ``sample``, at N = 1e5 with the default jitter and at 5000 given
+    ``diag=1e-3``), then each case's device time and device operations per
+    call from a ``torch.profiler`` trace (pass by pass), two launches
+    compared bit for bit and the result held to the float64 plain version
+    (1e-8). Also the registers and spills of the generic source's kernels.
+    Run alone by ``--b3-times generic``; through entry points that older
+    trees share."""
+    import torch
+
+    log_ptxas("quasisep_generic", only=r"^(ric|aff)_")
+    cases = {}
+    for monoid, m, r, reverse, inclusive in posterior_scan_shapes():
+        for n in (100_000, 5000):
+            label = (f"{monoid} m={m}" + (f" r={r}" if r > 1 else "")
+                     + f" N={n} ({'reverse' if reverse else 'forward'} "
+                     f"{'inclusive' if inclusive else 'exclusive'})")
+            ops = scan_operands(monoid, m, n, r, torch.float64, seed=m + r)
+            cases[label] = ((monoid, m, r, reverse, inclusive, ops),
+                            lambda c=(monoid, m, r, reverse, inclusive, ops): scan_kernel(*c))
+    from tinygp_tpu_torch import GaussianProcess
+
+    (X5, y5), _ = bench_data()
+    X64, y64 = (torch.as_tensor(a, dtype=torch.float64, device="cuda") for a in (X5, y5))
+    whole = {}
+    for n, step, diag in ((100_000, 1, None), (5000, 20, 1e-3)):
+        X, y = X64[::step].contiguous(), y64[::step].contiguous()
+        for name, kernel in POSTERIOR_MODELS.items():
+            def post(k=kernel, X=X, y=y, diag=diag):
+                gp = GaussianProcess(k(), X, diag=0.1, assume_sorted=True)
+                return gp.condition(y, diag=diag)[1]
+            whole[f"{name} posterior N={n} condition + log_probability"] = (
+                lambda post=post, y=y: post().log_probability(y))
+            whole[f"{name} posterior N={n} condition + sample (16 draws)"] = (
+                lambda post=post: post().sample(torch.Generator(device="cuda").manual_seed(0),
+                                                (16,)))
+    event_ms = {label: cuda_ms(fn, reps=30, warmup=3) for label, (_, fn) in cases.items()}
+    whole_ms = {label: cuda_ms(fn, reps=5, warmup=1) for label, fn in whole.items()}
+    for label, ms in whole_ms.items():
+        log(f"b3-generic-times whole {label} float64 [{CARD}]: {ms:.4f} ms (events; the "
+            f"posterior's own condition included)")
+    for label, ((monoid, m, r, reverse, inclusive, ops), fn) in cases.items():
+        got, again = fn(), fn()
+        same = torch.equal(got, again)
+        want = scan_plain(monoid, m, r, reverse, inclusive, ops)
+        (err, _), = stream_errors([got], [want])
+        if not (err <= 1e-8 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"B3 generic {label} disagrees with the plain version: "
+                                 f"{err:.3e}")
+        del got, again, want
+        split, per_call = kernel_split(fn)
+        device = ("not measured (no device time in the trace)" if split is None else
+                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+        shown = ("" if split is None else
+                 ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+        bound, by = scan_bound_ms(monoid, m, r, ops[0].shape[-1], 8)
+        log(f"b3-generic-times {label} float64 [{CARD}]: events {event_ms[label]:.4f} ms, "
+            f"device {device} (bound {bound:.4f} ms, {by}); two launches equal bit for bit "
+            f"{same}; against the plain version rel {err:.2e} (limit 1e-8) ok")
+        log(f"b3-generic-times {label} trace: {per_call:g} device operations per call; ms per "
+            f"launch x launches per call: {shown}")
 
 
 # ---------------------------------------------------------------------------
@@ -3533,6 +3656,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--b3-times"]:
         b3_times()
+        return 0
+    if sys.argv[1:] == ["--b3-times", "generic"]:
+        b3_generic_times()
         return 0
     phase_b1_launches()
     phase_b3_launches()

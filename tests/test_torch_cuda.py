@@ -1091,3 +1091,70 @@ def test_b3_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype)
             assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
             assert stream_err(got, want) <= rtol, (n, stream_err(got, want))
         del operands, got, again, f64, want
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3's generic Riccati flow and affine scan at m = 5..16 in one launch
+# (``ric_tile_kernel``, ``aff_tile_kernel``).
+# ---------------------------------------------------------------------------
+
+# (monoid, m, r, reverse, exclusive)
+B3_GENERIC_ONE_LAUNCH = [("ric", m, 1, False, True) for m in (5, 8, 12, 16)] + [
+    ("aff", m, r, reverse, exclusive)
+    for m in (5, 8, 12, 16)
+    for r, reverse, exclusive in ((1, False, True), (3, True, False), (16, False, True),
+                                  (16, True, False))
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", B3_GENERIC_ONE_LAUNCH, ids=lambda c: "-".join(map(str, c)))
+def test_b3_generic_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype):
+    """The one-launch Riccati flow and affine scan at N of one tile and a
+    ragged N across a look-back group (and 1e5 in float64), against
+    ``plain_scan_tiled`` (1e-12 relative to the output's largest magnitude
+    in float64: the tensor cores sum in another order; 5e-4 in float32,
+    where it stores in float32) and the plain blocked scan in float64
+    (1e-8 / 5e-4); a second launch gives the same bits; one launch counted
+    per call; the library's schedule is the plain tiled version's."""
+    import ctypes
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    monoid, m, r, reverse, exclusive = case
+    schedule = cuda_scan.b3_schedule(monoid, m, r, dtype)
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    t, s, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib = cuda_scan._generic_library()
+    assert lib.qsg_scan_schedule(cuda_scan._KIND[monoid], m, r, nbytes, ctypes.byref(t),
+                                 ctypes.byref(s), ctypes.byref(c)) == 0
+    assert (t.value, s.value) == schedule[:2]
+    f64 = dtype == torch.float64
+    tile = schedule[0]
+    for n in (tile, 33 * tile + 7) + ((100_000,) if f64 else ()):
+        operands, _, _ = scan_case(monoid, m, n, r, dtype, cuda_device, seed=m + n)
+        before = cuda_scan.LAUNCHES[monoid], cuda_scan.LAUNCHES_GENERIC[monoid]
+        got = run_scan(monoid, operands, m, r, reverse, exclusive)
+        again = run_scan(monoid, operands, m, r, reverse, exclusive)
+        torch.cuda.synchronize()
+        assert (cuda_scan.LAUNCHES[monoid], cuda_scan.LAUNCHES_GENERIC[monoid]) == (
+            before[0] + 2, before[1] + 2)
+        assert torch.equal(got, again)
+        cpu = [x.double().cpu() for x in operands]
+        tiled = cuda_scan.plain_scan_tiled(monoid, [x.to(dtype) for x in cpu], m, r=r,
+                                           reverse=reverse, exclusive=exclusive,
+                                           schedule=schedule)
+        plain = run_scan(monoid, cpu, m, r, reverse, exclusive)
+        for want, rtol in ((tiled, 1e-12 if f64 else 5e-4), (plain, 1e-8 if f64 else 5e-4)):
+            assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
+            assert stream_err(got, want) <= rtol, (n, stream_err(got, want))
+        del operands, got, again, cpu, tiled, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["ric", "aff"])
+def test_b3_generic_scan_raises_above_order_32(cuda_device, monoid):
+    operands, m, r = scan_case(monoid, 33, 300, 1, torch.float64, cuda_device, seed=2)
+    with pytest.raises(NotImplementedError, match="N10"):
+        run_scan(monoid, operands, m, r, False, True)

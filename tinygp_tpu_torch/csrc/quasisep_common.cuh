@@ -375,13 +375,15 @@ struct LookLayout {
 };
 
 // The workspace of a one-launch scan with `chains` independent chains of
-// tiles (B3: one per group of affine columns), in Acc: per chain the
+// tiles (B3: one per group of affine columns) in look-back groups of
+// `group` tiles, in Acc: per chain the
 // tiles' aggregates, the groups' aggregates and end states; then the
 // ticket and each chain's tile and group flags as 32-bit words.
 struct ChainLayout {
   long long nt, ng, per, flags, flag_words, total;
-  __host__ __device__ ChainLayout(long long nt_, int chains, int map, int state)
-      : nt(nt_), ng((nt_ + kLookGroup - 1) / kLookGroup) {
+  __host__ __device__ ChainLayout(long long nt_, int chains, int map, int state,
+                                  int group = kLookGroup)
+      : nt(nt_), ng((nt_ + group - 1) / group) {
     per = nt * map + ng * map + ng * state;
     flags = chains * per;
     flag_words = 1 + chains * (nt + ng);

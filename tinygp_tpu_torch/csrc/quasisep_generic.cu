@@ -15,12 +15,21 @@
 // Moebius map in the kernel; the coupling reads A (m * m, n), B (m2 * m2, n)
 // and C (m * m2, n) and writes C's leaf, (m * m2, n).
 //
-// The coupling g' = A g B^T + C with max(m, m2) <= kCplMaxM (Matern52's
-// (6, 6) and the 2-term celerite's (8, 8) on the conditioning path) runs in
-// one launch and one memset of its flags: cpl_tile_kernel below, B2's warp
-// design (quasisep_loglik_generic.cu: b2_warp_kernel) run forwards. Every
-// other scan runs quasisep_generic.cuh's three-phase engine, whose entries
-// this file's C interface also is.
+// One launch and one memset of its flags, tiles taken by a ticket and a
+// deterministic grouped look-back (quasisep_common.cuh), for:
+//   - the coupling g' = A g B^T + C with max(m, m2) <= kCplMaxM (Matern52's
+//     (6, 6) and the 2-term celerite's (8, 8) on the conditioning path):
+//     cpl_tile_kernel below, B2's warp design (quasisep_loglik_generic.cu:
+//     b2_warp_kernel) run forwards;
+//   - the Riccati flow and the affine scan (any columns, either direction
+//     and output) at 5 <= m <= 16 (the posterior processes of order 8, 12
+//     and 16, the m = 5 sums): ric_tile_kernel and aff_tile_kernel, the
+//     same skeleton with every element's product on the float64 tensor
+//     cores (their section below).
+// The rest runs quasisep_generic.cuh's three-phase engine, by rule and not
+// as a fallback: the Riccati flow and the affine scan at 17 <= m <= 32 (no
+// model on a path goes past 16), the congruence scan, and couplings above
+// order 8. This file's C interface is B3's generic entry for all of them.
 //
 // cpl_tile_kernel. Each block takes a tile of kCplTeams * sub consecutive
 // (for a reverse scan mirrored) positions by a ticket (quasisep_common.cuh:
@@ -448,11 +457,1083 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
                   cpl_sub(s.m, s.m2, (int)sizeof(S)));
 }
 
+// ------------------------- the Riccati flow and the affine scan, one launch
+//
+// ric_tile_kernel and aff_tile_kernel replace the TPU kernel B3
+// (pallas_scan.py: _scan_kernel) for the Riccati flow and the affine scan
+// at m = 5..16: the skeleton of cpl_tile_kernel (tiles of kMonoTeams warp
+// teams by a ticket, staged once, an in-tile Kogge-Stone scan of the teams'
+// maps, the grouped look-back, in groups of kMonoGroup tiles folded in
+// runs of kMonoRun, the walk, the states written out from shared memory),
+// with every element's product on the float64 tensor cores (mma.sync
+// m16n8k8). The order m = 5..16 is padded to P = 8 or 16 with zeros, which
+// every product keeps. Staging and write-out copy each component's run of
+// the tile with the fewest requests the alignment allows (mono_tile).
+//
+// Per element a warp's running value stays in registers, in the layout of
+// the mma's accumulator (Frag): lane (g, t) holds entries (8 h + g,
+// 8 k + 2 t + j). The contraction of every product runs through each
+// k-tile in the order (0, 2, 4, 6, 1, 3, 5, 7) for both operands, so an
+// accumulator feeds the next product as its A operand as it is, and a Frag
+// of Z feeds it as the B operand of X Z^T (xzt). The element's a, read
+// once from the staged tile into the same layout, is the A operand of
+// a F^T and the B operand of every (.) a^T. So the maps are kept
+// transposed where that makes each update an X a^T:
+//
+//   Riccati (the rank-one fold, scan.py:riccati_fold_rank_one): with
+//     f = F p, c = d - p^T f, u = q - a f and w = A^T p,
+//     A^T' = A^T a^T - w u^T / c,  F' = (a F^T) a^T + u u^T / c,
+//     G' = G - w w^T / c;
+//   the walk F' = (a F^T) a^T + u u^T / c2 (F is symmetric: F^T for F);
+//   affine, with rc columns of B: [A^T; B^T]' = [A^T; B^T] a^T + [0; b^T],
+//   the walk s^T' = s^T a^T + b^T.
+//
+// The matrix-vector products are dot products over a lane's entries and
+// two shuffles within its quad. The merges of whole maps (the in-tile
+// scan and the look-back) work on padded maps in shared memory, one warp
+// each, with the products on the tensor cores too (smm) and, for the
+// Riccati flow's Moebius merge and its application to a state, a
+// Gauss-Jordan elimination with partial pivoting in registers (warp_gj: a
+// lane a column of [M | R]). No inverse is taken per element. The affine
+// columns go in groups of kAffCols8 (r <= 8) or kAffCols16 on the ticket
+// (ticket = tile * groups + group), each group a chain of its own.
+//
+// Every product runs in float64 whatever the storage type, and the
+// look-back composes in one fixed order, so two launches on the same
+// inputs agree bit for bit; cuda_scan.plain_scan_tiled is this association
+// in plain PyTorch. What bounds them: bytes (the Riccati flow reads
+// 1 + 2m + m^2 values an element and writes m^2; the affine scan m^2 + m r
+// and m r); the float64 tensor cores' 67 TFLOP/s are far from binding.
+// The cost against the bound is latency, with one block a multiprocessor
+// at P = 16: the look-back's merges and applications on one warp (a
+// 16 x 16 pivoted inverse and six products, about 5 us each for the
+// Riccati flow), the copy requests of staging and write-out, and a warp's
+// chain of dependent products and shuffles per element (PERF.md).
+
+constexpr int kMonoTeams = 4;                       // warp teams a tile
+constexpr int kMonoRun = 4;                         // look-back aggregates a warp folds
+constexpr int kMonoGroup = kMonoTeams * kMonoRun;   // tiles a look-back group
+constexpr int kMonoMinM = 5, kMonoMaxM = 16;        // orders of the one-launch scans
+constexpr int kAffCols8 = 8, kAffCols16 = 16;       // affine columns a group
+constexpr long long kMonoStageCap = 104 * 1024;     // most bytes of a staged tile
+
+inline bool mono_one_launch(const GSpec& s) {
+  return (s.kind == gRic || s.kind == gAff) && s.m >= kMonoMinM && s.m <= kMonoMaxM;
+}
+
+// A warp's share of an R x C matrix (R and C multiples of 8) in the layout
+// of the mma's accumulator: lane (g, t) = (lane / 4, lane % 4) holds entry
+// (8 h + g, 8 k + 2 t + j) as v[k][h][j].
+template <int R, int C>
+struct Frag {
+  Acc v[C / 8][R / 8][2];
+};
+
+__device__ __forceinline__ void mma884(Acc (&c)[4], Acc a0, Acc a1, Acc a2, Acc a3, Acc b0,
+                                       Acc b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// D = X Z^T for X (R x K) and Z (N x K), all Frags; D aliases neither. A
+// 16-row tile of the mma takes two row halves of X (the second zero past
+// R).
+template <int R, int K, int N>
+__device__ __forceinline__ void xzt(const Frag<R, K>& X, const Frag<N, K>& Z, Frag<R, N>& D) {
+  constexpr int H = R / 8;
+#pragma unroll
+  for (int mt = 0; mt < (H + 1) / 2; ++mt) {
+    constexpr int kLast = H - 1;
+    const int h0 = 2 * mt, h1 = 2 * mt + 1 < H ? 2 * mt + 1 : kLast;
+    const bool hi = 2 * mt + 1 < H;
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      Acc c[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+      for (int kt = 0; kt < K / 8; ++kt)
+        mma884(c, X.v[kt][h0][0], hi ? X.v[kt][h1][0] : Acc(0), X.v[kt][h0][1],
+               hi ? X.v[kt][h1][1] : Acc(0), Z.v[kt][nt][0], Z.v[kt][nt][1]);
+      D.v[nt][h0][0] = c[0];
+      D.v[nt][h0][1] = c[1];
+      if (hi) {
+        D.v[nt][h1][0] = c[2];
+        D.v[nt][h1][1] = c[3];
+      }
+    }
+  }
+}
+
+// y = X v for X (R x C) and v given at the lane's columns (vc[k][j] =
+// v[8 k + 2 t + j]); y at the lane's rows (y[h] = y_{8 h + g}), the same
+// on the four lanes of a quad.
+template <int R, int C>
+__device__ __forceinline__ void rowdot(const Frag<R, C>& X, const Acc (&vc)[C / 8][2],
+                                       Acc (&y)[R / 8]) {
+#pragma unroll
+  for (int h = 0; h < R / 8; ++h) {
+    Acc acc = Acc(0);
+#pragma unroll
+    for (int k = 0; k < C / 8; ++k) acc += X.v[k][h][0] * vc[k][0] + X.v[k][h][1] * vc[k][1];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    y[h] = acc;
+  }
+}
+
+// A vector at the lane's rows (vr[h] = v_{8 h + g}) to its columns.
+template <int C>
+__device__ __forceinline__ void to_cols(const Acc (&vr)[C / 8], Acc (&vc)[C / 8][2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int k = 0; k < C / 8; ++k)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) vc[k][j] = __shfl_sync(0xffffffffu, vr[k], 4 * (2 * t + j));
+}
+
+// sum_r x_r y_r of two vectors at the lane's rows, the same on every lane
+// (butterflies over the quads, whose lanes hold equal values).
+template <int P>
+__device__ __forceinline__ Acc row_sum(const Acc (&x)[P / 8], const Acc (&y)[P / 8]) {
+  Acc acc = Acc(0);
+#pragma unroll
+  for (int h = 0; h < P / 8; ++h) acc += x[h] * y[h];
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// Loads through a pointer into shared memory, or through L2 (ld.cg) from a
+// map another block published.
+struct SmemRd {
+  const Acc* p;
+  __device__ Acc operator[](int i) const { return p[i]; }
+  __device__ SmemRd at(int off) const { return SmemRd{p + off}; }
+};
+struct L2Rd {
+  const Acc* p;
+  __device__ Acc operator[](int i) const { return __ldcg(p + i); }
+  __device__ L2Rd at(int off) const { return L2Rd{p + off}; }
+};
+
+// By one warp: D (R x N) = X Y [+ E] [+ I] on the tensor cores, with X
+// (R x K) read at X[r * xr + k * xk], Y (K x N) at Y[k * yk + n * yn], E
+// (columns e0 and on) at E[r * le + n - e0] and D at D[r * ld + n]. Every
+// operand is read before any entry is written, so D may alias X, Y or E.
+// Ends with the warp's barrier.
+template <int R, int N, int K, class XR, class YR, class ER = SmemRd>
+__device__ __forceinline__ void smm(XR X, int xr, int xk, YR Y, int yk, int yn, Acc* D, int ld,
+                                    const ER* E = nullptr, int le = 0, bool eye = false,
+                                    int e0 = 0) {
+  constexpr int MT = (R + 15) / 16, NT = N / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Acc c[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[mt][nt][i] = Acc(0);
+#pragma unroll
+  for (int kt = 0; kt < K / 8; ++kt) {
+    Acc b[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) b[nt][i] = Y[(8 * kt + t + 4 * i) * yk + (8 * nt + g) * yn];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      Acc a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * mt + g + 8 * (i & 1);
+        a[i] = r < R ? X[r * xr + (8 * kt + t + 4 * (i >> 1)) * xk] : Acc(0);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma884(c[mt][nt], a[0], a[1], a[2], a[3], b[nt][0], b[nt][1]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * mt + g + 8 * (i >> 1), col = 8 * nt + 2 * t + (i & 1);
+        if (r < R) {
+          Acc v = c[mt][nt][i];
+          if (E && col >= e0) v += (*E)[r * le + col - e0];
+          if (eye && r == col) v += Acc(1);
+          D[r * ld + col] = v;
+        }
+      }
+  __syncwarp();
+}
+
+// By one warp: [M | R] (P x 2P, row stride ld) to [. | M^-1 R] by
+// Gauss-Jordan elimination with partial pivoting (the first largest
+// pivot), lane j holding column j in registers. At the orders here the
+// merges' I + F G is not reliably near the identity (ginverse). Columns
+// m..P-1 are the padding's identity, whose steps change nothing, so they
+// are skipped. Ends with the warp's barrier.
+template <int P>
+__device__ __noinline__ void warp_gj(Acc* W, int ld, int m) {
+  const int lane = threadIdx.x & 31, j = lane % (2 * P);
+  Acc w[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) w[i] = W[i * ld + j];
+#pragma unroll
+  for (int col = 0; col < P; ++col) {
+    if (col >= m) break;
+    int p = col;
+    Acc best = fabs(w[col]);
+#pragma unroll
+    for (int i = col + 1; i < P; ++i)
+      if (fabs(w[i]) > best) {
+        best = fabs(w[i]);
+        p = i;
+      }
+    p = __shfl_sync(0xffffffffu, p, col);
+    Acc fac[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) fac[i] = __shfl_sync(0xffffffffu, w[i], col);
+    Acc wp = w[col], fp = fac[col];
+#pragma unroll
+    for (int i = col + 1; i < P; ++i)
+      if (i == p) {
+        wp = w[i];
+        fp = fac[i];
+        w[i] = w[col];
+        fac[i] = fac[col];
+      }
+    w[col] = wp * __drcp_rn(fp);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      if (i != col) w[i] -= fac[i] * w[col];
+  }
+  __syncwarp();
+  if (lane >= P && lane < 2 * P)
+#pragma unroll
+    for (int i = 0; i < P; ++i) W[i * ld + lane] = w[i];
+  __syncwarp();
+}
+
+// The Riccati flow at padded order P. A map in shared memory is P x 3P,
+// [A | F | G], row stride LM; a state P x P, stride LS; the merge's
+// scratch P x 2P, stride LW (each stride 4 mod 16 doubles apart from a
+// multiple of 16: a warp's fragment loads fall in distinct banks).
+template <int P>
+struct RicOp {
+  static constexpr int H = P / 8, LM = 3 * P + 4, LS = P + 4, LW = 2 * P + 4;
+  static constexpr int kMap = P * LM, kState = P * LS, kScratch = P * LW;
+  static constexpr bool kAff = false;
+
+  // A team's running value: A^T, F, G.
+  struct Run {
+    Frag<P, P> At, F, G;
+  };
+  // An element: d, p and q at the lane's rows, p at its columns, a.
+  struct El {
+    Acc d, pr[H], pc[H][2], qr[H];
+    Frag<P, P> a;
+  };
+
+  int m, cols;  // the order; cols is unused (one chain)
+  __device__ static int comps(int m, int) { return 1 + 2 * m + m * m; }
+
+  // Element i of the staged tile (component c at st[c * LD + i]).
+  template <typename S>
+  __device__ __forceinline__ void load(const S* st, int LD, int i, El& e) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    e.d = Acc(st[i]);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int r = 8 * h + g;
+      e.pr[h] = r < m ? Acc(st[(1 + r) * LD + i]) : Acc(0);
+      e.qr[h] = r < m ? Acc(st[(1 + m + r) * LD + i]) : Acc(0);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 8 * h + 2 * t + jj;
+        e.pc[h][jj] = c < m ? Acc(st[(1 + c) * LD + i]) : Acc(0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
+          e.a.v[k][h][jj] =
+              r < m && c < m ? Acc(st[(1 + 2 * m + r * m + c) * LD + i]) : Acc(0);
+        }
+  }
+
+  __device__ static void identity(Run& x) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          x.At.v[k][h][jj] = 8 * h + g == 8 * k + 2 * t + jj ? Acc(1) : Acc(0);
+          x.F.v[k][h][jj] = x.G.v[k][h][jj] = Acc(0);
+        }
+  }
+
+  // f = F p, c = d - p^T f and u = q - a f (u at the lane's rows and
+  // columns).
+  __device__ static Acc emit(const Frag<P, P>& F, const El& e, Acc (&ur)[H], Acc (&uc)[H][2]) {
+    Acc f[H], fc[H][2], af[H];
+    rowdot(F, e.pc, f);
+    const Acc c = e.d - row_sum<P>(e.pr, f);
+    to_cols<P>(f, fc);
+    rowdot(e.a, fc, af);
+#pragma unroll
+    for (int h = 0; h < H; ++h) ur[h] = e.qr[h] - af[h];
+    to_cols<P>(ur, uc);
+    return c;
+  }
+
+  // F <- (a F^T) a^T + u u^T / c, ic = 1 / c.
+  __device__ static void step_f(Frag<P, P>& F, const El& e, const Acc (&ur)[H],
+                                const Acc (&uc)[H][2], Acc ic) {
+    Frag<P, P> Z;
+    xzt(e.a, F, Z);
+    xzt(Z, e.a, F);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) F.v[k][h][jj] += ur[h] * uc[k][jj] * ic;
+  }
+
+  // The element folded after the running value (the rank-one step).
+  __device__ static void fold(Run& x, const El& e) {
+    Acc ur[H], uc[H][2], w[H], wc[H][2];
+    const Acc ic = Acc(1) / emit(x.F, e, ur, uc);
+    rowdot(x.At, e.pc, w);  // w = A^T p
+    to_cols<P>(w, wc);
+    Frag<P, P> T;
+    xzt(x.At, e.a, T);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          x.At.v[k][h][jj] = T.v[k][h][jj] - w[h] * uc[k][jj] * ic;
+          x.G.v[k][h][jj] -= w[h] * wc[k][jj] * ic;
+        }
+    step_f(x.F, e, ur, uc, ic);
+  }
+
+  // The running value into a map in shared memory.
+  __device__ static void store(const Run& x, Acc* map) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
+          map[c * LM + r] = x.At.v[k][h][jj];
+          map[r * LM + P + c] = x.F.v[k][h][jj];
+          map[r * LM + 2 * P + c] = x.G.v[k][h][jj];
+        }
+    __syncwarp();
+  }
+
+  // The walk's state F from shared memory, and one step of the walk.
+  struct State {
+    Frag<P, P> F;
+  };
+  __device__ static void load_state(const Acc* s, State& x) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.F.v[k][h][jj] = s[(8 * h + g) * LS + 8 * k + 2 * t + jj];
+  }
+  __device__ static void walk(State& x, const El& e) {
+    Acc ur[H], uc[H][2];
+    const Acc ic2 = Acc(1) / emit(x.F, e, ur, uc);
+    step_f(x.F, e, ur, uc, ic2);
+  }
+  // The state as element i's output, over its staged a (the lane's own
+  // entries of a, which it has read).
+  template <typename S>
+  __device__ __forceinline__ void put(const State& x, S* st, int LD, int i) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
+          if (r < m && c < m) st[(1 + 2 * m + r * m + c) * LD + i] = S(x.F.v[k][h][jj]);
+        }
+  }
+  // Output row q of the tile's staged component: the state entry q.
+  __device__ int out_comp(int q) const { return 1 + 2 * m + q; }
+  __device__ int out_rows() const { return m * m; }
+
+  // The identity map, by one warp.
+  __device__ static void identity_map(Acc* map) {
+    for (int p = threadIdx.x & 31; p < kMap; p += 32) {
+      const int r = p / LM, c = p % LM;
+      map[p] = c == r ? Acc(1) : Acc(0);
+    }
+    __syncwarp();
+  }
+
+  // out = the Moebius merge of the earlier map e and the later l
+  // (cuda_loglik._ric_combine): with W = (I + F_e G_l)^-1,
+  //   A = A_l (W A_e),  F = F_l + (A_l (W F_e)) A_l^T,
+  //   G = G_e + (A_e^T (W^T G_l)) A_e.
+  // out aliases neither e nor l; Wb: kScratch values.
+  template <class LR>
+  __device__ void merge(const Acc* e, LR l, Acc* out, Acc* Wb) const {
+    const SmemRd es{e};
+    smm<P, P, P>(es.at(P), LM, 1, l.at(2 * P), LM, 1, Wb, LW, (const SmemRd*)nullptr, 0, true);
+    for (int p = threadIdx.x & 31; p < P * P; p += 32) Wb[(p / P) * LW + P + p % P] = p / P == p % P;
+    __syncwarp();
+    warp_gj<P>(Wb, LW, m);
+    const SmemRd W{Wb + P};
+    smm<P, P, P>(W, 1, LW, l.at(2 * P), LM, 1, out + 2 * P, LM);      // W^T G_l
+    smm<P, 2 * P, P>(W, LW, 1, es, LM, 1, out, LM);                    // W [A_e | F_e]
+    smm<P, 2 * P, P>(l, LM, 1, SmemRd{out}, LM, 1, out, LM);           // [A | A_l W F_e]
+    smm<P, P, P>(es, 1, LM, SmemRd{out + 2 * P}, LM, 1, Wb + P, LW);  // A_e^T W^T G_l
+    const LR Fl = l.at(P);
+    smm<P, P, P>(SmemRd{out + P}, LM, 1, l, 1, LM, out + P, LM, &Fl, LM);  // F
+    const SmemRd Ge = es.at(2 * P);
+    smm<P, P, P>(SmemRd{Wb + P}, LW, 1, es, LM, 1, out + 2 * P, LM, &Ge, LM);  // G
+  }
+
+  // out = the state X after the map (cuda_loglik._ric_apply):
+  // F + A ((I + X G)^-1 X) A^T. out may alias X, not map; Wb: kScratch.
+  __device__ void apply(const Acc* map, const Acc* X, Acc* out, Acc* Wb) const {
+    const SmemRd mp{map};
+    smm<P, P, P>(SmemRd{X}, LS, 1, mp.at(2 * P), LM, 1, Wb, LW, (const SmemRd*)nullptr, 0, true);
+    for (int p = threadIdx.x & 31; p < P * P; p += 32) Wb[(p / P) * LW + P + p % P] = X[(p / P) * LS + p % P];
+    __syncwarp();
+    warp_gj<P>(Wb, LW, m);
+    smm<P, P, P>(mp, LM, 1, SmemRd{Wb + P}, LW, 1, Wb, LW);  // A Y
+    const SmemRd F = mp.at(P);
+    smm<P, P, P>(SmemRd{Wb}, LW, 1, mp, 1, LM, out, LS, &F, LM);
+  }
+};
+
+// The affine scan at padded order P with RC columns a group: a map is
+// P x (P + RC), [A | B], row stride LM; a state P x RC, stride LS.
+template <int P, int RC>
+struct AffOp {
+  static constexpr int H = P / 8, HX = (P + RC) / 8, HS = RC / 8;
+  static constexpr int LM = P + RC + 4, LS = RC + 4;
+  static constexpr int kMap = P * LM, kState = P * LS, kScratch = 0;
+  static constexpr bool kAff = true;
+
+  // A team's running value [A^T; B^T] ((P + RC) x P).
+  struct Run {
+    Frag<P + RC, P> X;
+  };
+  // An element: a, and b^T at the lanes' entries of rows P.. of Run::X.
+  struct El {
+    Frag<P, P> a;
+    Frag<RC, P> bt;
+  };
+
+  int m, cols;  // the order and this group's columns (<= RC)
+  __device__ static int comps(int m, int cols) { return m * m + m * cols; }
+
+  template <typename S>
+  __device__ __forceinline__ void load(const S* st, int LD, int i, El& e) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
+          e.a.v[k][h][jj] = r < m && c < m ? Acc(st[(r * m + c) * LD + i]) : Acc(0);
+        }
+#pragma unroll
+      for (int h = 0; h < HS; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = 8 * h + g, r = 8 * k + 2 * t + jj;
+          e.bt.v[k][h][jj] =
+              col < cols && r < m ? Acc(st[(m * m + r * cols + col) * LD + i]) : Acc(0);
+        }
+    }
+  }
+
+  __device__ static void identity(Run& x) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < HX; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.X.v[k][h][jj] = 8 * h + g == 8 * k + 2 * t + jj ? Acc(1) : Acc(0);
+  }
+
+  __device__ static void fold(Run& x, const El& e) {
+    Frag<P + RC, P> T;
+    xzt(x.X, e.a, T);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.X.v[k][h][jj] = T.v[k][h][jj];
+#pragma unroll
+      for (int h = 0; h < HS; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.X.v[k][H + h][jj] = T.v[k][H + h][jj] + e.bt.v[k][h][jj];
+    }
+  }
+
+  // [A | B] = X^T into map.
+  __device__ static void store(const Run& x, Acc* map) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < HX; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) map[(8 * k + 2 * t + jj) * LM + 8 * h + g] = x.X.v[k][h][jj];
+    __syncwarp();
+  }
+
+  // The walk's state s^T (RC x P).
+  struct State {
+    Frag<RC, P> s;
+  };
+  __device__ static void load_state(const Acc* s, State& x) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < HS; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.s.v[k][h][jj] = s[(8 * k + 2 * t + jj) * LS + 8 * h + g];
+  }
+  __device__ static void walk(State& x, const El& e) {
+    Frag<RC, P> T;
+    xzt(x.s, e.a, T);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < HS; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) x.s.v[k][h][jj] = T.v[k][h][jj] + e.bt.v[k][h][jj];
+  }
+  // The state as element i's output, over its staged b (the lane's own).
+  template <typename S>
+  __device__ __forceinline__ void put(const State& x, S* st, int LD, int i) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < HS; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = 8 * h + g, r = 8 * k + 2 * t + jj;
+          if (col < cols && r < m) st[(m * m + r * cols + col) * LD + i] = S(x.s.v[k][h][jj]);
+        }
+  }
+  __device__ int out_comp(int q) const { return m * m + q; }
+  __device__ int out_rows() const { return m * cols; }
+
+  __device__ static void identity_map(Acc* map) {
+    for (int p = threadIdx.x & 31; p < kMap; p += 32) {
+      const int r = p / LM, c = p % LM;
+      map[p] = c == r ? Acc(1) : Acc(0);
+    }
+    __syncwarp();
+  }
+  // out = (A_l A_e, A_l B_e + B_l); out aliases neither.
+  template <class LR>
+  __device__ void merge(const Acc* e, LR l, Acc* out, Acc*) const {
+    const LR Bl = l.at(P);
+    smm<P, P + RC, P>(l, LM, 1, SmemRd{e}, LM, 1, out, LM, &Bl, LM, false, P);
+  }
+  // out = A s + B; out may alias s.
+  __device__ void apply(const Acc* map, const Acc* s, Acc* out, Acc*) const {
+    const SmemRd Bm{map + P};
+    smm<P, RC, P>(SmemRd{map}, LM, 1, SmemRd{s}, LS, 1, out, LS, &Bm, LM);
+  }
+};
+
+// Shared memory of a one-launch Riccati or affine block, in bytes: per
+// team three maps, the merge's scratch and a state; the look-back's Q, GA
+// and a window map; the tile's start and two states; then the staged tile
+// of `comps` components.
+template <class Op>
+__host__ __device__ inline long long mono_fixed_bytes() {
+  return (long long)(kMonoTeams * (3 * Op::kMap + Op::kScratch + Op::kState) + 3 * Op::kMap +
+                     3 * Op::kState) *
+         (long long)sizeof(Acc);
+}
+
+// Elements per team: the largest of 32, 16, 8, 4, 2, 1 whose staged tile
+// fits min(kMonoStageCap, what the block's shared memory leaves).
+// cuda_scan.b3_schedule repeats it.
+template <class Op>
+inline int mono_sub(int comps, int bytes) {
+  long long room = kGenSharedBlock - mono_fixed_bytes<Op>() - 1024;
+  if (room > kMonoStageCap) room = kMonoStageCap;
+  int sub = 32;
+  while (sub > 1 && (long long)comps * (kMonoTeams * sub * bytes + 16) > room) sub /= 2;
+  return sub;
+}
+
+// The block's part of the look-back (cpl_lookback's association over Op's
+// maps, in groups of kMonoGroup tiles): Q folded in runs of kMonoRun
+// tiles, warp r folding run r in order, reading each aggregate through
+// L2; the runs composed as (run 0 . run 1) . (run 2 . run 3); warp 0 finds
+// the state after the group before, publishes, and leaves the state before
+// tile b in st. A merge costs a few microseconds here (a pivoted inverse
+// on one warp), so groups are 16 tiles and not 32: the fold's depth is
+// 3 + 2 merges, against a longer chain over groups (PERF.md).
+template <class Op, class Buf, class Scr>
+__device__ void mono_lookback(const Op& op, long long b, long long nt, const LookSlots& sl,
+                              const Acc* agg, Acc* lk, Acc* st, Acc* s, Buf buf, Scr scr) {
+  constexpr int MAP = Op::kMap, ST = Op::kState;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long g = b / kMonoGroup, base = g * kMonoGroup;
+  const bool end = b % kMonoGroup == kMonoGroup - 1, more = b + 1 < nt;
+  const int cnt = (int)(b - base);
+  if (w == 0) {
+    if (!end && more) cpl_publish(agg, sl.tile_agg + b * MAP, MAP, sl.tile_flag + b, 1u);
+    if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
+  }
+  __syncthreads();
+  __threadfence();
+  const auto len = [&](int r) { return max(0, min(kMonoRun, cnt - kMonoRun * r)); };
+  const auto run_map = [&](int r) { return buf(r, 1 + ((len(r) - 1) & 1)); };
+  if (len(w) > 0) {
+    const Acc* src = sl.tile_agg + (base + kMonoRun * w) * MAP;
+    Acc* P = buf(w, 1);
+    Acc* Pn = buf(w, 2);
+    for (int c = lane; c < MAP; c += 32) P[c] = __ldcg(src + c);
+    __syncwarp();
+    for (int i = 1; i < len(w); ++i) {
+      op.merge(P, L2Rd{src + i * MAP}, Pn, scr(w));
+      Acc* swap = P;
+      P = Pn;
+      Pn = swap;
+    }
+  }
+  __syncthreads();
+  Acc *Q = lk, *GA = lk + MAP, *win = lk + 2 * MAP;  // R0 . R1 goes to win
+  const Acc* R0 = run_map(0);
+  const Acc* R2 = run_map(2);
+  if (len(1) > 0) {
+    if (w == 0) op.merge(R0, SmemRd{run_map(1)}, win, scr(0));
+    R0 = win;
+  }
+  if (len(3) > 0) {
+    Acc* out = buf(2, 2 - ((len(2) - 1) & 1));
+    if (w == 2) op.merge(R2, SmemRd{run_map(3)}, out, scr(2));
+    R2 = out;
+  }
+  __syncthreads();
+  if (w != 0) return;
+  if (cnt == 0) {
+    Op::identity_map(Q);
+  } else if (len(2) > 0) {
+    op.merge(R0, SmemRd{R2}, Q, scr(0));
+  } else {
+    for (int c = lane; c < MAP; c += 32) Q[c] = R0[c];
+    __syncwarp();
+  }
+  if (end && more) {
+    op.merge(Q, SmemRd{agg}, GA, scr(0));
+    cpl_publish(GA, sl.group_agg + g * MAP, MAP, sl.group_flag + g, 1u);
+  }
+  // S(g - 1): from the nearest group whose end state is published, the
+  // groups after it applied one at a time through the window.
+  const long long j = lookback_find(g, sl.group_flag);
+  for (int c = lane; c < ST; c += 32) s[c] = j >= 0 ? __ldcg(sl.group_state + j * ST + c) : Acc(0);
+  __syncwarp();
+  for (long long i = j + 1; i < g; ++i) {
+    lookback_window(sl.group_agg, i, 1, MAP, win);
+    op.apply(win, s, s, scr(0));
+  }
+  op.apply(Q, s, st, scr(0));
+  if (end && more) {
+    op.apply(GA, s, s, scr(0));
+    cpl_publish(s, sl.group_state + g * ST, ST, sl.group_flag + g, 2u);
+  }
+}
+
+// Bulk copies between global and shared memory (the Tensor Memory
+// Accelerator's non-tensor form), for the one-launch scans' staging and
+// write-out, and 16-byte cp.async.
+constexpr int kBulkRowBytes = 512;  // the shortest staged row copied in bulk
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes (both addresses 16-byte aligned) from device to shared
+// memory asynchronously, through L2 only.
+template <typename S>
+__device__ __forceinline__ void cp_async16(S* dst, const S* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The barrier's one arrival, expecting `bytes` from the copies.
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the barrier's first phase; traps after kWatchdogNs.
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
+  const unsigned long long start = global_ns();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+    if (done) return;
+    if (global_ns() - start > kWatchdogNs) __trap();
+  }
+}
+
+// Order this thread's stores to shared memory before the bulk copies that
+// read it.
+__device__ __forceinline__ void bulk_fence() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// Commit this thread's bulk stores and wait until they have read shared
+// memory.
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// One tile of a one-launch Riccati or affine scan (the block's part of
+// cpl_tile_kernel's design, over Op): the ticket, staging, the teams'
+// folds in registers, the in-tile scan, the look-back, the walk from each
+// team's start, and the coalesced write-out of the states.
+template <class Op, typename S>
+__device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse, int inclusive,
+                                          int groups, int cols, GIn<S> in, S* out, Acc* work,
+                                          const ChainLayout& lay, int sub) {
+  constexpr int MAP = Op::kMap, ST = Op::kState, SCR = Op::kScratch;
+  constexpr int TEAM = 3 * MAP + SCR + ST;
+  // A staged row: T values and 16 bytes, so that every row starts 16-byte
+  // aligned for the bulk copies.
+  const int m = op.m, T = kMonoTeams * sub, LD = T + 16 / (int)sizeof(S);
+  __shared__ long long ticket_of_block;
+  Acc* lk = reinterpret_cast<Acc*>(qsl_smem);
+  Acc* start = lk + 3 * MAP;
+  Acc* ls = start + ST;
+  Acc* teams = ls + 2 * ST;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const auto buf = [&](int v, int k) { return teams + v * TEAM + k * MAP; };
+  const auto scr = [&](int v) { return teams + v * TEAM + 3 * MAP; };
+  Acc* const mine_state = teams + w * TEAM + 3 * MAP + SCR;
+  __shared__ unsigned long long staged_bar;
+  S* st = reinterpret_cast<S*>(
+      (reinterpret_cast<size_t>(teams + kMonoTeams * TEAM) + 15) & ~size_t(15));
+
+  if (t == 0) ticket_of_block = atomicAdd(lay.ticket(work), 1u);
+  __syncthreads();
+  const long long b = ticket_of_block / groups, p0 = b * T;
+  const int grp = (int)(ticket_of_block % groups), col0 = grp * cols;
+  if constexpr (Op::kAff) op.cols = min(cols, r - col0);
+  const int comps = Op::comps(m, op.cols);
+  const int cnt = (int)(n - p0 < T ? n - p0 : T);
+
+  // Stage the tile: position i (element p0 + i, or n - 1 - p0 - i) of
+  // staged component c at st[c * LD + i]. A copy request costs about the
+  // same whatever its size (some 30 ns of a block's staging each, measured
+  // on the card), so the requests are made as large as the layout allows.
+  // Forward, with every operand 16-byte aligned: each component's run is
+  // one bulk copy (the Tensor Memory Accelerator, completing on an
+  // mbarrier) where it is at least kBulkRowBytes, else 16 bytes a lane by
+  // cp.async; otherwise every value by cp.async. Any values past a
+  // multiple of 16 bytes go by cp.async. A warp takes 32 / lpc components
+  // at once, lpc lanes each (T is a power of two), so that no division
+  // runs per element.
+  const int lpc = T < 32 ? T : 32, lsh = __ffs(lpc) - 1;
+  const auto pos = [&](int i) { return reverse ? n - 1 - p0 - i : p0 + i; };
+  const auto comp_src = [&](int c) {
+    if constexpr (Op::kAff) {
+      const int mm = m * m, q = c - mm;
+      return c < mm ? in.x0 + (long long)c * n
+                    : in.x1 + ((long long)(q / op.cols) * r + col0 + q % op.cols) * n;
+    } else {
+      return c == 0       ? in.x0
+             : c <= m     ? in.x1 + (long long)(c - 1) * n
+             : c <= 2 * m ? in.x2 + (long long)(c - 1 - m) * n
+                          : in.x3 + (long long)(c - 1 - 2 * m) * n;
+    }
+  };
+  const bool bulk = !reverse && (n * (long long)sizeof(S)) % 16 == 0 &&
+                    aligned16(in.x0) && aligned16(in.x1) && aligned16(in.x2) &&
+                    aligned16(in.x3) && aligned16(out);
+  const int whole = (int)(cnt * sizeof(S) / 16 * 16 / sizeof(S));  // values in 16-byte units
+  const int chunk = 16 / (int)sizeof(S);  // values a 16-byte copy moves
+  if (bulk && T * (int)sizeof(S) >= kBulkRowBytes) {
+    if (t == 0) bulk_bar_init(&staged_bar);
+    __syncthreads();  // (the one barrier the bulk path adds)
+    if (w == 0) {
+      if (lane == 0) bulk_expect(&staged_bar, (unsigned)(comps * whole * sizeof(S)));
+      __syncwarp();
+      if (whole > 0)
+        for (int c = lane; c < comps; c += 32)
+          bulk_load(st + c * LD, comp_src(c) + p0, (unsigned)(whole * sizeof(S)), &staged_bar);
+    }
+    for (int c = w; c < comps && whole < cnt; c += kMonoTeams)
+      for (int i = whole + lane; i < cnt; i += 32) cp_async_elem(st + c * LD + i, comp_src(c) + pos(i));
+  } else if (bulk) {
+    const int cpr = T / chunk, lpr = cpr < 32 ? cpr : 32, sh = __ffs(lpr) - 1;
+    for (int c = w * (32 >> sh) + (lane >> sh); c < comps; c += kMonoTeams * (32 >> sh)) {
+      const S* src = comp_src(c) + p0;
+      for (int k = (lane & (lpr - 1)) * chunk; k < whole; k += lpr * chunk)
+        cp_async16(st + c * LD + k, src + k);
+      for (int i = whole + (lane & (lpr - 1)); i < cnt; i += lpr) cp_async_elem(st + c * LD + i, src + i);
+    }
+  } else {
+    for (int c = w * (32 >> lsh) + (lane >> lsh); c < comps; c += kMonoTeams * (32 >> lsh)) {
+      const S* src = comp_src(c);
+      for (int i = lane & (lpc - 1); i < cnt; i += lpc) cp_async_elem(st + c * LD + i, src + pos(i));
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  if (bulk && T * (int)sizeof(S) >= kBulkRowBytes) bulk_wait(&staged_bar);
+  __syncthreads();
+  const int lo = w * sub, mine = max(0, min(sub, cnt - lo));
+
+  // The fold: the team's map, in registers, then into buffer 0.
+  {
+    typename Op::Run x;
+    Op::identity(x);
+    typename Op::El e, next;
+    if (mine > 0) op.load(st, LD, lo, next);
+    for (int jj = 0; jj < mine; ++jj) {
+      e = next;
+      if (jj + 1 < mine) op.load(st, LD, lo + jj + 1, next);
+      Op::fold(x, e);
+    }
+    Op::store(x, buf(w, 0));
+  }
+
+  // The in-tile scan of the teams' maps (Kogge-Stone): team w's inclusive
+  // value ends in buffer 0.
+  static_assert(kMonoTeams == 4, "two rounds of merges");
+  __syncthreads();
+  for (int off = 1, k = 0; off < kMonoTeams; off <<= 1, k ^= 1) {
+    if (w >= off) {
+      op.merge(buf(w - off, k), SmemRd{buf(w, k)}, buf(w, k ^ 1), scr(w));
+    } else {
+      for (int e = lane; e < MAP; e += 32) buf(w, k ^ 1)[e] = buf(w, k)[e];
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  mono_lookback(op, b, lay.nt, lay.slots(work, grp, MAP), buf(kMonoTeams - 1, 0), lk, start, ls,
+                buf, scr);
+  __syncthreads();
+
+  // The walk from the team's start, the state after the teams before it,
+  // each element's state over its staged components.
+  if (mine > 0) {
+    if (w > 0) {
+      op.apply(buf(w - 1, 0), start, mine_state, scr(w));
+    } else {
+      for (int c = lane; c < ST; c += 32) mine_state[c] = start[c];
+      __syncwarp();
+    }
+    typename Op::State x;
+    Op::load_state(mine_state, x);
+    typename Op::El e, next;
+    op.load(st, LD, lo, next);
+    for (int jj = 0; jj < mine; ++jj) {
+      e = next;
+      if (jj + 1 < mine) op.load(st, LD, lo + jj + 1, next);
+      if (!inclusive) op.put(x, st, LD, lo + jj);
+      Op::walk(x, e);
+      if (inclusive) op.put(x, st, LD, lo + jj);
+    }
+  }
+  if (bulk) bulk_fence();
+  __syncthreads();
+  const int rows = op.out_rows();
+  const auto out_row = [&](int q) {
+    return Op::kAff ? (long long)(q / op.cols) * r + col0 + q % op.cols : (long long)q;
+  };
+  if (bulk) {
+    // Each row's run from shared memory by one bulk copy, its last values
+    // past a multiple of 16 bytes by plain stores; the block waits until
+    // the copies have read shared memory.
+    if (whole > 0)
+      for (int q = t; q < rows; q += 32 * kMonoTeams)
+        bulk_store(out + out_row(q) * n + p0, st + op.out_comp(q) * LD,
+                   (unsigned)(whole * sizeof(S)));
+    for (int q = w; q < rows && whole < cnt; q += kMonoTeams)
+      for (int i = whole + lane; i < cnt; i += 32)
+        out[out_row(q) * n + p0 + i] = st[op.out_comp(q) * LD + i];
+    bulk_store_wait();
+  } else {
+    for (int q = w * (32 >> lsh) + (lane >> lsh); q < rows; q += kMonoTeams * (32 >> lsh)) {
+      const S* src = st + op.out_comp(q) * LD;
+      for (int i = lane & (lpc - 1); i < cnt; i += lpc) out[out_row(q) * n + pos(i)] = src[i];
+    }
+  }
+}
+
+// B3's Riccati flow at 5 <= m <= 16 (padded to P), exclusive: (d, ps, qs,
+// as_) in, F (m^2, n) out.
+template <int P, typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+ric_tile_kernel(int m, long long n, GIn<S> in, S* out, Acc* work, ChainLayout lay, int sub) {
+  RicOp<P> op;
+  op.m = m;
+  mono_tile(op, n, 1, 0, 0, 1, 1, in, out, work, lay, sub);
+}
+
+// B3's affine scan at 5 <= m <= 16 (padded to P), r columns in groups of
+// RC, forward or reverse, exclusive or inclusive: (A, B) in, (m r, n) out.
+template <int P, int RC, typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+aff_tile_kernel(int m, long long n, int r, int reverse, int inclusive, int groups, GIn<S> in,
+                S* out, Acc* work, ChainLayout lay, int sub) {
+  AffOp<P, RC> op;
+  op.m = m;
+  op.cols = RC;
+  mono_tile(op, n, r, reverse, inclusive, groups, RC, in, out, work, lay, sub);
+}
+
+// A one-launch scan's plan: padded order, columns a group, groups, the
+// elements of a team, its layout and its shared memory.
+struct MonoPlan {
+  int P, rc, groups, sub;
+  long long smem;
+};
+
+template <class Op>
+inline void mono_fill(MonoPlan& p, int comps, int bytes) {
+  p.sub = mono_sub<Op>(comps, bytes);
+  p.smem = mono_fixed_bytes<Op>() + (long long)comps * (kMonoTeams * p.sub * bytes + 16) + 16;
+}
+
+inline MonoPlan mono_plan(const GSpec& s, int bytes) {
+  MonoPlan p;
+  p.P = s.m <= 8 ? 8 : 16;
+  p.rc = s.kind == gAff ? (s.r <= kAffCols8 ? kAffCols8 : kAffCols16) : 1;
+  p.groups = (s.r + p.rc - 1) / p.rc;
+  const int cols = s.r < p.rc ? s.r : p.rc, m = s.m;
+  if (s.kind == gRic) {
+    if (p.P == 8) mono_fill<RicOp<8>>(p, 1 + 2 * m + m * m, bytes);
+    else mono_fill<RicOp<16>>(p, 1 + 2 * m + m * m, bytes);
+  } else {
+    const int comps = m * m + m * cols;
+    if (p.P == 8 && p.rc == 8) mono_fill<AffOp<8, 8>>(p, comps, bytes);
+    else if (p.P == 8) mono_fill<AffOp<8, 16>>(p, comps, bytes);
+    else if (p.rc == 8) mono_fill<AffOp<16, 8>>(p, comps, bytes);
+    else mono_fill<AffOp<16, 16>>(p, comps, bytes);
+  }
+  return p;
+}
+
+inline ChainLayout mono_layout(const GSpec& s, long long n, int bytes) {
+  const MonoPlan p = mono_plan(s, bytes);
+  const long long tile = kMonoTeams * p.sub;
+  const int P = p.P;
+  const int map = s.kind == gRic ? P * (3 * P + 4) : P * (P + p.rc + 4);
+  const int state = s.kind == gRic ? P * (P + 4) : P * (p.rc + 4);
+  return ChainLayout((n + tile - 1) / tile, p.groups, map, state, kMonoGroup);
+}
+
+// One memset (the ticket and the flags) and one launch, on stream st.
+template <typename S>
+cudaError_t mono_run(const GSpec& s, long long n, int reverse, int inclusive, const GIn<S>& in,
+                     S* out, Acc* work, const ChainLayout& lay, cudaStream_t st) {
+  const MonoPlan p = mono_plan(s, (int)sizeof(S));
+  if (p.smem > kGenSharedBlock || lay.nt * p.groups > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(work + lay.flags, 0, lay.flag_words * sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(lay.nt * p.groups));
+  const int threads = 32 * kMonoTeams;
+  if (s.kind == gRic)
+    return p.P == 8 ? g_launch(ric_tile_kernel<8, S>, grid, threads, p.smem, st, s.m, n, in, out,
+                               work, lay, p.sub)
+                    : g_launch(ric_tile_kernel<16, S>, grid, threads, p.smem, st, s.m, n, in, out,
+                               work, lay, p.sub);
+#define AFF_RUN(P, RC)                                                                       \
+  return g_launch(aff_tile_kernel<P, RC, S>, grid, threads, p.smem, st, s.m, n, s.r, reverse, \
+                  inclusive, p.groups, in, out, work, lay, p.sub)
+  if (p.P == 8 && p.rc == 8) AFF_RUN(8, 8);
+  if (p.P == 8) AFF_RUN(8, 16);
+  if (p.rc == 8) AFF_RUN(16, 8);
+  AFF_RUN(16, 16);
+#undef AFF_RUN
+}
+
 // Workspace of a scan, in Acc; for the one-launch coupling the larger of
 // the two storage types' layouts (their tiles differ).
 inline long long workspace_elems(const GSpec& s, long long n) {
-  if (!cpl_one_launch(s)) return g_workspace_elems(s, n);
-  const long long a = cpl_layout(s, n, 4).total, b = cpl_layout(s, n, 8).total;
+  long long a, b;
+  if (cpl_one_launch(s)) {
+    a = cpl_layout(s, n, 4).total;
+    b = cpl_layout(s, n, 8).total;
+  } else if (mono_one_launch(s)) {
+    a = mono_layout(s, n, 4).total;
+    b = mono_layout(s, n, 8).total;
+  } else {
+    return g_workspace_elems(s, n);
+  }
   return a > b ? a : b;
 }
 
@@ -470,6 +1551,9 @@ int scan(int kind, int m, int m2, long long n, int r, int reverse, int inclusive
     if (lay.nt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     return (int)cpl_run<S>(s, n, reverse, inclusive, in, out, work, lay, st);
   }
+  if (mono_one_launch(s))
+    return (int)mono_run<S>(s, n, reverse, inclusive, in, out, work,
+                            mono_layout(s, n, (int)sizeof(S)), st);
   return (int)g_run<S, S>(s, n, reverse, inclusive, in, out, work, st);
 }
 
@@ -494,6 +1578,21 @@ int qsg_cpl_schedule(int m, int m2, int bytes, int* tile, int* sub) {
     return -1;
   *sub = cpl_sub(m, m2, bytes);
   *tile = kCplTeams * *sub;
+  return 0;
+}
+
+// The one-launch Riccati or affine scan's association for operands of
+// `bytes` bytes: elements per tile, per team and affine columns per group
+// into tile[0], sub[0], cols[0]; returns 0, or -1 where the scan runs the
+// three-phase engine.
+int qsg_scan_schedule(int kind, int m, int r, int bytes, int* tile, int* sub, int* cols) {
+  if (!g_valid(kind, m, m, 1, r) || !mono_one_launch(g_spec(kind, m, m, r)) ||
+      (bytes != 4 && bytes != 8))
+    return -1;
+  const MonoPlan p = mono_plan(g_spec(kind, m, m, r), bytes);
+  *sub = p.sub;
+  *tile = kMonoTeams * p.sub;
+  *cols = p.rc;
   return 0;
 }
 

@@ -1,9 +1,13 @@
-// The generic-order monoid scan engine on Hopper (sm_90a): kernel B3 at
-// every order of the quasiseparable algebra, the scans of B1 and B1r above
-// m = 4 and those of B2 above m = 8 (B2 runs in one launch up to m = 8,
-// quasisep_loglik_generic.cu: b2_warp_kernel; B3's coupling up to order 8
-// too, quasisep_generic.cu: cpl_tile_kernel). Included by
-// quasisep_generic.cu (B3's entries) and quasisep_loglik_generic.cu.
+// The generic-order monoid scan engine on Hopper (sm_90a): the scans of B1
+// and B1r above m = 4, those of B2 above m = 8, and of kernel B3 its
+// congruence scan above m = 4, its couplings above order 8 and its Riccati
+// flow and affine scan at 17 <= m <= 32. The rest of B3 above the templated
+// orders runs in one launch in quasisep_generic.cu: the couplings up to
+// order 8 (cpl_tile_kernel) and the Riccati flow and affine scan at
+// m = 5..16 (ric_tile_kernel, aff_tile_kernel, on the float64 tensor
+// cores); B2 up to m = 8 in quasisep_loglik_generic.cu (b2_warp_kernel).
+// Included by quasisep_generic.cu (B3's entries) and
+// quasisep_loglik_generic.cu.
 //
 // Why not quasisep_scan.cu's kernel at a larger m. There each thread keeps
 // one monoid value in registers and a Kogge-Stone pass runs over a shared
@@ -677,7 +681,7 @@ ric_finish_pass(GSpec s, long long n, long long chunk, long long nb, int teams, 
 // ------------------------------------------ the affine scan, a warp per chunk
 //
 // The affine scan g' = A g + B with one column at m <= kWarpTeamMaxM (B1's
-// whitening scan, B3's with r = 1), run as the Riccati
+// whitening scan; B3's at m = 5..8 runs aff_tile_kernel), run as the Riccati
 // flow runs: a warp per chunk, elements staged in batches, the order a
 // compile-time constant at 5..8. The combine is g_combine's, (A_l A_e,
 // A_l B_e + B_l), folded element by element, with the running value kept

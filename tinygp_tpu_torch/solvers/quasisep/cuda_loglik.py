@@ -310,18 +310,18 @@ def _ric_apply(A, F, G, X):
     return F + A @ torch.linalg.solve(eye + X @ G, X) @ A.mT
 
 
-def _group_chain(aggs, combine, apply, state0, warp_fold=False, runs=None):
+def _group_chain(aggs, combine, apply, state0, warp_fold=False, runs=None, group=_LOOK_GROUP):
     """Each tile's state at its start, from the tiles' aggregates ``aggs``
     (tensors, tile first) in the one-launch kernels' look-back association:
-    within each group of :data:`_LOOK_GROUP` tiles ``start(b) =
+    within each group of ``group`` tiles ``start(b) =
     Q(b)(S(g - 1))``, and the state after each group ``S(g) = GA(g)(S(g -
     1))`` from ``S(-1) = state0``, where ``Q(b)`` composes the aggregates
     of the group's tiles before ``b`` one tile at a time (B2), or with
     ``warp_fold`` by a Kogge-Stone scan over them (B1: a warp's lanes), or
     with ``runs`` in runs of that many tiles, each folded in order, the runs
-    composed pairwise, then the pairs (B3's coupling: a warp a run), and
-    ``GA(g)`` is ``Q`` of the group's last tile composed with its
-    aggregate."""
+    composed pairwise, then the pairs (B3's one-launch generic scans: a warp
+    a run), and ``GA(g)`` is ``Q`` of the group's last tile composed with
+    its aggregate."""
     nt = aggs[0].shape[0]
     starts = []
     S = state0
@@ -338,8 +338,8 @@ def _group_chain(aggs, combine, apply, state0, warp_fold=False, runs=None):
                      for k in range(0, len(parts), 2)]
         return parts[0]
 
-    for base in range(0, nt, _LOOK_GROUP):
-        end = min(base + _LOOK_GROUP, nt)
+    for base in range(0, nt, group):
+        end = min(base + group, nt)
         if warp_fold:
             prefix = [x[0] for x in _team_scan([x[None, base:end] for x in aggs], combine)]
         Q = None
