@@ -110,7 +110,8 @@ Phases, each printing its numbers on lines of its own:
     float64 on the same float32 values, within twice the float32 plain
     version's error plus 1e-6 of the largest entry, for every leaf with
     either metric on ragged 1-d and 3-d points, the JAX test's kernels,
-    each root transform, and the 1e4 gram; timed at 1e4 and summed over
+    each root transform, and the 1e4 gram; timed at 1e4 (CUDA events, and
+    B7's device time from a ``torch.profiler`` trace) and summed over
     the dense path's 20 strip shapes (through ``gram_tiled`` and launched
     directly), beside its bound, its plain version and
     ``kernel(X[lo:n], X[lo:cr])`` as the strip build calls it, and the host
@@ -162,6 +163,12 @@ for B3: the Matern32 conditioning path's scans at N = 1e5, the m = 2
 scans at 1e6, Matern52's and the celerite's couplings (6, 6) and (8, 8),
 the couplings (2, 2) and (4, 4) through either source, and the whole
 Matern32, Matern52 and celerite ``condition`` calls.
+``python3 chip_smoke.py --b3-times engine`` times the scans of phase 7 that
+still run the three-phase engine, beside their bounds.
+``python3 chip_smoke.py --gram-times`` does the same for B7: at 1e4 x 1e4
+and over the dense path's 20 strip shapes, each through ``gram_tiled`` and
+launched directly, and the host time of one 64 x 64 ``gram_tiled`` call
+with its ``cProfile`` split.
 """
 
 from __future__ import annotations
@@ -309,7 +316,7 @@ def phase_build():
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for stem in ("dense_tc", "dense_syrk", "quasisep_loglik", "quasisep_loglik_bwd",
-                 "quasisep_loglik_generic"):
+                 "quasisep_loglik_generic", "gram"):
         log_ptxas(stem)
 
 
@@ -864,6 +871,26 @@ def b2_launch_checks(bwd_args, bars):
                        + ")")
 
 
+# A trace that lost events (seen late in a long process: the first
+# operations of one of the traced calls missing) is taken again, up to this
+# many traces in all. Lost events only lower the counts; the faults the
+# one-launch checks look for (a second launch, another kernel) raise them,
+# so only a trace short of the expected counts, with nothing unexpected in
+# it, is taken again.
+TRACE_TRIES = 3
+
+
+def trace_lost_events(got, want):
+    """Whether the launch counts ``got`` of a trace fall short of ``want``
+    with nothing beyond it: the mark of a trace that lost events."""
+    return got is None or (got != want and all(
+        k in want and per <= want[k] for k, per in got.items()))
+
+
+def retraced(attempt):
+    return f" (trace {attempt + 1}: the earlier lost events)" if attempt else ""
+
+
 def b1_one_launch(fn, alone=True):
     """From a ``torch.profiler`` trace of calls of ``fn``: whether no call
     launches the one-launch B1/B1r kernel (``b1_tile_kernel``) more than
@@ -890,7 +917,9 @@ def phase_b1_launches():
     """B1 and B1r at m = 1..4 in float32 and float64 (random operands,
     N = 1e5): one call of each is exactly one ``b1_tile_kernel`` launch
     and one memset in a ``torch.profiler`` trace. Run first, in eight
-    trace sessions, while the process's traces still hold every event."""
+    traces, while the process's traces still hold every event; a
+    trace short of the counts with nothing else in it is taken again (at
+    most ``TRACE_TRIES`` traces)."""
     import torch
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
@@ -899,17 +928,21 @@ def phase_b1_launches():
     for dtype in (torch.float32, torch.float64):
         for m in (1, 2, 3, 4):
             args = random_operands(m, 100_000, dtype, seed=m)
-            split, per_call = kernel_split(lambda: (cuda_loglik.fused_loglik_terms(*args),
-                                                    cuda_loglik.fused_loglik_res(*args)))
             want = {f"b1_tile_kernel<{'float' if dtype == torch.float32 else 'double'}, {m}, "
                     f"{res}>": 1.0 for res in ("false", "true")}
             want["Memset"] = 2.0
-            got = None if split is None else {k: per for k, (_, per) in split.items()}
-            ok = got == want
+            for attempt in range(TRACE_TRIES):
+                split, per_call = kernel_split(lambda: (cuda_loglik.fused_loglik_terms(*args),
+                                                        cuda_loglik.fused_loglik_res(*args)))
+                got = None if split is None else {k: per for k, (_, per) in split.items()}
+                ok = got == want
+                if ok or not trace_lost_events(got, want):
+                    break
             shown = ("no device time in the trace" if split is None else
                      ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()))
             log(f"b1-launches m={m} N=100000 {str(dtype)[6:]}: a B1 call and a B1r call, "
-                f"{per_call:g} device operations ({shown}) {'ok' if ok else 'FAIL'}")
+                f"{per_call:g} device operations ({shown}){retraced(attempt)} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append((m, dtype))
     if failures:
@@ -932,18 +965,26 @@ def b3_one_launch(calls, name):
     """From a ``torch.profiler`` trace of the scans ``calls`` (each
     ``(monoid, m, m2, r, reverse, inclusive, operands)``): whether each is
     one launch of a kernel whose name holds ``name`` and one memset, and
-    nothing else runs; and the trace's report."""
-    split, per_call = kernel_split(lambda: [
-        scan_kernel(monoid, m, r, reverse, inclusive, ops, m2=m2)
-        for monoid, m, m2, r, reverse, inclusive, ops in calls])
+    nothing else runs; and the trace's report. A trace short of those
+    counts with nothing else in it lost events and is taken again (at most
+    ``TRACE_TRIES`` traces)."""
+    for attempt in range(TRACE_TRIES):
+        split, per_call = kernel_split(lambda: [
+            scan_kernel(monoid, m, r, reverse, inclusive, ops, m2=m2)
+            for monoid, m, m2, r, reverse, inclusive, ops in calls])
+        if split is None:
+            continue
+        kernels = sum(per for k, (_, per) in split.items() if name in k)
+        memsets = sum(per for k, (_, per) in split.items() if k.startswith("Memset"))
+        others = [k for k in split if name not in k and not k.startswith("Memset")]
+        ok = kernels == memsets == len(calls) == per_call / 2 and not others
+        if ok or others or kernels > len(calls) or memsets > len(calls):
+            break
     if split is None:
         return False, "no device time in the trace"
-    kernels = sum(per for k, (_, per) in split.items() if name in k)
-    memsets = sum(per for k, (_, per) in split.items() if k.startswith("Memset"))
-    others = [k for k in split if name not in k and not k.startswith("Memset")]
-    ok = kernels == memsets == len(calls) == per_call / 2 and not others
     return ok, (f"{len(calls)} scans, {per_call:g} device operations per set ("
-                + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()) + ")")
+                + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items())
+                + ")" + retraced(attempt))
 
 
 def phase_b3_launches():
@@ -3329,6 +3370,47 @@ def b3_times():
     b3_generic_times()
 
 
+def engine_scan_times():
+    """``--b3-times engine``: the scans of phase 7's generic-order set at
+    N = 17,161 (``N_LONG``) that still run the three-phase engine
+    (``cuda_scan.b3_schedule`` is None: the congruence scan above m = 4,
+    the couplings above order 8), in float64 and float32: CUDA events
+    first, then the device time and launches per call from a
+    ``torch.profiler`` trace, beside ``scan_bound_ms``; each result held to
+    its plain version with phase 7's limits."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
+    cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
+    runs = {}
+    for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
+        for m, m2, (monoid, reverse, inclusive, r) in cases:
+            if cuda_scan.b3_schedule(monoid, m, r, dtype, m2=m2) is not None:
+                continue
+            ops = scan_operands(monoid, m, N_LONG, r, dtype, seed=10 * m + m2, m2=m2)
+            tag = (f"{monoid}{'-rev' if reverse else ''}{'-incl' if inclusive else ''}-r{r} "
+                   f"m={m}" + (f"x{m2}" if monoid == "cpl" else "") + f" {str(dtype)[6:]}")
+            runs[tag] = (monoid, m, m2, r, reverse, inclusive, ops, rtol, lambda a=(
+                monoid, m, r, reverse, inclusive, ops, m2): scan_kernel(*a[:6], m2=a[6]))
+    # The clocks first: no trace has run in this process yet.
+    event_ms = {tag: cuda_ms(run[-1], reps=20, warmup=3) for tag, run in runs.items()}
+    for tag, (monoid, m, m2, r, reverse, inclusive, ops, rtol, fn) in runs.items():
+        got = fn()
+        want = scan_plain(monoid, m, r, reverse, inclusive, ops, m2=m2)
+        (err, _), = stream_errors([got], [want])
+        if not (err <= rtol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"B3 engine {tag} disagrees with its plain version: {err:.3e}")
+        split, per_call = kernel_split(fn)
+        device = ("not measured (no device time in the trace)" if split is None else
+                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+        bound, by = scan_bound_ms(monoid, m, r, N_LONG, ops[0].element_size(), m2=m2)
+        log(f"b3-times engine {tag} N={N_LONG} [{CARD}]: events {event_ms[tag]:.4f} ms, device "
+            f"{device} in {per_call:g} device operations a call (bound {bound:.4f} ms, {by}); "
+            f"against plain rel {err:.2e} (rtol {rtol:g}) ok")
+
+
 def posterior_scan_shapes():
     """``(monoid, m, r, reverse, inclusive)`` of every generic-order B3 call
     that the posterior processes' ``log_probability`` and ``sample``
@@ -3570,14 +3652,20 @@ def phase_gram():
         failures.append("no launch on the path")
 
     # Times: at 1e4 x 1e4, and summed over the dense path's strip shapes.
-    ops, params = gram._compile(pieces, X, X)[2:]
+    ops, params = gram._compile(pieces, X, X)[2:4]
     nbytes, flops = gram_work(GRAM_N, GRAM_N, 1, ops, len(params))
     bound, by = bound_ms(nbytes, flops)
     k_ms = cuda_ms(lambda: gram.gram_tiled(pieces, X, X), reps=20, warmup=3)
     p_ms = cuda_ms(lambda: gram.plain_gram(pieces, X, X), reps=20, warmup=3)
     cdist_ms = cuda_ms(lambda: torch.cdist(X[:, None], X[:, None]), reps=20, warmup=3)
-    log(f"gram dense_pieces.py N={GRAM_N} [{CARD}]: B7 {k_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({by}; {nbytes} bytes, {flops} operations), plain {p_ms:.4f} ms")
+    split, _ = kernel_split(lambda: gram.gram_tiled(pieces, X, X))
+    device_ms = None if split is None else sum(
+        ms * per for name, (ms, per) in split.items() if name.startswith("gram_kernel"))
+    log(f"gram dense_pieces.py N={GRAM_N} [{CARD}]: B7 {k_ms:.4f} ms by events, "
+        + ("device not measured (no device time in the trace)" if device_ms is None else
+           f"{device_ms:.4f} ms of device time (trace)")
+        + f", bound {bound:.4f} ms ({by}; {nbytes} bytes, {flops} operations), plain "
+        f"{p_ms:.4f} ms")
     log(f"gram yardstick, not the same function [{CARD}]: torch.cdist of the same points "
         f"(the distance alone) {cdist_ms:.4f} ms")
 
@@ -3621,11 +3709,134 @@ def phase_gram():
         "launches": launches,
         "max_abs_err": worst["abs"],
         "ms": k_ms,
+        "device_ms": device_ms,
         "plain_ms": p_ms,
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,
     }
+
+
+def gram_host_split(kernel, X, calls=500):
+    """Host microseconds of one ``gram_tiled(kernel, X, X)`` call (host
+    clock, the card keeping up), and a ``cProfile`` split of ``calls``
+    calls: the cumulative microseconds per call of each function of
+    ``ops/gram.py`` and of the calls with the most time of their own."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from tinygp_tpu_torch.ops import gram
+
+    for _ in range(20):
+        gram.gram_tiled(kernel, X, X)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        gram.gram_tiled(kernel, X, X)
+    torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) / calls * 1e6
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        gram.gram_tiled(kernel, X, X)
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    own = {}
+    ours = {}
+    for (path, line, func), (_, _, tottime, cumtime, _) in stats.items():
+        name = f"{path.rsplit('/', 1)[-1]}:{func}" if line else func
+        own[name] = own.get(name, 0.0) + tottime
+        if path.endswith("ops/gram.py"):
+            ours[f"{func}:{line}"] = cumtime
+    total = sum(own.values()) / calls * 1e6
+    top = sorted(own.items(), key=lambda kv: -kv[1])[:12]
+    return call_us, total, {k: v / calls * 1e6 for k, v in ours.items()}, [
+        (k, v / calls * 1e6) for k, v in top]
+
+
+def gram_times():
+    """``--gram-times``: kernel B7 alone, float32, on
+    ``benchmarks/dense_pieces.py``'s ``1.5 * Matern32(scale=2.5)``: at
+    1e4 x 1e4 and summed over the dense path's 20 strip shapes, each through
+    ``gram_tiled`` and launched directly (``_launch``), beside PyTorch's
+    ``fill_`` of a 1e4 x 1e4 output (a yardstick for the stores, not the
+    same function); the host time of one
+    64 x 64 ``gram_tiled`` call and its ``cProfile`` split. Every CUDA-event
+    time is taken first, before any ``torch.profiler`` trace; then each
+    case's device time and launches per call from a trace, two launches
+    compared bit for bit and the 1e4 gram held to phase 15's limit (every
+    number printed before a failure raises). Through entry points that older trees share,
+    so that one chip call can time this tree and its parent in turns."""
+    import torch
+
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    def card(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    X = card(np.sort(np.random.default_rng(0).uniform(0, 10, GRAM_N)))
+    pieces = (1.5 * kernels.Matern32(scale=2.5)).to("cuda")
+    ops, params = gram._compile(pieces, X, X)[2:4]
+    P = X[:, None]
+    Xd = card(dense_data()[0])
+    Pd = Xd[:, None]
+    strips = strip_shapes(DENSE_N, DENSE_BLOCK)
+    cases = {
+        f"N={GRAM_N} gram_tiled": lambda: gram.gram_tiled(pieces, X, X),
+        f"N={GRAM_N} launched directly": lambda: gram._launch(ops, params, P, P),
+        f"{len(strips)} strips gram_tiled": lambda: [
+            gram.gram_tiled(pieces, Xd[lo:], Xd[lo:cr]) for lo, cr in strips],
+        f"{len(strips)} strips launched directly": lambda: [
+            gram._launch(ops, params, Pd[lo:], Pd[lo:cr]) for lo, cr in strips],
+    }
+    # A yardstick, not the same function: PyTorch's fill of an output of the
+    # same size, what plain stores reach on this card.
+    filled = torch.empty(GRAM_N, GRAM_N, device="cuda")
+    cases[f"N={GRAM_N} yardstick fill_"] = lambda: filled.fill_(1.5)
+    nbytes, flops = gram_work(GRAM_N, GRAM_N, 1, ops, len(params))
+    s_bytes = s_flops = 0
+    for lo, cr in strips:
+        nb, fl = gram_work(DENSE_N - lo, cr - lo, 1, ops, len(params))
+        s_bytes, s_flops = s_bytes + nb, s_flops + fl
+    bounds = [bound_ms(nbytes, flops)] * 2 + [bound_ms(s_bytes, s_flops)] * 2 + [
+        bound_ms(4 * GRAM_N * GRAM_N, 0)]
+
+    # The clocks first: no trace has run in this process yet.
+    event_ms = {label: cuda_ms(fn, reps=50, warmup=5) for label, fn in cases.items()}
+    call_us, profiled_us, ours, top = gram_host_split(pieces, X[:64])
+
+    got, again = cases[f"N={GRAM_N} gram_tiled"](), cases[f"N={GRAM_N} launched directly"]()
+    same = torch.equal(got, again)
+    want = gram_f64(pieces, X, X)
+    err = float((got.double() - want).abs().max())
+    plain = float((gram.plain_gram(pieces, X, X).double() - want).abs().max())
+    limit = 2 * plain + 1e-6 * float(want.abs().max())
+    del got, again, want
+    for (label, fn), (bound, by) in zip(cases.items(), bounds):
+        split, per_call = kernel_split(fn)
+        device = ("not measured (no device time in the trace)" if split is None else
+                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+        shown = ("" if split is None else
+                 ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+        log(f"gram-times {label} float32 [{CARD}]: events {event_ms[label]:.4f} ms, device "
+            f"{device} (bound {bound:.4f} ms, {by})")
+        log(f"gram-times {label} trace: {per_call:g} device operations per call; ms per launch "
+            f"x launches per call: {shown}")
+    ok = same and err <= limit
+    log(f"gram-times N={GRAM_N}: two launches equal bit for bit {same}; against float64 "
+        f"{err:.3e} (limit {limit:.3e}) {'ok' if ok else 'FAIL'}")
+    log(f"gram-times one gram_tiled call of 64 x 64 points [{CARD}]: {call_us:.1f} us on the "
+        f"host clock; under cProfile {profiled_us:.1f} us")
+    log("gram-times cProfile, ops/gram.py cumulative us per call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(ours.items(), key=lambda kv: -kv[1])))
+    log("gram-times cProfile, most own time, us per call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in top))
+    if not ok:
+        raise AssertionError(f"B7 at N={GRAM_N} failed its checks")
 
 
 def main() -> int:
@@ -3659,6 +3870,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--b3-times", "generic"]:
         b3_generic_times()
+        return 0
+    if sys.argv[1:] == ["--b3-times", "engine"]:
+        engine_scan_times()
+        return 0
+    if sys.argv[1:] == ["--gram-times"]:
+        gram_times()
         return 0
     phase_b1_launches()
     phase_b3_launches()

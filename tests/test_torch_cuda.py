@@ -796,6 +796,102 @@ def test_gram_kernel_matches_plain(cuda_device, d):
     assert gram.LAUNCHES["gram"] == before + 2 * len(kernels)
 
 
+def gram_within_limit(kernel, X1, X2, got):
+    """B7's ``got`` no further from float64 than twice the float32 plain
+    version plus 1e-6 of the largest entry, finite, of the right shape."""
+    from tinygp_tpu_torch.ops import gram
+
+    want = gram_f64(kernel, X1, X2)
+    err = float((got.double() - want).abs().max())
+    plain = float((gram.plain_gram(kernel, X1, X2).double() - want).abs().max())
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert err <= 2 * plain + 1e-6 * float(want.abs().max()), (err, plain)
+
+
+def gram_deepest():
+    """A right-nested sum of MAX_STACK leaves: every leaf stays on the
+    stack until the end, so the program is as deep as B7 takes."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    k = kernels.Matern32(scale=1.3)
+    for i in range(gram.MAX_STACK - 1):
+        k = kernels.Exp(scale=1.0 + 0.5 * i) + k
+    return k
+
+
+GRAM_SHAPES = {
+    # (N, M, d, kernel): M % 4 in {1, 2, 3} takes the scalar stores.
+    "ragged M%4=1": (1037, 513, 1, "pieces"),
+    "ragged M%4=2": (1037, 514, 1, "pieces"),
+    "ragged M%4=3": (1037, 515, 3, "tree"),
+    # 157 x 24 tiles: more than the persistent grid's blocks.
+    "more tiles than blocks": (5000, 3000, 1, "pieces"),
+    "deepest stack d=1": (700, 600, 1, "deepest"),
+    "deepest stack d=3": (700, 601, 3, "deepest"),
+    "d=64": (300, 260, 64, "expsq"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAM_SHAPES))
+def test_gram_b7_shapes_match_plain(cuda_device, case):
+    """B7 at ragged widths, on more tiles than its grid has blocks, at the
+    deepest stack and at d = 1, 3 and 64: within the limit, the diagonal
+    exactly the plain version's, two launches equal bit for bit."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    n1, n2, d, name = GRAM_SHAPES[case]
+    kernel = {
+        "pieces": lambda: 1.5 * kernels.Matern32(scale=2.5),
+        "tree": lambda: gram_kernels(3)["tree"],
+        "deepest": gram_deepest,
+        "expsq": lambda: kernels.ExpSquared(scale=8.0) + 0.5 * kernels.Matern52(
+            scale=12.0, distance=kernels.L2Distance()),
+    }[name]().to(cuda_device)
+    rng = np.random.default_rng(n1 + n2 + d)
+    shape = () if d == 1 else (d,)
+    X1, X2 = (torch.as_tensor(rng.uniform(0, 10, (n, *shape)), dtype=torch.float32,
+                              device=cuda_device) for n in (n1, n2))
+    before = gram.LAUNCHES["gram"]
+    got = gram.gram_tiled(kernel, X1, X2)
+    again = gram.gram_tiled(kernel, X1, X2)
+    diag = gram.gram_tiled(kernel, X1, X1).diagonal()
+    torch.cuda.synchronize()
+    assert gram.LAUNCHES["gram"] == before + 3
+    assert torch.equal(got, again)
+    gram_within_limit(kernel, X1, X2, got)
+    assert torch.equal(diag, gram.plain_gram(kernel, X1, X1).diagonal())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["in place", "replaced", "amplitude in place"])
+def test_gram_b7_reads_hyperparameters_on_every_call(cuda_device, how):
+    """Two calls of one tree structure share B7's program, but each reads
+    the hyperparameters' values as they are: a scale written in place or
+    replaced, or the amplitude (the leaf's fused factor) written in place,
+    between two calls shows in the second result."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.ops import gram
+
+    X = torch.linspace(0, 10, 777, device=cuda_device)
+    kernel = (1.5 * kernels.Matern32(scale=2.5)).to(cuda_device)
+    first = gram.gram_tiled(kernel, X, X)
+    if how == "in place":
+        kernel.kernel2.scale.fill_(0.7)
+    elif how == "replaced":
+        kernel.kernel2.scale = torch.tensor(0.7, dtype=torch.float64, device=cuda_device)
+    else:
+        kernel.kernel1.value.fill_(0.4)
+    second = gram.gram_tiled(kernel, X, X)
+    amp, scale = (0.4, 2.5) if how == "amplitude in place" else (1.5, 0.7)
+    fresh = gram.gram_tiled((amp * kernels.Matern32(scale=scale)).to(cuda_device), X, X)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, fresh)
+    gram_within_limit(kernel, X, X, second)
+
+
 @pytest.mark.cuda
 def test_gram_gradient_on_the_card_matches_cpu(cuda_device):
     """d/d(amp, scale, X1) of sum(sin(K) w) through B7 against float64

@@ -344,3 +344,125 @@ def test_cpu_runs_the_plain_version():
     assert torch.equal(got, gram.plain_gram(k, T1, T2))
     # The plain version is the kernel's own matrix in float32 arithmetic.
     torch.testing.assert_close(got.double(), k(T1.double(), T2.double()), rtol=1e-6, atol=1e-6)
+
+
+# -- the program, built once per tree structure ---------------------------------
+
+
+def widest(k):
+    """The largest tree B7 takes: MAX_STACK leaves right-nested (every one
+    on the stack at once), then leaves summed on the left up to 63 nodes,
+    the most below MAX_OPS (a tree of sums and products has an odd count)."""
+    tree = k.Matern32(scale=1.3)
+    for i in range(gram.MAX_STACK - 1):
+        tree = k.Exp(scale=1.0 + i) + tree
+    nodes = 2 * gram.MAX_STACK - 1
+    i = 0
+    while nodes + 2 <= gram.MAX_OPS:
+        tree = tree + k.Matern52(scale=2.0 + 0.1 * i)
+        nodes += 2
+        i += 1
+    return tree
+
+
+# (the tree, nodes, B7's ops with each constant factor of a leaf fused:
+# (opcode, metric, parameter offset, the factor's offset or -1), the
+# deepest B7's stack gets)
+DEPTHS = {
+    "leaf": (lambda k: k.Matern32(scale=1.7), 1, [(5, 0, 0, -1)], 1),
+    "constant times leaf": (lambda k: 1.5 * k.Matern32(scale=2.5), 3, [(5, 0, 1, 0)], 1),
+    "leaf times constant": (lambda k: k.Matern32(scale=2.5) * 1.5, 3, [(5, 0, 0, 1)], 1),
+    "constant plus leaf": (lambda k: 1.5 + k.Matern32(scale=2.5), 3,
+                           [(0, 0, 0, -1), (5, 0, 1, -1), (1, 0, 0, -1)], 2),
+    # (1.3 M32 + Exp) (ExpSq + 0.5 Cos): the postfix C M32 * Exp + ExpSq C Cos * + *,
+    # four deep, fused to M32c Exp + ExpSq Cosc + *, three deep.
+    "composite": (composite, 11, [(5, 0, 1, 0), (3, 0, 2, -1), (1, 0, 0, -1), (4, 1, 3, -1),
+                                  (7, 0, 5, 4), (1, 0, 0, -1), (2, 0, 0, -1)], 3),
+    "deepest and widest": (widest, gram.MAX_OPS - 1, None, gram.MAX_STACK),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEPTHS))
+def test_program_depth_and_size(name):
+    build, nodes, fused, depth = DEPTHS[name]
+    X = torch.linspace(0, 3, 7)
+    kernel = build(tk)
+    assert gram.supports_tiled_gram(kernel, X, X)
+    _, _, ops, params, _ = gram._compile(kernel, X, X)
+    assert len(ops) == nodes
+    prog = gram._program(ops)
+    got = list(zip(prog.op, prog.metric, prog.param, prog.factor))[:prog.n_ops]
+    assert got == gram._fused(ops) and (fused is None or got == fused)
+    assert (prog.depth, prog.n_params) == (depth, len(params))
+    torch.testing.assert_close(gram.gram_tiled(kernel, X, X), gram.plain_gram(kernel, X, X))
+
+
+PAIRS = {
+    # (second tree, same program): the first is 1.5 * Matern32(scale=2.5).
+    "other values": (lambda: 0.3 * tk.Matern32(scale=0.9), True),
+    "float32 values": (lambda: tk.Constant(torch.tensor(0.3)) * tk.Matern32(
+        scale=torch.tensor(0.9)), True),
+    "other leaf": (lambda: 1.5 * tk.Matern52(scale=2.5), False),
+    "other metric": (lambda: 1.5 * tk.Matern32(scale=2.5, distance=tk.L2Distance()), False),
+    "other order": (lambda: tk.Matern32(scale=2.5) * 1.5, False),
+    "sum for product": (lambda: 1.5 + tk.Matern32(scale=2.5), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_programs_are_shared_by_structure_only(name):
+    """Trees of one structure share one cached program and differ only in
+    their parameter vectors; a structural change gives a new program."""
+    build, same = PAIRS[name]
+    X = torch.linspace(0, 3, 7)
+    first, second = 1.5 * tk.Matern32(scale=2.5), build()
+    _, _, ops1, params1, _ = gram._compile(first, X, X)
+    _, _, ops2, params2, _ = gram._compile(second, X, X)
+    assert (gram._program(ops1) is gram._program(ops2)) is same
+    vec1, vec2 = gram._param_vector(params1, X.device), gram._param_vector(params2, X.device)
+    assert vec1.dtype == vec2.dtype == torch.float32
+    assert vec1.tolist() == [1.5, 2.5]
+    if same:
+        np.testing.assert_array_equal(vec2.numpy(), np.float32([0.3, 0.9]))
+    torch.testing.assert_close(gram.gram_tiled(second, X, X), gram.plain_gram(second, X, X))
+
+
+@pytest.mark.parametrize("how", ["in place", "replaced"])
+def test_parameter_vector_reads_the_values_of_each_call(how):
+    X = torch.linspace(0, 3, 7)
+    kernel = 1.5 * tk.Matern32(scale=2.5)
+    _, _, ops, params, _ = gram._compile(kernel, X, X)
+    before = gram._param_vector(params, X.device)
+    if how == "in place":
+        kernel.kernel2.scale.fill_(0.5)
+    else:
+        kernel.kernel2.scale = torch.tensor(0.5, dtype=torch.float64)
+    _, _, ops_after, params_after, _ = gram._compile(kernel, X, X)
+    assert gram._program(ops_after) is gram._program(ops)
+    assert before.tolist() == [1.5, 2.5]
+    assert gram._param_vector(params_after, X.device).tolist() == [1.5, 0.5]
+
+
+def with_parameter(where):
+    """A tree with one ``nn.Parameter`` registered at ``where`` (or, for
+    "none", a parameter registered as None, which holds no value)."""
+    kernel = tt.Linear(torch.tensor(2.0), 1.5 * tk.Matern32(scale=2.5))
+    node = {"root": kernel, "constant": kernel.kernel.kernel1, "leaf": kernel.kernel.kernel2,
+            "distance": kernel.kernel.kernel2.distance, "none": kernel.kernel.kernel2}[where]
+    node.register_parameter("extra", None if where == "none" else
+                            torch.nn.Parameter(torch.tensor(1.0)))
+    return kernel
+
+
+@pytest.mark.parametrize("where", ["root", "constant", "leaf", "distance", "none"])
+def test_gate_refuses_parameters_anywhere_in_the_tree(where):
+    # The gate's rule: no nn.Parameter anywhere in the module tree, as
+    # ``kernel.parameters()`` finds them.
+    X = torch.linspace(0, 1, 5)
+    kernel = with_parameter(where)
+    holds = next(kernel.parameters(), None) is not None
+    assert holds is (where != "none")
+    assert gram.supports_tiled_gram(kernel, X, X) is not holds
+    if holds:
+        with pytest.raises(ValueError, match="buffers"):
+            gram.gram_tiled(kernel, X, X)

@@ -13,7 +13,9 @@ compiles a kernel tree into its program on the host: a postfix list of
 opcodes over a stack of at most :data:`MAX_STACK` values and at most
 :data:`MAX_OPS` nodes, with the hyperparameters in one float32 vector on
 the inputs' device (so a launch reads nothing back to the host, as the TPU
-design passes its parameters as operands). The set:
+design passes its parameters as operands). The program depends only on
+the tree's structure and is built once per structure; every call reads
+the hyperparameters' current values into the vector. The set:
 
 - the seven stationary leaves of :mod:`~tinygp_tpu_torch.kernels.stationary`
   (``Exp``, ``ExpSquared``, ``Matern32``, ``Matern52``, ``Cosine``,
@@ -48,7 +50,9 @@ the backward is the vector-Jacobian product of :func:`plain_gram` recomputed
 on the same inputs (B7 has no backward kernel, nor had the TPU). Cotangents
 reach X1, X2 and every hyperparameter, each in its own dtype. The
 hyperparameters are buffers, so they reach the ``torch.autograd.Function``
-as explicit inputs. A second derivative raises.
+as explicit inputs. A second derivative raises. A call with nothing to
+differentiate (gradients off, or no input or buffer that requires one)
+launches B7 without the ``Function``.
 
 Every launch adds one to ``LAUNCHES["gram"]``.
 """
@@ -58,6 +62,7 @@ from __future__ import annotations
 __all__ = ["LAUNCHES", "MAX_OPS", "MAX_STACK", "MAX_D", "gram_tiled",
            "supports_tiled_gram", "plain_gram"]
 
+import contextlib
 import ctypes
 import functools
 from types import SimpleNamespace
@@ -92,6 +97,7 @@ _LEAVES = {
 }
 _SQUARED = {_LEAVES[stationary.ExpSquared], _LEAVES[stationary.RationalQuadratic]}
 _EXTRA = {stationary.ExpSineSquared: "gamma", stationary.RationalQuadratic: "alpha"}
+_TWO_PARAMS = {_LEAVES[kind] for kind in _EXTRA}
 _METRICS = {distance.L1Distance: 0, distance.L2Distance: 1}
 _ROOTS = {transforms.Linear: "scale", transforms.Cholesky: "factor", transforms.Subspace: None}
 
@@ -102,10 +108,59 @@ class _Program(ctypes.Structure):
         ("n_params", ctypes.c_int),
         ("uses_l1", ctypes.c_int),
         ("uses_l2", ctypes.c_int),
+        ("depth", ctypes.c_int),
         ("op", ctypes.c_int * MAX_OPS),
         ("metric", ctypes.c_int * MAX_OPS),
         ("param", ctypes.c_int * MAX_OPS),
+        ("factor", ctypes.c_int * MAX_OPS),
     ]
+
+
+def _fused(ops: tuple) -> list:
+    """``ops`` with each product of a constant and a leaf, ``c * leaf`` or
+    ``leaf * c``, made one op: ``(opcode, metric, parameter offset, the
+    constant's offset)``, -1 where the op has no factor. The kernel
+    multiplies the leaf's value by the factor, the same float32 product as
+    the plain version's."""
+    out, o = [], 0
+    while o < len(ops):
+        if o + 2 < len(ops) and ops[o + 2][0] == _MUL:
+            a, b = ops[o], ops[o + 1]
+            if a[0] == _CONST and b[0] > _MUL:
+                a, b = b, a
+            if a[0] > _MUL and b[0] == _CONST:
+                out.append((*a, b[2]))
+                o += 3
+                continue
+        out.append((*ops[o], -1))
+        o += 1
+    return out
+
+
+@functools.cache
+def _program(ops: tuple) -> _Program:
+    """B7's program for the postfix list ``ops`` (a tuple of ``(opcode,
+    metric, parameter offset)``), built once per tree structure: the ops
+    with each constant factor of a leaf fused into it (:func:`_fused`), the
+    parameter count, which sums the leaves read (an L2 distance reads the
+    L1 sum at zero) and the deepest the stack gets, by which
+    ``csrc/gram.cu`` picks its instantiation. Holds no hyperparameter
+    value."""
+    fused = _fused(ops)
+    prog = _Program(n_ops=len(fused))
+    prog.n_params = sum(2 if op in _TWO_PARAMS else 1 for op, _, _ in ops if op not in (_ADD, _MUL))
+    sp = 0
+    for o, (op, metric, offset, factor) in enumerate(fused):
+        prog.op[o], prog.metric[o], prog.param[o], prog.factor[o] = op, metric, offset, factor
+        if op in (_ADD, _MUL):
+            sp -= 1
+            continue
+        sp += 1
+        prog.depth = max(prog.depth, sp)
+        if op != _CONST:
+            prog.uses_l1 |= metric == 0 or op not in _SQUARED
+            prog.uses_l2 |= metric == 1
+    return prog
 
 
 def _hyper(node, name: str) -> torch.Tensor:
@@ -118,12 +173,27 @@ def _hyper(node, name: str) -> torch.Tensor:
     return value
 
 
+def _tree(module) -> list:
+    """The module and every module below it: ``nn.Module.modules()``
+    without its names, de-duplication and generators, since every call
+    walks it."""
+    out, todo = [], [module]
+    while todo:
+        m = todo.pop()
+        out.append(m)
+        for child in m._modules.values():
+            if child is not None:
+                todo.append(child)
+    return out
+
+
 def _compile(kernel, X1, X2):
     """B7's program for ``kernel`` on these inputs: ``(roots, inner, ops,
-    params)`` with the root transforms (outermost first), the kernel below
-    them, the postfix ``(opcode, metric, parameter offset)`` list and the
-    hyperparameter tensors it reads. Raises ``ValueError`` with the reason
-    for anything B7 does not take."""
+    params, grad)`` with the root transforms (outermost first), the kernel
+    below them, the postfix ``(opcode, metric, parameter offset)`` tuple,
+    the hyperparameter tensors it reads and whether any buffer of the tree
+    requires a gradient. Raises ``ValueError`` with the reason for anything
+    B7 does not take."""
     for X in (X1, X2):
         if not isinstance(X, torch.Tensor):
             raise ValueError(f"inputs must be tensors; got {type(X).__name__}")
@@ -142,8 +212,10 @@ def _compile(kernel, X1, X2):
         raise ValueError(f"inputs with {d1} and {d2} features")
     if not isinstance(kernel, base.Kernel):
         raise ValueError(f"not a kernel of the port: {type(kernel).__name__}")
-    if next(kernel.parameters(), None) is not None:
+    modules = _tree(kernel)
+    if any(p is not None for m in modules for p in m._parameters.values()):
         raise ValueError("the tiled gram builder takes hyperparameters held as buffers")
+    grad = any(b is not None and b.requires_grad for m in modules for b in m._buffers.values())
 
     roots, d = [], d1
     while type(kernel) in _ROOTS:
@@ -204,7 +276,7 @@ def _compile(kernel, X1, X2):
             raise ValueError(f"the kernel tree has more than {MAX_OPS} nodes")
 
     walk(kernel)
-    return roots, kernel, ops, params
+    return roots, kernel, tuple(ops), params, grad
 
 
 def supports_tiled_gram(kernel, X1, X2) -> bool:
@@ -234,7 +306,7 @@ def plain_gram(kernel, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
 def _mapped(roots, X: torch.Tensor) -> torch.Tensor:
     """Points through the root transforms, outermost first, each with its
     hyperparameters in float32, exactly as ``_Wrapped.evaluate`` maps them."""
-    X = X[:, None] if X.ndim == 1 else X
+    X = X.unsqueeze(1) if X.ndim == 1 else X
     for node in roots:
         own = {n: b.to(torch.float32) for n, b in node.named_buffers(recurse=False)}
         X = type(node)._map(SimpleNamespace(axis=getattr(node, "axis", None), **own), X)
@@ -247,7 +319,8 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.library("gram")
     lib.gram_build.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        _Program, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.POINTER(_Program), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p,
     ]
     lib.gram_build.restype = ctypes.c_int
     lib.gram_error_string.argtypes = [ctypes.c_int]
@@ -261,31 +334,43 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _param_vector(params, device: torch.device) -> torch.Tensor:
+    """The hyperparameters' values now, in program order, as one float32
+    vector on ``device``: one stack and one cast, nothing read back."""
+    if any(p.device != device for p in params):
+        params = [p.to(device) for p in params]
+    return torch.stack(params).to(torch.float32)
+
+
 def _launch(ops, params, P1: torch.Tensor, P2: torch.Tensor) -> torch.Tensor:
     """B7 on points ``(N, d)`` and ``(M, d)`` on one CUDA device."""
     n1, n2, d = P1.shape[0], P2.shape[0], P1.shape[1]
     out = P1.new_empty(n1, n2)
     if not n1 or not n2:
         return out
-    prog = _Program(n_ops=len(ops), n_params=len(params))
-    for o, (op, metric, offset) in enumerate(ops):
-        prog.op[o], prog.metric[o], prog.param[o] = op, metric, offset
-        if op > _MUL:  # a leaf; an L2 distance reads the L1 sum at zero
-            prog.uses_l1 |= metric == 0 or op not in _SQUARED
-            prog.uses_l2 |= metric == 1
+    prog = _program(ops)
     P1, P2 = P1.contiguous(), P2.contiguous()
-    vec = torch.stack([p.to(device=P1.device, dtype=torch.float32) for p in params])
+    vec = _param_vector(params, P1.device)
     lib = _library()
-    with torch.cuda.device(P1.device):
-        err = lib.gram_build(P1.data_ptr(), n1, P2.data_ptr(), n2, d, prog, vec.data_ptr(),
-                             out.data_ptr(), out.stride(0),
-                             torch.cuda.current_stream().cuda_stream)
+    index = P1.device.index
+    with contextlib.nullcontext() if index == torch.cuda.current_device() \
+            else torch.cuda.device(index):
+        err = lib.gram_build(P1.data_ptr(), n1, P2.data_ptr(), n2, d, ctypes.byref(prog),
+                             vec.data_ptr(), out.data_ptr(), out.stride(0),
+                             torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(
             f"gram kernel failed: {lib.gram_error_string(err).decode()} (cudaError {err})"
         )
     LAUNCHES["gram"] += 1
     return out
+
+
+def _forward(kernel, ops, params, P1: torch.Tensor, P2: torch.Tensor) -> torch.Tensor:
+    """B7 on a CUDA tensor, :func:`plain_gram` on a CPU tensor."""
+    if P1.device.type == "cpu":
+        return plain_gram(kernel, P1, P2)
+    return _launch(ops, params, P1, P2)
 
 
 class _GramTiled(torch.autograd.Function):
@@ -296,9 +381,7 @@ class _GramTiled(torch.autograd.Function):
     def forward(ctx, kernel, names, ops, params, P1, P2, *hypers):
         ctx.kernel, ctx.names = kernel, names
         ctx.save_for_backward(P1, P2, *hypers)
-        if P1.device.type == "cpu":
-            return plain_gram(kernel, P1, P2)
-        return _launch(ops, params, P1, P2)
+        return _forward(kernel, ops, params, P1, P2)
 
     @staticmethod
     @once_differentiable
@@ -321,16 +404,19 @@ def gram_tiled(kernel, X1: torch.Tensor, X2: torch.Tensor, *, tile: int = 256) -
     Raises ``ValueError``, on either device, for whatever
     :func:`supports_tiled_gram` refuses. ``tile`` is kept for parity with
     the JAX builder and must be a positive int; it changes no result and
-    does not set B7's own tiling (64 x 64 blocks, the ragged edge masked,
-    where the JAX builder pads to whole tiles and slices). The JAX builder's
-    ``interpret`` has no counterpart: a CPU tensor runs the plain version.
+    does not set B7's own tiling (tiles of 128 columns, the ragged edge
+    masked, where ``pallas_gram.gram_tiled`` pads to whole tiles and
+    slices). Its ``interpret`` has no counterpart: a CPU tensor runs the
+    plain version.
     Differentiable in X1, X2 and every hyperparameter, once.
     """
     if isinstance(tile, bool) or not isinstance(tile, int) or tile < 1:
         raise ValueError(f"tile must be a positive int; got {tile!r}")
-    roots, inner, ops, params = _compile(kernel, X1, X2)
+    roots, inner, ops, params, grad = _compile(kernel, X1, X2)
     # The root transforms run here, differentiably, so the Function sees the
     # inner tree on mapped points; its hyperparameters are explicit inputs.
     P1, P2 = _mapped(roots, X1), _mapped(roots, X2)
+    if not (torch.is_grad_enabled() and (grad or X1.requires_grad or X2.requires_grad)):
+        return _forward(inner, ops, params, P1, P2)  # nothing to differentiate
     named = dict(inner.named_buffers())
     return _GramTiled.apply(inner, tuple(named), ops, params, P1, P2, *named.values())
