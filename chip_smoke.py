@@ -131,13 +131,33 @@ Phases, each printing its numbers on lines of its own:
     the float64 entry points against the CPU's plain version; then the
     generic B1 and B1r at m = 5 (N = 1e5 and 1e6) whole and pass by pass
     (a ``torch.profiler`` trace) and B3's generic Riccati flow at m = 5, 8
-    and 16.
+    and 16;
+17. B1, B1r and B2 with a chain axis (one launch for every chain): at
+    (chains, N, m) = (1024, 512, 2) in float32 with the data shared by every
+    chain and not, (64, 1e5, 2) in float32 and (16, 4096, 4) in float64,
+    each against its plain version (per chain and output stream) and bit
+    for bit against the unbatched launch on each chain's operands, timed
+    beside its bound (the unbatched bytes times the chains, y once where
+    shared), the plain version and, for B1r, the chains' unbatched
+    launches in turn;
+18. the samplers: ``run_mcmc(..., sampler="nuts")`` on
+    ``benchmarks/nuts_throughput.py``'s model (``amp * SHO``, 1024 chains,
+    N = 512, float32, ``max_tree_depth=6``, ``steps_per_dispatch=25``) with
+    half its 100 warmup steps and 100 samples, every batched gradient
+    evaluation one chain-axis B1r and one B2 launch by the counts, the
+    accept statistic, split R-hat and four chains against the plain
+    version on the CPU held to limits; a checkpointed run interrupted and
+    resumed equal to the uninterrupted one; samples/s and one evaluation's
+    split; then ``hmc`` on 64 chains of ``bench.py``'s Matern32 model at
+    N = 1e5.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 at either order and B6 each summed over the shapes of
 the dense main path; B7 at 1e4; one record per generic-order instantiation
-of phase 16, and B1, B1r and B2 at m = 5); the last line
+of phase 16, and B1, B1r and B2 at m = 5; B1, B1r and B2 with a chain
+axis at the sampler's shape, with their launches on phase 18's path); the
+last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -165,6 +185,9 @@ the couplings (2, 2) and (4, 4) through either source, and the whole
 Matern32, Matern52 and celerite ``condition`` calls.
 ``python3 chip_smoke.py --b3-times engine`` times the scans of phase 7 that
 still run the three-phase engine, beside their bounds.
+``python3 chip_smoke.py --sampler`` runs phase 1 and then only phases 17
+and 18, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
+100 samples, and prints the chain-axis records.
 ``python3 chip_smoke.py --gram-times`` does the same for B7: at 1e4 x 1e4
 and over the dense path's 20 strip shapes, each through ``gram_tiled`` and
 launched directly, and the host time of one 64 x 64 ``gram_tiled`` call
@@ -3839,6 +3862,396 @@ def gram_times():
         raise AssertionError(f"B7 at N={GRAM_N} failed its checks")
 
 
+# ---------------------------------------------------------------------------
+# A chain axis in B1, B1r and B2, and the many-chain samplers (phases 17-18).
+# ---------------------------------------------------------------------------
+
+# (chains, N, m, dtype, shared y): the sampler path's shape with and without
+# its shared data, a long series whose chains span 196 tiles each, and the
+# templated kernels' largest order in float64.
+CHAIN_CASES = [
+    (1024, 512, 2, "float32", True),
+    (1024, 512, 2, "float32", False),
+    (64, 100_000, 2, "float32", False),
+    (16, 4096, 4, "float64", False),
+]
+
+
+def chain_bound_ms(kind, chains, m, n, itemsize, shared_y):
+    """Least time for one chain-axis launch: ``chains`` times the unbatched
+    bytes (``loglik_bound_ms``, ``bwd_bound_ms``), y read once when every
+    chain shares it, or the operations."""
+    per = {"b1": m * m + 2 * m + 2, "b1r": 2 * m * m + 3 * m + 3, "b2": 3 * m * m + 5 * m + 4}
+    values = chains * per[kind] * n - (chains - 1) * n * shared_y
+    ops = 8 * m**3 + 25 * m**2 + 30 * m + 25 if kind == "b2" else 4 * m**3 + 11 * m**2 + 6 * m + 8
+    return bound_ms(values * itemsize + 2 * chains * itemsize, chains * n * ops)
+
+
+def chain_err(got, want):
+    """The largest, over chains, of each chain's largest error relative to
+    its stream's largest magnitude, in float64."""
+    g, w = got.double().flatten(1), want.double().flatten(1)
+    return float(((g - w).abs().amax(1) / w.abs().amax(1).clamp_min(1e-300)).max())
+
+
+def chain_operands_on_card(chains, n, m, dtype, shared_y, seed):
+    import torch
+
+    from tinygp_tpu_torch.test_utils import random_qsm_operands
+
+    per = [random_qsm_operands(m, n, seed + c) for c in range(chains)]
+    ops = [torch.as_tensor(np.stack(x), dtype=dtype, device="cuda") for x in zip(*per)]
+    if shared_y:
+        ops[4] = ops[4][0].clone()
+    return ops
+
+
+def phase_chain_kernels():
+    """Phase 17: B1, B1r and B2 over a chain axis at each of CHAIN_CASES,
+    against their plain versions (per chain and output stream, rtol 1e-8
+    in float64 and 5e-4 in float32 against float64) and, bit for bit,
+    against the unbatched launch on each chain's operands; one launch each;
+    CUDA-event times beside the bound, the plain version and, for B1r, the
+    unbatched launches of every chain in turn. Returns the three records at
+    the sampler path's shape (the first case)."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
+
+    records = {}
+    failures = []
+    for chains, n, m, dtype_name, shared in CHAIN_CASES:
+        dtype = getattr(torch, dtype_name)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        d, ps, qs, as_, y = ops = chain_operands_on_card(chains, n, m, dtype, shared, 1000 * m)
+        qbar = torch.linspace(0.5, 1.5, chains, dtype=dtype, device="cuda")
+        lbar = torch.tensor(-1.0, dtype=dtype, device="cuda")
+        before = dict(cl.LAUNCHES_CHAINS)
+        value = cl.fused_loglik_terms_chains(*ops)
+        res = cl.fused_loglik_res_chains(*ops)
+        bwd_ops = (ps, qs, as_, y, *res[2:], qbar, lbar)
+        grads = cl.fused_loglik_bwd_chains(*bwd_ops)
+        torch.cuda.synchronize()
+        one = all(cl.LAUNCHES_CHAINS[k] == before[k] + 1 for k in before)
+
+        # Bit for bit: each chain's unbatched launch on its own operands.
+        def part(x, c, rank):
+            return x[c] if x.ndim == rank + 1 else x
+
+        singles = [cl.fused_loglik_res(*(part(x, c, r) for x, r in zip(ops, (1, 2, 2, 2, 1))))
+                   for c in range(chains)]
+        single_values = [cl.fused_loglik_terms(*(part(x, c, r) for x, r in
+                                                 zip(ops, (1, 2, 2, 2, 1))))
+                         for c in range(chains)]
+        single_grads = [cl.fused_loglik_bwd(*(part(x, c, r) for x, r in
+                                              zip(bwd_ops, (2, 2, 2, 1, 2, 2, 1, 0, 0))))
+                        for c in range(chains)]
+        same = (all(torch.equal(a, torch.stack(b)) for a, b in zip(res, zip(*singles)))
+                and all(torch.equal(a, torch.stack(b)) for a, b in zip(value, zip(*single_values)))
+                and all(torch.equal(a, torch.stack(b)) for a, b in zip(grads, zip(*single_grads))))
+        del singles, single_values, single_grads
+
+        # The plain versions in float64 on the same values.
+        f64 = [x.double() for x in ops]
+        want_res = cl.plain_loglik_terms_res_chains(*f64)
+        want_bwd = cl.plain_loglik_bwd_chains(*f64[1:], *(x.double() for x in res[2:]),
+                                              qbar.double(), lbar.double())
+        rtol = 1e-8 if dtype == torch.float64 else 5e-4
+        errs = {
+            "b1": max(chain_err(g[:, None], w[:, None]) for g, w in zip(value, want_res[:2])),
+            "b1r": max(chain_err(g if g.ndim > 1 else g[:, None], w if w.ndim > 1 else w[:, None])
+                       for g, w in zip(res, want_res)),
+            "b2": max(chain_err(g, w) for g, w in zip(grads, want_bwd)),
+        }
+        abs_errs = {
+            "b1": max(float((g.double() - w).abs().max()) for g, w in zip(value, want_res[:2])),
+            "b1r": max(float((g.double() - w).abs().max()) for g, w in zip(res, want_res)),
+            "b2": max(float((g.double() - w).abs().max()) for g, w in zip(grads, want_bwd)),
+        }
+        finite = all(bool(torch.isfinite(x).all()) for x in (*value, *res, *grads))
+        del f64, want_res, want_bwd
+
+        ms = {
+            "b1": cuda_ms(lambda: cl.fused_loglik_terms_chains(*ops), reps=20, warmup=3),
+            "b1r": cuda_ms(lambda: cl.fused_loglik_res_chains(*ops), reps=20, warmup=3),
+            "b2": cuda_ms(lambda: cl.fused_loglik_bwd_chains(*bwd_ops), reps=20, warmup=3),
+        }
+        loop_ms = cuda_ms(lambda: [cl.fused_loglik_res(*(part(x, c, r) for x, r in
+                                                         zip(ops, (1, 2, 2, 2, 1))))
+                                   for c in range(chains)], reps=3, warmup=1)
+        plain_ms = {
+            "b1": None,
+            "b1r": cuda_ms(lambda: cl.plain_loglik_terms_res_chains(*ops), reps=1, warmup=0),
+            "b2": cuda_ms(lambda: cl.plain_loglik_bwd_chains(*bwd_ops), reps=1, warmup=0),
+        }
+        plain_ms["b1"] = plain_ms["b1r"]  # B1's plain version is B1r's, the residuals dropped
+        ok = one and same and finite and all(e <= rtol for e in errs.values())
+        for kind in ("b1", "b1r", "b2"):
+            bound, by = chain_bound_ms(kind, chains, m, n, itemsize, shared)
+            log(f"chain-kernel {kind} C={chains} N={n} m={m} {dtype_name}"
+                f"{' shared y' if shared else ''}: one launch {one}, bit for bit the unbatched "
+                f"launch of each chain {same}, vs plain (float64) rel {errs[kind]:.3e} abs "
+                f"{abs_errs[kind]:.4g} (rtol {rtol:g}), {ms[kind]:.4f} ms (events), bound "
+                f"{bound:.4f} ms ({by}), plain {plain_ms[kind]:.4f} ms"
+                + (f", {chains} unbatched launches in turn {loop_ms:.4f} ms" if kind == "b1r"
+                   else "") + f" {'ok' if ok else 'FAIL'}")
+            if (chains, n, m, dtype_name, shared) == CHAIN_CASES[0]:
+                records[kind] = {
+                    "max_abs_err": abs_errs[kind], "ms": ms[kind], "plain_ms": plain_ms[kind],
+                    "bound_ms": bound, "bound_by": by, "library_ms": None,
+                }
+        if not ok:
+            failures.append((chains, n, m, dtype_name, shared))
+        del ops, res, value, grads, bwd_ops
+    if failures:
+        raise AssertionError(f"chain-axis kernels failed: {failures}")
+    names = {"b1": ("quasisep_loglik_chains", "quasisep_loglik.cu", 86),
+             "b1r": ("quasisep_loglik_res_chains", "quasisep_loglik.cu", 86),
+             "b2": ("quasisep_loglik_bwd_chains", "quasisep_loglik_bwd.cu", 414)}
+    for kind, (name, source, line) in names.items():
+        records[kind] = {"name": name, "route": "cuda",
+                         "source": f"tinygp_tpu_torch/csrc/{source}",
+                         "replaces": f"tinygp_tpu/solvers/quasisep/pallas_loglik.py:{line}",
+                         "launches": 0, **records[kind]}
+    return records
+
+
+SAMPLER_INIT = {"log_amp": 0.0, "log_omega": 1.0, "log_q": 1.0, "log_jitter": -2.0}
+
+
+def nuts_model(device, n=512):
+    """``benchmarks/nuts_throughput.py:38-54``: ``amp * SHO(omega, quality)``,
+    ``diag = jitter + 0.09``, standard-normal priors on the four log
+    parameters, its data from ``default_rng(0)``, float32 on ``device``."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 10, n))
+    y = np.sin(3 * t) * np.exp(-0.1 * t) + 0.3 * rng.normal(size=n)
+    X = torch.as_tensor(t, dtype=torch.float32, device=device)
+    Y = torch.as_tensor(y, dtype=torch.float32, device=device)
+
+    def gp_of(params):
+        amp, omega, q, jitter = (torch.exp(params[k]) for k in SAMPLER_INIT)
+        kernel = amp * quasisep.SHO(omega=omega, quality=q)
+        return GaussianProcess(kernel, X, diag=jitter + 0.09, assume_sorted=True, device=device)
+
+    def log_prob(params):
+        return gp_of(params).log_probability(Y) - 0.5 * sum(
+            torch.sum(torch.square(v)) for v in params.values())
+
+    init = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in SAMPLER_INIT.items()}
+    return log_prob, gp_of, init, Y
+
+
+def sampler_counts(hmc_mod):
+    """The kernels' and the samplers' counts since reset_counts()."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl, cuda_scan
+
+    return {"evaluations": hmc_mod.EVALUATIONS, "b1": cl.LAUNCHES, "b1r": cl.LAUNCHES_RES,
+            "b2": cl.LAUNCHES_BWD, "chains": dict(cl.LAUNCHES_CHAINS),
+            "generic": sum(cl.LAUNCHES_GENERIC.values()),
+            "b3": sum(cuda_scan.LAUNCHES.values()) + sum(cuda_scan.LAUNCHES_GENERIC.values())}
+
+
+def reset_sampler_counts(hmc_mod):
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
+
+    reset_counts()
+    hmc_mod.EVALUATIONS = 0
+    for k in cl.LAUNCHES_CHAINS:
+        cl.LAUNCHES_CHAINS[k] = 0
+
+
+def one_launch_per_evaluation(counts):
+    """Each batched gradient evaluation was one chain-axis B1r and one B2
+    launch, with no per-chain, value-only or other launch."""
+    e = counts["evaluations"]
+    return (e > 0 and counts["b1r"] == counts["chains"]["b1r"] == e
+            and counts["b2"] == counts["chains"]["b2"] == e
+            and counts["b1"] == counts["chains"]["b1"] == 0
+            and counts["generic"] == counts["b3"] == 0)
+
+
+# nuts_throughput.py's settings. The whole script's phase 18 halves the
+# warmup and the samples (one run took 178 s on an H100 at these settings,
+# and the phase is held to about two minutes); ``--sampler`` runs them as
+# they are.
+NUTS_RUN = dict(num_chains=1024, num_warmup=100, num_samples=100, max_tree_depth=6,
+                jitter_init=0.1, steps_per_dispatch=25)
+NUTS_RUN_CUT = dict(NUTS_RUN, num_warmup=50, num_samples=50)
+
+
+def phase_sampler(run=NUTS_RUN_CUT):
+    """Phase 18: ``run_mcmc(..., sampler="nuts")`` on ``nuts_throughput.py``'s
+    model and settings (1024 chains, N = 512, float32; ``run``, by default
+    with half its warmup and samples) with the launch counts read around it; finite samples, a mean accept statistic in
+    [0.6, 0.95] and split R-hat below 1.1 on every parameter; the batched
+    value and gradient of four chains against the plain version on the
+    CPU; a checkpointed run interrupted and resumed equal to the
+    uninterrupted one; samples/s, the wall time and one batched gradient
+    evaluation's time and split; then ``hmc`` (8 leapfrogs of 1e-3, 5
+    steps) on 64 chains of the Matern32 model at ``bench.py``'s N = 1e5. Returns the
+    launches of B1r and B2 over both runs."""
+    import importlib
+    import os
+
+    import torch
+
+    from tinygp_tpu_torch.samplers import potential_scale_reduction, run_mcmc
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
+
+    hmc_mod = importlib.import_module("tinygp_tpu_torch.samplers.hmc")
+    log_prob, gp_of, init, Y = nuts_model("cuda")
+
+    # The main path, once, with the counts read around it.
+    reset_sampler_counts(hmc_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = run_mcmc(0, log_prob, init, device="cuda", **run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sampler_counts(hmc_mod)
+    one = one_launch_per_evaluation(counts)
+    finite = all(bool(torch.isfinite(v).all()) for v in samples.values())
+    shapes = all(v.shape == (run["num_samples"], run["num_chains"]) for v in samples.values())
+    accept = float(info.accept_prob.mean())
+    rhat = {k: float(potential_scale_reduction(v.double())) for k, v in samples.items()}
+    moments = {k: (float(v.double().mean()), float(v.double().std())) for k, v in samples.items()}
+    total = run["num_chains"] * run["num_samples"]
+    steps = info.num_steps.double()
+    log(f"sampler nuts: {run}, {CARD}: wall {wall:.3f} s (warmup included), "
+        f"{total / wall:.1f} samples/s, batched evaluations {counts['evaluations']}, launches "
+        f"{counts}, one chain-axis B1r and B2 launch per evaluation and none per chain {one}")
+    log(f"sampler nuts: accept {accept:.4f} (limits [0.6, 0.95]), split R-hat {rhat} (< 1.1), "
+        f"mean/sd {moments}, leapfrogs per transition mean {float(steps.mean()):.2f} max "
+        f"{int(steps.max())}, divergent {float(info.diverging.double().mean()):.4f}, finite "
+        f"{finite}, shapes {shapes}")
+    ok = (one and finite and shapes and 0.6 <= accept <= 0.95
+          and all(r < 1.1 for r in rhat.values()))
+
+    # One batched evaluation at the final positions, timed whole and split.
+    flat = torch.stack([samples[k][-1] for k in SAMPLER_INIT], dim=-1).contiguous()
+    ravel, unravel, dim = hmc_mod._ravel_spec(init)
+    value_and_grad = hmc_mod._value_and_grad(lambda z: log_prob(unravel(z)))
+    eval_ms = cuda_ms(lambda: value_and_grad(flat), reps=20, warmup=3)
+    with torch.no_grad():
+        def construct(z):
+            return gp_of(unravel(z)).solver.ssm
+
+        construct_ms = cuda_ms(lambda: torch.func.vmap(construct)(flat), reps=20, warmup=3)
+        d, ps, qs, as_ = torch.func.vmap(construct)(flat)
+        ops = tuple(x.contiguous() for x in (d, ps, qs, as_)) + (Y,)
+        b1r_ms = cuda_ms(lambda: cl.fused_loglik_res_chains(*ops), reps=20, warmup=3)
+        res = cl.fused_loglik_res_chains(*ops)
+        bars = (torch.full((flat.shape[0],), -0.5, dtype=flat.dtype, device="cuda"),
+                torch.full((flat.shape[0],), -1.0, dtype=flat.dtype, device="cuda"))
+        b2_ms = cuda_ms(lambda: cl.fused_loglik_bwd_chains(*ops[1:], *res[2:], *bars),
+                        reps=20, warmup=3)
+    log(f"sampler nuts: one batched gradient evaluation ({flat.shape[0]} chains, N = 512, "
+        f"float32, {CARD}) {eval_ms:.4f} ms (events): constructor {construct_ms:.4f}, B1r "
+        f"{b1r_ms:.4f}, B2 {b2_ms:.4f}, autograd and the rest "
+        f"{eval_ms - construct_ms - b1r_ms - b2_ms:.4f} ms")
+
+    # Four chains' value and gradient against the plain version on the CPU,
+    # float32 both (the tolerance table's 5e-4).
+    lp_card, g_card = value_and_grad(flat[:4])
+    cpu_log_prob, _, cpu_init, _ = nuts_model("cpu")
+    _, cpu_unravel, _ = hmc_mod._ravel_spec(cpu_init)
+    ref_err = 0.0
+    for c in range(4):
+        z = flat[c].cpu().clone().requires_grad_(True)
+        lp = cpu_log_prob(cpu_unravel(z))
+        (g,) = torch.autograd.grad(lp, z)
+        lp = float(lp.detach())
+        ref_err = max(ref_err, abs(float(lp_card[c]) - lp) / abs(lp),
+                      float((g_card[c].cpu() - g).abs().max() / g.abs().max()))
+    log(f"sampler nuts: batched value and gradient of 4 chains vs the plain version on the CPU "
+        f"(float32): rel {ref_err:.3e} (5e-4)")
+    ok = ok and ref_err <= 5e-4
+
+    # A checkpointed run, interrupted after its third save, resumed: the
+    # uninterrupted run's samples bit for bit (full width, short phases).
+    short = dict(NUTS_RUN, num_warmup=6, num_samples=4, steps_per_dispatch=3)
+    path = os.path.join("build", "chip_smoke", "mcmc.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    full = run_mcmc(7, log_prob, init, device="cuda", **short)
+    real_save, calls = hmc_mod.checkpoint.save_pytree, [0]
+
+    class Preempted(Exception):
+        pass
+
+    def exploding_save(p, tree):
+        real_save(p, tree)
+        calls[0] += 1
+        if calls[0] == 3:
+            raise Preempted
+
+    hmc_mod.checkpoint.save_pytree = exploding_save
+    try:
+        run_mcmc(7, log_prob, init, checkpoint_path=path, device="cuda", **short)
+        interrupted = False
+    except Preempted:
+        interrupted = True
+    finally:
+        hmc_mod.checkpoint.save_pytree = real_save
+    resumed = run_mcmc(7, log_prob, init, checkpoint_path=path, device="cuda", **short)
+    same = interrupted and all(torch.equal(full[0][k], resumed[0][k]) for k in full[0]) and all(
+        torch.equal(a, b) for a, b in zip(full[1], resumed[1]))
+    log(f"sampler nuts: checkpointed run {short}, interrupted after its third save "
+        f"{interrupted}, resumed equal to the uninterrupted run bit for bit {same} "
+        f"({time.perf_counter() - t0:.2f} s for the three runs)")
+    ok = ok and same
+    launches = {"b1r": counts["b1r"], "b2": counts["b2"]}
+
+    # The long series: hmc, 8 leapfrogs, 5 steps, 64 chains at N = 1e5.
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    (X5, y5), _ = bench_data()
+    X = torch.as_tensor(X5, dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(y5, dtype=torch.float32, device="cuda")
+
+    def matern32_log_prob(params):
+        amp, scale = torch.exp(params["log_amp"]), torch.exp(params["log_scale"])
+        gp = GaussianProcess(amp * quasisep.Matern32(scale=scale), X, diag=0.1,
+                             assume_sorted=True, device="cuda")
+        return gp.log_probability(y) - 0.5 * (params["log_amp"] ** 2 + params["log_scale"] ** 2)
+
+    m32_init = {k: torch.tensor(math.log(v), dtype=torch.float32, device="cuda")
+                for k, v in (("log_amp", 1.5), ("log_scale", 2.5))}
+    reset_sampler_counts(hmc_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # A step of 1e-3 in the log parameters, whose posterior sd at this N is
+    # about 5e-3: the trajectories accept, so the chains move.
+    m32, m32_info = run_mcmc(1, matern32_log_prob, m32_init, num_chains=64, num_warmup=0,
+                             num_samples=5, sampler="hmc", num_leapfrog=8,
+                             initial_step_size=1e-3, jitter_init=0.01, steps_per_dispatch=None,
+                             device="cuda")
+    torch.cuda.synchronize()
+    m32_wall = time.perf_counter() - t0
+    m32_counts = sampler_counts(hmc_mod)
+    m32_one = one_launch_per_evaluation(m32_counts)
+    m32_finite = all(bool(torch.isfinite(v).all()) for v in m32.values())
+    log(f"sampler hmc matern32: 64 chains, N = 1e5, float32, 8 leapfrogs x 5 steps of 1e-3, "
+        f"{CARD}: wall {m32_wall:.3f} s, batched evaluations "
+        f"{m32_counts['evaluations']}, launches {m32_counts}, one chain-axis B1r and B2 launch "
+        f"per evaluation {m32_one}, accept {float(m32_info.accept_prob.mean()):.4f}, finite "
+        f"{m32_finite}")
+    ok = ok and m32_one and m32_finite
+    if not ok:
+        raise AssertionError("the sampler phase failed")
+    launches["b1r"] += m32_counts["b1r"]
+    launches["b2"] += m32_counts["b2"]
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3877,6 +4290,11 @@ def main() -> int:
     if sys.argv[1:] == ["--gram-times"]:
         gram_times()
         return 0
+    if sys.argv[1:] == ["--sampler"]:
+        records = phase_chain_kernels()
+        phase_sampler(NUTS_RUN)
+        log(json.dumps({"kernels": list(records.values())}))
+        return 0
     phase_b1_launches()
     phase_b3_launches()
     phase_kernel_vs_plain()
@@ -3910,10 +4328,15 @@ def main() -> int:
     gram_record = phase_gram()
     generic_records = phase_orders_path()
     generic_loglik_times()
+    chain_records = phase_chain_kernels()
+    sampler_launches = phase_sampler()
+    for kind in ("b1r", "b2"):
+        chain_records[kind]["launches"] = sampler_launches[kind]
     records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
     records += dense_records(measured, launches)
     records.append(gram_record)
     records += generic_records
+    records += list(chain_records.values())
     log(json.dumps({"kernels": records}))
     log(
         json.dumps(

@@ -50,10 +50,11 @@ def test_condition_result_is_exported():
 
 
 # ROADMAP.md, queue A: names still to port (L2, the Kalman and low-rank
-# solvers), and the subpackages still to port as a whole (L3 samplers,
-# L4 parallel).
-QUEUED = {"KalmanSolver", "LowRankSolver"}
-QUEUED_SUBPACKAGES = {"samplers", "parallel"}
+# solvers; L3's VI and SMC samplers), and the subpackage still to port as a
+# whole (L4 parallel).
+QUEUED = {"KalmanSolver", "LowRankSolver", "fit_advi", "sample_advi", "run_smc", "ADVIResult",
+          "ADVIFullRankResult", "SMCResult"}
+QUEUED_SUBPACKAGES = {"parallel"}
 
 
 def declared_all(module: str) -> set[str] | None:

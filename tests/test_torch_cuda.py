@@ -1254,3 +1254,117 @@ def test_b3_generic_scan_raises_above_order_32(cuda_device, monoid):
     operands, m, r = scan_case(monoid, 33, 300, 1, torch.float64, cuda_device, seed=2)
     with pytest.raises(NotImplementedError, match="N10"):
         run_scan(monoid, operands, m, r, False, True)
+
+
+# ---------------------------------------------------------------------------
+# A chain axis in B1, B1r and B2: one launch for every chain.
+# ---------------------------------------------------------------------------
+
+
+def chain_operands(chains, m, n, dtype, device, shared_y):
+    """``chains`` problems of order m and length n stacked on a leading
+    axis, with one ``y`` for all (no chain axis) if ``shared_y``."""
+    per = [operands(m, n, dtype, device, seed=7 * c + m) for c in range(chains)]
+    ops = [torch.stack(x) for x in zip(*per)]
+    if shared_y:
+        ops[4] = ops[4][0].clone()
+    return ops
+
+
+def chain_slice(x, c, rank):
+    return x[c] if x.ndim == rank + 1 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_y", [False, True], ids=["y", "shared-y"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,n,chains", [(1, 700, 5), (2, 512, 33), (2, 40_000, 3), (3, 9000, 4),
+                                        (4, 4096, 6), (5, 3000, 3)])
+def test_chain_axis_launches_once_and_matches_unbatched_bit_for_bit(
+        cuda_device, m, n, chains, dtype, shared_y):
+    """B1, B1r and B2 over a chain axis: one launch each up to m = 4 (one a
+    chain above), each chain bit for bit the unbatched launch on its
+    operands, and within rtol 1e-8 (float64) or 5e-4 (float32, per output
+    stream against float64) of the plain version."""
+    d, ps, qs, as_, y = chain_operands(chains, m, n, dtype, cuda_device, shared_y)
+    ranks = (1, 2, 2, 2, 1)
+    fwd = (d, ps, qs, as_, y)
+    before = dict(cuda_loglik.LAUNCHES_CHAINS), cuda_loglik.LAUNCHES_RES, cuda_loglik.LAUNCHES
+    value = cuda_loglik.fused_loglik_terms_chains(*fwd)
+    res = cuda_loglik.fused_loglik_res_chains(*fwd)
+    qbar = torch.linspace(0.5, 1.5, chains, dtype=dtype, device=cuda_device)
+    lbar = torch.tensor(-1.0, dtype=dtype, device=cuda_device)
+    bwd = (ps, qs, as_, y, *res[2:], qbar, lbar)
+    grads = cuda_loglik.fused_loglik_bwd_chains(*bwd)
+    torch.cuda.synchronize()
+    one = m <= 4
+    assert cuda_loglik.LAUNCHES_CHAINS == {k: v + one for k, v in before[0].items()}
+    assert cuda_loglik.LAUNCHES_RES == before[1] + (1 if one else chains)
+    assert cuda_loglik.LAUNCHES == before[2] + (1 if one else chains)
+    rtol = 1e-8 if dtype == torch.float64 else 5e-4
+    for c in range(chains):
+        args = [chain_slice(x, c, r) for x, r in zip(fwd, ranks)]
+        single = cuda_loglik.fused_loglik_res(*args)
+        single_value = cuda_loglik.fused_loglik_terms(*args)
+        single_bwd = cuda_loglik.fused_loglik_bwd(*args[1:], *single[2:], qbar[c], lbar)
+        assert all(torch.equal(a[c], b) for a, b in zip(res, single))
+        assert all(torch.equal(a[c], b) for a, b in zip(value, single_value))
+        assert all(torch.equal(a[c], b) for a, b in zip(grads, single_bwd))
+        f64 = [x.double() for x in args]
+        want = cuda_loglik.plain_loglik_terms_res(*f64)
+        for g, w in zip(res, want):
+            assert stream_err(g[c], w) <= rtol
+        want = cuda_loglik.plain_loglik_bwd(*f64[1:], *(x[c].double() for x in res[2:]),
+                                            qbar[c].double(), lbar.double())
+        for g, w in zip(grads, want):
+            assert stream_err(g[c], w) <= rtol
+
+
+@pytest.mark.cuda
+def test_chain_axis_refuses_what_it_cannot_do(cuda_device):
+    d, ps, qs, as_, y = chain_operands(3, 2, 100, torch.float64, cuda_device, False)
+    with pytest.raises(ValueError, match="one length"):
+        cuda_loglik.fused_loglik_res_chains(d[:2], ps, qs, as_, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_loglik.fused_loglik_res_chains(d, ps.transpose(1, 2).contiguous().transpose(1, 2),
+                                            qs, as_, y)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_loglik.fused_loglik_res_chains(d, ps[:, :, :50], qs, as_, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vmap_of_the_gradient_is_one_launch_of_each(cuda_device, dtype):
+    """``vmap(grad_and_value)`` of ``nuts_throughput.py``'s log density
+    (SHO, shared data) at 16 chains: one chain-axis B1r and one B2 launch,
+    each chain's value and gradient as ``torch.autograd`` gives it for that
+    chain alone (1e-10 relative in float64, 5e-4 in float32)."""
+    rng = np.random.default_rng(0)
+    n = 512
+    t = np.sort(rng.uniform(0, 10, n))
+    yv = np.sin(3 * t) * np.exp(-0.1 * t) + 0.3 * rng.normal(size=n)
+    X = torch.as_tensor(t, dtype=dtype, device=cuda_device)
+    Y = torch.as_tensor(yv, dtype=dtype, device=cuda_device)
+
+    def log_prob(z):
+        amp, omega, q, jitter = torch.exp(z)
+        kernel = amp * quasisep.SHO(omega=omega, quality=q)
+        gp = GaussianProcess(kernel, X, diag=jitter + 0.09, assume_sorted=True)
+        return gp.log_probability(Y) - 0.5 * torch.sum(z**2)
+
+    z = torch.as_tensor(np.array([0.0, 1.0, 1.0, -2.0]) + 0.1 * rng.normal(size=(16, 4)),
+                        dtype=dtype, device=cuda_device)
+    before = dict(cuda_loglik.LAUNCHES_CHAINS), cuda_loglik.LAUNCHES_RES, cuda_loglik.LAUNCHES_BWD
+    grad, value = torch.func.vmap(torch.func.grad_and_value(log_prob))(z)
+    torch.cuda.synchronize()
+    assert cuda_loglik.LAUNCHES_CHAINS["b1r"] == before[0]["b1r"] + 1
+    assert cuda_loglik.LAUNCHES_CHAINS["b2"] == before[0]["b2"] + 1
+    assert (cuda_loglik.LAUNCHES_RES, cuda_loglik.LAUNCHES_BWD) == (before[1] + 1, before[2] + 1)
+    rtol = 1e-10 if dtype == torch.float64 else 5e-4
+    for c in range(16):
+        zc = z[c].clone().requires_grad_(True)
+        lp = log_prob(zc)
+        (g,) = torch.autograd.grad(lp, zc)
+        np.testing.assert_allclose(float(value[c]), float(lp), rtol=rtol)
+        np.testing.assert_allclose(grad[c].cpu().numpy(), g.cpu().numpy(), rtol=rtol,
+                                   atol=rtol * float(g.abs().max()))

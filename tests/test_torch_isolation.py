@@ -38,7 +38,9 @@ def test_import_loads_no_jax():
         "tinygp_tpu_torch.solvers.quasisep.ops, tinygp_tpu_torch.solvers.direct, "
         "tinygp_tpu_torch.ops.dense, tinygp_tpu_torch.ops.cuda_dense, tinygp_tpu_torch.ops.gram, "
         "tinygp_tpu_torch.kernels.stationary, tinygp_tpu_torch.kernels.distance, "
-        "tinygp_tpu_torch.transforms\n"
+        "tinygp_tpu_torch.transforms, tinygp_tpu_torch.samplers, "
+        "tinygp_tpu_torch.samplers.diagnostics, tinygp_tpu_torch.samplers.hmc, "
+        "tinygp_tpu_torch.utils, tinygp_tpu_torch.utils.checkpoint, tinygp_tpu_torch.utils.tree\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'tinygp_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'optax.', 'tinygp_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -77,6 +77,16 @@
 // bound: float64 arithmetic, and the latency of a tile's staging, three
 // walks, two in-tile scans and two look-backs (the Riccati one composing
 // full Moebius maps, with an m x m inverse each).
+//
+// A chain axis (qsl_loglik_chains_*): many problems of one order and
+// length in one launch, for the samplers, which evaluate every chain's log
+// density at once (the TPU kernel has none: under vmap the JAX package
+// leaves the likelihood to XLA). The ticket runs over (chain, tile),
+// chain-major, so a tile still waits only on earlier tiles of its own
+// chain; each chain has its own workspace (look-back, partials, finish
+// ticket), zeroed by one 2-D memset; each operand has a chain stride, 0 for
+// one that every chain shares (the data y), so nothing is copied. A chain's
+// arithmetic is the unbatched launch's, bit for bit.
 
 #include "quasisep_common.cuh"
 
@@ -148,6 +158,24 @@ template <typename S>
 struct FwdArgs {
   const S *d, *ps, *qs, *as, *y;
   S *out, *Fs, *es, *ics;  // Fs, es, ics: B1r's residuals, null for B1
+  // The chain strides of d, ps, qs, as and y, in elements: 0 for an
+  // operand that every chain shares. The outputs are contiguous by chain.
+  long long cs[5];
+
+  // The operands and outputs of chain c.
+  __device__ __forceinline__ void shift(long long c, long long n, int m) {
+    d += c * cs[0];
+    ps += c * cs[1];
+    qs += c * cs[2];
+    as += c * cs[3];
+    y += c * cs[4];
+    out += 2 * c;
+    if (Fs) {
+      Fs += c * m * m * n;
+      es += c * m * n;
+      ics += c * n;
+    }
+  }
 };
 
 // B1's workspace at order m: the look-back's (the Riccati scan, maps of
@@ -214,7 +242,6 @@ b1_tile_kernel(long long n, FwdArgs<S> x, Acc* work, B1Work lay) {
   __shared__ long long tile_of_block;
   __shared__ bool last_tile;
   const long long nt = lay.look.nt;
-  const LookSlots ric_sl = lay.look.slots(work, 0), aff_sl = lay.look.slots(work, 1);
   Acc* win = reinterpret_cast<Acc*>(qsl_smem);
   Acc* scan_sm = win + b1_window<M>();
   Acc* agg = scan_sm + R::S;
@@ -222,10 +249,17 @@ b1_tile_kernel(long long n, FwdArgs<S> x, Acc* work, B1Work lay) {
   S* st = reinterpret_cast<S*>(start + MM);
   const int t = threadIdx.x, warp = t >> 5;
 
+  // The ticket runs over (chain, tile), chain-major, so a tile waits only
+  // on earlier tiles of its own chain, which earlier tickets took. Each
+  // chain has its own workspace (look-back, partials, finish ticket); the
+  // first chain's holds the ticket.
   if (t == 0) tile_of_block = atomicAdd(lay.look.ticket(work), 1u);
   __syncthreads();
-  const long long b = tile_of_block, k0 = b * T;
+  const long long chain = tile_of_block / nt, b = tile_of_block - chain * nt, k0 = b * T;
   const int cnt = (int)(n - k0 < T ? n - k0 : T);
+  work += chain * lay.total;
+  x.shift(chain, n, M);
+  const LookSlots ric_sl = lay.look.slots(work, 0), aff_sl = lay.look.slots(work, 1);
 
   // Stage the tile: element k0 + i of component c at slot
   // (i % SUB) * kTileThreads + i / SUB.
@@ -369,48 +403,65 @@ long long workspace_elems(int m, long long n) {
   }
 }
 
-// One memset (the ticket, the flags and the finish ticket) and one launch,
-// on stream s.
+// One memset (each chain's flags and finish ticket, the first chain's
+// ticket with them) and one launch of chains x tiles blocks, on stream s.
 template <typename S, int M, bool kRes>
-cudaError_t launch(long long n, const FwdArgs<S>& x, Acc* work, cudaStream_t s) {
+cudaError_t launch(long long n, long long chains, const FwdArgs<S>& x, Acc* work,
+                   cudaStream_t s) {
   const B1Work W = b1_work<M>(n);
+  if (chains * W.look.nt >= (1ll << 31)) return cudaErrorInvalidValue;  // the grid, the ticket
   constexpr long long smem = b1_smem<S, M>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         b1_tile_kernel<S, M, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  cudaError_t e =
-      cudaMemsetAsync(work + W.look.flags, 0, (W.look.flag_words + 1) * sizeof(unsigned), s);
+  cudaError_t e = cudaMemset2DAsync(work + W.look.flags, W.total * sizeof(Acc), 0,
+                                    (W.look.flag_words + 1) * sizeof(unsigned), chains, s);
   if (e != cudaSuccess) return e;
-  b1_tile_kernel<S, M, kRes><<<(unsigned)W.look.nt, kTileThreads, smem, s>>>(n, x, work, W);
+  b1_tile_kernel<S, M, kRes>
+      <<<(unsigned)(chains * W.look.nt), kTileThreads, smem, s>>>(n, x, work, W);
   return cudaGetLastError();
 }
 
 template <typename S, int M>
-cudaError_t run(long long n, const FwdArgs<S>& x, Acc* work, cudaStream_t s) {
-  return x.Fs ? launch<S, M, true>(n, x, work, s) : launch<S, M, false>(n, x, work, s);
+cudaError_t run(long long n, long long chains, const FwdArgs<S>& x, Acc* work, cudaStream_t s) {
+  return x.Fs ? launch<S, M, true>(n, chains, x, work, s)
+              : launch<S, M, false>(n, chains, x, work, s);
 }
 
 template <typename S>
-int loglik(int m, long long n, const FwdArgs<S>& x, Acc* work, long long work_elems,
-           void* stream) {
-  if (n < 1 || workspace_elems(m, n) < 0 || work_elems < workspace_elems(m, n))
+int loglik(int m, long long n, long long chains, const FwdArgs<S>& x, Acc* work,
+           long long work_elems, void* stream) {
+  if (n < 1 || chains < 1 || workspace_elems(m, n) < 0 ||
+      work_elems < chains * workspace_elems(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return (int)run<S, 1>(n, x, work, s);
-    case 2: return (int)run<S, 2>(n, x, work, s);
-    case 3: return (int)run<S, 3>(n, x, work, s);
-    default: return (int)run<S, 4>(n, x, work, s);
+    case 1: return (int)run<S, 1>(n, chains, x, work, s);
+    case 2: return (int)run<S, 2>(n, chains, x, work, s);
+    case 3: return (int)run<S, 3>(n, chains, x, work, s);
+    default: return (int)run<S, 4>(n, chains, x, work, s);
   }
+}
+
+// The C entries' operands: the chain strides of d, ps, qs, as and y, or
+// all 0 for one unbatched problem.
+template <typename S>
+FwdArgs<S> fwd_args(const S* d, const S* ps, const S* qs, const S* as, const S* y, S* out,
+                    S* Fs, S* es, S* ics, const long long* strides) {
+  FwdArgs<S> x{d, ps, qs, as, y, out, Fs, es, ics, {0, 0, 0, 0, 0}};
+  if (strides)
+    for (int k = 0; k < 5; ++k) x.cs[k] = strides[k];
+  return x;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace the launch needs, in float64 elements; -1 for an unsupported m.
+// Workspace the launch needs, in float64 elements, per chain; -1 for an
+// unsupported m.
 long long qsl_workspace_elems(int m, int n) { return workspace_elems(m, n); }
 
 // The launch's association for operands of `bytes` bytes: elements per
@@ -429,16 +480,18 @@ int qsl_loglik_f32(int m, int n, const float* d, const float* ps,
                    const float* qs, const float* as, const float* y,
                    float* out, double* work, long long work_elems,
                    void* stream) {
-  const FwdArgs<float> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
-  return loglik<float>(m, n, x, work, work_elems, stream);
+  const FwdArgs<float> x = fwd_args<float>(d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
+                                           nullptr);
+  return loglik<float>(m, n, 1, x, work, work_elems, stream);
 }
 
 int qsl_loglik_f64(int m, int n, const double* d, const double* ps,
                    const double* qs, const double* as, const double* y,
                    double* out, double* work, long long work_elems,
                    void* stream) {
-  const FwdArgs<double> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
-  return loglik<double>(m, n, x, work, work_elems, stream);
+  const FwdArgs<double> x = fwd_args<double>(d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
+                                             nullptr);
+  return loglik<double>(m, n, 1, x, work, work_elems, stream);
 }
 
 // B1r: (quad, logdet) as above, and the residuals F (m*m, n), e (m, n) and
@@ -447,16 +500,39 @@ int qsl_loglik_res_f32(int m, int n, const float* d, const float* ps,
                        const float* qs, const float* as, const float* y,
                        float* out, float* Fs, float* es, float* ics,
                        double* work, long long work_elems, void* stream) {
-  const FwdArgs<float> x{d, ps, qs, as, y, out, Fs, es, ics};
-  return loglik<float>(m, n, x, work, work_elems, stream);
+  const FwdArgs<float> x = fwd_args<float>(d, ps, qs, as, y, out, Fs, es, ics, nullptr);
+  return loglik<float>(m, n, 1, x, work, work_elems, stream);
 }
 
 int qsl_loglik_res_f64(int m, int n, const double* d, const double* ps,
                        const double* qs, const double* as, const double* y,
                        double* out, double* Fs, double* es, double* ics,
                        double* work, long long work_elems, void* stream) {
-  const FwdArgs<double> x{d, ps, qs, as, y, out, Fs, es, ics};
-  return loglik<double>(m, n, x, work, work_elems, stream);
+  const FwdArgs<double> x = fwd_args<double>(d, ps, qs, as, y, out, Fs, es, ics, nullptr);
+  return loglik<double>(m, n, 1, x, work, work_elems, stream);
+}
+
+// B1 and B1r with a leading chain axis: `chains` problems of one order and
+// length in one launch, chain c's operand at its pointer plus c times its
+// stride (strides: d, ps, qs, as, y, in elements; 0 for an operand that
+// every chain shares), its outputs at out + 2 c, Fs + c m^2 n, es + c m n,
+// ics + c n. Each chain's result is bit for bit that of the unbatched
+// launch on its operands. Fs, es and ics null: B1. The workspace is
+// `chains` times qsl_workspace_elems.
+int qsl_loglik_chains_f32(int m, int n, int chains, const long long* strides, const float* d,
+                          const float* ps, const float* qs, const float* as, const float* y,
+                          float* out, float* Fs, float* es, float* ics, double* work,
+                          long long work_elems, void* stream) {
+  const FwdArgs<float> x = fwd_args<float>(d, ps, qs, as, y, out, Fs, es, ics, strides);
+  return loglik<float>(m, n, chains, x, work, work_elems, stream);
+}
+
+int qsl_loglik_chains_f64(int m, int n, int chains, const long long* strides, const double* d,
+                          const double* ps, const double* qs, const double* as, const double* y,
+                          double* out, double* Fs, double* es, double* ics, double* work,
+                          long long work_elems, void* stream) {
+  const FwdArgs<double> x = fwd_args<double>(d, ps, qs, as, y, out, Fs, es, ics, strides);
+  return loglik<double>(m, n, chains, x, work, work_elems, stream);
 }
 
 const char* qsl_error_string(int code) {

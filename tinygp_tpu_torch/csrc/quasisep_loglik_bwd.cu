@@ -71,6 +71,11 @@
 // against the bound: float64 arithmetic, and the latency of a tile's
 // staging, three walks, two in-tile scans and two look-backs, with a few
 // hundred threads a multiprocessor.
+//
+// A chain axis (qsl_loglik_bwd_chains_*) as in the forward kernel
+// (quasisep_loglik.cu): tickets over (chain, tile), a workspace a chain, a
+// stride an input (0 where shared); each chain bit for bit its unbatched
+// launch.
 
 #include "quasisep_common.cuh"
 
@@ -253,6 +258,27 @@ template <typename S>
 struct BwdArgs {
   const S *ps, *qs, *as, *y, *Fs, *es, *ics, *qbar, *lbar;
   S *dbar, *psbar, *qsbar, *asbar, *ybar;
+  // The chain strides of the nine inputs, in elements: 0 for an input that
+  // every chain shares. The outputs are contiguous by chain.
+  long long cs[9];
+
+  // The inputs and outputs of chain c.
+  __device__ __forceinline__ void shift(long long c, long long n, int m) {
+    ps += c * cs[0];
+    qs += c * cs[1];
+    as += c * cs[2];
+    y += c * cs[3];
+    Fs += c * cs[4];
+    es += c * cs[5];
+    ics += c * cs[6];
+    qbar += c * cs[7];
+    lbar += c * cs[8];
+    dbar += c * n;
+    psbar += c * m * n;
+    qsbar += c * m * n;
+    asbar += c * m * m * n;
+    ybar += c * n;
+  }
 };
 
 // B2's workspace at order M (quasisep_common.cuh: LookLayout): the affine
@@ -283,7 +309,6 @@ b2_tile_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
   constexpr int MM = M * M, SUB = b2_sub(M), T = kB2Threads * SUB, LD = T + 1;
   using E = TileElem<S, M, LD>;
   __shared__ long long tile_of_block;
-  const LookSlots aff_sl = lay.slots(work, 0), cong_sl = lay.slots(work, 1);
   Acc* win = reinterpret_cast<Acc*>(qsl_smem);
   Acc* scan_sm = win + kLookWindow * 2 * MM;
   Acc* agg = scan_sm + 2 * MM;
@@ -291,10 +316,16 @@ b2_tile_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
   S* st = reinterpret_cast<S*>(start + MM);
   const int t = threadIdx.x, warp = t >> 5;
 
+  // The ticket runs over (chain, tile), chain-major, as in B1
+  // (quasisep_loglik.cu); each chain has its own look-back workspace, the
+  // first chain's holds the ticket.
   if (t == 0) tile_of_block = atomicAdd(lay.ticket(work), 1u);
   __syncthreads();
-  const long long b = tile_of_block, p0 = b * T;
+  const long long chain = tile_of_block / lay.nt, b = tile_of_block - chain * lay.nt, p0 = b * T;
   const int cnt = (int)(n - p0 < T ? n - p0 : T);
+  work += chain * lay.total;
+  x.shift(chain, n, M);
+  const LookSlots aff_sl = lay.slots(work, 0), cong_sl = lay.slots(work, 1);
 
   // Stage the tile: position i (element n - 1 - p0 - i) of component c at
   // slot (i % SUB) * kB2Threads + i / SUB.
@@ -462,41 +493,58 @@ long long bwd_workspace_elems(int m, long long n) {
   }
 }
 
-// One memset (the ticket and the flags) and one launch, on stream s.
+// One memset (each chain's flags, the first chain's ticket with them) and
+// one launch of chains x tiles blocks, on stream s.
 template <typename S, int M>
-cudaError_t run_bwd(long long n, const BwdArgs<S>& x, Acc* work, cudaStream_t s) {
+cudaError_t run_bwd(long long n, long long chains, const BwdArgs<S>& x, Acc* work,
+                    cudaStream_t s) {
   const LookLayout L = b2_layout<M>(n);
+  if (chains * L.nt >= (1ll << 31)) return cudaErrorInvalidValue;  // the grid, the ticket
   constexpr long long smem = b2_smem<S, M>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         b2_tile_kernel<S, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  cudaError_t e = cudaMemsetAsync(work + L.flags, 0, L.flag_words * sizeof(unsigned), s);
+  cudaError_t e = cudaMemset2DAsync(work + L.flags, L.total * sizeof(Acc), 0,
+                                    L.flag_words * sizeof(unsigned), chains, s);
   if (e != cudaSuccess) return e;
-  b2_tile_kernel<S, M><<<(unsigned)L.nt, kB2Threads, smem, s>>>(n, x, work, L);
+  b2_tile_kernel<S, M><<<(unsigned)(chains * L.nt), kB2Threads, smem, s>>>(n, x, work, L);
   return cudaGetLastError();
 }
 
 template <typename S>
-int loglik_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work,
+int loglik_bwd(int m, long long n, long long chains, const BwdArgs<S>& x, Acc* work,
                long long work_elems, void* stream) {
-  if (n < 1 || bwd_workspace_elems(m, n) < 0 || work_elems < bwd_workspace_elems(m, n))
+  if (n < 1 || chains < 1 || bwd_workspace_elems(m, n) < 0 ||
+      work_elems < chains * bwd_workspace_elems(m, n))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return (int)run_bwd<S, 1>(n, x, work, s);
-    case 2: return (int)run_bwd<S, 2>(n, x, work, s);
-    case 3: return (int)run_bwd<S, 3>(n, x, work, s);
-    default: return (int)run_bwd<S, 4>(n, x, work, s);
+    case 1: return (int)run_bwd<S, 1>(n, chains, x, work, s);
+    case 2: return (int)run_bwd<S, 2>(n, chains, x, work, s);
+    case 3: return (int)run_bwd<S, 3>(n, chains, x, work, s);
+    default: return (int)run_bwd<S, 4>(n, chains, x, work, s);
   }
+}
+
+// The C entries' operands: the chain strides of the nine inputs, or all 0
+// for one unbatched problem.
+template <typename S>
+BwdArgs<S> bwd_args(const S* ps, const S* qs, const S* as, const S* y, const S* Fs,
+                    const S* es, const S* ics, const S* qbar, const S* lbar, S* dbar, S* psbar,
+                    S* qsbar, S* asbar, S* ybar, const long long* strides) {
+  BwdArgs<S> x{ps, qs, as, y, Fs, es, ics, qbar, lbar, dbar, psbar, qsbar, asbar, ybar, {}};
+  for (int k = 0; k < 9; ++k) x.cs[k] = strides ? strides[k] : 0;
+  return x;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace the launch needs, in float64 elements; -1 for an unsupported m.
+// Workspace the launch needs, in float64 elements, per chain; -1 for an
+// unsupported m.
 long long qsl_bwd_workspace_elems(int m, int n) { return bwd_workspace_elems(m, n); }
 
 // The launch's association for operands of `bytes` bytes (the same for
@@ -519,9 +567,9 @@ int qsl_loglik_bwd_f32(int m, int n, const float* ps, const float* qs,
                        const float* lbar, float* dbar, float* psbar,
                        float* qsbar, float* asbar, float* ybar, double* work,
                        long long work_elems, void* stream) {
-  const BwdArgs<float> x{ps, qs, as, y, Fs, es, ics, qbar, lbar,
-                         dbar, psbar, qsbar, asbar, ybar};
-  return loglik_bwd<float>(m, n, x, work, work_elems, stream);
+  const BwdArgs<float> x = bwd_args<float>(ps, qs, as, y, Fs, es, ics, qbar, lbar, dbar, psbar,
+                                           qsbar, asbar, ybar, nullptr);
+  return loglik_bwd<float>(m, n, 1, x, work, work_elems, stream);
 }
 
 int qsl_loglik_bwd_f64(int m, int n, const double* ps, const double* qs,
@@ -530,9 +578,38 @@ int qsl_loglik_bwd_f64(int m, int n, const double* ps, const double* qs,
                        const double* lbar, double* dbar, double* psbar,
                        double* qsbar, double* asbar, double* ybar,
                        double* work, long long work_elems, void* stream) {
-  const BwdArgs<double> x{ps, qs, as, y, Fs, es, ics, qbar, lbar,
-                          dbar, psbar, qsbar, asbar, ybar};
-  return loglik_bwd<double>(m, n, x, work, work_elems, stream);
+  const BwdArgs<double> x = bwd_args<double>(ps, qs, as, y, Fs, es, ics, qbar, lbar, dbar,
+                                             psbar, qsbar, asbar, ybar, nullptr);
+  return loglik_bwd<double>(m, n, 1, x, work, work_elems, stream);
+}
+
+// B2 with a leading chain axis: `chains` problems of one order and length
+// in one launch, chain c's input at its pointer plus c times its stride
+// (strides: ps, qs, as, y, Fs, es, ics, qbar, lbar, in elements; 0 for an
+// input that every chain shares), its outputs at dbar + c n, psbar + c m n,
+// qsbar + c m n, asbar + c m^2 n, ybar + c n. Each chain's result is bit
+// for bit that of the unbatched launch on its inputs. The workspace is
+// `chains` times qsl_bwd_workspace_elems.
+int qsl_loglik_bwd_chains_f32(int m, int n, int chains, const long long* strides,
+                              const float* ps, const float* qs, const float* as, const float* y,
+                              const float* Fs, const float* es, const float* ics,
+                              const float* qbar, const float* lbar, float* dbar, float* psbar,
+                              float* qsbar, float* asbar, float* ybar, double* work,
+                              long long work_elems, void* stream) {
+  const BwdArgs<float> x = bwd_args<float>(ps, qs, as, y, Fs, es, ics, qbar, lbar, dbar, psbar,
+                                           qsbar, asbar, ybar, strides);
+  return loglik_bwd<float>(m, n, chains, x, work, work_elems, stream);
+}
+
+int qsl_loglik_bwd_chains_f64(int m, int n, int chains, const long long* strides,
+                              const double* ps, const double* qs, const double* as,
+                              const double* y, const double* Fs, const double* es,
+                              const double* ics, const double* qbar, const double* lbar,
+                              double* dbar, double* psbar, double* qsbar, double* asbar,
+                              double* ybar, double* work, long long work_elems, void* stream) {
+  const BwdArgs<double> x = bwd_args<double>(ps, qs, as, y, Fs, es, ics, qbar, lbar, dbar,
+                                             psbar, qsbar, asbar, ybar, strides);
+  return loglik_bwd<double>(m, n, chains, x, work, work_elems, stream);
 }
 
 const char* qsl_error_string(int code) {

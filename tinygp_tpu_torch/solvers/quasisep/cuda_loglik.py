@@ -40,13 +40,31 @@ source). The residuals are stored in the operands' type.
 
 :func:`fused_loglik_terms` is the entry. When grad is enabled and an
 operand requires it, it goes through :class:`FusedLoglik`, a
-``torch.autograd.Function`` whose forward is B1r and whose backward is B2;
-otherwise it runs B1. Each of the three wrappers (:func:`fused_loglik_terms`
-without grad, :func:`fused_loglik_res`, :func:`fused_loglik_bwd`) runs its
-plain PyTorch version for CPU tensors and launches its kernel for CUDA
-tensors, or raises; none falls back. Each launch adds one to its counter:
-:data:`LAUNCHES` (B1), :data:`LAUNCHES_RES` (B1r), :data:`LAUNCHES_BWD` (B2);
-a launch above m = 4 also to :data:`LAUNCHES_GENERIC`.
+``torch.autograd.Function`` whose forward is B1r and whose backward is B2
+(itself a ``Function``, :class:`_LoglikBwd`); otherwise it runs B1 (the
+``Function`` :class:`_LoglikValue`). Each of the three wrappers
+(:func:`fused_loglik_terms` without grad, :func:`fused_loglik_res`,
+:func:`fused_loglik_bwd`) runs its plain PyTorch version for CPU tensors
+and launches its kernel for CUDA tensors, or raises; none falls back. Each
+launch adds one to its counter: :data:`LAUNCHES` (B1), :data:`LAUNCHES_RES`
+(B1r), :data:`LAUNCHES_BWD` (B2); a launch above m = 4 also to
+:data:`LAUNCHES_GENERIC`.
+
+**A chain axis.** The three ``Function`` classes have ``vmap`` rules, so that
+``torch.func.vmap(torch.func.grad_and_value(f))`` of a log density that
+reaches them (the samplers' batched gradient) launches one kernel for all
+chains: :func:`fused_loglik_res_chains`, :func:`fused_loglik_bwd_chains` and
+:func:`fused_loglik_terms_chains` take operands with a leading chain axis,
+or without one where every chain shares them (such as the data ``y``), and
+up to m = 4 run B1r, B2 or B1 once over (chain, tile) (the C entries
+``qsl_loglik_chains_*``, ``qsl_loglik_bwd_chains_*``), each chain's result
+bit for bit the unbatched launch's on its operands. Each such launch also
+adds one to :data:`LAUNCHES_CHAINS`. Above m = 4 they launch the unbatched
+kernel once for each chain (ROADMAP N9b). On CPU tensors they run the
+plain chain-axis versions (:func:`plain_loglik_terms_res_chains`,
+:func:`plain_loglik_bwd_chains`): up to N = 512 the sequential recurrences
+for all chains at once, above it the plain versions mapped with
+``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -56,13 +74,19 @@ __all__ = [
     "LAUNCHES_RES",
     "LAUNCHES_BWD",
     "LAUNCHES_GENERIC",
+    "LAUNCHES_CHAINS",
     "FusedLoglik",
     "fused_loglik_terms",
     "fused_loglik_res",
     "fused_loglik_bwd",
+    "fused_loglik_terms_chains",
+    "fused_loglik_res_chains",
+    "fused_loglik_bwd_chains",
     "plain_loglik_terms",
     "plain_loglik_terms_res",
     "plain_loglik_bwd",
+    "plain_loglik_terms_res_chains",
+    "plain_loglik_bwd_chains",
     "plain_loglik_terms_tiled",
     "plain_loglik_terms_res_tiled",
     "plain_loglik_bwd_tiled",
@@ -88,6 +112,9 @@ LAUNCHES_BWD = 0
 to m = 8)."""
 LAUNCHES_GENERIC = {"b1": 0, "b1r": 0, "b2": 0}
 """Of those, the calls above m = 4 (``quasisep_loglik_generic.cu``)."""
+LAUNCHES_CHAINS = {"b1": 0, "b1r": 0, "b2": 0}
+"""Of those, the launches over a chain axis (every chain in one kernel,
+m <= 4)."""
 
 _MAX_M = 4  # the templated kernels' orders
 _MAX_GENERIC_M = 32
@@ -212,6 +239,189 @@ def plain_loglik_bwd(
     asbar = Abar - souter(ubar, Fp) + r_asbar
     ybar = alphabar * ic + torch.sum(wd * mu, dim=0)
     return dbar, psbar, qsbar, asbar, ybar
+
+
+# The operands' ranks without a chain axis, in the order of the arguments
+# of B1/B1r (d, ps, qs, as_, y) and of B2 (ps, qs, as_, y, Fs, e, ic, qbar,
+# lbar), and their names.
+_FWD = (("d", 1), ("ps", 2), ("qs", 2), ("as_", 2), ("y", 1))
+_BWD = (("ps", 2), ("qs", 2), ("as_", 2), ("y", 1), ("Fs", 2), ("e", 2), ("ic", 1),
+        ("qbar", 0), ("lbar", 0))
+
+
+def _batched(operands, ranks) -> list[bool]:
+    """Which operands carry a leading chain axis (one rank more than
+    unbatched)."""
+    return [x.ndim == r + 1 for x, (_, r) in zip(operands, ranks)]
+
+
+# Up to this length the plain chain-axis versions run the sequential
+# recurrences over the elements (about a dozen small operations a step for
+# all chains); above it, the plain versions mapped with torch.func.vmap,
+# whose blocked scans take about a hundred sequential merges at any length.
+_SEQ_CHAINS_MAX = 512
+
+
+def _bmv(A, x):
+    """Batched matrix-vector product over leading axes."""
+    return (A @ x[..., None])[..., 0]
+
+
+def _outer(u, v):
+    return u[..., :, None] * v[..., None, :]
+
+
+def _mats(x, m=None):
+    """Stacked ``(..., rows, N)`` -> element-major ``(..., N, rows)``, or
+    with ``m`` (``rows = m * m``) ``(..., N, m, m)``."""
+    x = torch.movedim(x, -1, -2)
+    return x if m is None else x.unflatten(-1, (m, m))
+
+
+def _seq_res_chains(d, ps, qs, as_, y):
+    """B1r for every chain by the sequential recurrences: the Riccati flow
+    ``F' = a F a^T + u u^T / c2`` and the whitening ``e' = a e + wd (y -
+    p.e)`` from 0, one element at a time, all chains at once."""
+    m, n = ps.shape[-2:]
+    p, q, a = _mats(ps), _mats(qs), _mats(as_, m)
+    lead = torch.broadcast_shapes(d.shape[:-1], p.shape[:-2], q.shape[:-2], a.shape[:-3],
+                                  y.shape[:-1])
+    F = ps.new_zeros(*lead, m, m)
+    e = ps.new_zeros(*lead, m)
+    Fs, es, c2s, rs = [], [], [], []
+    for k in range(n):
+        pk, ak = p[..., k, :], a[..., k, :, :]
+        Fs.append(F)
+        es.append(e)
+        Fp = _bmv(F, pk)
+        c2 = d[..., k] - torch.sum(pk * Fp, dim=-1)
+        u = q[..., k, :] - _bmv(ak, Fp)
+        wd = u / c2[..., None]
+        r = y[..., k] - torch.sum(pk * e, dim=-1)
+        e = _bmv(ak, e) + wd * r[..., None]
+        F = ak @ F @ ak.mT + _outer(u, wd)
+        c2s.append(c2)
+        rs.append(r)
+    ic = 1.0 / torch.sqrt(torch.stack(c2s, dim=-1))
+    alpha = torch.stack(rs, dim=-1) * ic
+    Fs = torch.stack(Fs, dim=-1).flatten(-3, -2)
+    es = torch.stack(es, dim=-1)
+    return (torch.sum(torch.square(alpha), dim=-1), -torch.sum(torch.log(ic), dim=-1),
+            Fs, es, ic)
+
+
+def _seq_bwd_chains(ps, qs, as_, y, Fs, e, ic, qbar, lbar):
+    """B2 for every chain by the sequential reverse recurrences of
+    :func:`plain_loglik_bwd_tiled` (the affine adjoint ``lambda' = A^T
+    lambda + ebar`` and the congruence adjoint ``G' = A^T G A + Fpbar
+    p^T`` from 0 at the last element), then its outputs elementwise."""
+    m, n = ps.shape[-2:]
+    p, q, ev = _mats(ps), _mats(qs), _mats(e)
+    a, F = _mats(as_, m), _mats(Fs, m)
+    qb = qbar[..., None]
+    lb = torch.broadcast_to(lbar[..., None], torch.broadcast_shapes(lbar.shape + (1,), ic.shape))
+
+    # The elements' emissions.
+    ic2 = ic * ic
+    Fp = _bmv(F, p)
+    u = q - _bmv(a, Fp)
+    wd = u * ic2[..., None]
+    r = y - torch.sum(p * ev, dim=-1)
+    alpha = r * ic
+    alphabar = 2.0 * qb * alpha
+    At = a.mT - _outer(p, wd)
+    ebar = -(alphabar * ic)[..., None] * p
+
+    def glue(mu, k):
+        """ubar, c2bar and Fpbar at element(s) k from mu."""
+        rk, ick, ic2k = r[..., k], ic[..., k], ic2[..., k]
+        wdbar = mu * rk[..., None]
+        ubar = wdbar * ic2k[..., None]
+        uw = torch.sum(u[..., k, :] * wdbar, dim=-1)
+        icbar = -lb[..., k] / ick + alphabar[..., k] * alpha[..., k] / ick + 2.0 * ick * uw
+        c2bar = -0.5 * icbar * ick * ic2k
+        Fpbar = -c2bar[..., None] * p[..., k, :] - _bmv(a[..., k, :, :].mT, ubar)
+        return ubar, c2bar, Fpbar
+
+    lead = torch.broadcast_shapes(alphabar.shape[:-1], At.shape[:-3])
+    lam = ps.new_zeros(*lead, m)
+    G = ps.new_zeros(*lead, m, m)
+    mus, Gbars = [None] * n, [None] * n
+    for k in range(n - 1, -1, -1):
+        mus[k], Gbars[k] = lam, G
+        Fpbar = glue(lam, k)[2]
+        Atk = At[..., k, :, :]
+        lam = _bmv(Atk, lam) + ebar[..., k, :]
+        G = Atk @ G @ Atk.mT + _outer(Fpbar, p[..., k, :])
+    mu, Gbar = torch.stack(mus, dim=-2), torch.stack(Gbars, dim=-3)
+
+    ubar, c2bar, Fpbar = glue(mu, slice(None))
+    Sm = Gbar + Gbar.mT
+    Su = _bmv(Sm, u)
+    uSu = torch.sum(u * Su, dim=-1)
+    wmu = torch.sum(wd * mu, dim=-1)
+    aTSu = _bmv(a.mT, Su)
+    ic4 = ic2 * ic2
+    dbar = c2bar - 0.5 * uSu * ic4
+    psbar = (
+        -(alphabar * ic + wmu)[..., None] * ev
+        - c2bar[..., None] * Fp
+        + (uSu * ic4)[..., None] * Fp
+        + _bmv(F.mT, Fpbar)
+        - ic2[..., None] * _bmv(F, aTSu)
+    )
+    qsbar = ubar + Su * ic2[..., None]
+    asbar = (_outer(mu, ev) - _outer(ubar, Fp) + Sm @ a @ F
+             - _outer(Su * ic2[..., None], Fp))
+    ybar = alphabar * ic + wmu
+
+    def stacked(x):  # element-major (..., N, rows) -> (..., rows, N)
+        return torch.movedim(x, -2, -1)
+
+    return dbar, stacked(psbar), stacked(qsbar), stacked(asbar.flatten(-2)), ybar
+
+
+def plain_loglik_terms_res_chains(
+    d: torch.Tensor,
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """``(quad, logdet, Fs, e, ic)`` of every chain, each with a leading
+    chain axis, in plain PyTorch: the operands with a chain axis of one
+    length C, or without one where every chain shares them. Up to N =
+    512 the sequential recurrences, all chains at once; above,
+    :func:`plain_loglik_terms_res` mapped over the chain axis with
+    ``torch.func.vmap``."""
+    ops = (d, ps, qs, as_, y)
+    if ps.shape[-1] <= _SEQ_CHAINS_MAX:
+        return _seq_res_chains(*ops)
+    dims = tuple(0 if b else None for b in _batched(ops, _FWD))
+    return torch.func.vmap(plain_loglik_terms_res, in_dims=dims)(*ops)
+
+
+def plain_loglik_bwd_chains(
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+    Fs: torch.Tensor,
+    e: torch.Tensor,
+    ic: torch.Tensor,
+    qbar: torch.Tensor,
+    lbar: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """``(dbar, psbar, qsbar, asbar, ybar)`` of every chain in plain
+    PyTorch, operands as :func:`plain_loglik_terms_res_chains` takes them
+    (``qbar``/``lbar`` ``(C,)`` or 0-d): up to N = 512 the sequential
+    reverse recurrences, above :func:`plain_loglik_bwd` mapped with
+    ``torch.func.vmap``."""
+    ops = (ps, qs, as_, y, Fs, e, ic, qbar, lbar)
+    if ps.shape[-1] <= _SEQ_CHAINS_MAX:
+        return _seq_bwd_chains(*ops)
+    dims = tuple(0 if b else None for b in _batched(ops, _BWD))
+    return torch.func.vmap(plain_loglik_bwd, in_dims=dims)(*ops)
 
 
 # B2's association on the card, (tile, sub) by (m, bytes per value): the
@@ -650,6 +860,20 @@ def _bind(lib: ctypes.CDLL, prefix: str, n_ptrs: int) -> None:
     lib.qsl_error_string.restype = ctypes.c_char_p
 
 
+def _bind_chains(lib: ctypes.CDLL, prefix: str, n_ptrs: int) -> None:
+    """Declare the chain-axis C signatures ``(m, n, chains, *strides,
+    <n_ptrs pointers>, work_elems, stream) -> cudaError_t`` of
+    ``<prefix>_chains_f32``/``_f64``."""
+    for suffix in _DTYPES.values():
+        fn = getattr(lib, f"{prefix}_chains_{suffix}")
+        fn.argtypes = (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_longlong, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+
+
 def _bind_schedule(lib: ctypes.CDLL, name: str = "qsl_bwd_schedule") -> None:
     """``<name>(m, bytes, *tile, *sub)``: a one-launch kernel's association
     on the card (``qsl_fwd_schedule``: B1's, which :data:`_B1_SCHEDULE`
@@ -668,6 +892,7 @@ def _library() -> ctypes.CDLL:
     lib.qsl_workspace_elems.restype = ctypes.c_longlong
     _bind(lib, "qsl_loglik", 7)  # d ps qs as y | out | work
     _bind(lib, "qsl_loglik_res", 10)  # d ps qs as y | out Fs e ic | work
+    _bind_chains(lib, "qsl_loglik", 10)  # the same, Fs e ic null for B1
     _bind_schedule(lib, "qsl_fwd_schedule")
     return lib
 
@@ -680,6 +905,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.qsl_bwd_workspace_elems.restype = ctypes.c_longlong
     # ps qs as y Fs e ic qbar lbar | dbar psbar qsbar asbar ybar | work
     _bind(lib, "qsl_loglik_bwd", 15)
+    _bind_chains(lib, "qsl_loglik_bwd", 15)
     _bind_schedule(lib)
     return lib
 
@@ -734,19 +960,47 @@ def _check(**operands: torch.Tensor) -> tuple[int, int]:
     return m, n
 
 
-def _launch(lib, prefix, work_elems_fn, m, n, tensors) -> None:
+def _check_chains(ranks, operands) -> tuple[int, int, int, list[bool]]:
+    """Validate a chain-axis launch's operands, each with a leading chain
+    axis or without one where every chain shares it; return ``(chains, m,
+    n, batched)``."""
+    batched = _batched(operands, ranks)
+    sizes = {x.shape[0] for x, b in zip(operands, batched) if b}
+    if len(sizes) != 1:
+        raise ValueError(f"the chain axes must be one length; got {sorted(sizes)}")
+    (chains,) = sizes
+    if not 1 <= chains < 2**31:
+        raise ValueError(f"the number of chains must be in [1, 2**31); got {chains}")
+    m, n = _check(**{name: x[0] if b else x for (name, _), x, b in zip(ranks, operands, batched)})
+    for (name, _), x, b in zip(ranks, operands, batched):
+        if b and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return chains, m, n, batched
+
+
+def _launch(lib, prefix, work_elems_fn, m, n, tensors, chains=None, batched=None) -> None:
     """Run ``<prefix>_<dtype>`` on the tensors' device and current stream,
     with a float64 workspace (the kernels' scans run in float64); raise on
-    a refused argument or launch."""
+    a refused argument or launch. With ``chains``, run the chain-axis entry
+    ``<prefix>_chains_<dtype>``: the first ``len(batched)`` tensors are the
+    operands, each with its chain stride (0 where not ``batched``), and a
+    None tensor is a null pointer."""
     ref = tensors[0]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     with torch.cuda.device(ref.device):
-        work_elems = work_elems_fn(m, n)
+        work_elems = work_elems_fn(m, n) * (chains or 1)
         work = torch.empty(work_elems, dtype=torch.float64, device=ref.device)
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = getattr(lib, f"{prefix}_{_DTYPES[ref.dtype]}")(
-            m, n, *(t.data_ptr() for t in tensors), work.data_ptr(),
-            work_elems, stream,
-        )
+        if chains is None:
+            err = getattr(lib, f"{prefix}_{_DTYPES[ref.dtype]}")(
+                m, n, *ptrs, work.data_ptr(), work_elems, stream,
+            )
+        else:
+            strides = (ctypes.c_longlong * len(batched))(
+                *(t[0].numel() if b else 0 for t, b in zip(tensors, batched)))
+            err = getattr(lib, f"{prefix}_chains_{_DTYPES[ref.dtype]}")(
+                m, n, chains, strides, *ptrs, work.data_ptr(), work_elems, stream,
+            )
     if err:
         raise RuntimeError(
             f"quasisep log-likelihood kernel {prefix} failed: "
@@ -831,30 +1085,198 @@ def fused_loglik_bwd(
     return outs
 
 
+def _per_chain(fn, operands, batched):
+    """``fn`` launched once for each chain (the generic engine has no chain
+    axis, ROADMAP N9b), its outputs stacked on a chain axis."""
+    chains = next(x.shape[0] for x, b in zip(operands, batched) if b)
+    outs = [fn(*(x[c] if b else x for x, b in zip(operands, batched))) for c in range(chains)]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _forward_chains(operands, residuals):
+    """B1 or B1r over a chain axis (:func:`fused_loglik_res_chains`)."""
+    global LAUNCHES, LAUNCHES_RES
+    chains, m, n, batched = _check_chains(_FWD, operands)
+    if m > _MAX_M:
+        return _per_chain(fused_loglik_res if residuals else _loglik_b1, operands, batched)
+    ref = operands[1]
+    out = ref.new_empty(chains, 2)
+    res = ((ref.new_empty(chains, m * m, n), ref.new_empty(chains, m, n), ref.new_empty(chains, n))
+           if residuals else (None, None, None))
+    lib = _library()
+    _launch(lib, "qsl_loglik", lib.qsl_workspace_elems, m, n, (*operands, out, *res),
+            chains=chains, batched=batched)
+    if residuals:
+        LAUNCHES_RES += 1
+        LAUNCHES_CHAINS["b1r"] += 1
+        return (out[:, 0], out[:, 1], *res)
+    LAUNCHES += 1
+    LAUNCHES_CHAINS["b1"] += 1
+    return out[:, 0], out[:, 1]
+
+
+def fused_loglik_terms_chains(
+    d: torch.Tensor,
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(quad, logdet)`` of every chain, each ``(C,)``: B1 over a chain
+    axis for CUDA tensors, its plain version mapped for CPU tensors.
+
+    Each operand has a leading chain axis of one length C, or none where
+    every chain shares it (a stride of 0: nothing is copied C times). Up to
+    m = 4 this is one launch over (chain, tile); above, one launch a
+    chain."""
+    operands = (d, ps, qs, as_, y)
+    if _on_cpu(*operands):
+        return plain_loglik_terms_res_chains(*operands)[:2]
+    return _forward_chains(operands, residuals=False)
+
+
+def fused_loglik_res_chains(
+    d: torch.Tensor,
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """``(quad, logdet, Fs, e, ic)`` of every chain, each with a leading
+    chain axis: B1r over a chain axis for CUDA tensors (operands as
+    :func:`fused_loglik_terms_chains` takes them), its plain version
+    mapped for CPU tensors."""
+    operands = (d, ps, qs, as_, y)
+    if _on_cpu(*operands):
+        return plain_loglik_terms_res_chains(*operands)
+    return _forward_chains(operands, residuals=True)
+
+
+def fused_loglik_bwd_chains(
+    ps: torch.Tensor,
+    qs: torch.Tensor,
+    as_: torch.Tensor,
+    y: torch.Tensor,
+    Fs: torch.Tensor,
+    e: torch.Tensor,
+    ic: torch.Tensor,
+    qbar: torch.Tensor,
+    lbar: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """``(dbar, psbar, qsbar, asbar, ybar)`` of every chain, each with a
+    leading chain axis: B2 over a chain axis for CUDA tensors (each input
+    with a leading chain axis or shared, ``qbar``/``lbar`` ``(C,)`` or 0-d),
+    its plain version mapped for CPU tensors. Up to m = 4 one launch over
+    (chain, tile); above, one launch a chain."""
+    global LAUNCHES_BWD
+    operands = (ps, qs, as_, y, Fs, e, ic, qbar, lbar)
+    if _on_cpu(*operands):
+        return plain_loglik_bwd_chains(*operands)
+    chains, m, n, batched = _check_chains(_BWD, operands)
+    if m > _MAX_M:
+        return _per_chain(fused_loglik_bwd, operands, batched)
+    ref = operands[0]
+    outs = (ref.new_empty(chains, n), ref.new_empty(chains, m, n), ref.new_empty(chains, m, n),
+            ref.new_empty(chains, m * m, n), ref.new_empty(chains, n))
+    lib = _bwd_library()
+    _launch(lib, "qsl_loglik_bwd", lib.qsl_bwd_workspace_elems, m, n, operands + outs,
+            chains=chains, batched=batched)
+    LAUNCHES_BWD += 1
+    LAUNCHES_CHAINS["b2"] += 1
+    return outs
+
+
+def _to_chains(in_dims, operands):
+    """A ``vmap`` rule's operands with their chain axis first and
+    contiguous; those without one (``None``) as they are, contiguous."""
+    return tuple(
+        (x if dim is None else x.movedim(dim, 0)).contiguous() for x, dim in zip(operands, in_dims)
+    )
+
+
+_ONCE = (
+    "the fused log-likelihood is once differentiable: its backward kernel "
+    "has no derivative (create_graph=True)"
+)
+
+
 class FusedLoglik(torch.autograd.Function):
-    """``(quad, logdet)`` with a hand-written gradient: forward B1r, which
-    saves ``(ps, qs, as_, y, Fs, e, ic)``, and backward B2 (on the CPU,
-    their plain versions). Once differentiable: a second derivative
-    raises."""
+    """``(quad, logdet, Fs, e, ic)`` with a hand-written gradient of the
+    first two: forward B1r, whose residuals ``(Fs, e, ic)`` are returned
+    (not differentiable) and saved, and backward B2 (:class:`_LoglikBwd`);
+    on the CPU, their plain versions. Once differentiable: a second
+    derivative raises. Under ``torch.func.vmap`` its rule runs
+    :func:`fused_loglik_res_chains`, one launch for every chain."""
 
     @staticmethod
-    def forward(ctx, d, ps, qs, as_, y):
-        quad, logdet, Fs, e, ic = fused_loglik_res(d, ps, qs, as_, y)
+    def forward(d, ps, qs, as_, y):
+        return fused_loglik_res(d, ps, qs, as_, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ps, qs, as_, y = inputs
+        _, _, Fs, e, ic = output
+        ctx.mark_non_differentiable(Fs, e, ic)
         ctx.save_for_backward(ps, qs, as_, y, Fs, e, ic)
-        return quad, logdet
 
     @staticmethod
-    def backward(ctx, qbar, lbar):
-        # Grad mode is on here exactly when the caller asked for a graph of
-        # the gradient (create_graph=True), which B2 cannot give.
-        if torch.is_grad_enabled():
-            raise RuntimeError(
-                "the fused log-likelihood is once differentiable: its "
-                "backward kernel has no derivative (create_graph=True)"
-            )
+    def backward(ctx, qbar, lbar, *_):
+        # Outside torch.func, grad mode is on here exactly when the caller
+        # asked for a graph of the gradient (create_graph=True), which B2
+        # cannot give; torch.func.grad always asks for one, and a second
+        # derivative through it raises in _LoglikBwd.backward.
+        if torch.is_grad_enabled() and not torch._C._are_functorch_transforms_active():
+            raise RuntimeError(_ONCE)
         ps, qs, as_, y, Fs, e, ic = ctx.saved_tensors
         qbar, lbar = (g.to(ps.dtype).reshape(()).contiguous() for g in (qbar, lbar))
-        return fused_loglik_bwd(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
+        return _LoglikBwd.apply(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        return fused_loglik_res_chains(*_to_chains(in_dims, operands)), (0,) * 5
+
+
+class _LoglikBwd(torch.autograd.Function):
+    """B2 (:func:`fused_loglik_bwd`) as a ``Function``, so that a vmapped
+    backward reaches :func:`fused_loglik_bwd_chains`; it has no derivative."""
+
+    @staticmethod
+    def forward(*operands):
+        return fused_loglik_bwd(*operands)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(_ONCE)
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        return fused_loglik_bwd_chains(*_to_chains(in_dims, operands)), (0,) * 5
+
+
+class _LoglikValue(torch.autograd.Function):
+    """B1 (the value alone) as a ``Function``, so that ``torch.func.vmap``
+    reaches :func:`fused_loglik_terms_chains`; used where no gradient is
+    wanted."""
+
+    @staticmethod
+    def forward(*operands):
+        return _loglik_b1(*operands)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("B1 has no gradient; the gradient goes through FusedLoglik")
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        return fused_loglik_terms_chains(*_to_chains(in_dims, operands)), (0, 0)
 
 
 def fused_loglik_terms(
@@ -870,9 +1292,10 @@ def fused_loglik_terms(
     ``(m, N)``, ``as_`` ``(m*m, N)``, one dtype, contiguous. With grad
     enabled and an operand requiring it, this is :class:`FusedLoglik`
     (B1r, then B2 in the backward); otherwise B1. CPU tensors take the
-    plain versions on either route.
+    plain versions on either route. Under ``torch.func.vmap`` (over any
+    operands but one chain axis) both routes launch once for all chains.
     """
     operands = (d, ps, qs, as_, y)
     if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
-        return FusedLoglik.apply(*operands)
-    return _loglik_b1(*operands)
+        return FusedLoglik.apply(*operands)[:2]
+    return _LoglikValue.apply(*operands)
