@@ -149,15 +149,34 @@ Phases, each printing its numbers on lines of its own:
     version on the CPU held to limits; a checkpointed run interrupted and
     resumed equal to the uninterrupted one; samples/s and one evaluation's
     split; then ``hmc`` on 64 chains of ``bench.py``'s Matern32 model at
-    N = 1e5.
+    N = 1e5;
+19. ADVI (``fit_advi``) at ``benchmarks/smc_vi_rate.py``'s settings
+    (``amp * SHO``, ``diag=0.09``, N = 512, float32, 8 ELBO draws, lr 1e-2),
+    mean-field and full-rank, 200 steps: first the gradient of a vmapped
+    log density taken outside the ``vmap`` (``c6`` lines, at m = 2 and
+    m = 5) and the ELBO's gradient at fixed noise, card against the plain
+    path on the CPU; one chain-axis B1r and one B2 launch a step by the
+    counts, a finite and rising ELBO trace; steps/s cold and warm and one
+    step's split;
+20. tempered SMC (``run_smc``) at the same script's settings (1024
+    particles, 5 mutations), cold and warm: one chain-axis B1 launch a
+    batched evaluation and nothing else, the ladder, acceptance and
+    evidence, four particles against the CPU; ``test_vi_smc.py``'s
+    Gaussian target against its analytic posterior and evidence;
+21. CARMA(2, 1) of ``benchmarks/model_family_bench.py`` on ``bench.py``'s
+    data at N = 1e5 in float32 and float64: the value (B1) and the gradient
+    (B1r, B2), each kernel against its plain version; in float64 the value
+    at N = 2000 and ``condition``/``predict`` at N = 5000 against dense
+    references of Kelly's autocovariance; a p = 3 process through the
+    value; the constructor's and the calls' times.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 at either order and B6 each summed over the shapes of
 the dense main path; B7 at 1e4; one record per generic-order instantiation
 of phase 16, and B1, B1r and B2 at m = 5; B1, B1r and B2 with a chain
-axis at the sampler's shape, with their launches on phase 18's path); the
-last line
+axis at the sampler's shape, with their launches on phases 18-20's paths;
+B1, B1r, B2 and B3 with CARMA's launches added); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -186,8 +205,11 @@ Matern32, Matern52 and celerite ``condition`` calls.
 ``python3 chip_smoke.py --b3-times engine`` times the scans of phase 7 that
 still run the three-phase engine, beside their bounds.
 ``python3 chip_smoke.py --sampler`` runs phase 1 and then only phases 17
-and 18, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
-100 samples, and prints the chain-axis records.
+to 20, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
+100 samples and ADVI at ``smc_vi_rate.py``'s 1000 steps, and prints the
+chain-axis records. ``python3 chip_smoke.py --c6`` runs phase 1 and then
+only phase 19's ``c6`` checks; they use only what older trees share, so
+copied into a parent commit's checkout it shows the parent's gradients.
 ``python3 chip_smoke.py --gram-times`` does the same for B7: at 1e4 x 1e4
 and over the dense path's 20 strip shapes, each through ``gram_tiled`` and
 launched directly, and the host time of one 64 x 64 ``gram_tiled`` call
@@ -4047,23 +4069,32 @@ def nuts_model(device, n=512):
     return log_prob, gp_of, init, Y
 
 
-def sampler_counts(hmc_mod):
-    """The kernels' and the samplers' counts since reset_counts()."""
+def loglik_counts():
+    """B1, B1r and B2 launches since reset_loglik_counts(), unbatched and
+    over a chain axis, and those of the generic-order sources and of B3."""
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl, cuda_scan
 
-    return {"evaluations": hmc_mod.EVALUATIONS, "b1": cl.LAUNCHES, "b1r": cl.LAUNCHES_RES,
-            "b2": cl.LAUNCHES_BWD, "chains": dict(cl.LAUNCHES_CHAINS),
-            "generic": sum(cl.LAUNCHES_GENERIC.values()),
+    return {"b1": cl.LAUNCHES, "b1r": cl.LAUNCHES_RES, "b2": cl.LAUNCHES_BWD,
+            "chains": dict(cl.LAUNCHES_CHAINS), "generic": sum(cl.LAUNCHES_GENERIC.values()),
             "b3": sum(cuda_scan.LAUNCHES.values()) + sum(cuda_scan.LAUNCHES_GENERIC.values())}
 
 
-def reset_sampler_counts(hmc_mod):
+def reset_loglik_counts():
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
 
     reset_counts()
-    hmc_mod.EVALUATIONS = 0
     for k in cl.LAUNCHES_CHAINS:
         cl.LAUNCHES_CHAINS[k] = 0
+
+
+def sampler_counts(hmc_mod):
+    """The kernels' and the samplers' counts since reset_sampler_counts()."""
+    return {"evaluations": hmc_mod.EVALUATIONS, **loglik_counts()}
+
+
+def reset_sampler_counts(hmc_mod):
+    reset_loglik_counts()
+    hmc_mod.EVALUATIONS = 0
 
 
 def one_launch_per_evaluation(counts):
@@ -4252,6 +4283,559 @@ def phase_sampler(run=NUTS_RUN_CUT):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# ADVI, tempered SMC and CARMA (phases 19-21).
+# ---------------------------------------------------------------------------
+
+SMC_VI_INIT = {"log_amp": 0.0, "log_omega": 1.0, "log_q": 1.0}
+
+
+def smc_vi_model(device, m5=False):
+    """``benchmarks/smc_vi_rate.py:36-68``: ``amp * SHO(omega, quality)``,
+    ``diag=0.09``, N = 512 from ``default_rng(0)``, standard-normal priors
+    on the three log parameters, float32 on ``device``; with ``m5``, plus
+    ``Matern52(scale=2.5)`` (m = 5). Returns ``(log_like, log_prior,
+    log_post, init, gp_of, Y)``."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 10, 512))
+    y = np.sin(3 * t) * np.exp(-0.1 * t) + 0.3 * rng.normal(size=512)
+    X = torch.as_tensor(t, dtype=torch.float32, device=device)
+    Y = torch.as_tensor(y, dtype=torch.float32, device=device)
+
+    def gp_of(p):
+        kernel = torch.exp(p["log_amp"]) * quasisep.SHO(omega=torch.exp(p["log_omega"]),
+                                                       quality=torch.exp(p["log_q"]))
+        if m5:
+            kernel = kernel + quasisep.Matern52(scale=2.5)
+        return GaussianProcess(kernel, X, diag=0.09, assume_sorted=True, device=device)
+
+    def log_like(p):
+        return gp_of(p).log_probability(Y)
+
+    def log_prior(p):
+        return -0.5 * sum(torch.sum(torch.square(v)) for v in p.values())
+
+    def log_post(p):
+        return log_like(p) + log_prior(p)
+
+    init = {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in SMC_VI_INIT.items()}
+    return log_like, log_prior, log_post, init, gp_of, Y
+
+
+def flat(fn):
+    """``fn`` of a dict position as a function of a flat ``(3,)`` one."""
+    return lambda z: fn({k: z[i] for i, k in enumerate(SMC_VI_INIT)})
+
+
+def c6_check(m5):
+    """The gradient of ``mean(vmap(log_post)(zs))`` taken outside the
+    ``vmap`` (ADVI's order; ROADMAP C6), 8 draws of ``smc_vi_model``, float32:
+    on the card by ``torch.autograd.grad`` and by ``torch.func.grad``,
+    against the plain path on the CPU and against each draw's unbatched
+    gradient on the card. Logs both gradients and their distances; returns
+    whether they agree within 5e-4 of the largest entry with the expected
+    launches (at m = 2 one chain-axis B1r and B2, at m = 5 eight unbatched
+    ones)."""
+    import torch
+
+    zs_np = np.array([0.0, 1.0, 1.0]) + 0.2 * np.random.default_rng(1).normal(size=(8, 3))
+
+    def mean_grad(device, how):
+        lp = flat(smc_vi_model(device, m5)[2])
+        zs = torch.as_tensor(zs_np, dtype=torch.float32, device=device)
+        if how == "func":
+            return torch.func.grad(lambda z: torch.mean(torch.func.vmap(lp)(z)))(zs)
+        zs.requires_grad_(True)
+        return torch.autograd.grad(torch.mean(torch.func.vmap(lp)(zs)), zs)[0]
+
+    reset_loglik_counts()
+    card = mean_grad("cuda", "autograd")
+    torch.cuda.synchronize()
+    launches = loglik_counts()
+    cpu = mean_grad("cpu", "autograd")
+    lp_card = flat(smc_vi_model("cuda", m5)[2])
+    loop = []
+    for z in torch.as_tensor(zs_np, dtype=torch.float32, device="cuda"):
+        z = z.clone().requires_grad_(True)
+        loop.append(torch.autograd.grad(lp_card(z) / 8, z)[0])
+    loop = torch.stack(loop)
+    scale = float(cpu.abs().max())
+    grads = {"autograd": card}
+    try:
+        grads["func"] = mean_grad("cuda", "func")
+    except RuntimeError as err:  # a tree whose vmap rule launches on functorch's wrappers
+        log(f"c6: torch.func.grad outside the vmap raised: {err}")
+    errs = {name: float((g.cpu() - cpu).abs().max()) / scale for name, g in grads.items()}
+    errs.setdefault("func", math.inf)
+    loop_err = max(float((g - loop).abs().max()) / scale for g in grads.values())
+    m, per = (5, 8) if m5 else (2, 1)
+    counts_ok = (launches["b1"] == 0 and launches["b1r"] == launches["b2"] == per
+                 and launches["chains"]["b1r"] == launches["chains"]["b2"] == (m == 2))
+    ok = max(errs.values()) <= 5e-4 and loop_err <= 5e-4 and counts_ok
+    log(f"c6 m={m}: d mean(vmap(log_post)(zs)) / d zs outside the vmap, 8 draws of "
+        f"smc_vi_rate.py's model{' + Matern52(2.5)' if m5 else ''}, N = 512, float32, zs = "
+        f"{np.round(zs_np, 6).tolist()} [{CARD}]")
+    log(f"c6 m={m}: card (autograd) {np.round(card.cpu().double().numpy(), 6).tolist()}")
+    log(f"c6 m={m}: CPU plain path {np.round(cpu.double().numpy(), 6).tolist()}")
+    log(f"c6 m={m}: card against the CPU, of the largest entry {scale:.6g}: autograd "
+        f"{errs['autograd']:.3e}, func {errs['func']:.3e}; against each draw's unbatched "
+        f"gradient on the card {loop_err:.3e} (limits 5e-4); launches of the autograd "
+        f"gradient {launches} (want {per} B1r and B2"
+        f"{', over a chain axis' if m == 2 else ', unbatched'}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+ADVI_RUN = dict(num_elbo_samples=8, learning_rate=1e-2)
+
+
+def phase_advi(steps=200):
+    """Phase 19: ``fit_advi`` at ``benchmarks/smc_vi_rate.py``'s settings
+    (``smc_vi_model``, 8 ELBO draws, lr 1e-2), mean-field and full-rank,
+    ``steps`` steps (the script's 1000 under ``--sampler``). First the
+    gradient outside the ``vmap`` (``c6_check`` at m = 2 and 5) and the ELBO's
+    gradient at fixed noise on the card against the CPU plain path (5e-4 of
+    its largest entry). Each run once with the counts read around it: one
+    chain-axis B1r and one B2 launch a step and nothing else; a finite trace
+    whose last 100 steps' mean beats the first 100's. Steps/s cold (the
+    first run) and warm (a second seed), as ``smc_vi_rate.py`` takes them,
+    and one step's CUDA-event time split into the constructor, B1r, B2 and
+    the rest. Returns the chain-axis B1r and B2 launches of the runs."""
+    import torch
+
+    from tinygp_tpu_torch.samplers import fit_advi
+    from tinygp_tpu_torch.samplers.hmc import _ravel_spec
+    from tinygp_tpu_torch.samplers.vi import _elbo
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
+
+    ok = c6_check(False)
+    ok = c6_check(True) and ok
+
+    # The ELBO's gradient in phi at fixed noise, card against the CPU.
+    eps_np = np.random.default_rng(2).normal(size=(8, 3))
+    for full_rank in (False, True):
+        grads = []
+        for device in ("cuda", "cpu"):
+            _, _, log_post, init, _, _ = smc_vi_model(device)
+            phi = [torch.tensor([-1.0, 1.1, 2.0], device=device),
+                   torch.tensor([-1.5, -2.0, -0.8], device=device)]
+            if full_rank:
+                phi.append(torch.as_tensor(0.3 * np.random.default_rng(3).normal(size=(3, 3)),
+                                           dtype=torch.float32, device=device))
+            phi = [p.requires_grad_(True) for p in phi]
+            _, unravel, _ = _ravel_spec(init)
+            elbo = _elbo(lambda z: log_post(unravel(z)), full_rank)(
+                phi, torch.as_tensor(eps_np, dtype=torch.float32, device=device))
+            grads.append(torch.cat([g.reshape(-1).cpu() for g in torch.autograd.grad(elbo, phi)]))
+        err = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+        log(f"advi {'full-rank' if full_rank else 'mean-field'}: the ELBO's gradient in phi at "
+            f"fixed noise, card against the CPU plain path {err:.3e} of its largest entry "
+            f"(limit 5e-4) {'ok' if err <= 5e-4 else 'FAIL'}")
+        ok = ok and err <= 5e-4
+
+    launches = {"b1r": 0, "b2": 0}
+    _, _, log_post, init, gp_of, Y = smc_vi_model("cuda")
+    for full_rank in (False, True):
+        name = "full-rank" if full_rank else "mean-field"
+        reset_loglik_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_advi(0, log_post, init, num_steps=steps, full_rank=full_rank, device="cuda",
+                       **ADVI_RUN)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        counts = loglik_counts()
+        t0 = time.perf_counter()
+        fit_advi(1, log_post, init, num_steps=steps, full_rank=full_rank, device="cuda",
+                 **ADVI_RUN)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        one = (counts["b1r"] == counts["chains"]["b1r"] == steps
+               and counts["b2"] == counts["chains"]["b2"] == steps
+               and counts["b1"] == counts["generic"] == counts["b3"] == 0)
+        trace = res.elbo_trace.cpu().numpy()
+        finite = bool(np.isfinite(trace).all()) and all(
+            bool(torch.isfinite(x).all()) for x in res[:2])
+        rising = float(trace[-100:].mean()) > float(trace[:100].mean())
+        log(f"advi {name}: {steps} steps, {ADVI_RUN}, [{CARD}]: cold {cold:.3f} s "
+            f"({steps / cold:.1f} steps/s), warm {warm:.3f} s ({steps / warm:.1f} steps/s); "
+            f"launches {counts}, one chain-axis B1r and B2 a step and nothing else {one}; "
+            f"ELBO first/last 100 steps {float(trace[:100].mean()):.4f} / "
+            f"{float(trace[-100:].mean()):.4f}, final {float(trace[-1]):.4f}, finite {finite}; "
+            f"mean {res.mean.cpu().numpy().round(4).tolist()}")
+        ok = ok and one and finite and rising
+        launches["b1r"] += counts["chains"]["b1r"]
+        launches["b2"] += counts["chains"]["b2"]
+
+        # One step, timed whole and split.
+        ravel, unravel, dim = _ravel_spec(init)
+        mean0 = ravel(init)
+        phi = [mean0.clone(), torch.full_like(mean0, -2.0)]
+        if full_rank:
+            phi.append(mean0.new_zeros(dim, dim))
+        phi = [p.requires_grad_(True) for p in phi]
+        optimizer = torch.optim.Adam(phi, lr=ADVI_RUN["learning_rate"])
+        elbo = _elbo(lambda z: log_post(unravel(z)), full_rank)
+        eps = torch.randn((8, dim), generator=torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+
+        def step():
+            optimizer.zero_grad(set_to_none=True)
+            (-elbo(phi, eps)).backward()
+            optimizer.step()
+
+        step_ms = cuda_ms(step, reps=20, warmup=3)
+        zs = phi[0].detach()[None, :] + 0.1 * eps
+        with torch.no_grad():
+            def construct(z):
+                return gp_of(unravel(z)).solver.ssm
+
+            construct_ms = cuda_ms(lambda: torch.func.vmap(construct)(zs), reps=20, warmup=3)
+            ops = tuple(x.contiguous() for x in torch.func.vmap(construct)(zs)) + (Y,)
+            b1r_ms = cuda_ms(lambda: cl.fused_loglik_res_chains(*ops), reps=20, warmup=3)
+            res = cl.fused_loglik_res_chains(*ops)
+            bars = (torch.full((8,), -0.5, device="cuda"), torch.full((8,), -1.0, device="cuda"))
+            b2_ms = cuda_ms(lambda: cl.fused_loglik_bwd_chains(*ops[1:], *res[2:], *bars),
+                            reps=20, warmup=3)
+        bounds = [chain_bound_ms(kind, 8, 2, 512, 4, True)[0] for kind in ("b1r", "b2")]
+        log(f"advi {name}: one step (8 draws, N = 512, float32, [{CARD}]) {step_ms:.4f} ms "
+            f"(events): constructor {construct_ms:.4f}, B1r {b1r_ms:.4f}, B2 {b2_ms:.4f} "
+            f"(bounds {bounds[0]:.6f}, {bounds[1]:.6f}), autograd, Adam and the rest "
+            f"{step_ms - construct_ms - b1r_ms - b2_ms:.4f} ms")
+    if not ok:
+        raise AssertionError("the ADVI phase failed")
+    return launches
+
+
+SMC_PARTICLES = 1024
+
+
+def phase_smc():
+    """Phase 20: ``run_smc`` at ``benchmarks/smc_vi_rate.py``'s settings
+    (``smc_vi_model``'s likelihood and prior, 1024 particles about the
+    initial position, 5 mutations), cold and warm, with the counts read
+    around the cold run: one chain-axis B1 launch per batched evaluation and
+    nothing else. The ladder increasing to 1.0 and NaN-padded, acceptance
+    in [0, 1], finite particles and log evidence; 4 particles'
+    log-likelihood against the plain version on the CPU (5e-4); then
+    ``tests/test_samplers/test_vi_smc.py``'s Gaussian target with its
+    analytic posterior and evidence (0.15). Returns the chain-axis B1
+    launches of the cold run."""
+    import importlib
+
+    import torch
+
+    from tinygp_tpu_torch.samplers import run_smc
+
+    smc_mod = importlib.import_module("tinygp_tpu_torch.samplers.smc")
+    log_like, log_prior, _, init, _, _ = smc_vi_model("cuda")
+    rng = np.random.default_rng(0)
+    parts = {k: v + torch.as_tensor(rng.normal(size=SMC_PARTICLES), dtype=torch.float32,
+                                    device="cuda") for k, v in init.items()}
+
+    reset_loglik_counts()
+    smc_mod.EVALUATIONS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_smc(0, log_prior, log_like, parts, num_mutations=5, device="cuda")
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts, evals = loglik_counts(), smc_mod.EVALUATIONS
+    t0 = time.perf_counter()
+    warm_res = run_smc(1, log_prior, log_like, parts, num_mutations=5, device="cuda")
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+
+    one = (evals > 0 and counts["b1"] == counts["chains"]["b1"] == evals
+           and counts["b1r"] == counts["b2"] == counts["generic"] == counts["b3"] == 0)
+    ok = one
+    for label, out in (("cold", res), ("warm", warm_res)):
+        k = int(out.num_stages)
+        betas, accs = out.betas.double().cpu().numpy(), out.acceptance.double().cpu().numpy()
+        ladder = (betas[k - 1] == 1.0 and bool(np.all(np.diff(betas[:k]) > 0))
+                  and bool(np.isnan(betas[k:]).all()) and bool(np.isnan(accs[k:]).all()))
+        accept = bool(((accs[:k] >= 0) & (accs[:k] <= 1)).all())
+        finite = all(bool(torch.isfinite(v).all()) for v in out.particles.values()) and (
+            math.isfinite(float(out.log_evidence)))
+        log(f"smc {label}: {SMC_PARTICLES} particles, 5 mutations, N = 512, float32 [{CARD}]: "
+            f"stages {k}, ladder {np.round(betas[:k], 6).tolist()}, acceptance "
+            f"{np.round(accs[:k], 4).tolist()}, log evidence {float(out.log_evidence):.6f}, "
+            f"ladder increasing to 1.0 and NaN-padded {ladder}, acceptance in [0, 1] {accept}, "
+            f"finite {finite}")
+        ok = ok and ladder and accept and finite
+    stages = int(warm_res.num_stages)
+    log(f"smc: wall cold {cold:.3f} s, warm {warm:.3f} s ({stages} stages, "
+        f"{SMC_PARTICLES * stages * 5 / warm:.1f} particle-stage-mutations/s); cold run's "
+        f"batched evaluations {evals}, launches {counts}, one chain-axis B1 per evaluation and "
+        f"nothing else {one}")
+
+    # Four particles' log-likelihood against the plain version on the CPU.
+    z4 = torch.stack([v[:4] for v in res.particles.values()], dim=-1)
+    cpu_like = smc_vi_model("cpu")[0]
+    with torch.no_grad():
+        card = torch.func.vmap(flat(log_like))(z4).cpu()
+        want = torch.func.vmap(flat(cpu_like))(z4.cpu())
+    err = float(((card - want).abs() / want.abs()).max())
+    log(f"smc: 4 particles' log-likelihood on the card against the plain version on the CPU "
+        f"(float32) rel {err:.3e} (5e-4)")
+    ok = ok and err <= 5e-4
+
+    # test_vi_smc.py:66-93's Gaussian target on the card.
+    mu = torch.tensor([1.0, -2.0], device="cuda")
+    sd = torch.tensor([0.5, 1.5], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    gauss = run_smc(2, lambda p: -0.5 * torch.sum(torch.square(p["x"]) / 16.0),
+                    lambda p: -0.5 * torch.sum(torch.square((p["x"] - mu) / sd)),
+                    {"x": 4.0 * torch.randn((2048, 2), generator=g, device="cuda")},
+                    device="cuda")
+    MU, SD = mu.cpu().numpy(), sd.cpu().numpy()
+    x = gauss.particles["x"].cpu().numpy()
+    post_var = 1.0 / (1.0 / 16.0 + 1.0 / SD**2)
+    post_mean = post_var * MU / SD**2
+    var_sum = 16.0 + SD**2
+    log_z = float(np.sum(-0.5 * (MU**2 / var_sum + np.log(var_sum / SD**2))))
+    errs = (float(np.abs(x.mean(0) - post_mean).max()),
+            float(np.abs(x.std(0) - np.sqrt(post_var)).max()),
+            abs(float(gauss.log_evidence) - log_z))
+    gauss_ok = max(errs) <= 0.15 and int(gauss.num_stages) < 50
+    log(f"smc gaussian (2048 particles, float32): mean, sd and log evidence against the "
+        f"analytic posterior {errs[0]:.4f}, {errs[1]:.4f}, {errs[2]:.4f} (limits 0.15), "
+        f"stages {int(gauss.num_stages)} {'ok' if gauss_ok else 'FAIL'}")
+    if not (ok and gauss_ok):
+        raise AssertionError("the SMC phase failed")
+    return counts["chains"]["b1"]
+
+
+def carma21(a, b):
+    """``benchmarks/model_family_bench.py:44-47``'s CARMA(2, 1): ``alpha =
+    (a, 1.4)``, ``beta = (b, 0.1)``, complex roots at its ``a = 1.2``,
+    ``b = 1.7``."""
+    import torch
+
+    from tinygp_tpu_torch.kernels import quasisep
+
+    return quasisep.CARMA.init(alpha=torch.stack([a, torch.full_like(a, 1.4)]),
+                               beta=torch.stack([b, torch.full_like(b, 0.1)]))
+
+
+def carma_acvf_np(alpha, beta):
+    """The CARMA autocovariance of Kelly et al. (2014, Eq. 4) as a function
+    of the lag, from ``numpy.roots`` of the AR polynomial: the dense
+    reference, independent of the state-space form."""
+    from tinygp_tpu_torch.kernels.quasisep import carma_acvf
+
+    roots = np.roots(np.append(1.0, np.asarray(alpha, np.float64)[::-1]))
+    acf = carma_acvf(roots, np.asarray(alpha, np.float64), np.asarray(beta, np.float64)).numpy()
+
+    def k(tau):
+        tau = np.asarray(tau, np.float64)
+        return np.real(np.tensordot(acf, np.exp(roots[:, None] * tau.reshape(1, -1)), 1)
+                       ).reshape(tau.shape)
+
+    return k
+
+
+def plain_route_grad(build, params, y):
+    """The gradient of ``build(*params).log_probability(y)`` in ``params``
+    through the plain versions of B1r and B2 (autograd only for the
+    operands' construction)."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl
+
+    params = [p.detach().clone().requires_grad_(True) for p in params]
+    gp = build(*params)
+    d, ps, qs, as_ = (x.contiguous() for x in gp.solver.ssm)
+    r = (y - gp.loc).contiguous()
+    with torch.no_grad():
+        res = cl.plain_loglik_terms_res(d, ps, qs, as_, r)
+        qbar, lbar = (torch.tensor(v, dtype=y.dtype, device=y.device) for v in (-0.5, -1.0))
+        bars = cl.plain_loglik_bwd(ps, qs, as_, r, *res[2:], qbar, lbar)
+    outs, cotangents = zip(*((x, g) for x, g in zip((d, ps, qs, as_, r), bars)
+                             if x.requires_grad))
+    return torch.autograd.grad(outs, params, cotangents)
+
+
+def phase_carma():
+    """Phase 21: CARMA(2, 1) of ``model_family_bench.py`` on ``bench.py``'s
+    data (N = 1e5, ``diag=0.1``) in float32 and float64: the value (one B1)
+    and the gradient in ``(a, b)`` (one B1r and one B2), each kernel
+    against its plain version on the path's operands per stream (5e-4 in
+    float32 against float64, 1e-8 in float64) and the float64 gradient
+    against the plain route's (1e-8); in float64 at N = 2000 the value
+    against a dense Cholesky of Kelly's autocovariance (1e-9), and at
+    N = 5000 ``condition`` and ``predict`` against the dense posterior
+    (1e-9 / 1e-8); a p = 3 process (Durand-Kerner roots) through the value
+    at 1e5. Times: the constructor, the whole calls. Returns the launches:
+    B1, B1r, B2 and B3's by (monoid, m, r)."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as cl, cuda_scan
+
+    (X5, y5), _ = bench_data()
+    launches = {"b1": 0, "b1r": 0, "b2": 0, "b3": {}}
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        label = str(dtype)[6:]
+        X, y = (torch.as_tensor(v, dtype=dtype, device="cuda") for v in (X5, y5))
+        a, b = (torch.tensor(v, dtype=dtype, device="cuda") for v in (1.2, 1.7))
+
+        def build(a, b):
+            return GaussianProcess(carma21(a, b), X, diag=0.1, assume_sorted=True)
+
+        def value():
+            with torch.no_grad():
+                return build(a, b).log_probability(y)
+
+        def grad():
+            params = [p.clone().requires_grad_(True) for p in (a, b)]
+            return torch.autograd.grad(build(*params).log_probability(y), params)
+
+        reset_loglik_counts()
+        lp = value()
+        torch.cuda.synchronize()
+        c_value = loglik_counts()
+        reset_loglik_counts()
+        g = grad()
+        torch.cuda.synchronize()
+        c_grad = loglik_counts()
+        counts_ok = (c_value["b1"] == 1 and c_value["b1r"] == c_value["b2"] == 0
+                     and c_grad["b1"] == 0 and c_grad["b1r"] == c_grad["b2"] == 1
+                     and c_value["generic"] == c_grad["generic"] == 0)
+        for k in ("b1", "b1r", "b2"):
+            launches[k] += c_value[k] + c_grad[k]
+
+        with torch.no_grad():
+            gp = build(a, b)
+            d, ps, qs, as_ = gp.solver.ssm
+            ops = (d, ps, qs, as_, (y - gp.loc).contiguous())
+            ops64 = tuple(x.double() for x in ops)
+            qbar, lbar = (torch.tensor(v, dtype=dtype, device="cuda") for v in (-0.5, -1.0))
+            res = cl.fused_loglik_res(*ops)
+            bwd = (*ops[1:], *res[2:], qbar, lbar)
+            errs = {
+                "b1": max(e for e, _ in stream_errors(cl.fused_loglik_terms(*ops),
+                                                      cl.plain_loglik_terms(*ops64))),
+                "b1r": max(e for e, _ in stream_errors(res, cl.plain_loglik_terms_res(*ops64))),
+                "b2": max(e for e, _ in stream_errors(
+                    cl.fused_loglik_bwd(*bwd), cl.plain_loglik_bwd(*(x.double() for x in bwd)))),
+            }
+        limit = 5e-4 if dtype == torch.float32 else 1e-8
+        grad_err = None
+        if dtype == torch.float64:
+            want = plain_route_grad(build, (a, b), y)
+            grad_err = max(rel_err(float(u), float(w)) for u, w in zip(g, want))
+        finite = math.isfinite(float(lp)) and all(math.isfinite(float(v)) for v in g)
+        construct_ms = cuda_ms(lambda: carma21(a, b), reps=20, warmup=3)
+        value_ms = cuda_ms(value, reps=20, warmup=3)
+        grad_ms = cuda_ms(grad, reps=20, warmup=3)
+        kernel_ms = [cuda_ms(lambda: cl.fused_loglik_terms(*ops), reps=20, warmup=3),
+                     cuda_ms(lambda: cl.fused_loglik_res(*ops), reps=20, warmup=3),
+                     cuda_ms(lambda: cl.fused_loglik_bwd(*bwd), reps=20, warmup=3)]
+        n, itemsize = X.shape[0], X.element_size()
+        bounds = [loglik_bound_ms(2, n, itemsize)[0], loglik_bound_ms(2, n, itemsize, True)[0],
+                  bwd_bound_ms(2, n, itemsize)[0]]
+        this_ok = (counts_ok and finite and max(errs.values()) <= limit
+                   and (grad_err is None or grad_err <= 1e-8))
+        log(f"carma CARMA(2, 1) alpha (1.2, 1.4) beta (1.7, 0.1) N=100000 {label} [{CARD}]: "
+            f"log_probability {float(lp)!r}, gradient in (a, b) {[float(v) for v in g]}, finite "
+            f"{finite}; launches value {c_value}, gradient {c_grad}; kernels against the plain "
+            f"versions (float64) per stream: B1 {errs['b1']:.2e}, B1r {errs['b1r']:.2e}, B2 "
+            f"{errs['b2']:.2e} (limit {limit:g})"
+            + (f"; gradient against the plain route {grad_err:.2e} (1e-8)" if grad_err is not None
+               else "")
+            + f"; constructor {construct_ms:.4f} ms, value {value_ms:.4f} ms, gradient "
+            f"{grad_ms:.4f} ms (events, constructor included); B1, B1r, B2 alone "
+            f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms, bounds "
+            f"{', '.join(f'{t:.4f}' for t in bounds)} ms {'ok' if this_ok else 'FAIL'}")
+        ok = ok and this_ok
+
+    # Float64 against dense references of Kelly's autocovariance.
+    acvf = carma_acvf_np((1.2, 1.4), (1.7, 0.1))
+    t, yt = X5[::50], y5[::50]
+    K = acvf(np.abs(t[:, None] - t[None, :])) + 0.1 * np.eye(t.shape[0])
+    L = np.linalg.cholesky(K)
+    alpha = np.linalg.solve(L, yt)
+    dense_lp = -0.5 * alpha @ alpha - np.log(np.diag(L)).sum() - 0.5 * t.shape[0] * math.log(
+        2 * math.pi)
+    a, b = (torch.tensor(v, dtype=torch.float64, device="cuda") for v in (1.2, 1.7))
+    with torch.no_grad():
+        lp = GaussianProcess(carma21(a, b), torch.as_tensor(t, device="cuda"), diag=0.1,
+                             assume_sorted=True).log_probability(torch.as_tensor(yt, device="cuda"))
+    dense_err = rel_err(float(lp), dense_lp)
+    log(f"carma dense N=2000 float64: log_probability {float(lp)!r}, dense Cholesky of Kelly's "
+        f"autocovariance {dense_lp!r}, rel {dense_err:.2e} (1e-9) "
+        f"{'ok' if dense_err <= 1e-9 else 'FAIL'}")
+    ok = ok and dense_err <= 1e-9
+
+    t, yt = X5[::20], y5[::20]
+    t_test = np.linspace(0.0, 10.0, 500)
+    want = dense_posterior(t, yt, t_test, acvf, 0.1, math.sqrt(np.finfo(np.float64).eps))
+    launch = cuda_scan._launch
+
+    def recording_launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+        key = (monoid, m, r)
+        launches["b3"][key] = launches["b3"].get(key, 0) + 1
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+    cuda_scan._launch = recording_launch
+    try:
+        gp = GaussianProcess(carma21(a, b), torch.as_tensor(t, device="cuda"), diag=0.1,
+                             assume_sorted=True)
+        log_prob, post = gp.condition(torch.as_tensor(yt, device="cuda"))
+        mu = gp.predict(torch.as_tensor(yt, device="cuda"), torch.as_tensor(t_test, device="cuda"))
+        got = (log_prob.item(), post.loc.cpu().numpy(), post.variance.cpu().numpy(),
+               mu.cpu().numpy())
+    finally:
+        cuda_scan._launch = launch
+    errs = [rel_err(got[0], want[0])] + [rel_max(u, w) for u, w in zip(got[1:], want[1:])]
+    cond_ok = errs[0] <= 1e-9 and max(errs[1:]) <= 1e-8 and bool(launches["b3"])
+    log(f"carma condition N=5000 float64: log prob {got[0]!r} (dense {want[0]!r}); against the "
+        f"dense posterior: log prob rel {errs[0]:.2e}, mean {errs[1]:.2e}, variance "
+        f"{errs[2]:.2e}, predict at 500 points {errs[3]:.2e} (limits 1e-9, 1e-8); B3 launches "
+        f"{launches['b3']} {'ok' if cond_ok else 'FAIL'}")
+    ok = ok and cond_ok
+
+    # p = 3: the roots by Durand-Kerner, the value at 1e5 in float32.
+    quads = ([1.1, 1.2, 0.5], [0.2], [1.0])
+    args = [torch.tensor(q, dtype=torch.float32, device="cuda") for q in quads]
+    X, y = (torch.as_tensor(v, dtype=torch.float32, device="cuda") for v in (X5, y5))
+    kernel = quasisep.CARMA.from_quads(*args)
+    reset_loglik_counts()
+    with torch.no_grad():
+        gp = GaussianProcess(kernel, X, diag=0.1, assume_sorted=True)
+        lp = gp.log_probability(y)
+        torch.cuda.synchronize()
+        counts = loglik_counts()
+        ops = tuple(x.contiguous() for x in gp.solver.ssm) + ((y - gp.loc).contiguous(),)
+        err = max(e for e, _ in stream_errors(cl.fused_loglik_terms(*ops),
+                                              cl.plain_loglik_terms(*(x.double() for x in ops))))
+    launches["b1"] += counts["b1"]
+    construct_ms = cuda_ms(lambda: quasisep.CARMA.from_quads(*args), reps=10, warmup=2)
+    p3_ok = (math.isfinite(float(lp)) and err <= 5e-4 and counts["b1"] == 1
+             and counts["b1r"] == counts["b2"] == counts["generic"] == 0)
+    nan_case = quasisep.CARMA.from_quads(*(torch.tensor(q, device="cuda")
+                                             for q in ([1.1, 1.2, 0.5], [0.9], [0.3])))
+    log(f"carma p=3 from_quads{quads} N=100000 float32: m={ops[1].shape[0]}, roots "
+        f"{kernel.arroots.cpu().numpy().round(6).tolist()}, log_probability {float(lp)!r}, "
+        f"B1 against its plain version (float64) {err:.2e} (5e-4), launches {counts}, "
+        f"constructor (64 Durand-Kerner steps) {construct_ms:.4f} ms (events) "
+        f"{'ok' if p3_ok else 'FAIL'}; from_quads([1.1, 1.2, 0.5], [0.9], [0.3]) has a finite "
+        f"observation model {bool(torch.isfinite(nan_case.obsmodel).all())} (its pair's "
+        f"celerite term has a c < b d, NaN in the JAX package too)")
+    ok = ok and p3_ok
+    if not ok:
+        raise AssertionError("the CARMA phase failed")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4290,9 +4874,15 @@ def main() -> int:
     if sys.argv[1:] == ["--gram-times"]:
         gram_times()
         return 0
+    if sys.argv[1:] == ["--c6"]:
+        return 0 if c6_check(False) & c6_check(True) else 1
     if sys.argv[1:] == ["--sampler"]:
         records = phase_chain_kernels()
-        phase_sampler(NUTS_RUN)
+        sampler_launches = phase_sampler(NUTS_RUN)
+        advi_launches = phase_advi(1000)
+        records["b1"]["launches"] = phase_smc()
+        for kind in ("b1r", "b2"):
+            records[kind]["launches"] = sampler_launches[kind] + advi_launches[kind]
         log(json.dumps({"kernels": list(records.values())}))
         return 0
     phase_b1_launches()
@@ -4330,8 +4920,21 @@ def main() -> int:
     generic_loglik_times()
     chain_records = phase_chain_kernels()
     sampler_launches = phase_sampler()
+    advi_launches = phase_advi()
+    chain_records["b1"]["launches"] = phase_smc()
     for kind in ("b1r", "b2"):
-        chain_records[kind]["launches"] = sampler_launches[kind]
+        chain_records[kind]["launches"] = sampler_launches[kind] + advi_launches[kind]
+    carma_launches = phase_carma()
+    record["launches"] += carma_launches["b1"]
+    grad_records["res"]["launches"] += carma_launches["b1r"]
+    grad_records["bwd"]["launches"] += carma_launches["b2"]
+    by_name = {r["name"]: r for r in scan_records}
+    for (monoid, m, r), count in carma_launches["b3"].items():
+        name = f"quasisep_scan_{monoid}_m{m}" + (f"_r{r}" if r > 1 else "")
+        if name not in by_name:
+            raise AssertionError(f"CARMA's conditioning launched B3 {name}, which the "
+                                 f"conditioning path's records do not hold")
+        by_name[name]["launches"] += count
     records = [record, grad_records["res"], grad_records["bwd"], *scan_records]
     records += dense_records(measured, launches)
     records.append(gram_record)

@@ -50,10 +50,8 @@ def test_condition_result_is_exported():
 
 
 # ROADMAP.md, queue A: names still to port (L2, the Kalman and low-rank
-# solvers; L3's VI and SMC samplers), and the subpackage still to port as a
-# whole (L4 parallel).
-QUEUED = {"KalmanSolver", "LowRankSolver", "fit_advi", "sample_advi", "run_smc", "ADVIResult",
-          "ADVIFullRankResult", "SMCResult"}
+# solvers), and the subpackage still to port as a whole (L4 parallel).
+QUEUED = {"KalmanSolver", "LowRankSolver"}
 QUEUED_SUBPACKAGES = {"parallel"}
 
 
@@ -80,10 +78,15 @@ def subpackages(package: str) -> list[str]:
     )
 
 
-@pytest.mark.parametrize("sub", subpackages("tinygp_tpu"))
+# Modules whose ``__all__`` the subpackages' own do not reach.
+MODULES = ["kernels.quasisep"]
+
+
+@pytest.mark.parametrize("sub", subpackages("tinygp_tpu") + MODULES)
 def test_subpackage_all_matches_the_jax_package(sub):
-    """Each subpackage's ``__all__`` is the reference's, less what is not to
-    port or queued; a queued subpackage is absent from the port."""
+    """Each subpackage's (and each of MODULES') ``__all__`` is the
+    reference's, less what is not to port or queued; a queued subpackage is
+    absent from the port."""
     want = declared_all(f"tinygp_tpu.{sub}")
     if sub.split(".")[0] in QUEUED_SUBPACKAGES or want is None:
         port = ROOT / "tinygp_tpu_torch" / sub.replace(".", "/")

@@ -1368,3 +1368,51 @@ def test_vmap_of_the_gradient_is_one_launch_of_each(cuda_device, dtype):
         np.testing.assert_allclose(float(value[c]), float(lp), rtol=rtol)
         np.testing.assert_allclose(grad[c].cpu().numpy(), g.cpu().numpy(), rtol=rtol,
                                    atol=rtol * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["autograd", "func"])
+@pytest.mark.parametrize("model", ["sho", "sho_matern52"])
+def test_gradient_outside_vmap_on_the_card(cuda_device, model, how):
+    """The gradient of ``vmap(log_prob)(z).mean()`` taken outside the
+    ``vmap`` (ADVI's order) at 8 draws of N = 512, float64: each draw's
+    gradient as ``torch.autograd`` gives it for that draw alone (1e-10
+    relative); at m = 2 one chain-axis B1r and one B2 launch, at m = 5 one
+    unbatched launch of each a draw."""
+    rng = np.random.default_rng(0)
+    n = 512
+    t = np.sort(rng.uniform(0, 10, n))
+    X = torch.as_tensor(t, device=cuda_device)
+    Y = torch.as_tensor(np.sin(3 * t) + 0.3 * rng.normal(size=n), device=cuda_device)
+
+    def log_prob(z):
+        kernel = torch.exp(z[0]) * quasisep.SHO(omega=torch.exp(z[1]), quality=torch.exp(z[2]))
+        if model == "sho_matern52":
+            kernel = kernel + quasisep.Matern52(scale=2.5)
+        gp = GaussianProcess(kernel, X, diag=0.09, assume_sorted=True)
+        return gp.log_probability(Y) - 0.5 * torch.sum(z**2)
+
+    def mean_log_prob(z):
+        return torch.mean(torch.func.vmap(log_prob)(z))
+
+    z = torch.as_tensor(np.array([0.0, 1.0, 1.0]) + 0.2 * rng.normal(size=(8, 3)),
+                        device=cuda_device)
+    before = (dict(cuda_loglik.LAUNCHES_CHAINS), cuda_loglik.LAUNCHES_RES,
+              cuda_loglik.LAUNCHES_BWD)
+    if how == "autograd":
+        zg = z.clone().requires_grad_(True)
+        (grad,) = torch.autograd.grad(mean_log_prob(zg), zg)
+    else:
+        grad = torch.func.grad(mean_log_prob)(z)
+    torch.cuda.synchronize()
+    chains = 1 if model == "sho" else 0
+    launches = 1 if model == "sho" else 8
+    assert cuda_loglik.LAUNCHES_CHAINS["b1r"] == before[0]["b1r"] + chains
+    assert cuda_loglik.LAUNCHES_CHAINS["b2"] == before[0]["b2"] + chains
+    assert (cuda_loglik.LAUNCHES_RES, cuda_loglik.LAUNCHES_BWD) == (before[1] + launches,
+                                                                    before[2] + launches)
+    for c in range(8):
+        zc = z[c].clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(log_prob(zc) / 8, zc)
+        np.testing.assert_allclose(grad[c].cpu().numpy(), g.cpu().numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(g.abs().max()))

@@ -97,5 +97,10 @@ def test_algebra_builds_the_same_tree():
     assert isinstance(k.kernel2, tq.Product)
     with pytest.raises(ValueError):
         m32 * torch.ones(2)
-    with pytest.raises(ValueError):
-        kernel_from_tree({"class": "CARMA"}, device="cpu")
+    # CARMA converts from its JAX fields, its derived ones recomputed.
+    jk = jq.CARMA(alpha=np.array([1.4, 2.3]), beta=np.array([1.0, 0.1]))
+    tk = kernel_from_tree(jax_tree(jk), device="cpu")
+    assert isinstance(tk, tq.CARMA)
+    X = np.linspace(0.0, 5.0, 20)
+    for g, w in zip(tk.to_stacked_ssm(torch.as_tensor(X)), jk.to_stacked_ssm(jnp.asarray(X))):
+        assert_allclose(g, w)

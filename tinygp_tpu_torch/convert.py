@@ -78,8 +78,13 @@ def kernel_from_tree(
     ``device`` (``None`` is ``"cuda"``) in ``dtype``."""
     device = resolve_device(device)
     cls = _kernel_class(tree["class"])
+    # Fields a class computes from its other hyperparameters (CARMA's roots
+    # and masks) are recomputed, not carried.
+    derived = getattr(cls, "_derived", ())
     params = {
-        k: as_tensor(v, device, dtype) for k, v in tree.get("params", {}).items()
+        k: as_tensor(v, device, dtype)
+        for k, v in tree.get("params", {}).items()
+        if k not in derived
     }
     children = {
         k: kernel_from_tree(v, device=device, dtype=dtype)

@@ -16,8 +16,8 @@ coordinates of shape ``s``, ``observation_model`` returns ``(m, *s)`` and
 ``transition_matrix`` returns ``(m, m, *s)``, the components-first layout
 that :meth:`Quasisep.to_stacked_ssm` hands to the scans.
 
-Not ported yet: ``CARMA`` (ROADMAP item N5) and the lazy ``Block``
-transitions; a :class:`Sum` here builds dense block-diagonal matrices.
+Not ported: the lazy ``Block`` transitions; a :class:`Sum` here builds
+dense block-diagonal matrices.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ __all__ = [
     "Matern32",
     "Matern52",
     "Cosine",
+    "CARMA",
 ]
 
 import math
@@ -659,3 +660,324 @@ class Cosine(Quasisep):
         cos = torch.cos(f * dt)
         sin = torch.sin(f * dt)
         return _mat([[cos, sin], [-sin, cos]], dt)
+
+
+def _diag(v: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """The matrices ``(p, p, *s)`` with ``v (p - |offset|, *s)`` on the
+    diagonal ``offset``, components first."""
+    out = torch.diag_embed(v.movedim(0, -1), offset=offset)
+    return out.movedim(-2, 0).movedim(-1, 1)
+
+
+class CARMA(Quasisep):
+    r"""A continuous-time ARMA(p, q) process kernel (Kelly et al. 2014).
+
+    The power spectrum is the ratio of two polynomials in :math:`i\omega`
+    with AR coefficients ``alpha`` (length p, excluding the leading 1) and
+    MA coefficients ``beta`` (length q+1 <= p, with the amplitude absorbed).
+    The autocovariance is a mixture of real and complex exponentials: each
+    real root maps to an :class:`Exp`-like state and each conjugate pair to
+    a :class:`Celerite`-like 2-state block, selected by real/complex masks
+    instead of control flow.
+
+    Stationarity requires all AR roots to have negative real parts; use
+    :meth:`from_quads` for an automatically stationary parameterization.
+
+    The roots and the autocovariance are computed when the kernel is
+    built, on the device and in the dtype of ``alpha`` and ``beta``, in the
+    JAX package's ``(re, im)`` pair arithmetic (:func:`_carma_roots_ri`).
+    The observation model gives each conjugate pair its own two celerite
+    components at every order; the JAX package's does so at p = 2 only, so
+    above that the two packages' kernels differ, and the port's is the
+    autocovariance of Kelly et al. (2014, Eq. 4). Where a pair's own
+    celerite term is not positive (``a c < b d``) the observation model is
+    NaN, in both packages.
+    """
+
+    # Fields computed from alpha and beta; convert.kernel_from_tree
+    # recomputes them rather than carrying them over.
+    _derived = ("sigma", "arroots_re", "arroots_im", "acf_re", "acf_im", "_real_mask",
+                "_complex_mask", "_complex_select", "obsmodel")
+
+    def __init__(self, alpha: Any, beta: Any):
+        super().__init__()
+        alpha = torch.atleast_1d(as_hyper(alpha))
+        beta = torch.atleast_1d(as_hyper(beta))
+        if alpha.ndim != 1 or beta.ndim != 1 or beta.shape[0] > alpha.shape[0]:
+            raise ValueError("CARMA needs 1-d alpha and beta with len(beta) <= len(alpha)")
+        dtype = torch.promote_types(alpha.dtype, beta.dtype)
+        alpha, beta = alpha.to(dtype), beta.to(device=alpha.device, dtype=dtype)
+        sigma = alpha.new_ones(())
+
+        re, im = _carma_roots_ri(torch.cat([alpha, alpha.new_ones(1)]))
+        acf_re, acf_im = _carma_acvf_ri(re, im, alpha, beta * sigma)
+
+        # Real roots get a 1-state exponential; each complex-conjugate pair
+        # shares a 2-state rotation block. The select mask marks the first
+        # member of each pair (where the off-diagonal couplings live).
+        real_mask = torch.abs(im) < 10 * torch.finfo(im.dtype).eps
+        complex_mask = ~real_mask
+        pair_rank = torch.cumsum(complex_mask, 0) * complex_mask
+        complex_select = complex_mask * (pair_rank % 2)
+
+        om_real = torch.sqrt(torch.abs(acf_re))
+        a, b = 2.0 * acf_re, 2.0 * acf_im
+        c, d = -re, -im
+        c2, d2 = torch.square(c), torch.square(d)
+        s2 = c2 + d2
+        denom = torch.where(real_mask, 1.0, 2.0 * c * s2)
+        h2_2 = d2 * (a * c - b * d) / denom
+        h2 = torch.sqrt(h2_2)
+        denom = torch.where(real_mask, 1.0, d)
+        h1 = (c * h2 - torch.sqrt(a * d2 - s2 * h2_2)) / denom
+        # A conjugate pair takes both celerite components of its first
+        # member: h1 there and h2 at the second. (The JAX package takes
+        # every other entry of the raveled (h1, h2), which is this at p = 2
+        # only; ROADMAP.md, "Found in the reference".)
+        obsmodel = torch.where(real_mask, om_real,
+                               torch.where(complex_select.bool(), h1, torch.roll(h2, 1)))
+
+        self._hyper(alpha=alpha, beta=beta)
+        for name, value in (("sigma", sigma), ("arroots_re", re), ("arroots_im", im),
+                            ("acf_re", acf_re), ("acf_im", acf_im), ("_real_mask", real_mask),
+                            ("_complex_mask", complex_mask), ("_complex_select", complex_select),
+                            ("obsmodel", obsmodel)):
+            self.register_buffer(name, value)
+
+    @property
+    def arroots(self) -> torch.Tensor:
+        """The complex AR roots."""
+        return torch.complex(self.arroots_re, self.arroots_im)
+
+    @property
+    def acf(self) -> torch.Tensor:
+        """The complex ACVF coefficients."""
+        return torch.complex(self.acf_re, self.acf_im)
+
+    @classmethod
+    def init(cls, alpha: Any, beta: Any) -> CARMA:
+        return cls(alpha, beta)
+
+    @classmethod
+    def from_quads(cls, alpha_quads: Any, beta_quads: Any, beta_mult: Any) -> CARMA:
+        r"""Construct from quadratic factors of the characteristic polynomials.
+
+        Positive quadratic coefficients guarantee negative-real-part roots,
+        i.e. a stationary process (Kelly et al. 2014, Eq. 30).
+
+        Args:
+            alpha_quads: AR quadratic coefficients, length ``p``.
+            beta_quads: MA quadratic coefficients, length ``q``.
+            beta_mult: Multiplier for the MA polynomial (the highest-order
+                beta).
+        """
+        alpha_quads = torch.atleast_1d(as_hyper(alpha_quads))
+        beta_quads = torch.atleast_1d(as_hyper(beta_quads))
+        beta_mult = torch.atleast_1d(as_hyper(beta_mult)).to(beta_quads)
+        alpha = carma_quads2poly(torch.cat([alpha_quads, alpha_quads.new_ones(1)]))[:-1]
+        beta = carma_quads2poly(torch.cat([beta_quads, beta_mult]))
+        return cls(alpha, beta)
+
+    def design_matrix(self) -> torch.Tensor:
+        real = torch.diag(self.arroots_re * self._real_mask)
+        cplx_diag = torch.diag(self.arroots_re * self._complex_mask)
+        cplx_off = torch.diag((self.arroots_im * self._complex_select)[:-1], 1)
+        return real + cplx_diag + cplx_off - cplx_off.T
+
+    def stationary_covariance(self) -> torch.Tensor:
+        ones = torch.ones_like(self.acf_re)
+        sign = torch.diag(torch.where(self.acf_re > 0, ones, -ones))
+        denom = torch.where(self._real_mask, 1.0, self.arroots_im)
+        ratio = self.arroots_re / denom
+        second = torch.diag(
+            2.0 * torch.square(ratio * torch.roll(self._complex_select, 1) * self._complex_mask)
+        )
+        off = torch.diag((-ratio * self._complex_select)[:-1], 1)
+        return sign + second + off + off.T
+
+    def observation_model(self, X: torch.Tensor) -> torch.Tensor:
+        p = self.obsmodel.shape[0]
+        return self.obsmodel.reshape(p, *(1,) * X.ndim).expand(p, *X.shape)
+
+    def transition_matrix(self, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+        dt = X2 - X1
+        shape = (-1, *(1,) * dt.ndim)
+        c = -self.arroots_re.reshape(shape)
+        d = -self.arroots_im.reshape(shape)
+        decay = torch.exp(-c * dt)
+        real = _diag(decay * self._real_mask.reshape(shape))
+        cplx_diag = _diag(decay * torch.cos(d * dt) * self._complex_mask.reshape(shape))
+        cplx_off = _diag((decay * torch.sin(d * dt) * self._complex_select.reshape(shape))[:-1], 1)
+        return real + cplx_diag + cplx_off - cplx_off.transpose(0, 1)
+
+
+# -- complex arithmetic on (re, im) pairs ------------------------------------
+# The JAX package writes CARMA's roots and autocovariance on (real, imag)
+# pairs of real arrays because its TPU backend lowers no complex primitives.
+# The port keeps that arithmetic op for op, so that both packages compute
+# the same roots in the same order; carma_roots and carma_acvf return
+# complex views.
+
+
+def _cmul(a, b):
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def _cdiv(a, b):
+    d = b[0] * b[0] + b[1] * b[1]
+    return (a[0] * b[0] + a[1] * b[1]) / d, (a[1] * b[0] - a[0] * b[1]) / d
+
+
+def _carma_roots_ri(poly_coeffs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Roots (sorted by real part) of a real polynomial (low-to-high
+    coefficients), as (re, im).
+
+    Degrees 1-2 use closed forms; higher degrees run a fixed-iteration
+    Durand-Kerner (Weierstrass) solver of 64 steps.
+    """
+    p = poly_coeffs.shape[0] - 1
+    monic = poly_coeffs / poly_coeffs[-1]
+
+    if p == 1:
+        re, im = -monic[:1], monic.new_zeros(1)
+    elif p == 2:
+        b, c = monic[1], monic[0]
+        disc = b * b - 4.0 * c
+        sq = torch.sqrt(torch.abs(disc))
+        is_real = disc >= 0
+        re = torch.where(is_real, torch.stack([(-b - sq), (-b + sq)]) / 2.0,
+                         torch.stack([-b, -b]) / 2.0)
+        im = torch.where(is_real, monic.new_zeros(2), torch.stack([-sq, sq]) / 2.0)
+    else:
+        # Staggered ring start (radius > root bound, irrational-ish angles
+        # so no start point is real or a symmetry fixed point).
+        radius = 1.0 + torch.max(torch.abs(monic[:-1]))
+        ang = 2.0 * math.pi * (torch.arange(p, dtype=monic.dtype, device=monic.device)
+                               + 0.25) / p + 0.7
+        z = (radius * torch.cos(ang), radius * torch.sin(ang))
+        coef = monic.flip(0)  # high-to-low for Horner
+        eye = torch.eye(p, dtype=torch.bool, device=monic.device)
+
+        def poly(z):
+            acc = (coef[0].expand(p), monic.new_zeros(p))
+            for c in coef[1:]:
+                acc = _cmul(acc, z)
+                acc = (acc[0] + c, acc[1])
+            return acc
+
+        for _ in range(64):
+            dr = z[0][:, None] - z[0][None, :]
+            di = z[1][:, None] - z[1][None, :]
+            dr = torch.where(eye, 1.0, dr)
+            di = torch.where(eye, 0.0, di)
+            denom = (monic.new_ones(p), monic.new_zeros(p))
+            for j in range(p):
+                denom = _cmul(denom, (dr[:, j], di[:, j]))
+            upd = _cdiv(poly(z), denom)
+            z = (z[0] - upd[0], z[1] - upd[1])
+        re, im = z
+
+    order = torch.argsort(re, stable=True)
+    return re[order], im[order]
+
+
+def carma_roots(poly_coeffs: Any) -> torch.Tensor:
+    """Sorted complex roots of a real polynomial (low-to-high
+    coefficients)."""
+    re, im = _carma_roots_ri(as_hyper(poly_coeffs))
+    return torch.complex(re, im)
+
+
+def _convolve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The full discrete convolution of two 1-d tensors (``np.convolve``)."""
+    lb = b.shape[0]
+    return sum(torch.nn.functional.pad(a * b[j], (j, lb - 1 - j)) for j in range(lb))
+
+
+def carma_quads2poly(quads_coeffs: Any) -> torch.Tensor:
+    """Expand quadratic factors into a full polynomial (low-to-high).
+
+    The last input entry is the multiplier (the highest-order output
+    coefficient).
+    """
+    quads_coeffs = as_hyper(quads_coeffs)
+    size = quads_coeffs.shape[0] - 1
+    mult = quads_coeffs[-1:]
+    one = quads_coeffs.new_ones(1)
+    poly = torch.cat([one, quads_coeffs[-2:-1]]) if size % 2 == 1 else one
+    for k in range(size // 2):
+        quad = torch.cat([quads_coeffs[2 * k : 2 * k + 2], one])
+        poly = _convolve(poly, quad.flip(0))
+    return poly.flip(0) * mult
+
+
+def carma_poly2quads(poly_coeffs: Any) -> torch.Tensor:
+    """Factor a polynomial (low-to-high) into quadratic coefficients, on
+    the host: which roots are complex decides the factors."""
+    poly_coeffs = as_hyper(poly_coeffs)
+    mult = poly_coeffs[-1]
+    roots = carma_roots(poly_coeffs / mult)
+    odd = bool(len(roots) & 1)
+    roots_c = roots[roots.imag != 0]
+    roots_r = roots[roots.imag == 0]
+
+    # Pairs (i, i + 1), as the JAX package takes them.
+    quads = []
+    for i in range(len(roots_c) // 2):
+        r1, r2 = roots_c[i], roots_c[i + 1]
+        quads.extend([(r1 * r2).real, -(r1.real + r2.real)])
+    for i in range(len(roots_r) // 2):
+        r1, r2 = roots_r[i], roots_r[i + 1]
+        quads.extend([(r1 * r2).real, -(r1.real + r2.real)])
+    if odd:
+        quads.append(-roots_r[-1].real)
+    return torch.stack([*quads, mult])
+
+
+def _carma_acvf_ri(
+    roots_re: torch.Tensor,
+    roots_im: torch.Tensor,
+    arparam: torch.Tensor,
+    maparam: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""Autocovariance coefficients (Kelly+14 Eq. 4), in (re, im) pairs."""
+    arparam = torch.atleast_1d(arparam)
+    maparam = torch.atleast_1d(maparam)
+
+    p = arparam.shape[0]
+    q = maparam.shape[0] - 1
+    sigma = maparam[0]
+    maparam = maparam / sigma
+
+    z = (roots_re, roots_im)
+    zneg = (-roots_re, -roots_im)
+    zero = roots_re.new_zeros(p)
+    num_left = (zero, zero)
+    num_right = (zero, zero)
+    pow_l = (roots_re.new_ones(p), zero)
+    pow_r = (roots_re.new_ones(p), zero)
+    for k in range(q + 1):
+        num_left = (num_left[0] + maparam[k] * pow_l[0], num_left[1] + maparam[k] * pow_l[1])
+        num_right = (num_right[0] + maparam[k] * pow_r[0], num_right[1] + maparam[k] * pow_r[1])
+        if k < q:
+            pow_l = _cmul(pow_l, z)
+            pow_r = _cmul(pow_r, zneg)
+
+    denom = (-2.0 * roots_re, zero)
+    idx = torch.arange(p, device=roots_re.device)
+    for j in range(1, p):
+        sh = torch.roll(idx, j)
+        shifted = (roots_re[sh], roots_im[sh])
+        denom = _cmul(denom, (shifted[0] - roots_re, shifted[1] - roots_im))
+        # conj(shifted) + z
+        denom = _cmul(denom, (shifted[0] + roots_re, roots_im - shifted[1]))
+
+    out = _cdiv(_cmul(num_left, num_right), denom)
+    return sigma**2 * out[0], sigma**2 * out[1]
+
+
+def carma_acvf(arroots: Any, arparam: Any, maparam: Any) -> torch.Tensor:
+    r"""Autocovariance coefficients, one per AR root (Kelly+14 Eq. 4)."""
+    arroots = as_hyper(arroots)
+    re, im = _carma_acvf_ri(arroots.real, arroots.imag, as_hyper(arparam), as_hyper(maparam))
+    return torch.complex(re, im)

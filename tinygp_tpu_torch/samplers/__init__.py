@@ -1,12 +1,12 @@
 """Built-in inference over GP hyperparameters: many-chain NUTS and HMC with
-their diagnostics.
+their diagnostics, mean-field and full-rank ADVI, and adaptive tempered
+SMC.
 
-Counterpart of ``tinygp_tpu/samplers``. The chains run together on one
-leading axis, and each leapfrog step evaluates the log density and its
-gradient for all of them at once, so a quasiseparable GP's likelihood takes
-one launch of each kernel for every chain (``hmc.py``). Mean-field ADVI
-(``vi.py``) and tempered SMC (``smc.py``) are still to port (ROADMAP.md,
-queue A).
+Counterpart of ``tinygp_tpu/samplers``. The chains, ELBO draws and
+particles run together on one leading axis, and each evaluation of the log
+density covers all of them at once, so a quasiseparable GP's likelihood
+takes one launch of each kernel for every chain (``hmc.py``), draw
+(``vi.py``) or particle (``smc.py``).
 """
 
 __all__ = [
@@ -18,9 +18,15 @@ __all__ = [
     "potential_scale_reduction",
     "effective_sample_size",
     "summary",
+    "fit_advi",
+    "sample_advi",
+    "run_smc",
     "HMCState",
     "HMCInfo",
     "WarmupInfo",
+    "ADVIResult",
+    "ADVIFullRankResult",
+    "SMCResult",
 ]
 
 from tinygp_tpu_torch.samplers.diagnostics import (
@@ -37,4 +43,11 @@ from tinygp_tpu_torch.samplers.hmc import (
     nuts,
     run_mcmc,
     window_adaptation,
+)
+from tinygp_tpu_torch.samplers.smc import SMCResult, run_smc
+from tinygp_tpu_torch.samplers.vi import (
+    ADVIFullRankResult,
+    ADVIResult,
+    fit_advi,
+    sample_advi,
 )

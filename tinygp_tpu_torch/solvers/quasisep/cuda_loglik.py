@@ -1221,19 +1221,83 @@ class FusedLoglik(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, qbar, lbar, *_):
-        # Outside torch.func, grad mode is on here exactly when the caller
-        # asked for a graph of the gradient (create_graph=True), which B2
-        # cannot give; torch.func.grad always asks for one, and a second
-        # derivative through it raises in _LoglikBwd.backward.
-        if torch.is_grad_enabled() and not torch._C._are_functorch_transforms_active():
-            raise RuntimeError(_ONCE)
+        _refuse_graph()
         ps, qs, as_, y, Fs, e, ic = ctx.saved_tensors
         qbar, lbar = (g.to(ps.dtype).reshape(()).contiguous() for g in (qbar, lbar))
         return _LoglikBwd.apply(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
 
     @staticmethod
     def vmap(info, in_dims, *operands):
-        return fused_loglik_res_chains(*_to_chains(in_dims, operands)), (0,) * 5
+        return _FusedLoglikChains.apply(*_to_chains(in_dims, operands)), (0,) * 5
+
+
+def _refuse_graph() -> None:
+    """Raise where a backward is asked for a graph of the gradient.
+
+    Outside torch.func, grad mode is on in a backward exactly when the
+    caller asked for one (create_graph=True), which B2 cannot give;
+    torch.func.grad always asks for one, and a second derivative through
+    it raises in B2's own ``Function``."""
+    if torch.is_grad_enabled() and not torch._C._are_functorch_transforms_active():
+        raise RuntimeError(_ONCE)
+
+
+class _FusedLoglikChains(torch.autograd.Function):
+    """:class:`FusedLoglik` over a chain axis, the form its ``vmap`` rule
+    returns: forward B1r over every chain (:func:`fused_loglik_res_chains`),
+    backward B2 over every chain (:class:`_LoglikBwdChains`), the
+    cotangents of operands that every chain shares summed over the chains.
+
+    Through it an autograd level outside the ``vmap`` (``.backward()`` or
+    ``torch.func.grad`` of an ELBO built on ``vmap(log_prob)``) records the
+    launch; a launch writes into fresh tensors and records nothing of its
+    own. On CPU tensors the forward runs the plain chain version, without
+    grad like the launch, so the CPU path takes this backward too."""
+
+    @staticmethod
+    def forward(d, ps, qs, as_, y):
+        return fused_loglik_res_chains(d, ps, qs, as_, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ps, qs, as_, y = inputs
+        _, _, Fs, e, ic = output
+        ctx.mark_non_differentiable(Fs, e, ic)
+        ctx.save_for_backward(ps, qs, as_, y, Fs, e, ic)
+        ctx.batched = _batched(inputs, _FWD)
+
+    @staticmethod
+    def backward(ctx, qbar, lbar, *_):
+        _refuse_graph()
+        ps, qs, as_, y, Fs, e, ic = ctx.saved_tensors
+        qbar, lbar = (g.to(ps.dtype).contiguous() for g in (qbar, lbar))
+        grads = _LoglikBwdChains.apply(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
+        return tuple(g if b else g.sum(0) for g, b in zip(grads, ctx.batched))
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        raise RuntimeError("the chain-axis log-likelihood takes one chain axis, not two")
+
+
+class _LoglikBwdChains(torch.autograd.Function):
+    """B2 over a chain axis (:func:`fused_loglik_bwd_chains`) as a
+    ``Function``: it has no derivative and takes no second chain axis."""
+
+    @staticmethod
+    def forward(*operands):
+        return fused_loglik_bwd_chains(*operands)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(_ONCE)
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        raise RuntimeError("the chain-axis log-likelihood takes one chain axis, not two")
 
 
 class _LoglikBwd(torch.autograd.Function):
@@ -1290,12 +1354,24 @@ def fused_loglik_terms(
 
     Operands are stacked and unbatched: ``d``/``y`` ``(N,)``, ``ps``/``qs``
     ``(m, N)``, ``as_`` ``(m*m, N)``, one dtype, contiguous. With grad
-    enabled and an operand requiring it, this is :class:`FusedLoglik`
-    (B1r, then B2 in the backward); otherwise B1. CPU tensors take the
+    enabled and an operand requiring it (at any autograd level, one outside
+    a ``vmap`` too), this is :class:`FusedLoglik` (B1r, then B2 in the
+    backward); otherwise B1. CPU tensors take the
     plain versions on either route. Under ``torch.func.vmap`` (over any
     operands but one chain axis) both routes launch once for all chains.
     """
     operands = (d, ps, qs, as_, y)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
+    if torch.is_grad_enabled() and any(_requires_grad(x) for x in operands):
         return FusedLoglik.apply(*operands)[:2]
     return _LoglikValue.apply(*operands)
+
+
+def _requires_grad(x: torch.Tensor) -> bool:
+    """Whether ``x`` requires grad at some autograd level. Under
+    ``torch.func.vmap`` a batched tensor reads False whatever the tensor it
+    wraps, so the wrappers are peeled: an autograd level outside the
+    ``vmap`` (``.backward()``, ``torch.func.grad``) needs the gradient."""
+    functorch = torch._C._functorch
+    while not x.requires_grad and functorch.is_batchedtensor(x):
+        x = functorch.get_unwrapped(x)
+    return x.requires_grad
