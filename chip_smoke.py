@@ -168,7 +168,31 @@ Phases, each printing its numbers on lines of its own:
     (B1r, B2), each kernel against its plain version; in float64 the value
     at N = 2000 and ``condition``/``predict`` at N = 5000 against dense
     references of Kelly's autocovariance; a p = 3 process through the
-    value; the constructor's and the calls' times.
+    value; the constructor's and the calls' times;
+22. gradients through conditioning (N8): the gradient in (amp, scale) of
+    ``sum(w * mu) + sum(var)`` from ``predict(y, linspace(0, 10, 1000),
+    return_var=True)`` for ``bench.py``'s Matern32 in float32, held within
+    5e-4 of the CPU plain path's float32 and of the card's float64 on every
+    1000th point (N = 100), driven, timed and printed at N = 1e5; the
+    gradient of the posterior processes' ``log_probability`` (Matern32,
+    Matern52, the 2-term celerite: orders 8, 12, 16) in float64, held
+    within 1e-7 of the CPU plain path at N = 1000 (posterior ``diag=0.1``),
+    driven, timed and printed at N = 5000 (``diag=1e-3``) beside a dense
+    float64 posterior; and central differences of Matern32's posterior
+    value at N = 1000, ``diag=1.0``, within 1e-6. Every B3 launch is counted, forward and backward
+    apart: the backwards launch B3 in reverse (``cong``, ``aff``, ``cpl``),
+    no plain scan runs on a CUDA tensor; each shape's B3 against its plain
+    version;
+23. the low-rank solver (L2) at ``benchmarks/lowrank_bench.py``'s settings
+    (dense Matern32, M = 512, N = 1e4, 2e4, 1e5, float32): value and
+    gradient, timed beside a dense Cholesky at 1e4, float64 against the CPU
+    plain path at 1e4, under TF32 against the same call with TF32 off;
+    ``tests/test_solvers/test_lowrank.py``'s limits on
+    the card (``Z = X`` against ``DirectSolver``, duplicated inducing
+    points, a NaN capacitance, clustered inducing points);
+24. the Kalman oracle (L2): ``test_kalman.py``'s four kernels in float64
+    at N = 5000 and 2e4 against ``QuasisepSolver`` (B1) on the card, the
+    host loop timed.
 
 The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
@@ -176,7 +200,9 @@ its side products, B5 at either order and B6 each summed over the shapes of
 the dense main path; B7 at 1e4; one record per generic-order instantiation
 of phase 16, and B1, B1r and B2 at m = 5; B1, B1r and B2 with a chain
 axis at the sampler's shape, with their launches on phases 18-20's paths;
-B1, B1r, B2 and B3 with CARMA's launches added); the last line
+B1, B1r, B2 and B3 with CARMA's launches added, and B3 with phase 22's,
+forward and reverse, a record of its own for each shape no earlier phase
+launched); the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 then exits non-zero without that line; it also exits non-zero where CUDA is
 not available.
@@ -210,6 +236,11 @@ to 20, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
 chain-axis records. ``python3 chip_smoke.py --c6`` runs phase 1 and then
 only phase 19's ``c6`` checks; they use only what older trees share, so
 copied into a parent commit's checkout it shows the parent's gradients.
+``python3 chip_smoke.py --grad`` runs phase 1 and then only phases 22-24,
+their TF32 reruns and the records of phase 22's B3 shapes.
+``python3 chip_smoke.py --tf32-mutant`` runs phase 1 and then phases 22
+and 23's TF32 reruns with the backward pins removed in its own process,
+and exits 0 only if both fail, as they must.
 ``python3 chip_smoke.py --gram-times`` does the same for B7: at 1e4 x 1e4
 and over the dense path's 20 strip shapes, each through ``gram_tiled`` and
 launched directly, and the host time of one 64 x 64 ``gram_tiled`` call
@@ -440,7 +471,7 @@ def float32_defaults():
 
 def phase_tf32():
     """The dense path's and the conditioning path's limits (phases 3, 8,
-    9, 11-14) rerun with TF32 turned on globally, as a user does with
+    9, 11-14, the float32 part of 22 and 23) rerun with TF32 turned on globally, as a user does with
     ``torch.set_float32_matmul_precision("high")``: the port's entry points
     must meet them whatever the global setting, as the reference pins its
     contractions' precision (``tinygp_tpu/helpers.py:26-34``). The
@@ -454,8 +485,11 @@ def phase_tf32():
     try:
         for phase in (phase_dense_check, phase_example_condition, phase_condition_path,
                       phase_dense_loglik, phase_dense_path_gradient, phase_dense_condition,
-                      phase_dense_ill_conditioned):
-            phase()
+                      phase_dense_ill_conditioned, phase_condition_gradient, phase_lowrank):
+            if phase in (phase_condition_gradient, phase_lowrank):
+                phase(tf32=True)
+            else:
+                phase()
             log(f"tf32: {phase.__name__} passed with TF32 on")
     finally:
         torch.set_float32_matmul_precision("highest")
@@ -4836,6 +4870,637 @@ def phase_carma():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Gradients through conditioning (N8), the low-rank and Kalman solvers (L2).
+# ---------------------------------------------------------------------------
+
+class B3Watch:
+    """Every B3 launch while active, by ``(monoid, m, m2, r)`` (with the
+    first launch's direction, output and operands, for the records), the
+    reverse launches by monoid, and the plain blocked scan's calls on a
+    CUDA tensor (there must be none)."""
+
+    def __init__(self):
+        self.counts, self.first, self.reverse = {}, {}, {}
+        self.plain_on_card = 0
+
+    def snapshot(self):
+        return dict(self.counts), dict(self.reverse)
+
+    @contextlib.contextmanager
+    def active(self):
+        from tinygp_tpu_torch.solvers.quasisep import cuda_scan, scan
+
+        launch, monoid_scan = cuda_scan._launch, scan.monoid_scan
+
+        def recording(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+            key = (monoid, m, m if m2 is None else m2, r)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            self.first.setdefault(key, (reverse, inclusive, operands))
+            self.reverse[monoid] = self.reverse.get(monoid, 0) + bool(reverse)
+            return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+        def counting(combine, identity, elems, **kwargs):
+            self.plain_on_card += elems[0].is_cuda
+            return monoid_scan(combine, identity, elems, **kwargs)
+
+        cuda_scan._launch, scan.monoid_scan = recording, counting
+        try:
+            yield self
+        finally:
+            cuda_scan._launch, scan.monoid_scan = launch, monoid_scan
+
+
+def count_diff(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def by_monoid(counts):
+    out = {}
+    for (monoid, *_), v in counts.items():
+        out[monoid] = out.get(monoid, 0) + v
+    return out
+
+
+def b3_name(monoid, m, m2, r):
+    """The kernels line's name of B3 at this shape (the templated source's
+    records and the generic source's, as phases 8 and 16 name them)."""
+    if m == m2 and m <= 4:
+        return f"quasisep_scan_{monoid}_m{m}" + (f"_r{r}" if r > 1 else "")
+    return (f"quasisep_generic_scan_{monoid}_m{m}" + (f"x{m2}" if monoid == "cpl" else "")
+            + (f"_r{r}" if r > 1 else ""))
+
+
+def b3_records(watch, tag):
+    """A JSON record for each shape the watch saw: B3 against its plain
+    version in float64 on random operands of the first launch's shape (the
+    posteriors' own operands are ill-conditioned for any parallel
+    composition, as phase 16 found), its CUDA-event time on the path's
+    operands, its plain version's, its bound; ``launches`` the watch's
+    count."""
+    import torch
+
+    records = {}
+    for key, count in sorted(watch.counts.items()):
+        monoid, m, m2, r = key
+        reverse, inclusive, operands = watch.first[key]
+        n_op, dtype = operands[0].shape[-1], operands[0].dtype
+        rtol = 1e-8 if dtype == torch.float64 else 5e-4
+        checks = scan_operands(monoid, m, n_op, r, dtype, seed=m + m2 + r, m2=m2)
+        got = scan_kernel(monoid, m, r, reverse, inclusive, checks, m2=m2)
+        want = scan_plain(monoid, m, r, reverse, inclusive, [x.double() for x in checks], m2=m2)
+        (rel, abs_err), = stream_errors([got], [want])
+        ms = cuda_ms(lambda: scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=m2),
+                     reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: scan_plain(monoid, m, r, reverse, inclusive, operands, m2=m2),
+                           reps=1, warmup=1)
+        bound, by = scan_bound_ms(monoid, m, r, n_op, operands[0].element_size(), m2=m2)
+        name = b3_name(monoid, m, m2, r)
+        ok = rel <= rtol and bool(torch.isfinite(got).all())
+        log(
+            f"{tag} B3 {name} N={n_op} {str(dtype)[6:]} ({count} launches; first "
+            f"{'reverse' if reverse else 'forward'} {'inclusive' if inclusive else 'exclusive'}): "
+            f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {plain_ms:.4f} ms (one call); "
+            f"on random operands of this shape against the plain version in float64 rel "
+            f"{rel:.2e} (limit {rtol:g}), abs {abs_err:.3e} {'ok' if ok else 'FAIL'}"
+        )
+        if not ok:
+            raise AssertionError(f"{tag}: B3 {name} disagrees with its plain version")
+        records[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": "tinygp_tpu_torch/csrc/"
+            + ("quasisep_scan.cu" if name.startswith("quasisep_scan") else "quasisep_generic.cu"),
+            "replaces": "tinygp_tpu/solvers/quasisep/pallas_scan.py:331",
+            "launches": count,
+            "max_abs_err": abs_err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        }
+    return records
+
+
+GRAD_THETA = (1.5, 2.5)
+
+
+def predict_loss(th, X, y, X_test, w, var=True):
+    """``sum(w * mu) + sum(var)`` of ``predict(y, X_test, return_var=True)``
+    for ``amp * Matern32(scale)`` with ``th = (amp, scale)``, ``diag=0.1``,
+    on ``th``'s device and in its dtype."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    X, y, X_test, w = (torch.as_tensor(a, dtype=th.dtype, device=th.device)
+                       for a in (X, y, X_test, w))
+    gp = GaussianProcess(th[0] * quasisep.Matern32(scale=th[1]), X, diag=0.1,
+                         assume_sorted=True, device=th.device.type)
+    mu, spread = gp.predict(y, X_test, return_var=True)
+    return torch.sum(w * mu) + (torch.sum(spread) if var else 0.0)
+
+
+def posterior_kernel(name, th):
+    """The posterior models of phase 16 with an amplitude and a time scale
+    to differentiate: Matern32 and Matern52 at (amp, scale) = (1.5, 2.5);
+    the 2-term celerite with its rates divided by the scale, at (1, 1)."""
+    from tinygp_tpu_torch.kernels import quasisep
+
+    if name == "matern32":
+        return th[0] * quasisep.Matern32(scale=th[1])
+    if name == "matern52":
+        return th[0] * quasisep.Matern52(scale=th[1])
+    return th[0] * (quasisep.Celerite(a=1.0, b=0.1, c=0.5 / th[1], d=1.0 / th[1])
+                    + quasisep.Celerite(a=0.5, b=0.05, c=1.5 / th[1], d=3.0 / th[1]))
+
+
+POSTERIOR_THETA = {"matern32": (1.5, 2.5), "matern52": (1.5, 2.5), "celerite2": (1.0, 1.0)}
+
+
+def posterior_log_prob(name, th, X, y, post_diag):
+    """``condition(y, diag=post_diag)``'s process, its ``log_probability(y)``
+    (order 4m: 8, 12, 16)."""
+    from tinygp_tpu_torch import GaussianProcess
+
+    gp = GaussianProcess(posterior_kernel(name, th), X, diag=0.1, assume_sorted=True,
+                         device=X.device.type)
+    return gp.condition(y, diag=post_diag).gp.log_probability(y)
+
+
+def dense_posterior_log_prob(name, th, X, y, post_diag):
+    """The same in dense float64 algebra (``torch.linalg`` on the tensors'
+    device): the posterior at the training points ``K - K (K + 0.1 I)^-1 K
+    + post_diag I`` and mean ``K (K + 0.1 I)^-1 y``."""
+    import torch
+
+    K = posterior_kernel(name, th)(X, X)
+    eye = torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+    L = torch.linalg.cholesky(K + 0.1 * eye)
+    A = torch.linalg.solve_triangular(L, K, upper=False)
+    loc = K @ torch.cholesky_solve(y[:, None], L)[:, 0]
+    P = K - A.T @ A + post_diag * eye
+    Lp = torch.linalg.cholesky(0.5 * (P + P.T))
+    r = torch.linalg.solve_triangular(Lp, (y - loc)[:, None], upper=False)[:, 0]
+    return (-0.5 * (r @ r) - torch.sum(torch.log(torch.diagonal(Lp)))
+            - 0.5 * X.shape[0] * math.log(2 * math.pi))
+
+
+def value_and_grad(fn, theta, dtype, device):
+    import torch
+
+    th = torch.tensor(theta, dtype=dtype, device=device, requires_grad=True)
+    value = fn(th)
+    (grad,) = torch.autograd.grad(value, th)
+    return value.detach(), grad.detach()
+
+
+def grad_err(got, want):
+    """The largest entry's difference relative to the reference's largest."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+
+
+GRAD_CHECK_STEP = 1000  # the float32 gradient's held configuration: every 1000th point, N = 100
+POSTERIOR_CHECK_STEP = 100  # the float64 posteriors' held configuration: N = 1000
+
+
+def phase_condition_gradient(tf32=False):
+    """Gradients through conditioning on the card (N8). Held to limits
+    (PERF.md section 2), each where the plain float32 or float64 arithmetic
+    can meet it: the float32 held-out ``predict`` loss on every 1000th of
+    ``bench.py``'s points (N = 100, 1000 new points; the CPU plain path's
+    float32 gradient is about 4e-5 of its largest entry off float64 there)
+    within 5e-4 of the CPU plain path's float32 gradient and of the card's
+    float64 one; the float64 posterior processes' ``log_probability`` from
+    ``condition(y, diag=0.1)`` on every 100th point (N = 1000) within 1e-7
+    of the CPU plain path; central differences of the card's own value
+    there (Matern32's posterior with ``diag=1.0``) within 1e-6.
+    Driven and timed at size, with the errors printed and not held: the
+    same loss at ``bench.py``'s N = 1e5 (its float32 gradient is an open
+    fault, PERF.md section 7) and the posteriors at N = 5000 with
+    ``diag=1e-3``, Matern32, Matern52 and the 2-term celerite (orders 8, 12,
+    16). Every run's B3 launches are counted, forward and backward apart:
+    each must launch ``cong`` and a reverse ``aff`` backward (and ``cpl`` on
+    the posteriors) and no plain scan may run on a CUDA tensor. With
+    ``tf32`` the float32 part reruns with TF32 on (``phase_tf32``), also
+    held within 5e-4 of the same call with TF32 off. Returns the watch of
+    the runs at size."""
+    import torch
+
+    (X5, y5), _ = bench_data()
+    X_test = np.linspace(0, 10, 1000)
+    w = np.random.default_rng(7).normal(size=1000)
+    tag = "tf32: condition-gradient" if tf32 else "condition-gradient"
+    watch, check = B3Watch(), B3Watch()
+    failures = []
+
+    def launched_ok(w_, fwd, total, posterior=False):
+        bwd, bwd_rev = count_diff(total[0], fwd[0]), count_diff(total[1], fwd[1])
+        kinds = by_monoid(bwd)
+        ok = (kinds.get("cong", 0) > 0 and w_.plain_on_card == 0
+              and (kinds.get("cpl", 0) > 0 if posterior else bwd_rev.get("aff", 0) > 0))
+        return ok, (f"B3 launches forward {by_monoid(fwd[0])}, backward {kinds} (reverse "
+                    f"{bwd_rev}), plain scans on the card {w_.plain_on_card}")
+
+    def card_gradient(w_, fn, theta, dtype, posterior=False):
+        with w_.active():
+            before = w_.snapshot()
+            th = torch.tensor(theta, dtype=dtype, device="cuda", requires_grad=True)
+            value = fn(th)
+            torch.cuda.synchronize()
+            mid = w_.snapshot()
+            (g,) = torch.autograd.grad(value, th)
+            torch.cuda.synchronize()
+            after = w_.snapshot()
+        fwd = (count_diff(mid[0], before[0]), count_diff(mid[1], before[1]))
+        total = (count_diff(after[0], before[0]), count_diff(after[1], before[1]))
+        ok, text = launched_ok(w_, fwd, total, posterior)
+        return value.detach(), g.detach(), ok, text
+
+    # Float32, held: N = 100.
+    Xa, ya = (a[::GRAD_CHECK_STEP].astype(np.float32) for a in (X5, y5))
+
+    def loss_a(t):
+        return predict_loss(t, Xa, ya, X_test, w)
+
+    _, g32, ok_launch, text = card_gradient(check, loss_a, GRAD_THETA, torch.float32)
+    with float32_defaults():
+        g64 = value_and_grad(loss_a, GRAD_THETA, torch.float64, "cuda")[1]
+        cpu32 = value_and_grad(loss_a, GRAD_THETA, torch.float32, "cpu")[1]
+        off32 = value_and_grad(loss_a, GRAD_THETA, torch.float32, "cuda")[1] if tf32 else g32
+    errs = {"the CPU plain path's float32": grad_err(g32, cpu32),
+            "the card's float64": grad_err(g32, g64)}
+    if tf32:
+        errs["the card's float32 with TF32 off"] = grad_err(g32, off32)
+    ok = ok_launch and bool(torch.isfinite(g32).all()) and max(errs.values()) <= 5e-4
+    log(
+        f"{tag} predict loss matern32 N={len(Xa)} float32 (every {GRAD_CHECK_STEP}th point), "
+        f"1000 new points: gradient {[float(v) for v in g32]!r}; float64 (card) "
+        f"{[float(v) for v in g64]!r}; against "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of the largest entry (limit 5e-4 each); the CPU plain path's float32 off float64 "
+        f"{grad_err(cpu32, g64):.3e}; {text} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        failures.append("float32 predict loss N=100")
+
+    # Float32 at size: N = 1e5, launches held, errors printed.
+    X32, y32 = X5.astype(np.float32), y5.astype(np.float32)
+
+    def loss(t):
+        return predict_loss(t, X32, y32, X_test, w)
+
+    _, g32, ok, text = card_gradient(watch, loss, GRAD_THETA, torch.float32)
+    grad_ms = cuda_ms(lambda: value_and_grad(loss, GRAD_THETA, torch.float32, "cuda"), reps=5,
+                      warmup=1)
+    fwd_ms = cuda_ms(lambda: loss(torch.tensor(GRAD_THETA, device="cuda")), reps=5, warmup=1)
+    with float32_defaults():
+        g64 = value_and_grad(loss, GRAD_THETA, torch.float64, "cuda")[1]
+        if tf32:
+            off = value_and_grad(loss, GRAD_THETA, torch.float32, "cuda")[1]
+            printed = f"the card's float32 with TF32 off {grad_err(g32, off):.3e}"
+        else:
+            t0 = time.perf_counter()
+            cpu32 = value_and_grad(loss, GRAD_THETA, torch.float32, "cpu")[1]
+            cpu_s = time.perf_counter() - t0
+            mean = [value_and_grad(lambda t: predict_loss(t, X32, y32, X_test, w, var=False),
+                                   GRAD_THETA, dtype, "cuda")[1]
+                    for dtype in (torch.float32, torch.float64)]
+            printed = (f"CPU plain float32 {[float(v) for v in cpu32]!r} ({cpu_s:.1f} s), off "
+                       f"float64 {grad_err(cpu32, g64):.3e}, off the card's float32 "
+                       f"{grad_err(g32, cpu32):.3e}; the mean's term alone, the card's float32 "
+                       f"off float64 {grad_err(*mean):.3e}")
+    ok = ok and bool(torch.isfinite(g32).all())
+    log(
+        f"{tag} predict loss matern32 N={len(X32)} float32, 1000 new points (launches held, "
+        f"errors printed: an open fault): gradient {[float(v) for v in g32]!r}; float64 (card, "
+        f"same inputs) {[float(v) for v in g64]!r}, the card's float32 off it "
+        f"{grad_err(g32, g64):.3e} of the largest entry; {printed}; {text}; gradient call "
+        f"{grad_ms:.4f} ms, forward {fwd_ms:.4f} ms (events) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        failures.append("float32 predict loss N=1e5")
+    if tf32:
+        if failures:
+            raise AssertionError(f"{tag} failed: {failures}")
+        return watch
+
+    # Float64 posteriors, held: N = 1000, posterior diag=0.1, against the
+    # CPU plain path.
+    Xk, yk = X5[::POSTERIOR_CHECK_STEP].copy(), y5[::POSTERIOR_CHECK_STEP].copy()
+    Xkc, ykc = (torch.as_tensor(a, device="cuda") for a in (Xk, yk))
+    Xkh, ykh = (torch.as_tensor(a) for a in (Xk, yk))
+    for name, theta in POSTERIOR_THETA.items():
+        _, g, ok, text = card_gradient(
+            check, lambda t: posterior_log_prob(name, t, Xkc, ykc, 0.1), theta, torch.float64,
+            posterior=True)
+        cpu = value_and_grad(lambda t: posterior_log_prob(name, t, Xkh, ykh, 0.1), theta,
+                             torch.float64, "cpu")[1]
+        dense = value_and_grad(lambda t: dense_posterior_log_prob(name, t, Xkc, ykc, 0.1), theta,
+                               torch.float64, "cuda")[1]
+        err = grad_err(g, cpu)
+        ok = ok and err <= 1e-7 and bool(torch.isfinite(g).all())
+        log(f"{tag} posterior {name} N={len(Xk)} float64 diag=0.1: gradient "
+            f"{[float(v) for v in g]!r}, against the CPU plain path {err:.3e} of the largest "
+            f"entry (limit 1e-7), against dense {grad_err(g, dense):.3e} (the CPU's "
+            f"{grad_err(cpu, dense):.3e}); {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"posterior {name} N={len(Xk)}")
+
+    # Float64 posteriors at size: N = 5000, posterior diag=1e-3 (ill-
+    # conditioned, ROADMAP N11), launches held, errors printed.
+    Xs, ys = X5[::20].copy(), y5[::20].copy()
+    Xc, yc = (torch.as_tensor(a, device="cuda") for a in (Xs, ys))
+    Xh, yh = (torch.as_tensor(a) for a in (Xs, ys))
+    for name, theta in POSTERIOR_THETA.items():
+        value, g, ok, text = card_gradient(
+            watch, lambda t: posterior_log_prob(name, t, Xc, yc, 1e-3), theta, torch.float64,
+            posterior=True)
+        cpu = value_and_grad(lambda t: posterior_log_prob(name, t, Xh, yh, 1e-3), theta,
+                             torch.float64, "cpu")
+        dense = value_and_grad(lambda t: dense_posterior_log_prob(name, t, Xc, yc, 1e-3), theta,
+                               torch.float64, "cuda")
+        ms = cuda_ms(lambda: value_and_grad(lambda t: posterior_log_prob(name, t, Xc, yc, 1e-3),
+                                            theta, torch.float64, "cuda"), reps=3, warmup=1)
+        fwd_ms = cuda_ms(lambda: posterior_log_prob(
+            name, torch.tensor(theta, dtype=torch.float64, device="cuda"), Xc, yc, 1e-3),
+            reps=3, warmup=1)
+        ok = ok and bool(torch.isfinite(g).all())
+        log(
+            f"{tag} posterior {name} N={len(Xs)} float64 diag=1e-3 (launches held, errors "
+            f"printed): log prob {value.item()!r} (CPU {cpu[0].item()!r}, dense "
+            f"{dense[0].item()!r}); gradient {[float(v) for v in g]!r}, CPU plain "
+            f"{[float(v) for v in cpu[1]]!r}, dense {[float(v) for v in dense[1]]!r}; card "
+            f"against the CPU {grad_err(g, cpu[1]):.3e}, against dense "
+            f"{grad_err(g, dense[1]):.3e}, the CPU against dense {grad_err(cpu[1], dense[1]):.3e} "
+            f"of the largest entry; {text}; gradient call {ms:.4f} ms, forward {fwd_ms:.4f} ms "
+            f"(events) {'ok' if ok else 'FAIL'}"
+        )
+        if not ok:
+            failures.append(f"posterior {name} N={len(Xs)}")
+
+    # Central differences of the card's own value, where the value is
+    # smooth enough for them: Matern32's posterior with diag=1.0 at N =
+    # 1000, the five-point stencil at h = 1e-2 x (its floor on the CPU plain
+    # path, printed beside it, is about 3e-8 there and 2.9e-6 at N = 5000).
+    def fd_residual(X, y, g):
+        def f(i, v):
+            t = list(POSTERIOR_THETA["matern32"])
+            t[i] = v
+            with torch.no_grad():
+                return posterior_log_prob("matern32", torch.tensor(t, dtype=torch.float64,
+                                                                   device=X.device), X, y, 1.0).item()
+
+        fd = []
+        for i, x in enumerate(POSTERIOR_THETA["matern32"]):
+            h = 1e-2 * max(1.0, abs(x))
+            fd.append((-f(i, x + 2 * h) + 8 * f(i, x + h) - 8 * f(i, x - h) + f(i, x - 2 * h))
+                      / (12 * h))
+        return grad_err(g, torch.tensor(fd)), fd
+
+    fns = {dev: (lambda t, X=X, y=y: posterior_log_prob("matern32", t, X, y, 1.0))
+           for dev, X, y in (("cuda", Xkc, ykc), ("cpu", Xkh, ykh))}
+    g_card = value_and_grad(fns["cuda"], POSTERIOR_THETA["matern32"], torch.float64, "cuda")[1]
+    g_cpu = value_and_grad(fns["cpu"], POSTERIOR_THETA["matern32"], torch.float64, "cpu")[1]
+    (fd_card, fd_c), (fd_cpu, _) = fd_residual(Xkc, ykc, g_card), fd_residual(Xkh, ykh, g_cpu)
+    ok = fd_card <= 1e-6
+    log(
+        f"{tag} central differences matern32 posterior N={len(Xk)} float64 diag=1.0: card "
+        f"gradient {[float(v) for v in g_card]!r} against its own value's five-point stencil "
+        f"{fd_c!r}: {fd_card:.3e} of the largest entry (limit 1e-6; the CPU plain path's own "
+        f"{fd_cpu:.3e}) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        failures.append("central differences")
+    if failures:
+        raise AssertionError(f"{tag} failed: {failures}")
+    return watch
+
+
+LOWRANK_N = (10_000, 20_000, 100_000)
+LOWRANK_M = 512
+
+
+def lowrank_data():
+    """``benchmarks/lowrank_bench.py:33-44``'s draws, in its order:
+    ``default_rng(42)``, at each N sorted X and y, float32."""
+    rng = np.random.default_rng(42)
+    out = {}
+    for n in LOWRANK_N:
+        X = np.sort(rng.uniform(0, 10, n)).astype(np.float32)
+        out[n] = (X, rng.normal(size=n).astype(np.float32))
+    return out
+
+
+def lowrank_loss(th, X, y, Z, diag=0.1):
+    from tinygp_tpu_torch import GaussianProcess, kernels
+    from tinygp_tpu_torch.solvers import LowRankSolver
+
+    gp = GaussianProcess(th[0] * kernels.Matern32(scale=th[1]), X, diag=diag,
+                         solver=LowRankSolver, inducing_points=Z, device=X.device.type)
+    return gp.log_probability(y)
+
+
+def phase_lowrank(tf32=False):
+    """The low-rank solver (L2) at ``benchmarks/lowrank_bench.py``'s
+    settings: ``1.5 * Matern32(scale=2.5)`` (dense), ``diag=0.1``, M = 512,
+    ``Z = X[::N // M][:M]``, N = 1e4, 2e4 and 1e5 in float32: the value and
+    its gradient in (amp, scale), finite, against the CPU plain path in
+    float64 at 1e4; CUDA-event times beside a ``torch.linalg.cholesky`` of
+    the dense K at 1e4. With ``tf32`` (``phase_tf32``) each N's float32
+    value and gradient must also be within 5e-4 of the same call with TF32
+    off. Then the JAX tests' limits on the card:
+    ``Z = X`` in float64 equals ``DirectSolver``; duplicated inducing points
+    give a finite gradient; a NaN capacitance gives NaN and -inf, not an
+    error; clustered inducing points in float32 (the bench's, N = 1e4) a
+    finite value."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess, kernels
+    from tinygp_tpu_torch.solvers import DirectSolver, LowRankSolver
+    from tinygp_tpu_torch.solvers.lowrank import _cap_apply
+
+    tag = "tf32: lowrank" if tf32 else "lowrank"
+    failures = []
+    for n, (Xn, yn) in lowrank_data().items():
+        X, y = (torch.as_tensor(a, device="cuda") for a in (Xn, yn))
+        Z = X[:: n // LOWRANK_M][:LOWRANK_M]
+        value, grad = value_and_grad(lambda t: lowrank_loss(t, X, y, Z), (1.5, 2.5),
+                                     torch.float32, "cuda")
+        ok = bool(torch.isfinite(value)) and bool(torch.isfinite(grad).all())
+        value_ms = cuda_ms(lambda: lowrank_loss(torch.tensor((1.5, 2.5), device="cuda"), X, y, Z),
+                           reps=5, warmup=1)
+        grad_ms = cuda_ms(lambda: value_and_grad(lambda t: lowrank_loss(t, X, y, Z), (1.5, 2.5),
+                                                 torch.float32, "cuda"), reps=5, warmup=1)
+        extra = ""
+        if tf32:
+            with float32_defaults():
+                off = value_and_grad(lambda t: lowrank_loss(t, X, y, Z), (1.5, 2.5),
+                                     torch.float32, "cuda")
+            v_err, g_err = rel_err(value.item(), off[0].item()), grad_err(grad, off[1])
+            ok = ok and v_err <= 5e-4 and g_err <= 5e-4
+            extra = (f"; against the same call with TF32 off: value {v_err:.2e}, gradient "
+                     f"{g_err:.2e} (limit 5e-4 each)")
+        if n == LOWRANK_N[0] and not tf32:
+            with float32_defaults():
+                K = kernels.Matern32(scale=2.5)(X, X) * 1.5 + 0.1 * torch.eye(
+                    n, device="cuda")
+                chol_ms = cuda_ms(lambda: torch.linalg.cholesky(K), reps=5, warmup=1)
+                del K
+                X64, y64 = X.double(), y.double()
+                card64 = value_and_grad(lambda t: lowrank_loss(t, X64, y64, X64[:: n // 512][:512]),
+                                        (1.5, 2.5), torch.float64, "cuda")
+                cpu64 = value_and_grad(
+                    lambda t: lowrank_loss(t, X64.cpu(), y64.cpu(), X64.cpu()[:: n // 512][:512]),
+                    (1.5, 2.5), torch.float64, "cpu")
+            v_err, g_err = rel_err(card64[0].item(), cpu64[0].item()), grad_err(card64[1], cpu64[1])
+            ok = ok and v_err <= 1e-8 and g_err <= 1e-6
+            extra = (f"; float64 card against the CPU plain path: value {v_err:.2e} (limit 1e-8), "
+                     f"gradient {g_err:.2e} (limit 1e-6); yardstick torch.linalg.cholesky of "
+                     f"the dense K {chol_ms:.4f} ms")
+        log(f"{tag} N={n} M={LOWRANK_M} float32: log prob {value.item()!r}, gradient "
+            f"{[float(v) for v in grad]!r}, finite; value {value_ms:.4f} ms, value and "
+            f"gradient {grad_ms:.4f} ms (events){extra} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"N={n}")
+
+    # The JAX tests' limits (tests/test_solvers/test_lowrank.py:30, :197,
+    # :215, :238) on the card.
+    rng = np.random.default_rng(31)
+    Xs = torch.as_tensor(np.sort(rng.uniform(0, 10, 150)), device="cuda")
+    ys = torch.sin(Xs) + 0.1 * torch.as_tensor(rng.normal(size=150), device="cuda")
+    kernel = 1.3 * kernels.ExpSquared(scale=1.5)
+    lr = GaussianProcess(kernel, Xs, diag=0.1, solver=LowRankSolver, inducing_points=Xs)
+    dense = GaussianProcess(kernel, Xs, diag=0.1, solver=DirectSolver)
+    exact = rel_err(lr.log_probability(ys).item(), dense.log_probability(ys).item())
+    Zd = torch.cat([Xs[::10], Xs[::10]])
+    gdup = value_and_grad(
+        lambda t: GaussianProcess(t[0] * kernels.ExpSquared(scale=t[1]), Xs, diag=0.1,
+                                  solver=LowRankSolver, inducing_points=Zd).log_probability(ys),
+        (1.3, 1.5), torch.float64, "cuda")[1]
+    S = torch.full((4, 4), torch.nan, device="cuda", requires_grad=True)
+    out = _cap_apply(S, torch.ones(4, 1, device="cuda"), -1)
+    (gnan,) = torch.autograd.grad(out.sum(), S)
+    lr.solver.S = torch.full_like(lr.solver.S, torch.nan)
+    poisoned = lr.log_probability(ys).item()
+    Xn, yn = lowrank_data()[LOWRANK_N[0]]
+    Xc, yc = (torch.as_tensor(a, device="cuda") for a in (Xn, yn))
+    clustered = lowrank_loss(torch.tensor((1.5, 2.5), device="cuda"), Xc, yc,
+                             Xc[:: len(Xn) // LOWRANK_M][:LOWRANK_M]).item()
+    ok = (exact <= 5e-7 and bool(torch.isfinite(gdup).all()) and bool(torch.isnan(out).all())
+          and bool(torch.isnan(gnan).all()) and poisoned == -math.inf and math.isfinite(clustered))
+    log(f"{tag} checks: Z = X against DirectSolver (float64, N=150) rel {exact:.2e} (limit "
+        f"5e-7, the JAX test's); duplicated inducing points gradient {[float(v) for v in gdup]!r}; NaN "
+        f"capacitance: output NaN {bool(torch.isnan(out).all())}, gradient NaN "
+        f"{bool(torch.isnan(gnan).all())}, log probability {poisoned!r}; clustered inducing "
+        f"points N={len(Xn)} float32 log prob {clustered!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("checks")
+    if failures:
+        raise AssertionError(f"{tag} failed: {failures}")
+
+
+KALMAN_KERNELS = {
+    "m32": lambda q: q.Matern32(scale=1.5),
+    "sho": lambda q: q.SHO(omega=1.2, quality=3.0),
+    "exp": lambda q: q.Exp(scale=0.8, sigma=1.3),
+    "sum": lambda q: q.Exp(scale=1.5) + q.Matern32(scale=2.0),
+}
+
+
+def phase_kalman():
+    """The Kalman oracle (L2): ``tests/test_solvers/test_kalman.py``'s four
+    kernels, ``diag=0.2``, float64 on ``bench.py``'s data cut to N = 5000
+    (every 20th point) and 2e4 (the first 2e4): ``KalmanSolver``'s
+    ``log_probability`` against ``QuasisepSolver``'s (B1) on the card
+    within 5e-7 relative; the host loop's time (host clock, synchronized).
+    Returns the B1 launches."""
+    import torch
+
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+    from tinygp_tpu_torch.solvers import KalmanSolver
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    (X5, y5), _ = bench_data()
+    cuts = {5000: (X5[::20], y5[::20]), 20_000: (X5[:20_000], y5[:20_000])}
+    failures, b1 = [], 0
+    for n, (Xn, yn) in cuts.items():
+        X, y = (torch.as_tensor(np.ascontiguousarray(a), device="cuda") for a in (Xn, yn))
+        for name, build in KALMAN_KERNELS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gp_k = GaussianProcess(build(quasisep), X, diag=0.2, solver=KalmanSolver)
+            lp_k = gp_k.log_probability(y).item()
+            kalman_s = time.perf_counter() - t0
+            before = cuda_loglik.LAUNCHES
+            lp_q = GaussianProcess(build(quasisep), X, diag=0.2).log_probability(y).item()
+            b1 += cuda_loglik.LAUNCHES - before
+            err = rel_err(lp_k, lp_q)
+            ok = err <= 5e-7
+            log(f"kalman {name} N={n} float64: KalmanSolver {lp_k!r}, QuasisepSolver (B1) "
+                f"{lp_q!r}, rel {err:.2e} (limit 5e-7); the oracle's host loop {kalman_s:.3f} s "
+                f"(host clock, constructor and filter) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} N={n}")
+    if failures:
+        raise AssertionError(f"kalman failed: {failures}")
+    return b1
+
+
+def tf32_mutant_check():
+    """The TF32 reruns must be able to fail: with the backward pins removed
+    in this process only (``helpers.pin_backward``'s hook a no-op, the
+    scan and low-rank ``Function`` s' ``full_float32`` a null context), the
+    float32 gradient phase and the low-rank phase rerun with TF32 on, and
+    each must fail. Returns whether both did."""
+    import torch
+
+    from tinygp_tpu_torch import helpers
+    from tinygp_tpu_torch.solvers import lowrank
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    saved = helpers._pin_rest_of_backward, cuda_scan.full_float32, lowrank.full_float32
+    helpers._pin_rest_of_backward = lambda grads: None
+    cuda_scan.full_float32 = lowrank.full_float32 = contextlib.nullcontext
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    caught = 0
+    try:
+        for phase in (phase_condition_gradient, phase_lowrank):
+            try:
+                phase(tf32=True)
+                log(f"tf32 mutant: {phase.__name__} passed with the backward pins removed: FAIL")
+            except AssertionError as err:
+                caught += 1
+                log(f"tf32 mutant: {phase.__name__} failed with the backward pins removed, as "
+                    f"it must ({err})")
+    finally:
+        helpers._pin_rest_of_backward, cuda_scan.full_float32, lowrank.full_float32 = saved
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return caught == 2
+
+
+def _timed(phase, start):
+    """``phase``, logging its host-clock seconds and the script's so far."""
+    import functools
+
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            now = time.perf_counter()
+            log(f"time {phase.__name__}: {now - t0:.1f} s (since the build {now - start:.1f} s)")
+
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -4850,6 +5515,10 @@ def main() -> int:
         return 1
     phase_build()
     phase_dense_precision()
+    start = time.perf_counter()
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed(fn, start)
     if sys.argv[1:] == ["--dense-times"]:
         dense_times()
         return 0
@@ -4883,6 +5552,23 @@ def main() -> int:
         records["b1"]["launches"] = phase_smc()
         for kind in ("b1r", "b2"):
             records[kind]["launches"] = sampler_launches[kind] + advi_launches[kind]
+        log(json.dumps({"kernels": list(records.values())}))
+        return 0
+    if sys.argv[1:] == ["--tf32-mutant"]:
+        return 0 if tf32_mutant_check() else 1
+    if sys.argv[1:] == ["--grad"]:
+        watch = phase_condition_gradient()
+        phase_lowrank()
+        phase_kalman()
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            phase_condition_gradient(tf32=True)
+            phase_lowrank(tf32=True)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cuda.matmul.allow_tf32 = False
+        records = b3_records(watch, "condition-gradient")
         log(json.dumps({"kernels": list(records.values())}))
         return 0
     phase_b1_launches()
@@ -4925,6 +5611,9 @@ def main() -> int:
     for kind in ("b1r", "b2"):
         chain_records[kind]["launches"] = sampler_launches[kind] + advi_launches[kind]
     carma_launches = phase_carma()
+    grad_watch = phase_condition_gradient()
+    phase_lowrank()
+    kalman_b1 = phase_kalman()
     record["launches"] += carma_launches["b1"]
     grad_records["res"]["launches"] += carma_launches["b1r"]
     grad_records["bwd"]["launches"] += carma_launches["b2"]
@@ -4940,6 +5629,19 @@ def main() -> int:
     records.append(gram_record)
     records += generic_records
     records += list(chain_records.values())
+    # The gradient phase's B3 launches, forward and reverse: added to the
+    # records of shapes that earlier phases launched, a record of their own
+    # for the rest.
+    by_name = {r["name"]: r for r in records}
+    added = {}
+    for name, rec in b3_records(grad_watch, "condition-gradient").items():
+        if name in by_name:
+            by_name[name]["launches"] += rec["launches"]
+        else:
+            records.append(rec)
+        added[name] = rec["launches"]
+    log(f"condition-gradient B3 launches added to the kernels line: {added}; kalman's "
+        f"comparison B1 launches {kalman_b1} (not on a path)")
     log(json.dumps({"kernels": records}))
     log(
         json.dumps(

@@ -49,9 +49,9 @@ def test_condition_result_is_exported():
     assert tinygp_tpu_torch.ConditionResult._fields == tinygp_tpu.ConditionResult._fields
 
 
-# ROADMAP.md, queue A: names still to port (L2, the Kalman and low-rank
-# solvers), and the subpackage still to port as a whole (L4 parallel).
-QUEUED = {"KalmanSolver", "LowRankSolver"}
+# ROADMAP.md, queue A: names still to port (none), and the subpackage
+# still to port as a whole (L4 parallel).
+QUEUED: set[str] = set()
 QUEUED_SUBPACKAGES = {"parallel"}
 
 

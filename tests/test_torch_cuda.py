@@ -289,12 +289,119 @@ def test_scan_kernel_refuses_what_it_cannot_do(cuda_device):
     with pytest.raises(NotImplementedError, match="N10"):
         cuda_scan.affine(*operands, m, r, reverse=False, exclusive=True)
     operands, m, r = scan_case("aff", 2, 300, 1, torch.float64, cuda_device, seed=1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        cuda_scan.affine(operands[0].requires_grad_(), operands[1], m, r,
-                         reverse=False, exclusive=True)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_scan.affine(operands[0].detach().t().contiguous().t(), operands[1], m, r,
                          reverse=False, exclusive=True)
+
+
+GRAD_SCANS = [("aff", False, True, 3), ("aff", True, False, 1), ("cong", True, True, 1),
+              ("ric", False, True, 1), ("cpl", False, True, 1), ("cpl", True, False, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 8])
+@pytest.mark.parametrize("case", GRAD_SCANS, ids=lambda c: "-".join(map(str, c)))
+def test_scan_gradient_launches_b3(cuda_device, case, m):
+    """A CUDA operand that requires a gradient: the forward is one B3
+    launch, the backward launches B3 in reverse (a congruence scan for the
+    Riccati flow), and the gradient equals the CPU's (the same adjoint code
+    over the plain scans)."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    monoid, reverse, exclusive, r = case
+    operands, m, r = scan_case(monoid, m, 3000, r, torch.float64, cuda_device, seed=m + r)
+    ct = torch.as_tensor(np.random.default_rng(m).normal(size=(m * (m if monoid != "aff" else r),
+                                                               3000)), device=cuda_device)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        leaves = [x.to(device).requires_grad_(True) for x in operands]
+        out = run_scan(monoid, leaves, m, r, reverse, exclusive)
+        before = dict(cuda_scan.LAUNCHES)
+        grads.append(torch.autograd.grad(torch.sum(out * ct.to(device)), leaves))
+        adjoint = "cong" if monoid == "ric" else monoid
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_scan.LAUNCHES[adjoint] == before[adjoint] + 1
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-8 * scale
+
+
+@pytest.mark.cuda
+def test_vmap_of_the_scan_gradient_launches_per_element(cuda_device):
+    """``vmap(grad)`` of the Riccati flow on the card: one launch per batch
+    element forward and one reverse congruence each backward, equal to the
+    CPU's."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    d, ps, qs, as_ = scan_case("ric", 2, 2000, 1, torch.float64, cuda_device, seed=5)[0]
+    scales = torch.tensor([0.5, 1.0, 2.0], dtype=torch.float64)
+
+    def f(s, d, ps, qs, as_):
+        return torch.sum(cuda_scan.riccati(s * d, ps, s * qs, as_) ** 2)
+
+    before = dict(cuda_scan.LAUNCHES)
+    got = torch.func.vmap(torch.func.grad(f), in_dims=(0, None, None, None, None))(
+        scales.to(cuda_device), d, ps, qs, as_)
+    torch.cuda.synchronize()
+    assert cuda_scan.LAUNCHES["ric"] == before["ric"] + 3
+    assert cuda_scan.LAUNCHES["cong"] == before["cong"] + 3
+    want = torch.func.vmap(torch.func.grad(f), in_dims=(0, None, None, None, None))(
+        scales, *(x.cpu() for x in (d, ps, qs, as_)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["matern32", "celerite2"])
+def test_posterior_gradient_on_the_card(cuda_device, kernel):
+    """The posterior process's ``log_probability`` gradient (coupling
+    scans, the order-4m factor) on the card against the CPU's, float64."""
+    rng = np.random.default_rng(11)
+    X = np.sort(rng.uniform(0, 10, 1000))
+    y = rng.normal(size=1000)
+
+    def grad(device):
+        th = torch.tensor([1.5, 2.5], dtype=torch.float64, device=device, requires_grad=True)
+        if kernel == "matern32":
+            k = th[0] * quasisep.Matern32(scale=th[1])
+        else:
+            k = th[0] * (quasisep.Celerite(a=1.0, b=0.1, c=0.5 / th[1], d=1.0 / th[1])
+                         + quasisep.Celerite(a=0.5, b=0.05, c=1.5 / th[1], d=3.0 / th[1]))
+        gp = GaussianProcess(k, X, diag=0.1, device=device)
+        lp = gp.condition(y, diag=0.1).gp.log_probability(y)
+        return torch.autograd.grad(lp, th)[0].cpu()
+
+    got, want = grad(cuda_device), grad("cpu")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-7)
+
+
+@pytest.mark.cuda
+def test_lowrank_and_kalman_on_the_card(cuda_device):
+    """``LowRankSolver``'s value and gradient, and ``KalmanSolver``'s value,
+    on the card against the CPU, float64."""
+    from tinygp_tpu_torch import kernels
+    from tinygp_tpu_torch.solvers import KalmanSolver, LowRankSolver
+
+    rng = np.random.default_rng(31)
+    X = np.sort(rng.uniform(0, 10, 2000))
+    y = rng.normal(size=2000)
+
+    def lowrank(device):
+        th = torch.tensor([1.3, 1.5], dtype=torch.float64, device=device, requires_grad=True)
+        gp = GaussianProcess(th[0] * kernels.ExpSquared(scale=th[1]), X, diag=0.1,
+                             solver=LowRankSolver, inducing_points=X[::20], device=device)
+        lp = gp.log_probability(y)
+        return lp.item(), torch.autograd.grad(lp, th)[0].cpu().numpy()
+
+    (v, g), (vc, gc) = lowrank(cuda_device), lowrank("cpu")
+    np.testing.assert_allclose(v, vc, rtol=1e-9)
+    np.testing.assert_allclose(g, gc, rtol=1e-7)
+    lp_k = GaussianProcess(quasisep.Matern32(scale=1.5), X, diag=0.2, solver=KalmanSolver,
+                           device=cuda_device).log_probability(y).item()
+    lp_q = GaussianProcess(quasisep.Matern32(scale=1.5), X, diag=0.2,
+                           device=cuda_device).log_probability(y).item()
+    np.testing.assert_allclose(lp_k, lp_q, rtol=5e-7)
 
 
 # ---------------------------------------------------------------------------

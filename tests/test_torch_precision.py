@@ -100,3 +100,86 @@ def test_dense_ops_run_in_full_float32(tf32_on, monkeypatch):
     dense.blocked_cholesky(K, min_size=0, block=8)
     assert seen and set(seen) == {("highest", False)}
     assert setting() == ("high", True)
+
+
+class _RecordSetting(torch.autograd.Function):
+    """The identity, recording the product setting its backward runs under."""
+
+    seen: list = []
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        _RecordSetting.seen.append(setting())
+        return grad
+
+
+def _entry_output(entry, scale):
+    """An entry point's output for a process whose scale passes through
+    ``scale``'s graph."""
+    from tinygp_tpu_torch.kernels import quasisep
+
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 10, 50))
+    y = rng.normal(size=50)
+    gp = GaussianProcess(quasisep.Matern32(scale=scale), X, diag=0.1, device="cpu")
+    if entry == "log_probability":
+        return gp.log_probability(y)
+    if entry == "predict":
+        return sum(torch.sum(v) for v in gp.predict(y, X[::5], return_var=True))
+    return gp.condition(y).log_probability
+
+
+@pytest.mark.parametrize("entry", ["log_probability", "predict", "condition"])
+def test_entry_point_backwards_run_in_full_float32(tf32_on, entry):
+    """A gradient taken from an entry point's outputs runs the products its
+    graph recorded in full float32 (``helpers.pin_backward``), and the
+    caller's setting is back when the backward pass ends."""
+    scale = torch.tensor(1.5, dtype=torch.float64, requires_grad=True)
+    _RecordSetting.seen.clear()
+    out = _entry_output(entry, _RecordSetting.apply(scale))
+    assert setting() == ("high", True)
+    out.backward()
+    assert _RecordSetting.seen == [("highest", False)]
+    assert setting() == ("high", True)
+    assert scale.grad is not None
+
+
+class _RaiseInBackward(torch.autograd.Function):
+    """The identity, whose backward raises."""
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError("refused in the backward")
+
+
+@pytest.mark.parametrize("entry", ["log_probability", "predict", "condition"])
+def test_entry_point_backward_restores_the_setting_when_it_raises(tf32_on, entry):
+    """A backward pass that raises below an entry point's output (as a
+    refused reverse launch does) still gives the caller's setting back,
+    and the next backward pass is pinned again."""
+    scale = torch.tensor(1.5, dtype=torch.float64, requires_grad=True)
+    out = _entry_output(entry, _RaiseInBackward.apply(scale))
+    with pytest.raises(RuntimeError, match="refused in the backward"):
+        out.backward()
+    assert setting() == ("high", True)
+
+    _RecordSetting.seen.clear()
+    _entry_output(entry, _RecordSetting.apply(scale)).backward()
+    assert _RecordSetting.seen == [("highest", False)]
+    assert setting() == ("high", True)

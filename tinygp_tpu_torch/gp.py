@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from tinygp_tpu_torch import means
-from tinygp_tpu_torch.helpers import as_tensor, pinned, resolve_device
+from tinygp_tpu_torch.helpers import as_tensor, pin_backward, pinned, resolve_device
 from tinygp_tpu_torch.kernels.base import Conditioned, Kernel
 from tinygp_tpu_torch.noise import Diagonal, Noise
 
@@ -157,7 +157,7 @@ class GaussianProcess(nn.Module):
         """
         y = as_tensor(y, self.device, self.dtype)
         lp = self.solver.log_likelihood(y - self.loc)
-        return torch.where(torch.isfinite(lp), lp, -torch.inf)
+        return pin_backward(torch.where(torch.isfinite(lp), lp, -torch.inf))
 
     @pinned
     def condition(
@@ -203,7 +203,7 @@ class GaussianProcess(nn.Module):
             covariance_value=self.solver.condition(cross_kernel, X_test, noise),
             device=self.device,
         )
-        return ConditionResult(log_prob, post)
+        return ConditionResult(pin_backward(log_prob), post)
 
     @pinned
     def predict(
@@ -226,11 +226,10 @@ class GaussianProcess(nn.Module):
         if not (return_var or return_cov):
             y = as_tensor(y, self.device, self.dtype)
             X_test = self._check_test_points(X_test)
-            return self._condition(y, X_test, include_mean, kernel)[2]
+            return pin_backward(self._condition(y, X_test, include_mean, kernel)[2])
         post = self.condition(y, X_test, kernel=kernel, include_mean=include_mean).gp
-        if return_var:
-            return post.loc, post.variance
-        return post.loc, post.covariance
+        spread = post.variance if return_var else post.covariance
+        return pin_backward(post.loc), pin_backward(spread)
 
     @pinned
     def sample(

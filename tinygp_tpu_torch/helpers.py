@@ -8,12 +8,21 @@ in full float32 by default, but a caller may turn TF32 on globally
 (``torch.set_float32_matmul_precision("high")``), which on an H100 broke
 the dense gradient's and posterior's limits (ROADMAP.md, C5). So the
 port's entry points run under :func:`full_float32` (:func:`pinned`), which
-restores the caller's setting on return.
+restores the caller's setting on return. Their gradients are pinned too:
+:func:`pin_backward` makes the backward pass that reaches an entry point's
+outputs run in full float32 from there on.
 """
 
 from __future__ import annotations
 
-__all__ = ["resolve_device", "as_tensor", "as_hyper", "full_float32", "pinned"]
+__all__ = [
+    "resolve_device",
+    "as_tensor",
+    "as_hyper",
+    "full_float32",
+    "pinned",
+    "pin_backward",
+]
 
 import contextlib
 import functools
@@ -54,6 +63,55 @@ def pinned(fn: _F) -> _F:
             return fn(*args, **kwargs)
 
     return wrapper  # type: ignore[return-value]
+
+
+class _Restore:
+    """The caller's product setting, put back once: when the backward pass
+    that pinned it ends (an autograd engine callback), or, if a node of
+    that pass raises and the engine drops its callbacks unrun, when the
+    engine releases this one."""
+
+    def __init__(self) -> None:
+        self.saved = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+
+    def __call__(self) -> None:
+        if self.saved is None:
+            return
+        precision, tf32 = self.saved
+        self.saved = None
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def __del__(self) -> None:
+        self()
+
+
+def _pin_rest_of_backward(grad_outputs: Any) -> None:
+    """A node pre-hook: full float32 products from here to the end of the
+    running backward pass, then the caller's setting again."""
+    restore = _Restore()
+    if restore.saved == ("highest", False):
+        restore.saved = None
+        return
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.autograd.Variable._execution_engine.queue_callback(restore)
+
+
+def pin_backward(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its backward node made to turn TF32 off for the rest of the
+    backward pass that reaches it.
+
+    An entry point's outputs pass through it, so that every product its
+    graph recorded (einsums, ``matmul`` s, solves, ``torch.linalg``'s own
+    backwards) runs its backward in full float32 whatever the caller set,
+    as its forward does under :func:`pinned`: the backward reaches that
+    graph only through the outputs. The caller's setting is back when the
+    pass ends, also when it ends by an error. Under ``torch.func``
+    transforms it does nothing (the samplers pin their whole evaluation)."""
+    if x.grad_fn is not None and not torch._C._are_functorch_transforms_active():
+        x.grad_fn.register_prehook(_pin_rest_of_backward)
+    return x
 
 
 def resolve_device(device: Any = None) -> torch.device:

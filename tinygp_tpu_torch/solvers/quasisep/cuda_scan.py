@@ -20,8 +20,20 @@ out):
 Each runs its plain version, the stacked scans of ``scan.py`` through the
 blocked ``monoid_scan``, for CPU tensors, and launches B3 for CUDA
 tensors, or raises; none falls back. An order above 32 on the card raises
-with ROADMAP item N10. B3 has no backward: a CUDA operand that requires a
-gradient raises instead of returning a result that autograd would cut.
+with ROADMAP item N10.
+
+Each wrapper is an ``autograd.Function`` (``_Affine``, ``_Congruence``,
+``_Riccati``, ``_Coupling``) on either device: the forward is the plain
+scan, run without grad, or B3's launch; the backward is the hand-written
+adjoint of ``scan.py`` (``_affine_bwd_s``, ``_congruence_bwd_s``,
+``_riccati_bwd_s``, ``_coupling_bwd_s``), the same code on either device,
+whose opposite-direction scan goes through these wrappers again: on the
+card a reverse B3 launch, counted like any other. The backwards are built
+from the ``Function`` s themselves, so they have second derivatives, and
+they run their float32 products in full float32
+(:func:`~tinygp_tpu_torch.helpers.full_float32`). Under
+``torch.func.vmap`` each ``Function`` runs once for each element of the
+batch (one launch each on the card).
 
 Up to m = 4 (the coupling's two equal orders), for the coupling of any
 two orders up to 8, and for the Riccati flow and the affine scan at
@@ -55,6 +67,7 @@ import functools
 import torch
 
 from tinygp_tpu_torch import cuda_build
+from tinygp_tpu_torch.helpers import full_float32
 from tinygp_tpu_torch.solvers.quasisep import cuda_loglik as _loglik
 from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
@@ -153,11 +166,6 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
             f"kernel B3 takes orders up to {_MAX_GENERIC_M}; this {monoid} scan has "
             f"({m}, {m2}), which is ROADMAP item N10 (orders above 32 on CUDA)"
         )
-    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
-        raise NotImplementedError(
-            "kernel B3 has no backward; gradients through the O(N) algebra "
-            "on the card are ROADMAP item N8"
-        )
     if not 1 <= r <= _MAX_COLUMNS:
         raise ValueError(f"B3 takes 1 to {_MAX_COLUMNS} columns; got {r}")
     if not 1 <= n < 2**40:
@@ -199,6 +207,159 @@ def _check_rows(name: str, x: torch.Tensor, rows: int) -> None:
         raise ValueError(f"{name} must be ({rows}, N); got {tuple(x.shape)}")
 
 
+def _per_element(apply, info, in_dims, args) -> tuple[torch.Tensor, int]:
+    """A ``vmap`` rule: ``apply`` once for each element of the batch (one
+    B3 launch each on the card; a chain-axis B3 is ROADMAP item N9c), the
+    outputs stacked on a leading axis. Through ``apply`` (the
+    ``Function``'s own) an autograd level outside the ``vmap`` records
+    each element."""
+    args = [a if d is None else a.movedim(d, 0) for a, d in zip(args, in_dims)]
+    outs = [
+        apply(*(a if d is None else a[b].contiguous() for a, d in zip(args, in_dims)))
+        for b in range(info.batch_size)
+    ]
+    return torch.stack(outs), 0
+
+
+class _Affine(torch.autograd.Function):
+    """The affine scan with its hand-written adjoint (JAX
+    ``scan._make_affine_parallel_s``): forward the plain scan (run without
+    grad) or B3; backward :func:`scan._affine_bwd_s`, whose reverse scan is
+    this ``Function`` again (a B3 launch on the card), so it has a second
+    derivative."""
+
+    @staticmethod
+    def forward(As, Bs, m, r, reverse, exclusive):
+        if _on_cpu(As, Bs):
+            return _scan._affine_scan_s(As, Bs, m, r, reverse=reverse, exclusive=exclusive)
+        _check_rows("As", As, m * m)
+        _check_rows("Bs", Bs, m * r)
+        return _launch("aff", m, r, reverse, not exclusive, (As, Bs), m * r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.args = inputs[2:]
+
+    @staticmethod
+    def backward(ctx, ebar):
+        As, es = ctx.saved_tensors
+        m, r, reverse, exclusive = ctx.args
+        with full_float32():
+            grads = _scan._affine_bwd_s(
+                As, es, ebar.contiguous(), m, r,
+                reverse=reverse, exclusive=exclusive, scan=_affine_c,
+            )
+        return (*grads, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_element(_Affine.apply, info, in_dims, args)
+
+
+class _Congruence(torch.autograd.Function):
+    """The congruence scan with its hand-written adjoint (JAX
+    ``scan._make_congruence_parallel``), built as :class:`_Affine` is."""
+
+    @staticmethod
+    def forward(As, Bs, m, reverse):
+        if _on_cpu(As, Bs):
+            return _scan._congruence_scan_s(As, Bs, m, reverse=reverse)
+        _check_rows("As", As, m * m)
+        _check_rows("Bs", Bs, m * m)
+        return _launch("cong", m, 1, reverse, False, (As, Bs), m * m)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.args = inputs[2:]
+
+    @staticmethod
+    def backward(ctx, ebar):
+        As, es = ctx.saved_tensors
+        m, reverse = ctx.args
+        with full_float32():
+            grads = _scan._congruence_bwd_s(
+                As, es, ebar.contiguous(), m, reverse=reverse, scan=_congruence_c
+            )
+        return (*grads, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_element(_Congruence.apply, info, in_dims, args)
+
+
+class _Riccati(torch.autograd.Function):
+    """The Riccati flow with its hand-written adjoint (JAX
+    ``scan._riccati_parallel``, ``riccati_scan_stacked``): backward
+    :func:`scan._riccati_bwd_s`, one reverse congruence scan through
+    :class:`_Congruence`."""
+
+    @staticmethod
+    def forward(d, ps, qs, as_):
+        m = ps.shape[0]
+        if _on_cpu(d, ps, qs, as_):
+            return _scan._riccati_scan_s(d, ps, qs, as_, m)
+        if d.ndim != 1:
+            raise ValueError(f"d must be (N,); got {tuple(d.shape)}")
+        _check_rows("qs", qs, m)
+        _check_rows("as_", as_, m * m)
+        return _launch("ric", m, 1, False, False, (d, ps, qs, as_), m * m)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, Ybar):
+        with full_float32():
+            return _scan._riccati_bwd_s(
+                ctx.saved_tensors, Ybar.contiguous(), scan=_congruence_c
+            )
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_element(_Riccati.apply, info, in_dims, args)
+
+
+class _Coupling(torch.autograd.Function):
+    """The coupling scan with its hand-written adjoint, which the JAX
+    package takes by autodiff of ``lax.scan`` (``ops._coupling_scan``):
+    backward :func:`scan._coupling_bwd_s`, one opposite-direction coupling
+    scan through this ``Function``."""
+
+    @staticmethod
+    def forward(As, Bs, Cs, m1, m2, reverse, exclusive):
+        if _on_cpu(As, Bs, Cs):
+            return _scan._coupling_scan_s(
+                As, Bs, Cs, m1, m2, reverse=reverse, exclusive=exclusive
+            )
+        _check_rows("As", As, m1 * m1)
+        _check_rows("Bs", Bs, m2 * m2)
+        _check_rows("Cs", Cs, m1 * m2)
+        return _launch("cpl", m1, 1, reverse, not exclusive, (As, Bs, Cs), m1 * m2, m2=m2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1], output)
+        ctx.args = inputs[3:]
+
+    @staticmethod
+    def backward(ctx, ebar):
+        As, Bs, es = ctx.saved_tensors
+        m1, m2, reverse, exclusive = ctx.args
+        with full_float32():
+            grads = _scan._coupling_bwd_s(
+                As, Bs, es, ebar.contiguous(), m1, m2,
+                reverse=reverse, exclusive=exclusive, scan=_coupling_c,
+            )
+        return (*grads, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_element(_Coupling.apply, info, in_dims, args)
+
+
 def affine(
     As: torch.Tensor,
     Bs: torch.Tensor,
@@ -211,22 +372,14 @@ def affine(
     """States ``(m*r, N)`` of ``g_k = A_k g + B_k`` from ``g = 0``: As
     ``(m*m, N)``, Bs ``(m*r, N)`` (row ``i*r + j`` is component i of
     column j). B3 scans each column as its own ``Aff<m>``."""
-    if _on_cpu(As, Bs):
-        return _scan._affine_scan_s(As, Bs, m, r, reverse=reverse, exclusive=exclusive)
-    _check_rows("As", As, m * m)
-    _check_rows("Bs", Bs, m * r)
-    return _launch("aff", m, r, reverse, not exclusive, (As, Bs), m * r)
+    return _Affine.apply(As, Bs, m, r, reverse, exclusive)
 
 
 def congruence(
     As: torch.Tensor, Bs: torch.Tensor, m: int, *, reverse: bool
 ) -> torch.Tensor:
     """The exclusive prefix ``(m*m, N)`` of ``g_k = A_k g A_k^T + B_k``."""
-    if _on_cpu(As, Bs):
-        return _scan._congruence_scan_s(As, Bs, m, reverse=reverse)
-    _check_rows("As", As, m * m)
-    _check_rows("Bs", Bs, m * m)
-    return _launch("cong", m, 1, reverse, False, (As, Bs), m * m)
+    return _Congruence.apply(As, Bs, m, reverse)
 
 
 def riccati(
@@ -234,14 +387,7 @@ def riccati(
 ) -> torch.Tensor:
     """The exclusive Riccati flow ``F`` ``(m*m, N)`` of ``d`` ``(N,)``,
     ``ps``/``qs`` ``(m, N)`` and ``as_`` ``(m*m, N)``."""
-    m = ps.shape[0]
-    if _on_cpu(d, ps, qs, as_):
-        return _scan._riccati_scan_s(d, ps, qs, as_, m)
-    if d.ndim != 1:
-        raise ValueError(f"d must be (N,); got {tuple(d.shape)}")
-    _check_rows("qs", qs, m)
-    _check_rows("as_", as_, m * m)
-    return _launch("ric", m, 1, False, False, (d, ps, qs, as_), m * m)
+    return _Riccati.apply(d, ps, qs, as_)
 
 
 def coupling(
@@ -256,14 +402,22 @@ def coupling(
 ) -> torch.Tensor:
     """States ``(m1*m2, N)`` of ``g_k = A_k g B_k^T + C_k`` from ``g = 0``:
     As ``(m1*m1, N)``, Bs ``(m2*m2, N)``, Cs ``(m1*m2, N)``."""
-    if _on_cpu(As, Bs, Cs):
-        return _scan._coupling_scan_s(
-            As, Bs, Cs, m1, m2, reverse=reverse, exclusive=exclusive
-        )
-    _check_rows("As", As, m1 * m1)
-    _check_rows("Bs", Bs, m2 * m2)
-    _check_rows("Cs", Cs, m1 * m2)
-    return _launch("cpl", m1, 1, reverse, not exclusive, (As, Bs, Cs), m1 * m2, m2=m2)
+    return _Coupling.apply(As, Bs, Cs, m1, m2, reverse, exclusive)
+
+
+# The adjoints' scans: the wrappers on contiguous operands (the adjoint's
+# transposed transitions are views above the row-loop orders).
+def _affine_c(As, Bs, m, r, *, reverse, exclusive):
+    return affine(As.contiguous(), Bs.contiguous(), m, r, reverse=reverse, exclusive=exclusive)
+
+
+def _congruence_c(As, Bs, m, *, reverse):
+    return congruence(As.contiguous(), Bs.contiguous(), m, reverse=reverse)
+
+
+def _coupling_c(As, Bs, Cs, m1, m2, *, reverse, exclusive):
+    return coupling(As.contiguous(), Bs.contiguous(), Cs.contiguous(), m1, m2,
+                    reverse=reverse, exclusive=exclusive)
 
 
 # ---------------------------------------------------------------------------

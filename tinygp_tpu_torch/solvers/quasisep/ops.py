@@ -12,7 +12,11 @@ card and through the blocked plain scan on the CPU; ``parallel=False`` is
 the sequential oracle. The QSM product's coupling recurrences, which the
 JAX package runs as sequential ``lax.scan`` loops, run as monoid scans
 here (kernel B3 on the card), since a loop of N steps is seconds on the
-card at N = 1e5.
+card at N = 1e5. Every operation here is differentiable on either device:
+the scans are ``autograd.Function`` s whose backwards are their
+hand-written adjoints (a reverse launch of B3 on the card), and nothing
+between them writes into a tensor autograd saved or reads a value back to
+the host.
 """
 
 from __future__ import annotations

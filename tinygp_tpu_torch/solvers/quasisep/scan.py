@@ -25,7 +25,10 @@ Pallas branch are not part of the port. The stacked scans
 (:func:`_affine_scan_s`, :func:`_congruence_scan_s`,
 :func:`_riccati_scan_s`, :func:`_coupling_scan_s`) are plain PyTorch on
 any device: they are the plain versions of the CUDA kernels. The hand-written
-adjoints (:func:`_affine_bwd_s`, :func:`_riccati_bwd_s`) are the two
+adjoints (:func:`_affine_bwd_s`, :func:`_congruence_bwd_s`,
+:func:`_riccati_bwd_s`, :func:`_coupling_bwd_s`) are the backwards of
+the ``autograd.Function`` s of ``cuda_scan`` (each one opposite-direction
+scan, through the scan it is given) and, with the plain scans, the two
 reverse scans of the backward kernel's plain version
 (``cuda_loglik.plain_loglik_bwd``).
 
@@ -474,7 +477,7 @@ def _sshift_lane(X, fill, reverse: bool):
     return torch.cat([X[..., 1:], fill], dim=-1)
 
 
-def _affine_bwd_s(As, es, ebar_s, m, r, *, reverse: bool, exclusive: bool):
+def _affine_bwd_s(As, es, ebar_s, m, r, *, reverse: bool, exclusive: bool, scan=None):
     """Stacked cotangents ``(Abar, Bbar)`` of :func:`_affine_scan_s`.
 
     The adjoint of a linear recurrence is one opposite-direction affine
@@ -486,6 +489,9 @@ def _affine_bwd_s(As, es, ebar_s, m, r, *, reverse: bool, exclusive: bool):
         Abar_k = gbar_k g_{k-1}^T
 
     ``es`` are the scan's outputs for the same ``reverse``/``exclusive``.
+    ``scan`` runs the adjoint scan (the signature of
+    :func:`_affine_scan_s`, which is the default): the differentiable
+    wrapper ``cuda_scan.affine`` in the scans' own backward.
     """
     At = _st(As, m, m)
     if not exclusive:
@@ -493,7 +499,9 @@ def _affine_bwd_s(As, es, ebar_s, m, r, *, reverse: bool, exclusive: bool):
         # step (identity fill) and pairs gbar with the exclusive outputs.
         At = _sshift_lane(At, _seye(m, At), reverse)
         es = _sshift_lane(es, es.new_zeros(()), not reverse)
-    gbar = _affine_scan_s(At, ebar_s, m, r, reverse=not reverse, exclusive=exclusive)
+    gbar = (scan or _affine_scan_s)(
+        At, ebar_s, m, r, reverse=not reverse, exclusive=exclusive
+    )
     return _smm_t(gbar, es, m, r, m), gbar
 
 
@@ -548,13 +556,66 @@ def _coupling_scan_s(As, Bs, Cs, m1, m2, *, reverse: bool, exclusive: bool):
     return incl[2]
 
 
-def _riccati_bwd_s(res, Ybar_s, inv_c2=None):
+def _congruence_bwd_s(As, es, ebar_s, m, *, reverse: bool, scan=None):
+    """Stacked cotangents ``(Abar, Bbar)`` of :func:`_congruence_scan_s`.
+
+    The recurrence is linear in the state, so its adjoint is one
+    opposite-direction congruence scan with the transposed transitions
+    (indices of the forward scan; ``es`` its exclusive outputs)::
+
+        gbar_k = A_{k+1}^T gbar_{k+1} A_{k+1} + ebar_{k+1}
+        Bbar_k = gbar_k
+        Abar_k = gbar_k A_k e_k^T + gbar_k^T A_k e_k
+
+    which is the JAX package's ``(gbar + gbar^T) A e`` where the loads,
+    and so the states, are symmetric; the general form keeps a second
+    derivative through the Riccati adjoint (whose loads are not) exact.
+    ``scan`` runs the adjoint scan (default :func:`_congruence_scan_s`).
+    """
+    gbar = (scan or _congruence_scan_s)(_st(As, m, m), ebar_s, m, reverse=not reverse)
+    Abar = _smm_t(_smm(gbar, As, m, m, m), es, m, m, m) + _smm(
+        _smm(_st(gbar, m, m), As, m, m, m), es, m, m, m
+    )
+    return Abar, gbar
+
+
+def _coupling_bwd_s(As, Bs, es, ebar_s, m1, m2, *, reverse: bool, exclusive: bool, scan=None):
+    """Stacked cotangents ``(Abar, Bbar, Cbar)`` of :func:`_coupling_scan_s`.
+
+    The adjoint is one opposite-direction coupling scan with both
+    transitions transposed, plus products with the states before each step
+    (indices of the forward scan; reverse mirrors)::
+
+        lam_k = A_{k+1}^T lam_{k+1} B_{k+1} + ebar_{k(+1)}
+        Cbar_k = lam_k
+        Abar_k = lam_k B_k g_{k-1}^T
+        Bbar_k = lam_k^T A_k g_{k-1}
+
+    ``es`` are the scan's outputs for the same ``reverse``/``exclusive``;
+    the inclusive scan shifts as :func:`_affine_bwd_s` does. ``scan`` runs
+    the adjoint scan (default :func:`_coupling_scan_s`).
+    """
+    At, Bt = _st(As, m1, m1), _st(Bs, m2, m2)
+    if not exclusive:
+        At = _sshift_lane(At, _seye(m1, At), reverse)
+        Bt = _sshift_lane(Bt, _seye(m2, Bt), reverse)
+        es = _sshift_lane(es, es.new_zeros(()), not reverse)
+    lam = (scan or _coupling_scan_s)(
+        At, Bt, ebar_s, m1, m2, reverse=not reverse, exclusive=exclusive
+    )
+    Abar = _smm_t(_smm(lam, Bs, m1, m2, m2), es, m1, m2, m1)
+    Bbar = _smm(_smm(_st(lam, m1, m2), As, m2, m1, m1), es, m2, m1, m2)
+    return Abar, Bbar, lam
+
+
+def _riccati_bwd_s(res, Ybar_s, inv_c2=None, scan=None):
     """Adjoint of the Riccati flow via a reverse congruence scan.
 
     ``res = (d, ps, qs, as_, Fs)`` with ``Fs`` the flow's exclusive prefix;
     ``Ybar_s`` (m*m, N) is the cotangent of ``Fs``. ``inv_c2``, where
     given, is ``1 / c2`` as the caller already has it (``d`` is then not
-    read). Linearising
+    read). ``scan`` runs the congruence scan (default
+    :func:`_congruence_scan_s`). Linearising
     ``phi(F) = a F a^T + u u^T / c2`` (``u = q - a F p``,
     ``c2 = d - p^T F p``) gives ``(dphi/dF)^T [G] = A~^T G A~`` with
     ``A~ = a - u p^T / c2``, so the state adjoint
@@ -576,7 +637,7 @@ def _riccati_bwd_s(res, Ybar_s, inv_c2=None):
     u = qs - _smv(as_, Fp, m, m)
     atil = as_ - _souter(u, ps) * inv_c2
 
-    Gbar = _congruence_scan_s(_st(atil, m, m), Ybar_s, m, reverse=True)
+    Gbar = (scan or _congruence_scan_s)(_st(atil, m, m), Ybar_s, m, reverse=True)
     S = Gbar + _st(Gbar, m, m)
     Su = _smv(S, u, m, m)
     uSu = torch.sum(u * Su, dim=0)
