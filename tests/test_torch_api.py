@@ -49,10 +49,10 @@ def test_condition_result_is_exported():
     assert tinygp_tpu_torch.ConditionResult._fields == tinygp_tpu.ConditionResult._fields
 
 
-# ROADMAP.md, queue A: names still to port (none), and the subpackage
-# still to port as a whole (L4 parallel).
+# ROADMAP.md, queue A: names still to port, and subpackages still to port
+# as a whole (none of either).
 QUEUED: set[str] = set()
-QUEUED_SUBPACKAGES = {"parallel"}
+QUEUED_SUBPACKAGES: set[str] = set()
 
 
 def declared_all(module: str) -> set[str] | None:
@@ -79,7 +79,14 @@ def subpackages(package: str) -> list[str]:
 
 
 # Modules whose ``__all__`` the subpackages' own do not reach.
-MODULES = ["kernels.quasisep"]
+MODULES = [
+    "kernels.quasisep",
+    "parallel.mesh",
+    "parallel.scan",
+    "parallel.dense",
+    "parallel.sharded",
+    "utils.checkpoint",
+]
 
 
 @pytest.mark.parametrize("sub", subpackages("tinygp_tpu") + MODULES)

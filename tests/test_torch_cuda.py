@@ -1523,3 +1523,57 @@ def test_gradient_outside_vmap_on_the_card(cuda_device, model, how):
         (g,) = torch.autograd.grad(log_prob(zc) / 8, zc)
         np.testing.assert_allclose(grad[c].cpu().numpy(), g.cpu().numpy(), rtol=1e-10,
                                    atol=1e-10 * float(g.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The parallel subpackage on the card: a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_one_rank_sharded_nuts_launches_once_per_evaluation(cuda_device):
+    """``run_mcmc_sharded`` on a one-rank NCCL mesh: each batched
+    evaluation is one chain-axis B1r and one B2 launch, and the samples are
+    ``run_mcmc``'s with the same seed bit for bit."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from tinygp_tpu_torch import parallel
+    from tinygp_tpu_torch.samplers import run_mcmc
+
+    hmc = importlib.import_module("tinygp_tpu_torch.samplers.hmc")
+
+    rng = np.random.default_rng(0)
+    t = torch.as_tensor(np.sort(rng.uniform(0, 10, 256)), dtype=torch.float32, device="cuda")
+    y = torch.sin(3 * t) + 0.3 * torch.as_tensor(rng.normal(size=256), dtype=torch.float32,
+                                                  device="cuda")
+
+    def log_prob(p):
+        kernel = torch.exp(p["log_amp"]) * quasisep.SHO(omega=torch.exp(p["log_omega"]),
+                                                        quality=3.0)
+        gp = GaussianProcess(kernel, t, diag=0.09, assume_sorted=True)
+        return gp.log_probability(y) - 0.5 * (p["log_amp"] ** 2 + p["log_omega"] ** 2)
+
+    init = {k: torch.zeros((), dtype=torch.float32, device="cuda")
+            for k in ("log_amp", "log_omega")}
+    settings = dict(num_chains=64, num_warmup=5, num_samples=5, max_tree_depth=4)
+    parallel.initialize_distributed(f"127.0.0.1:{parallel.mesh.free_port()}", 1, 0)
+    try:
+        mesh = parallel.make_mesh()
+        before = (dict(cuda_loglik.LAUNCHES_CHAINS), cuda_loglik.LAUNCHES_RES,
+                  cuda_loglik.LAUNCHES_BWD, hmc.EVALUATIONS)
+        samples, info = parallel.run_mcmc_sharded(0, log_prob, init, mesh=mesh, **settings)
+        torch.cuda.synchronize()
+        evaluations = hmc.EVALUATIONS - before[3]
+        assert evaluations > 0
+        assert cuda_loglik.LAUNCHES_CHAINS["b1r"] == before[0]["b1r"] + evaluations
+        assert cuda_loglik.LAUNCHES_CHAINS["b2"] == before[0]["b2"] + evaluations
+        assert cuda_loglik.LAUNCHES_RES == before[1] + evaluations
+        assert cuda_loglik.LAUNCHES_BWD == before[2] + evaluations
+    finally:
+        dist.destroy_process_group()
+    want, want_info = run_mcmc(0, log_prob, init, warmup_depth_cap=None, device="cuda",
+                               **settings)
+    assert all(torch.equal(samples[k], want[k]) for k in want)
+    assert torch.equal(info["accept_prob"], want_info.accept_prob)

@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
         "tinygp_tpu_torch.kernels.stationary, tinygp_tpu_torch.kernels.distance, "
         "tinygp_tpu_torch.transforms, tinygp_tpu_torch.samplers, "
         "tinygp_tpu_torch.samplers.diagnostics, tinygp_tpu_torch.samplers.hmc, "
-        "tinygp_tpu_torch.utils, tinygp_tpu_torch.utils.checkpoint, tinygp_tpu_torch.utils.tree\n"
+        "tinygp_tpu_torch.utils, tinygp_tpu_torch.utils.checkpoint, tinygp_tpu_torch.utils.tree, "
+        "tinygp_tpu_torch.parallel, tinygp_tpu_torch.parallel.scan\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'tinygp_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'optax.', 'tinygp_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -16,6 +16,18 @@ dtype for non-float coordinates). The kernel, mean and noise move there,
 in that dtype (``nn.Module.to``, in place). ``sample`` takes a
 ``torch.Generator`` where the JAX package takes a key; the two streams
 differ.
+
+One exception to the single dtype: a float32 quasiseparable process
+conditions at new points in float64. Under x64 the JAX package forms the
+Matern and cosine kernels' transitions from NumPy float64 constants
+(``np.sqrt(3.0) / scale``), so its whole posterior at new points runs in
+float64 on float32 inputs; in float32 arithmetic the posterior variance
+``k(x, x) - a^T a`` cancels to a few digits and the mean loses as many
+(ROADMAP C7). :meth:`~GaussianProcess.condition` and
+:meth:`~GaussianProcess.predict` at ``X_test`` therefore run a float64
+copy of the process on the same float32 values and hand back float32
+results; the log-likelihood, sampling and conditioning at the training
+points stay in float32.
 """
 
 from __future__ import annotations
@@ -30,7 +42,13 @@ import torch
 from torch import nn
 
 from tinygp_tpu_torch import means
-from tinygp_tpu_torch.helpers import as_tensor, pin_backward, pinned, resolve_device
+from tinygp_tpu_torch.helpers import (
+    as_tensor,
+    mapped_module,
+    pin_backward,
+    pinned,
+    resolve_device,
+)
 from tinygp_tpu_torch.kernels.base import Conditioned, Kernel
 from tinygp_tpu_torch.noise import Diagonal, Noise
 
@@ -188,8 +206,17 @@ class GaussianProcess(nn.Module):
         y = as_tensor(y, self.device, self.dtype)
         X_test = self._check_test_points(X_test)
         cross_kernel = self.kernel if kernel is None else kernel
-        kinv_r, log_prob, post_loc = self._condition(y, X_test, include_mean, kernel)
+        wide = self._float64_twin(X_test)
+        kinv_r, log_prob, post_loc = self._condition(y, X_test, include_mean, kernel, wide)
         noise = _as_noise(noise, diag, post_loc)
+        if wide is None:
+            covariance = self.solver.condition(cross_kernel, X_test, noise)
+        else:
+            covariance = wide.solver.condition(
+                wide.kernel if kernel is None else _float64_copy(kernel),
+                X_test.double(),
+                _float64_copy(noise),
+            ).to(self.dtype)
         post_mean = means.Conditioned(
             self.X, kinv_r, cross_kernel,
             include_mean=include_mean, mean_function=self.mean_function,
@@ -200,7 +227,7 @@ class GaussianProcess(nn.Module):
             noise=noise,
             mean=post_mean,
             mean_value=post_loc,
-            covariance_value=self.solver.condition(cross_kernel, X_test, noise),
+            covariance_value=covariance,
             device=self.device,
         )
         return ConditionResult(pin_backward(log_prob), post)
@@ -226,7 +253,8 @@ class GaussianProcess(nn.Module):
         if not (return_var or return_cov):
             y = as_tensor(y, self.device, self.dtype)
             X_test = self._check_test_points(X_test)
-            return pin_backward(self._condition(y, X_test, include_mean, kernel)[2])
+            wide = self._float64_twin(X_test)
+            return pin_backward(self._condition(y, X_test, include_mean, kernel, wide)[2])
         post = self.condition(y, X_test, kernel=kernel, include_mean=include_mean).gp
         spread = post.variance if return_var else post.covariance
         return pin_backward(post.loc), pin_backward(spread)
@@ -284,13 +312,47 @@ class GaussianProcess(nn.Module):
         X_test: torch.Tensor | None,
         include_mean: bool,
         kernel: Kernel | None = None,
+        wide: GaussianProcess | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(K^-1 (y - mu), log p(y), posterior mean)``."""
+        """``(K^-1 (y - mu), log p(y), posterior mean)``; computed by
+        ``wide``, this process's float64 twin, where there is one."""
+        if wide is not None:
+            out = wide._condition(
+                y.double(), X_test.double(), include_mean,
+                None if kernel is None else _float64_copy(kernel),
+            )
+            return tuple(x.to(self.dtype) for x in out)
         white, log_prob = self._whiten(y)
         # The second triangular solve makes the whitened residual K^-1 (y - mu).
         kinv_r = self.solver.solve_triangular(white, transpose=True)
         mean = self._posterior_mean(kinv_r, y, X_test, include_mean, kernel)
         return kinv_r, log_prob, mean
+
+    def _float64_twin(self, X_test: torch.Tensor | None) -> GaussianProcess | None:
+        """The process that conditions this one at ``X_test``: for a
+        float32 quasiseparable process and new points, the same model in
+        float64 on the same values (see the module docstring); otherwise
+        ``None``, and this process conditions itself."""
+        from tinygp_tpu_torch.kernels.quasisep import Quasisep
+        from tinygp_tpu_torch.solvers.quasisep.solver import QuasisepSolver
+
+        if (
+            X_test is None
+            or self.dtype != torch.float32
+            or type(self.solver) is not QuasisepSolver
+            or not isinstance(self.kernel, Quasisep)
+        ):
+            return None
+        return GaussianProcess(
+            _float64_copy(self.kernel),
+            self.X.double(),
+            noise=_float64_copy(self.noise),
+            mean=_float64_copy(self.mean_function),
+            mean_value=self.mean.double(),
+            device=self.device,
+            assume_sorted=True,
+            parallel=self.solver.parallel,
+        )
 
     def _check_test_points(self, X_test: Any | None) -> torch.Tensor | None:
         """``X_test`` on this process's device and dtype, with the inputs'
@@ -314,6 +376,11 @@ class ConditionResult(NamedTuple):
 
     gp: GaussianProcess
     """The conditional process at the test points."""
+
+
+def _float64_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` in float64, ``module`` unchanged."""
+    return mapped_module(module, torch.Tensor.double)
 
 
 def _default_diag(reference: torch.Tensor) -> float:

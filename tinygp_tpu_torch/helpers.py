@@ -22,15 +22,18 @@ __all__ = [
     "full_float32",
     "pinned",
     "pin_backward",
+    "mapped_module",
 ]
 
 import contextlib
+import copy
 import functools
 from collections.abc import Callable, Iterator
 from typing import Any, TypeVar
 
 import numpy as np
 import torch
+from torch import nn
 
 _F = TypeVar("_F", bound=Callable[..., Any])
 
@@ -147,3 +150,21 @@ def as_hyper(value: Any) -> torch.Tensor:
     if isinstance(value, np.ndarray | np.generic):
         return torch.tensor(value)
     return torch.tensor(value, dtype=torch.float64)
+
+
+def mapped_module(module: nn.Module, fn: Callable[[torch.Tensor], torch.Tensor]) -> nn.Module:
+    """A copy of ``module`` with ``fn`` applied to each floating tensor it
+    holds (its parameters and buffers, and its submodules' in turn). The
+    copy has its own buffers and submodules, so ``module`` is unchanged;
+    ``fn``'s autograd history stays on the copy's tensors, whose parameters
+    become buffers."""
+    out = copy.copy(module)
+    tensors = {**module._parameters, **module._buffers}
+    out._parameters = {}
+    out._buffers = {
+        k: fn(v) if v is not None and v.is_floating_point() else v for k, v in tensors.items()
+    }
+    out._modules = {
+        k: None if v is None else mapped_module(v, fn) for k, v in module._modules.items()
+    }
+    return out

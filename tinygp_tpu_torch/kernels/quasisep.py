@@ -138,17 +138,20 @@ class Quasisep(Kernel):
         return X
 
     def to_stacked_ssm(
-        self, X: torch.Tensor
+        self, X: torch.Tensor, *, X_prev: torch.Tensor | None = None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(d, ps, qs, as_)`` of ``K(X, X)`` in the scans' stacked layout.
 
         ``d`` is ``(N,)``, the generators ``ps``/``qs`` are ``(m, N)`` and
         the transitions ``as_`` are ``(m*m, N)`` with row ``i*m+j`` holding
-        ``a[i, j]`` of the adjoint ``a = raw^T``. The first point pairs
-        with itself, so its transition is the identity.
+        ``a[i, j]`` of the adjoint ``a = raw^T``. ``X_prev`` overrides the
+        previous-point coordinates (a shard's first point takes its left
+        neighbour's last); by default the first point pairs with itself,
+        so its transition is the identity.
         """
         Pinf = self.stationary_covariance()
-        X_prev = torch.cat([X[:1], X[:-1]])
+        if X_prev is None:
+            X_prev = torch.cat([X[:1], X[:-1]])
         raw = self.transition_matrix(X_prev, X)
         m, n = raw.shape[0], raw.shape[-1]
         as_ = raw.transpose(0, 1).reshape(m * m, n)
@@ -345,7 +348,7 @@ class Sum(_Pair):
         return _block_diag(*self._both("transition_matrix", X1, X2))
 
     def to_stacked_ssm(
-        self, X: torch.Tensor
+        self, X: torch.Tensor, *, X_prev: torch.Tensor | None = None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Stacked SSM of a sum, composed from the terms' stacked SSMs.
 
@@ -353,8 +356,8 @@ class Sum(_Pair):
         transitions interleave each term's rows with zero rows for the
         off-diagonal blocks, row for row as the JAX package composes them.
         """
-        d1, ps1, qs1, as1 = self.kernel1.to_stacked_ssm(X)
-        d2, ps2, qs2, as2 = self.kernel2.to_stacked_ssm(X)
+        d1, ps1, qs1, as1 = self.kernel1.to_stacked_ssm(X, X_prev=X_prev)
+        d2, ps2, qs2, as2 = self.kernel2.to_stacked_ssm(X, X_prev=X_prev)
         m1, m2 = ps1.shape[0], ps2.shape[0]
         n = d1.shape[-1]
         dtype = torch.promote_types(as1.dtype, as2.dtype)

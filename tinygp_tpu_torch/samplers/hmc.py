@@ -27,8 +27,13 @@ batched evaluations.
 **Random numbers** come from ``torch.Generator``\\ s on the chains' device.
 :func:`run_mcmc` seeds one for each step from ``(seed, phase, step)``, so a
 run cut into chunks, or resumed from a checkpoint, draws the same numbers
-and gives the same samples bit for bit. The JAX package's keys draw other
-numbers: the two agree in distribution.
+and gives the same samples bit for bit. A transition draws the same
+numbers whatever its loops' trip counts: each NUTS doubling draws the
+uniforms of all its ``2^depth`` leaves at once. So a rank that runs some of
+the chains (``parallel.run_mcmc_sharded``), and stops doubling when its own
+chains are done, draws every chain's numbers and keeps its rows: its
+samples are those rows of the single run's. The JAX package's keys draw
+other numbers: the two agree in distribution.
 """
 
 from __future__ import annotations
@@ -144,12 +149,33 @@ def _where(mask, new, old):
     return torch.where(mask.reshape(-1, *(1,) * (new.ndim - 1)), new, old)
 
 
+class _Rows(NamedTuple):
+    """A step's stream for rows ``start:start + n`` of ``total`` chains:
+    each draw is made for all chains and these rows are kept, so a rank's
+    numbers are its rows of the single run's."""
+
+    generator: torch.Generator
+    total: int
+    start: int
+
+
+def _draw(sample, shape, generator, like, chain_dim=0):
+    """``sample`` (``torch.rand`` or ``torch.randn``) of ``shape``, whose
+    ``chain_dim`` is the chain axis, from a generator or a :class:`_Rows`."""
+    if isinstance(generator, _Rows):
+        full = list(shape)
+        full[chain_dim] = generator.total
+        out = sample(full, generator=generator.generator, dtype=like.dtype, device=like.device)
+        return out.narrow(chain_dim, generator.start, shape[chain_dim])
+    return sample(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
 def _randn(shape, generator, like):
-    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+    return _draw(torch.randn, shape, generator, like)
 
 
 def _rand(n, generator, like):
-    return torch.rand(n, generator=generator, dtype=like.dtype, device=like.device)
+    return _draw(torch.rand, (n,), generator, like)
 
 
 def hmc(
@@ -281,10 +307,13 @@ def nuts(
         diverging = torch.zeros_like(active)
         steps = torch.zeros(chains, dtype=torch.int32, device=z.device)
         live = active
+        # Every leaf's uniform at once, so the stream does not depend on
+        # where the loop stops.
+        u_leaves = _draw(torch.rand, (1 << depth, chains), generator, z, chain_dim=1)
         for idx in range(1 << depth):
             if idx and not bool(live.any()):
                 break
-            u = _rand(chains, generator, z)
+            u = u_leaves[idx]
             z1, r1, lp1, grad1 = _leapfrog(value_and_grad, z, r, grad, eps, inv_mass)
             delta = energy0 - (-lp1 + _kinetic(r1, inv_mass))
             delta = torch.where(torch.isnan(delta), -torch.inf, delta)
@@ -518,6 +547,7 @@ def window_adaptation(
     num_warmup: int,
     target_accept: float = 0.8,
     initial_step_size: float = 0.1,
+    axis=None,
     step_kwargs_fn=None,
 ):
     """Warmup: dual-averaged step size + staged diagonal mass adaptation.
@@ -528,8 +558,11 @@ def window_adaptation(
     current step size, so early, badly conditioned exploration never
     contaminates the final metric. All chains adapt one step size and one
     mass matrix: the accept statistic and the position moments are averaged
-    over the chain axis. (The JAX package's mesh ``axis`` argument waits
-    for the port's ``parallel`` subpackage, ROADMAP L4.)
+    over the chain axis. ``axis``, the JAX package's mesh axis, is here a
+    process group whose ranks hold the chains in blocks, in rank order
+    (``parallel.run_mcmc_sharded``): each reduction then gathers every
+    rank's chains and reduces them in global chain order, as one process
+    holding all the chains would.
 
     Returns ``run(seed, states, step_size=None) -> (states, step_size,
     inv_mass, info)``, where ``states`` carry a leading chain axis, step
@@ -544,6 +577,13 @@ def window_adaptation(
     num_windows = len(switch_steps) + 2
     # Window id of a step: 0 = init buffer, 1..k = slow windows, k+1 = term.
     starts = [init_buffer] + [s + 1 for s in switch_steps]
+
+    def all_chains(x):
+        if axis is None:
+            return x
+        from tinygp_tpu_torch.parallel.mesh import gather
+
+        return gather(x, axis)
 
     def init(states: HMCState, step_size=None):
         z = states.z
@@ -574,21 +614,22 @@ def window_adaptation(
         step_size = torch.exp(da.log_step)
         extra = {} if step_kwargs_fn is None else step_kwargs_fn(step)
         states, infos = step_fn(generator, states, step_size, inv_mass, **extra)
-        accept = torch.mean(infos.accept_prob)
+        accept = torch.mean(all_chains(infos.accept_prob))
         da = _da_update(da, accept, target=target_accept)
 
         widx = sum(step >= s for s in starts)
         div = div + torch.nn.functional.one_hot(
             torch.tensor(widx, device=div.device), num_windows
-        ).to(div.dtype) * torch.sum(infos.diverging).to(div.dtype)
+        ).to(div.dtype) * torch.sum(all_chains(infos.diverging)).to(div.dtype)
         if step >= num_warmup - term_buffer:
             acc = acc + torch.stack([accept, torch.ones_like(accept)])
 
         if init_buffer <= step < num_warmup - term_buffer:
             n = wn + 1.0
-            delta = states.z - wmean[None, :]
+            z = all_chains(states.z)
+            delta = z - wmean[None, :]
             wmean_new = wmean + torch.mean(delta, dim=0) / n
-            wm2 = wm2 + torch.mean(delta * (states.z - wmean_new[None, :]), dim=0)
+            wm2 = wm2 + torch.mean(delta * (z - wmean_new[None, :]), dim=0)
             wmean, wn = wmean_new, n
 
         if step in switch_steps:
@@ -624,6 +665,7 @@ def _mcmc_programs(
     num_leapfrog,
     target_accept,
     warmup_depth_cap,
+    axis=None,
 ):
     """Everything one MCMC configuration needs: the position's ravel and
     unravel, the flat log density, the transition and the warmup. The JAX
@@ -653,7 +695,7 @@ def _mcmc_programs(
             return {"depth_cap": cap if step < init_buffer else max_tree_depth}
 
     adapt = window_adaptation(step_fn, num_warmup=num_warmup, target_accept=target_accept,
-                              step_kwargs_fn=step_kwargs_fn)
+                              axis=axis, step_kwargs_fn=step_kwargs_fn)
     return {
         "ravel": ravel,
         "unravel": unravel,
@@ -721,21 +763,52 @@ def run_mcmc(
     device = resolve_device(device)
     programs = _mcmc_programs(log_prob_fn, init_params, num_warmup, sampler, max_tree_depth,
                               num_leapfrog, target_accept, warmup_depth_cap)
+    return _run_chains(seed, programs, init_params, num_chains=num_chains,
+                       num_warmup=num_warmup, num_samples=num_samples,
+                       initial_step_size=initial_step_size, jitter_init=jitter_init,
+                       steps_per_dispatch=steps_per_dispatch, checkpoint_path=checkpoint_path,
+                       checkpoint_every=checkpoint_every, device=device)
+
+
+def _run_chains(
+    seed,
+    programs,
+    init_params,
+    *,
+    num_chains,
+    num_warmup,
+    num_samples,
+    initial_step_size,
+    jitter_init,
+    steps_per_dispatch,
+    checkpoint_path,
+    checkpoint_every,
+    device,
+    rows=None,
+):
+    """:func:`run_mcmc` after its arguments are resolved. ``rows``,
+    ``(start, stop)``, runs only those of the ``num_chains`` chains, with
+    their rows of every draw (:class:`_Rows`)."""
     unravel, dim, adapt, step_fn = (programs[k] for k in ("unravel", "dim", "adapt", "step_fn"))
+    start, stop = (0, num_chains) if rows is None else rows
+
+    def stream(phase, step):
+        generator = _generator(seed, phase, step, device)
+        return generator if rows is None else _Rows(generator, num_chains, start)
 
     z0 = programs["ravel"](init_params).to(device)
     if not z0.is_floating_point():
         z0 = z0.to(torch.get_default_dtype())
-    jitter = _randn((num_chains, dim), _generator(seed, _INIT, 0, device), z0)
+    jitter = _randn((stop - start, dim), stream(_INIT, 0), z0)
     states = programs["init_fn"](z0[None, :] + jitter_init * jitter)
 
     if initial_step_size is None:
         # Start dual averaging within a factor of two of a workable step.
         initial_step_size = find_initial_step_size(
-            programs["flat_log_prob"], states, _generator(seed, _SEARCH, 0, device))
+            programs["flat_log_prob"], states, stream(_SEARCH, 0))
 
     def zeros(dtype):
-        return torch.zeros(num_samples, num_chains, dtype=dtype, device=device)
+        return torch.zeros(num_samples, stop - start, dtype=dtype, device=device)
 
     run_state = {
         "phase": np.zeros((), np.int32),  # 0 = warmup, 1 = sampling
@@ -744,7 +817,7 @@ def run_mcmc(
         "states": states,
         "step_size": z0.new_zeros(()),
         "inv_mass": z0.new_ones(dim),
-        "zs": z0.new_zeros(num_samples, num_chains, dim),
+        "zs": z0.new_zeros(num_samples, stop - start, dim),
         "info": HMCInfo(accept_prob=zeros(z0.dtype), accepted=zeros(torch.bool),
                         energy=zeros(z0.dtype), num_steps=zeros(torch.int32),
                         diverging=zeros(torch.bool)),
@@ -764,7 +837,7 @@ def run_mcmc(
         step = int(run_state["step"])
         carry = run_state["warm"]
         for k in range(step, min(step + (steps_per_dispatch or num_warmup), num_warmup)):
-            carry = adapt.body(carry, k, _generator(seed, _WARMUP, k, device))
+            carry = adapt.body(carry, k, stream(_WARMUP, k))
         run_state["warm"] = carry
         run_state["step"] = np.asarray(k + 1, np.int32)
         maybe_checkpoint()
@@ -779,8 +852,7 @@ def run_mcmc(
     while int(run_state["step"]) < num_samples:
         step = int(run_state["step"])
         for k in range(step, min(step + (steps_per_dispatch or num_samples), num_samples)):
-            states, info = step_fn(_generator(seed, _SAMPLE, k, device), states, step_size,
-                                   inv_mass)
+            states, info = step_fn(stream(_SAMPLE, k), states, step_size, inv_mass)
             run_state["zs"][k] = states.z
             for name, value in zip(HMCInfo._fields, info):
                 getattr(run_state["info"], name)[k] = value

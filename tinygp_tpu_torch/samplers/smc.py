@@ -33,7 +33,7 @@ from typing import Any, NamedTuple
 import torch
 
 from tinygp_tpu_torch.helpers import pinned, resolve_device
-from tinygp_tpu_torch.samplers.hmc import _generator, _ravel_spec
+from tinygp_tpu_torch.samplers.hmc import _generator, _rand, _randn, _ravel_spec, _Rows
 from tinygp_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 EVALUATIONS = 0
@@ -128,7 +128,21 @@ def run_smc(
         An :class:`SMCResult` with equally-weighted posterior particles and
         the log-evidence estimate.
     """
-    device = resolve_device(device)
+    return _run_smc(seed, log_prior_fn, log_like_fn, init_particles,
+                    num_mutations=num_mutations, target_ess=target_ess, max_stages=max_stages,
+                    rw_scale=rw_scale, device=resolve_device(device))
+
+
+def _run_smc(
+    seed, log_prior_fn, log_like_fn, init_particles, *, num_mutations, target_ess, max_stages,
+    rw_scale, device, group=None,
+) -> SMCResult:
+    """:func:`run_smc` after its arguments are resolved. With ``group``, a
+    process group whose ranks hold the particles in equal blocks in rank
+    order, this rank moves its block: each reduction gathers the blocks
+    and reduces them in global particle order, and each draw is made for
+    all particles and sliced (``hmc._Rows``), so the rank's particles are
+    its rows of the single run's."""
     leaves, spec = tree_flatten(init_particles)
     leaves = [torch.as_tensor(x).to(device) for x in leaves]
     n = leaves[0].shape[0]
@@ -136,6 +150,17 @@ def run_smc(
     zs = torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
     if not zs.is_floating_point():
         zs = zs.to(torch.get_default_dtype())
+    start, stop = 0, n
+    if group is not None:
+        from tinygp_tpu_torch.parallel.mesh import gather, group_rank, group_size
+
+        start = group_rank(group) * (n // group_size(group))
+        stop = start + n // group_size(group)
+        zs = zs[start:stop]
+
+    def everyone(x):
+        """The particles' ``x`` over all ranks, in global order."""
+        return x if group is None else gather(x, group)
 
     batched_prior = torch.func.vmap(lambda z: log_prior_fn(unravel(z)))
     batched_like = torch.func.vmap(lambda z: log_like_fn(unravel(z)))
@@ -148,21 +173,21 @@ def run_smc(
     def log_pi(z, beta):
         return evaluate(lambda x: batched_prior(x) + beta * batched_like(x), z)
 
-    def mutate(generator, zs, beta):
+    def mutate(stream, zs, beta):
         """num_mutations random-walk MH steps targeting pi_beta."""
         # Preconditioned proposal: scale by the per-dimension particle std.
-        std = torch.std(zs, dim=0, correction=0) + 1e-12
+        std = torch.std(everyone(zs), dim=0, correction=0) + 1e-12
         logp = log_pi(zs, beta)
         n_acc = zs.new_zeros(())
         for _ in range(num_mutations):
-            noise = torch.randn(zs.shape, generator=generator, dtype=zs.dtype, device=device)
+            noise = _randn(zs.shape, stream, zs)
             prop = zs + rw_scale * std[None, :] * noise
             logp_prop = _nan_to_neg_inf(log_pi(prop, beta))
-            u = torch.rand(n, generator=generator, dtype=zs.dtype, device=device)
+            u = _rand(zs.shape[0], stream, zs)
             accept = torch.log(u) < logp_prop - logp
             zs = torch.where(accept[:, None], prop, zs)
             logp = torch.where(accept, logp_prop, logp)
-            n_acc = n_acc + torch.mean(accept.to(zs.dtype))
+            n_acc = n_acc + torch.mean(everyone(accept).to(zs.dtype))
         return zs, n_acc / num_mutations
 
     with torch.no_grad():
@@ -173,14 +198,15 @@ def run_smc(
         k = 0
         while k < max_stages and float(beta) < 1.0:
             generator = _generator(seed, _STAGE, k, device)
-            log_like = _nan_to_neg_inf(evaluate(batched_like, zs))
+            stream = generator if group is None else _Rows(generator, n, start)
+            log_like = everyone(_nan_to_neg_inf(evaluate(batched_like, zs)))
             new_beta = _next_beta(log_like, beta, target_ess)
             incr = (new_beta - beta) * log_like
             log_z = log_z + torch.logsumexp(incr, 0) - math.log(n)
 
             u = torch.rand((), generator=generator, dtype=zs.dtype, device=device)
-            zs = zs[_systematic_indices(u, incr)]
-            zs, acc_rate = mutate(generator, zs, new_beta)
+            zs = everyone(zs)[_systematic_indices(u, incr)[start:stop]]
+            zs, acc_rate = mutate(stream, zs, new_beta)
             betas[k] = new_beta
             accs[k] = acc_rate
             beta = new_beta
@@ -188,7 +214,7 @@ def run_smc(
 
     return SMCResult(
         particles=unravel(zs),
-        log_weights=torch.full((n,), -math.log(n), dtype=zs.dtype, device=device),
+        log_weights=torch.full((stop - start,), -math.log(n), dtype=zs.dtype, device=device),
         log_evidence=log_z,
         betas=betas,
         acceptance=accs,

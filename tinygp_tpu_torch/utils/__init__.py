@@ -7,5 +7,7 @@ module system, is not ported (the port's models are ``nn.Module``\\s).
 
 from tinygp_tpu_torch.utils.checkpoint import (
     load_pytree as load_pytree,
+    load_pytree_sharded as load_pytree_sharded,
     save_pytree as save_pytree,
+    save_pytree_sharded as save_pytree_sharded,
 )
