@@ -13,7 +13,7 @@ Phases, each printing its numbers on lines of its own:
    dynamic shared memory), ``dense_syrk.cu`` and the B1-B2 sources
    ``quasisep_loglik_bwd.cu`` and ``quasisep_loglik_generic.cu``;
 2. each kernel against its plain PyTorch version on random operands
-   (m = 1..4, and 5, 8 and 16 through the generic-order source, at
+   (m = 1..4, and 5, 8, 16 and 24 through the generic-order source, at
    N = 17,161 in float64 and float32; m = 1..4 at N = 1e5 in both; m = 2
    at N = 1e6 in both): B1 (the log-likelihood),
    B1r (with the residuals a gradient needs) and B2 (the backward, on
@@ -23,10 +23,12 @@ Phases, each printing its numbers on lines of its own:
    process's first ``torch.profiler`` traces: a B1 and a B1r call at
    m = 1..4 (N = 1e5, float32 and float64) are one kernel and one memset
    each, and so is each B3 scan at m = 1..4 (the affine scan with 1 and
-   16 columns, the congruence, the Riccati flow, the coupling) and each
-   coupling (2, 4), (4, 8), (6, 6), (8, 8); the main path's, gradient
-   path's and trainer's calls below are traced too (no other kernel, no
-   more than one launch a call);
+   16 columns, the congruence, the Riccati flow, the coupling), each
+   coupling (2, 4), (4, 8), (6, 6), (8, 8), and at m = 5, 8, 12 and 16 the
+   Riccati flow, the affine scan with 1 and 16 columns and the reverse
+   congruence scan, and a B2 call at m = 9, 12 and 16; the main path's,
+   gradient path's and trainer's calls below are traced too (no other
+   kernel, no more than one launch a call);
 3. the kernel path's ``log_probability`` and its float64 gradient against
    a dense numpy/scipy Cholesky log-likelihood built from the kernels'
    closed forms and its central differences;
@@ -52,9 +54,11 @@ Phases, each printing its numbers on lines of its own:
    inclusive, with 1 and 8 columns; congruence forward and reverse; the
    Riccati flow; the coupling forward and reverse), m = 1..4 at N = 17,161
    in float64 and float32 and m = 2 at N = 1e6; and the generic-order
-   engine at m = 5, 6, 8, 12 and 16 (every monoid, both directions and
-   outputs, 1 and 8 columns) and the couplings (2, 4), (4, 8) and (6, 6),
-   at N = 17,161 in float64 and float32, with its launches counted;
+   source at m = 5, 6, 8, 12 and 16 (every monoid, both directions and
+   outputs, 1 and 8 columns), the congruence at every m = 5..16 in both
+   directions and the couplings (2, 4), (4, 8) and (6, 6), at N = 17,161
+   in float64 and float32, with its launches counted and each one-launch
+   kernel's second launch equal bit for bit;
 8. conditioning at the light-curve example's size
    (``examples/quasisep_lightcurve.py:23-77``): ``condition(y)`` and
    ``predict(y, t_test)`` of ``1.0 * SHO(omega=2.1, quality=2.0)`` on the
@@ -120,15 +124,20 @@ Phases, each printing its numbers on lines of its own:
     float32 Matern52's ``condition``, ``predict(return_var=True)`` and
     ``sample``, the 2-term celerite's ``condition``, and
     ``1.2 * SHO + 1.5 * Matern52`` (m = 5): its value (also at N = 1e6),
-    its gradient in four hyperparameters and 20 ``fit_map`` steps; in
+    its gradient in four hyperparameters and 20 ``fit_map`` steps; the
+    same sum with the 2-term celerite (m = 9): its value and its gradient
+    in six hyperparameters, one B1r and one B2 launch (B2's tensor-core
+    kernel) a gradient, timed; in
     float64 the posterior processes (order 8, 12 and 16) of Matern32,
     Matern52 and the 2-term celerite, ``log_probability`` and ``sample``,
     with their default jitter at N = 1e5 (reported: the reference's O(N)
     factor does not hold there) and given ``diag=1e-3`` at N = 5000; the
     generic-order launches counted over the path, each held to its plain
     version on the path's well-posed operands and timed beside its bound
-    (B2 repeated bit for bit, one launch a call);
-    the float64 entry points against the CPU's plain version; then the
+    (B2 repeated bit for bit, one launch a call); B1, B1r and B2 at
+    m = 8, 9, 12 and 16 on random operands against their plain versions,
+    timed beside their bounds; the float64 entry points (the m = 5 and
+    m = 9 sums' values and gradients) against the CPU's plain version; then the
     generic B1 and B1r at m = 5 (N = 1e5 and 1e6) whole and pass by pass
     (a ``torch.profiler`` trace) and B3's generic Riccati flow at m = 5, 8
     and 16;
@@ -214,7 +223,7 @@ The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 at either order and B6 each summed over the shapes of
 the dense main path; B7 at 1e4; one record per generic-order instantiation
-of phase 16, and B1, B1r and B2 at m = 5; B1, B1r and B2 with a chain
+of phase 16, and B1, B1r and B2 at m = 5 and 9; B1, B1r and B2 with a chain
 axis at the sampler's shape, with their launches on phases 18-20's and 25's
 paths;
 B1, B1r, B2 and B3 with CARMA's launches added, and B3 with phase 22's,
@@ -246,7 +255,8 @@ scans at 1e6, Matern52's and the celerite's couplings (6, 6) and (8, 8),
 the couplings (2, 2) and (4, 4) through either source, and the whole
 Matern32, Matern52 and celerite ``condition`` calls.
 ``python3 chip_smoke.py --b3-times engine`` times the scans of phase 7 that
-still run the three-phase engine, beside their bounds.
+still run the three-phase engine (the couplings above order 8) and every
+monoid at m = 24 and 32, beside their bounds.
 ``python3 chip_smoke.py --sampler`` runs phase 1 and then only phases 17
 to 20, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
 100 samples and ADVI at ``smc_vi_rate.py``'s 1000 steps, and prints the
@@ -521,10 +531,11 @@ def phase_kernel_vs_plain():
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
-    # m = 1..4 run the templated kernels, 5 and 8 the generic-order source
-    # (B2 there in one launch), 16 the generic sequence.
-    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16)]
-    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16)]
+    # m = 1..4 run the templated kernels, 5, 8 and 16 the generic-order
+    # source (B2 there in one launch: its warp kernel up to 8, its
+    # tensor-core kernel above), 24 its sequence.
+    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
+    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
     cases += [(m, 100_000, dtype, rtol) for m in (1, 2, 3, 4)
               for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4))]
     # At 1e6 the headline order only (m = 1, 3 and 4 at 1e6 took about a
@@ -952,7 +963,7 @@ def matern32_grad_f64_kernels(X, y):
 
 def b2_launch_checks(bwd_args, bars):
     """B2 launched again on ``bwd_args`` gives ``bars`` bit for bit; and at
-    m <= 8, from a ``torch.profiler`` trace, one call is one kernel launch
+    m <= 16, from a ``torch.profiler`` trace, one call is one kernel launch
     and at most one memset. Returns (same bits, (one launch, report))."""
     import torch
 
@@ -964,7 +975,7 @@ def b2_launch_checks(bwd_args, bars):
         return same, (True, "device operations per call not measured (no device time "
                             "in the trace)")
     kernels = [k for k in split if not k.startswith("Memset")]
-    one = bwd_args[0].shape[0] > 8 or (
+    one = bwd_args[0].shape[0] > 16 or (
         len(kernels) == 1 and all(per <= 1 for _, per in split.values()))
     return same, (one, f"{per_call:g} device operations per call ("
                        + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items())
@@ -1054,11 +1065,16 @@ def phase_b1_launches():
 B3_TRACED = (("aff", 1, False, False), ("aff", 16, True, True), ("cong", 1, True, False),
              ("ric", 1, False, False), ("cpl", 1, False, False))
 B3_TRACED_COUPLINGS = ((2, 4), (4, 8), (6, 6), (8, 8))
-# The generic source's one-launch Riccati flow and affine scan: (kernel,
-# (monoid, r, reverse, inclusive) ...) at each of these orders.
-B3_TRACED_GENERIC = (("ric_tile_kernel", (("ric", 1, False, False),)),
-                     ("aff_tile_kernel", (("aff", 1, False, False), ("aff", 16, True, True))))
+# The generic source's one-launch Riccati flow, affine and congruence
+# scans: (kernel, (monoid, r, reverse, inclusive) ..., orders, N): the
+# congruence at every order it takes, in both directions, at N_LONG.
 B3_TRACED_GENERIC_ORDERS = (5, 8, 12, 16)
+B3_TRACED_GENERIC = (("ric_tile_kernel", (("ric", 1, False, False),), B3_TRACED_GENERIC_ORDERS,
+                      100_000),
+                     ("aff_tile_kernel", (("aff", 1, False, False), ("aff", 16, True, True)),
+                      B3_TRACED_GENERIC_ORDERS, 100_000),
+                     ("cong_tile_kernel", (("cong", 1, True, False), ("cong", 1, False, False)),
+                      tuple(range(5, 17)), N_LONG))
 
 
 def b3_one_launch(calls, name):
@@ -1092,39 +1108,87 @@ def phase_b3_launches():
     float64: at each m = 1..4 the affine scan with 1 and 16 columns, the
     congruence, the Riccati flow and the coupling (``b3_tile_kernel``), and
     the couplings (2, 4), (4, 8), (6, 6) and (8, 8) (``cpl_tile_kernel``),
-    and at m = 5, 8, 12 and 16 the Riccati flow (``ric_tile_kernel``) and
-    the affine scan with 1 and 16 columns (``aff_tile_kernel``): in a
-    ``torch.profiler`` trace each scan is one kernel and one memset. Seven
-    traces, run first with B1's, while the process's traces still hold
-    every event."""
+    at m = 5, 8, 12 and 16 the Riccati flow (``ric_tile_kernel``) and the
+    affine scan with 1 and 16 columns (``aff_tile_kernel``), and at every
+    m = 5..16 the congruence scan in both directions
+    (``cong_tile_kernel``, at N = 17,161): in a ``torch.profiler`` trace
+    each scan is one kernel and one memset. Eight traces, run first with
+    B1's, while the process's traces still hold every event; each set's
+    operands are made just before its trace and freed after it (with
+    several GB of operands allocated, traces lost the first launches of
+    every set)."""
     import torch
 
     n, failures = 100_000, []
-    sets = [(f"m={m}", "b3_tile_kernel",
-             [(monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
-              for dtype in (torch.float32, torch.float64)
-              for monoid, r, rev, incl in B3_TRACED]) for m in (1, 2, 3, 4)]
+    sets = [(f"m={m}", "b3_tile_kernel", n, lambda m=m: [
+        (monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
+        for dtype in (torch.float32, torch.float64)
+        for monoid, r, rev, incl in B3_TRACED]) for m in (1, 2, 3, 4)]
     sets.append(("couplings " + ", ".join(f"{a}x{b}" for a, b in B3_TRACED_COUPLINGS),
-                 "cpl_tile_kernel",
-                 [("cpl", a, b, 1, rev, rev,
-                   scan_operands("cpl", a, n, 1, dtype, seed=a + b, m2=b))
-                  for dtype in (torch.float32, torch.float64)
-                  for (a, b), rev in zip(B3_TRACED_COUPLINGS, (False, True, False, True))]))
-    for name, variants in B3_TRACED_GENERIC:
-        sets.append((name.split("_")[0] + " m=" + ", ".join(map(str, B3_TRACED_GENERIC_ORDERS)),
-                     name,
-                     [(monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
-                      for dtype in (torch.float32, torch.float64)
-                      for m in B3_TRACED_GENERIC_ORDERS
-                      for monoid, r, rev, incl in variants]))
-    for label, name, calls in sets:
+                 "cpl_tile_kernel", n, lambda: [
+                     ("cpl", a, b, 1, rev, rev,
+                      scan_operands("cpl", a, n, 1, dtype, seed=a + b, m2=b))
+                     for dtype in (torch.float32, torch.float64)
+                     for (a, b), rev in zip(B3_TRACED_COUPLINGS, (False, True, False, True))]))
+    for name, variants, orders, n_set in B3_TRACED_GENERIC:
+        sets.append((name.split("_")[0] + " m=" + ", ".join(map(str, orders)), name, n_set,
+                     lambda variants=variants, orders=orders, n_set=n_set: [
+                         (monoid, m, m, r, rev, incl,
+                          scan_operands(monoid, m, n_set, r, dtype, seed=m))
+                         for dtype in (torch.float32, torch.float64)
+                         for m in orders
+                         for monoid, r, rev, incl in variants]))
+    for label, name, n_set, make in sets:
+        calls = make()
         ok, report = b3_one_launch(calls, name)
-        log(f"b3-launches {label} N={n} float32 and float64: {report} {'ok' if ok else 'FAIL'}")
+        log(f"b3-launches {label} N={n_set} float32 and float64: {report} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(label)
         del calls
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"B3 is not one kernel and one memset a scan: {failures}")
+
+
+B2_TRACED_ORDERS = (9, 12, 16)
+
+
+def phase_b2_launches():
+    """B2 at m = 9, 12 and 16 in float32 and float64 (random operands and
+    B1r's residuals, N = 1e5): one call is exactly one ``b2_tc_kernel``
+    launch and one memset in a ``torch.profiler`` trace, as
+    :func:`phase_b1_launches` traces B1 (a trace short of the counts with
+    nothing else in it is taken again)."""
+    import torch
+
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
+
+    failures = []
+    for dtype in (torch.float32, torch.float64):
+        for m in B2_TRACED_ORDERS:
+            args = random_operands(m, 100_000, dtype, seed=m)
+            res = cuda_loglik.fused_loglik_res(*args)
+            qbar, lbar = (torch.tensor(v, dtype=dtype, device="cuda") for v in (-0.5, -1.0))
+            bwd_args = (*args[1:], *res[2:], qbar, lbar)
+            want = {f"b2_tc_kernel<{'float' if dtype == torch.float32 else 'double'}>": 1.0,
+                    "Memset": 1.0}
+            for attempt in range(TRACE_TRIES):
+                split, per_call = kernel_split(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args))
+                got = None if split is None else {k: per for k, (_, per) in split.items()}
+                ok = got == want
+                if ok or not trace_lost_events(got, want):
+                    break
+            shown = ("no device time in the trace" if split is None else
+                     ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()))
+            log(f"b2-launches m={m} N=100000 {str(dtype)[6:]}: a B2 call, {per_call:g} device "
+                f"operations ({shown}){retraced(attempt)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append((m, dtype))
+            del args, res, bwd_args
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"B2 is not one kernel and one memset a call: {failures}")
 
 
 def phase_gradient_path():
@@ -1455,26 +1519,34 @@ def phase_scan_vs_plain():
             f"(rtol {rtol:g}): {', '.join(parts)}"
         )
 
-    # The generic-order engine, at N_LONG: every order of the slice's path
-    # and the couplings of unequal orders, with its launches counted.
+    # The generic-order source, at N_LONG: every order of the slice's path,
+    # the congruence scan at every order of its one launch in both
+    # directions, and the couplings of unequal orders, with its launches
+    # counted; a one-launch kernel's second launch equal bit for bit.
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
     t0 = time.perf_counter()
     for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
         cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
+        cases += [(m, m, ("cong", rev, False, 1)) for m in range(5, 17) for rev in (False, True)
+                  if m not in GENERIC_ORDERS or not rev]
         cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
         for m, m2, (monoid, reverse, inclusive, r) in cases:
             operands = scan_operands(monoid, m, N_LONG, r, dtype, seed=10 * m + m2, m2=m2)
             before = cuda_scan.LAUNCHES_GENERIC[monoid]
             got = scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=m2)
+            launched = cuda_scan.LAUNCHES_GENERIC[monoid] - before
+            one = cuda_scan.b3_schedule(monoid, m, r, dtype, m2=m2) is not None
+            same = not one or torch.equal(
+                got, scan_kernel(monoid, m, r, reverse, inclusive, operands, m2=m2))
             want = scan_plain(monoid, m, r, reverse, inclusive, operands, m2=m2)
             (err, _), = stream_errors([got], [want])
-            launched = cuda_scan.LAUNCHES_GENERIC[monoid] - before
-            ok = err <= rtol and bool(torch.isfinite(got).all()) and launched == 1
+            ok = err <= rtol and bool(torch.isfinite(got).all()) and launched == 1 and same
             tag = (f"{monoid}{'-rev' if reverse else ''}{'-incl' if inclusive else ''}-r{r} "
                    f"m={m}" + (f"x{m2}" if monoid == "cpl" else ""))
             log(f"kernel-vs-plain B3 generic {tag} N={N_LONG} {str(dtype)[6:]}: rel err "
-                f"{err:.2e} (rtol {rtol:g}), generic launches {launched} "
+                f"{err:.2e} (rtol {rtol:g}), generic launches {launched}"
+                f"{', a second launch equal bit for bit ' + str(same) if one else ''} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append((tag, N_LONG, dtype))
@@ -1774,12 +1846,39 @@ def sum5_value_and_grad(X, y):
     return lp.detach(), torch.autograd.grad(lp, p)
 
 
+def sum9_gp(X, p):
+    """``sum5_gp``'s sum plus ``bench.py:331-345``'s 2-term celerite,
+    ``Celerite(a=p[4], b=0.1, c=0.5, d=1.0) + Celerite(a=p[5], b=0.05,
+    c=1.5, d=3.0)`` (order 2 + 3 + 4 = 9): stellar rotation, granulation
+    and a trend in one model, whose gradient runs B2's tensor-core kernel."""
+    from tinygp_tpu_torch import GaussianProcess
+    from tinygp_tpu_torch.kernels import quasisep
+
+    kernel = (p[0] * quasisep.SHO(omega=p[1], quality=3.0) + p[2] * quasisep.Matern52(scale=p[3])
+              + quasisep.Celerite(a=p[4], b=0.1, c=0.5, d=1.0)
+              + quasisep.Celerite(a=p[5], b=0.05, c=1.5, d=3.0))
+    return GaussianProcess(kernel, X, diag=0.1, assume_sorted=True, device=X.device.type)
+
+
+SUM9_PARAMS = SUM5_PARAMS + (1.0, 0.5)
+
+
+def sum9_value_and_grad(X, y):
+    import torch
+
+    p = [torch.tensor(v, dtype=X.dtype, device=X.device, requires_grad=True) for v in SUM9_PARAMS]
+    lp = sum9_gp(X, p).log_probability(y)
+    return lp.detach(), torch.autograd.grad(lp, p)
+
+
 def orders_path(X, y, X_test, generator):
     """The slice's float32 entry points at orders above 4, in the order a
-    user calls them; returns every output by name."""
+    user calls them; returns every output by name, and the generic B1, B1r
+    and B2 launches of the m = 9 sum's gradient call."""
     import torch
 
     from tinygp_tpu_torch import GaussianProcess, fit_map
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
     out = {}
     dev = X.device.type
@@ -1793,6 +1892,11 @@ def orders_path(X, y, X_test, generator):
     with torch.no_grad():
         value = sum5_gp(X, SUM5_PARAMS).log_probability(y)
     out["sum5"] = (value, *sum5_value_and_grad(X, y)[1])
+    with torch.no_grad():
+        value = sum9_gp(X, SUM9_PARAMS).log_probability(y)
+    before = dict(cuda_loglik.LAUNCHES_GENERIC)
+    out["sum9"] = (value, *sum9_value_and_grad(X, y)[1])
+    grad9_launches = count_diff(cuda_loglik.LAUNCHES_GENERIC, before)
 
     def loss_fn(params):
         return -sum5_gp(X, [torch.exp(params[k]) for k in ("amp1", "omega", "amp2", "scale")]
@@ -1801,7 +1905,7 @@ def orders_path(X, y, X_test, generator):
     init = {k: math.log(v) for k, v in zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)}
     res = fit_map(loss_fn, init, num_steps=20, learning_rate=0.05, dtype=X.dtype, device=dev)
     out["sum5_fit"] = (res.losses, res.loss)
-    return out
+    return out, grad9_launches
 
 
 def matern32_kernel():
@@ -1842,7 +1946,8 @@ def phase_orders_path():
     ``predict`` with variances and ``sample``; the 2-term celerite's
     ``condition``; ``1.2 * SHO + 1.5 * Matern52`` (m = 5): value, gradient
     in its four hyperparameters, 20 ``fit_map`` steps, and the value at
-    N = 1e6. Float64: the posterior processes of Matern32, Matern52 and the
+    N = 1e6; the same sum with the 2-term celerite (m = 9): value and
+    gradient in six hyperparameters. Float64: the posterior processes of Matern32, Matern52 and the
     2-term celerite (order 8, 12 and 16), ``log_probability`` and
     ``sample``, with their default 1.49e-8 jitter at N = 1e5, and given
     ``diag=1e-3`` at N = 5000 (every 20th point), where the O(N) algorithm
@@ -1851,8 +1956,9 @@ def phase_orders_path():
     hundred; the JAX package returns -inf for Matern32's at N = 2000).
     Every count is set to 0 before the path and read after it; each
     generic-order instantiation is held to its plain version on random
-    operands of its path shape; the float64 entry points against the CPU's plain
-    float64 path, and the posteriors given diag=1e-3 against a dense
+    operands of its path shape; the float64 entry points (the sums' values
+    and gradients, Matern52's posterior) against the CPU's plain float64
+    path, and the posteriors given diag=1e-3 against a dense
     Cholesky. Returns the JSON records of the generic-order kernels."""
     import torch
 
@@ -1872,6 +1978,8 @@ def phase_orders_path():
     # operands.
     calls = {}
     launch = cuda_scan._launch
+    loglik_calls = {}  # B1 ("qsl_loglik"), B1r and B2 launches by (prefix, m)
+    loglik_launch = cuda_loglik._launch
 
     def recording(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
         key = (monoid, m, m if m2 is None else m2, r)
@@ -1879,10 +1987,16 @@ def phase_orders_path():
             calls.setdefault(key, []).append((reverse, inclusive, operands))
         return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
 
+    def recording_loglik(lib, prefix, work_elems_fn, m, n, tensors, chains=None, batched=None):
+        loglik_calls[prefix, m] = loglik_calls.get((prefix, m), 0) + 1
+        return loglik_launch(lib, prefix, work_elems_fn, m, n, tensors, chains, batched)
+
     cuda_scan._launch = recording
+    cuda_loglik._launch = recording_loglik
     try:
         reset_counts()
-        out = orders_path(X, y, X_test, torch.Generator(device="cuda").manual_seed(0))
+        out, grad9_launches = orders_path(X, y, X_test,
+                                          torch.Generator(device="cuda").manual_seed(0))
         with torch.no_grad():
             out["sum5_n1e6"] = (sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),)
         jittered = posterior_path(X64, y64, None, torch.Generator(device="cuda").manual_seed(1))
@@ -1893,6 +2007,7 @@ def phase_orders_path():
         b123 = read_counts()
     finally:
         cuda_scan._launch = launch
+        cuda_loglik._launch = loglik_launch
     path_s = time.perf_counter() - t0
 
     finite = {k: all(bool(torch.isfinite(x).all()) for x in v) for k, v in out.items()}
@@ -1906,7 +2021,9 @@ def phase_orders_path():
     losses = [float(x) for x in out["sum5_fit"][0]]
     moved = (
         all(scan_counts[k] > 0 for k in ("aff", "ric", "cpl"))
-        and loglik_counts["b1"] == 2 and loglik_counts["b1r"] >= 21 and loglik_counts["b2"] >= 21
+        and loglik_counts["b1"] == 3 and loglik_counts["b1r"] >= 22 and loglik_counts["b2"] >= 22
+        and grad9_launches == {"b1r": 1, "b2": 1}
+        and loglik_calls.get(("qsl_loglik_bwd", 9)) == 1
     )
     path_ok = all(finite.values()) and shapes and moved and float(out["sum5_fit"][1]) < losses[0]
     jitter_report = {
@@ -1920,10 +2037,13 @@ def phase_orders_path():
         f"{float(out['matern52'][4].max())!r}]; celerite2 condition log prob "
         f"{out['celerite2'][0].item()!r}; sum5 (m = 5) value {out['sum5'][0].item()!r}, "
         f"gradient {[float(g) for g in out['sum5'][1:]]}, fit_map losses {losses[0]!r} -> "
-        f"{losses[-1]!r}, value at N=1e6 {out['sum5_n1e6'][0].item()!r}; posteriors given "
+        f"{losses[-1]!r}, value at N=1e6 {out['sum5_n1e6'][0].item()!r}; sum9 (m = 9) value "
+        f"{out['sum9'][0].item()!r}, gradient {[float(g) for g in out['sum9'][1:]]} "
+        f"(generic launches of the gradient call {grad9_launches}); posteriors given "
         f"diag=1e-3 at N={Xs.shape[0]} float64 log prob "
         f"{ {k: v[0].item() for k, v in noisy.items()} }; finite {finite}, shapes {shapes}; "
-        f"generic launches B3 {scan_counts}, B1/B1r/B2 {loglik_counts}; all launches "
+        f"generic launches B3 {scan_counts}, B1/B1r/B2 {loglik_counts}, by order "
+        f"{ {f'{k[0]} m={k[1]}': v for k, v in sorted(loglik_calls.items())} }; all launches "
         f"B1/B1r/B2 {b123} {'ok' if path_ok else 'FAIL'}"
     )
     log(
@@ -1932,16 +2052,19 @@ def phase_orders_path():
     )
 
     # The float64 entry points on the card against the CPU's plain float64
-    # path: the m = 5 sum's value and gradient and Matern52's posterior mean
-    # and variance at N = 1e5 (the variance within 1e-8 of the largest
-    # prior variance, as the conditioning phase holds Matern32's).
+    # path: the m = 5 and m = 9 sums' values and gradients and Matern52's
+    # posterior mean and variance at N = 1e5 (the variance within 1e-8 of
+    # the largest prior variance, as the conditioning phase holds
+    # Matern32's).
     t1 = time.perf_counter()
     Xc, yc = X64.cpu(), y64.cpu()
-    card_v, card_g = sum5_value_and_grad(X64, y64)
-    cpu_v, cpu_g = sum5_value_and_grad(Xc, yc)
-    errs = {"sum5 value": rel_err(card_v.item(), cpu_v.item())}
-    errs.update({f"sum5 grad {i}": rel_err(float(a), float(b))
-                 for i, (a, b) in enumerate(zip(card_g, cpu_g))})
+    errs = {}
+    for tag, value_and_grad in (("sum5", sum5_value_and_grad), ("sum9", sum9_value_and_grad)):
+        card_v, card_g = value_and_grad(X64, y64)
+        cpu_v, cpu_g = value_and_grad(Xc, yc)
+        errs[f"{tag} value"] = rel_err(card_v.item(), cpu_v.item())
+        errs.update({f"{tag} grad {i}": rel_err(float(a), float(b))
+                     for i, (a, b) in enumerate(zip(card_g, cpu_g))})
     from tinygp_tpu_torch import GaussianProcess
 
     def m52(X):
@@ -2040,71 +2163,83 @@ def phase_orders_path():
             "library_ms": None,
         })
 
-    # B1 (at 1e6), B1r and B2 (at 1e5) at m = 5 on the path's operands.
-    with torch.no_grad():
-        gp6 = sum5_gp(X_1e6, SUM5_PARAMS)
-        ops6 = (*gp6.solver.ssm, (y_1e6 - gp6.loc).contiguous())
-        gp5 = sum5_gp(X, SUM5_PARAMS)
-        ops5 = (*gp5.solver.ssm, (y - gp5.loc).contiguous())
-        got = cuda_loglik.fused_loglik_terms(*ops6)
-        b1_err = stream_errors(got, cuda_loglik.plain_loglik_terms(*(x.double() for x in ops6)))
-        res = cuda_loglik.fused_loglik_res(*ops5)
-        res_err = stream_errors(res, cuda_loglik.plain_loglik_terms_res(*(x.double() for x in ops5)))
-        qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
-        bwd_args = (*ops5[1:], *res[2:], qbar, lbar)
-        bars = cuda_loglik.fused_loglik_bwd(*bwd_args)
-        bwd_err = stream_errors(bars, cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args)))
-        b2_same, (b2_one, b2_report) = b2_launch_checks(bwd_args, bars)
-        timings = {
-            "b1": (cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*ops6), reps=10, warmup=2),
-                   cuda_ms(lambda: cuda_loglik.plain_loglik_terms(*ops6), reps=1, warmup=1)),
-            "b1r": (cuda_ms(lambda: cuda_loglik.fused_loglik_res(*ops5), reps=10, warmup=2),
-                    cuda_ms(lambda: cuda_loglik.plain_loglik_terms_res(*ops5), reps=1, warmup=1)),
-            "b2": (cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2),
-                   cuda_ms(lambda: cuda_loglik.plain_loglik_bwd(*bwd_args), reps=1, warmup=1)),
+    # B1, B1r and B2 on the path's operands: the m = 5 sum's (B1 at 1e6,
+    # B1r and B2 at 1e5) and the m = 9 sum's (all at 1e5, B2 through its
+    # tensor-core kernel), each with its launches on the path.
+    qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
+    for m, gp_of, (X1, y1) in ((5, lambda X_: sum5_gp(X_, SUM5_PARAMS), (X_1e6, y_1e6)),
+                               (9, lambda X_: sum9_gp(X_, SUM9_PARAMS), (X, y))):
+        with torch.no_grad():
+            gp1 = gp_of(X1)
+            ops1 = (*gp1.solver.ssm, (y1 - gp1.loc).contiguous())
+            gp5 = gp_of(X)
+            ops5 = (*gp5.solver.ssm, (y - gp5.loc).contiguous())
+            got = cuda_loglik.fused_loglik_terms(*ops1)
+            b1_err = stream_errors(got, cuda_loglik.plain_loglik_terms(*(x.double() for x in ops1)))
+            res = cuda_loglik.fused_loglik_res(*ops5)
+            res_err = stream_errors(res, cuda_loglik.plain_loglik_terms_res(
+                *(x.double() for x in ops5)))
+            bwd_args = (*ops5[1:], *res[2:], qbar, lbar)
+            bars = cuda_loglik.fused_loglik_bwd(*bwd_args)
+            bwd_err = stream_errors(bars, cuda_loglik.plain_loglik_bwd(
+                *(x.double() for x in bwd_args)))
+            b2_same, (b2_one, b2_report) = b2_launch_checks(bwd_args, bars)
+            timings = {
+                "b1": (cuda_ms(lambda: cuda_loglik.fused_loglik_terms(*ops1), reps=10, warmup=2),
+                       cuda_ms(lambda: cuda_loglik.plain_loglik_terms(*ops1), reps=1, warmup=1)),
+                "b1r": (cuda_ms(lambda: cuda_loglik.fused_loglik_res(*ops5), reps=10, warmup=2),
+                        cuda_ms(lambda: cuda_loglik.plain_loglik_terms_res(*ops5), reps=1,
+                                warmup=1)),
+                "b2": (cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2),
+                       cuda_ms(lambda: cuda_loglik.plain_loglik_bwd(*bwd_args), reps=1,
+                               warmup=1)),
+            }
+        assert ops5[1].shape[0] == m
+        bounds = {
+            "b1": loglik_bound_ms(m, X1.shape[0], 4),
+            "b1r": loglik_bound_ms(m, n, 4, residuals=True),
+            "b2": bwd_bound_ms(m, n, 4),
         }
-    m = ops5[1].shape[0]
-    bounds = {
-        "b1": loglik_bound_ms(m, X_1e6.shape[0], 4),
-        "b1r": loglik_bound_ms(m, n, 4, residuals=True),
-        "b2": bwd_bound_ms(m, n, 4),
-    }
-    errs = {"b1": b1_err, "b1r": res_err, "b2": bwd_err}
-    for key, name, replaces in (
-        ("b1", "quasisep_loglik_generic_m5", "pallas_loglik.py:86"),
-        ("b1r", "quasisep_loglik_res_generic_m5", "pallas_loglik.py:86 residuals=True"),
-        ("b2", "quasisep_loglik_bwd_generic_m5", "pallas_loglik.py:414"),
-    ):
-        rel = max(e for e, _ in errs[key])
-        ok = rel <= 5e-4 and (key != "b2" or (b2_same and b2_one))
-        kernels_ok = kernels_ok and ok
-        (ms, plain_ms), (bound, by) = timings[key], bounds[key]
-        n_op = X_1e6.shape[0] if key == "b1" else n
-        extra = (f"; a second launch equal bit for bit {b2_same}, {b2_report}"
-                 if key == "b2" else "")
-        log(
-            f"orders-path {key.upper()} generic m={m} N={n_op} float32 ({loglik_counts[key]} "
-            f"launches on the path): {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-            f"{plain_ms:.4f} ms (one call); against the plain version in float64 rel per "
-            f"stream {[f'{e:.2e}' for e, _ in errs[key]]} (limit 5e-4){extra} "
-            f"{'ok' if ok else 'FAIL'}"
-        )
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "tinygp_tpu_torch/csrc/quasisep_loglik_generic.cu",
-            "replaces": f"tinygp_tpu/solvers/quasisep/{replaces}",
-            "launches": loglik_counts[key],
-            "max_abs_err": max(a for _, a in errs[key]),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": None,
-        })
-    # B1, B1r and B2 at m = 8 and 16 (no entry point's path above runs them
-    # there), on random operands at N = 1e5 in float32, beside their bounds.
-    for m_hi in (8, 16):
+        errs = {"b1": b1_err, "b1r": res_err, "b2": bwd_err}
+        for key, prefix, name, replaces in (
+            ("b1", "qsl_loglik", f"quasisep_loglik_generic_m{m}", "pallas_loglik.py:86"),
+            ("b1r", "qsl_loglik_res", f"quasisep_loglik_res_generic_m{m}",
+             "pallas_loglik.py:86 residuals=True"),
+            ("b2", "qsl_loglik_bwd", f"quasisep_loglik_bwd_{'tc' if m > 8 else 'generic'}_m{m}",
+             "pallas_loglik.py:414"),
+        ):
+            launches = loglik_calls.get((prefix, m), 0)
+            rel = max(e for e, _ in errs[key])
+            ok = rel <= 5e-4 and launches > 0 and (key != "b2" or (b2_same and b2_one))
+            kernels_ok = kernels_ok and ok
+            (ms, plain_ms), (bound, by) = timings[key], bounds[key]
+            n_op = X1.shape[0] if key == "b1" else n
+            extra = (f"; a second launch equal bit for bit {b2_same}, {b2_report}"
+                     if key == "b2" else "")
+            log(
+                f"orders-path {key.upper()} {name} m={m} N={n_op} float32 ({launches} launches "
+                f"on the path): {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+                f"{plain_ms:.4f} ms (one call); against the plain version in float64 rel per "
+                f"stream {[f'{e:.2e}' for e, _ in errs[key]]} (limit 5e-4){extra} "
+                f"{'ok' if ok else 'FAIL'}"
+            )
+            records.append({
+                "name": name,
+                "route": "cuda",
+                "source": "tinygp_tpu_torch/csrc/quasisep_loglik_generic.cu",
+                "replaces": f"tinygp_tpu/solvers/quasisep/{replaces}",
+                "launches": launches,
+                "max_abs_err": max(a for _, a in errs[key]),
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": None,
+            })
+        del gp1, ops1, gp5, ops5, res, bwd_args, bars
+    # B1, B1r and B2 at m = 8, 9, 12 and 16, on random operands at N = 1e5 in
+    # float32, beside their bounds (B2's tensor-core kernel above 8).
+    for m_hi in (8, 9, 12, 16):
         args = random_operands(m_hi, n, torch.float32, seed=m_hi)
         res = cuda_loglik.fused_loglik_res(*args)
         qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
@@ -2147,6 +2282,8 @@ def phase_orders_path():
         "sum5 value": lambda: sum5_gp(X, SUM5_PARAMS).log_probability(y),
         "sum5 value N=1e6": lambda: sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),
         "sum5 gradient": lambda: sum5_value_and_grad(X, y),
+        "sum9 value": lambda: sum9_gp(X, SUM9_PARAMS).log_probability(y),
+        "sum9 gradient": lambda: sum9_value_and_grad(X, y),
         "celerite2 posterior (order 16, diag=1e-3, N=5000) log_probability": lambda: (
             GaussianProcess(celerite2(), Xs, diag=0.1, assume_sorted=True)
             .condition(ys, diag=1e-3)[1].log_probability(ys)),
@@ -3479,11 +3616,17 @@ def b3_times():
     b3_generic_times()
 
 
+ENGINE_ORDERS = (24, 32)
+ENGINE_VARIANTS = [("aff", False, False, 1), ("cong", True, False, 1), ("ric", False, False, 1),
+                   ("cpl", False, False, 1)]
+
+
 def engine_scan_times():
     """``--b3-times engine``: the scans of phase 7's generic-order set at
     N = 17,161 (``N_LONG``) that still run the three-phase engine
-    (``cuda_scan.b3_schedule`` is None: the congruence scan above m = 4,
-    the couplings above order 8), in float64 and float32: CUDA events
+    (``cuda_scan.b3_schedule`` is None: the couplings above order 8), and
+    the affine, congruence, Riccati and coupling scans at m = 24 and 32,
+    which only it takes, in float64 and float32: CUDA events
     first, then the device time and launches per call from a
     ``torch.profiler`` trace, beside ``scan_bound_ms``; each result held to
     its plain version with phase 7's limits."""
@@ -3493,6 +3636,7 @@ def engine_scan_times():
 
     cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
     cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
+    cases += [(m, m, v) for m in ENGINE_ORDERS for v in ENGINE_VARIANTS]
     runs = {}
     for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
         for m, m2, (monoid, reverse, inclusive, r) in cases:
@@ -5904,6 +6048,7 @@ def main() -> int:
         return 0
     phase_b1_launches()
     phase_b3_launches()
+    phase_b2_launches()
     phase_kernel_vs_plain()
     phase_dense_check()
     phase_dense_gradient()

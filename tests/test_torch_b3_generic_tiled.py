@@ -1,8 +1,8 @@
-"""Kernel B3's one-launch Riccati flow and affine scan at m = 5..16
-(``csrc/quasisep_generic.cu``: ``ric_tile_kernel``, ``aff_tile_kernel``) in
-plain PyTorch: ``cuda_scan.plain_scan_tiled`` under ``cuda_scan.b3_schedule``
-(4 warp teams a tile, look-back groups of 16 tiles folded in runs of 4).
-Held against
+"""Kernel B3's one-launch Riccati flow, affine and congruence scans at
+m = 5..16 (``csrc/quasisep_generic.cu``: ``ric_tile_kernel``,
+``aff_tile_kernel``, ``cong_tile_kernel``) in plain PyTorch:
+``cuda_scan.plain_scan_tiled`` under ``cuda_scan.b3_schedule`` (4 warp teams
+a tile, look-back groups of 16 tiles folded in runs of 4). Held against
 the JAX package's stacked scans (``scan.py``) through XLA, the port's plain
 blocked scans across several look-back groups and at the edges of tiles,
 the TPU kernel in interpret mode (an affine scan at m = 8), and, for the
@@ -38,11 +38,13 @@ def one_thread():
 
 def operands(monoid, m, n, r, seed, dtype=torch.float64):
     """Numpy operands of one scan (the Riccati flow's of a positive definite
-    K, contracting transitions and normal loads for the affine scan) and
-    the same as tensors."""
+    K, contracting transitions and normal loads for the affine scan and the
+    congruence, whose loads are not symmetric) and the same as tensors."""
     d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
     if monoid == "aff":
         arrays = (as_, np.random.default_rng(seed + 1).normal(size=(m * r, n)))
+    elif monoid == "cong":
+        arrays = (as_, np.random.default_rng(seed + 1).normal(size=(m * m, n)))
     else:
         arrays = (d, ps, qs, as_)
     arrays = tuple(np.ascontiguousarray(x) for x in arrays)
@@ -59,6 +61,8 @@ def plain(monoid, args, m, r, reverse, exclusive):
     """The port's plain B3: the stacked blocked scans."""
     if monoid == "aff":
         return scan._affine_scan_s(*args, m, r, reverse=reverse, exclusive=exclusive)
+    if monoid == "cong":
+        return scan._congruence_scan_s(*args, m, reverse=reverse)
     return scan._riccati_scan_s(*args, m)
 
 
@@ -74,12 +78,12 @@ def check(got, want, tol):
 
 
 # (monoid, m, r, reverse, exclusive): the Riccati flow (forward, exclusive)
-# at each order, and the affine scan at each order, column count,
-# direction and output.
+# at each order, the affine scan at each order, column count, direction
+# and output, and the congruence scan (exclusive) in either direction.
 CASES = [("ric", m, 1, False, True) for m in ORDERS] + [
     ("aff", m, r, reverse, exclusive)
     for m in ORDERS for r in COLUMNS for reverse in (False, True) for exclusive in (True, False)
-]
+] + [("cong", m, 1, reverse, True) for m in ORDERS for reverse in (False, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
@@ -103,14 +107,18 @@ def test_tiled_across_look_back_groups_matches_plain(case, dtype):
 JAX_CASES = [("ric", m, 1, False, True) for m in ORDERS] + [
     ("aff", m, r, (i + j) % 2 == 1, (i + 2 * j) % 3 != 1)
     for i, m in enumerate(ORDERS) for j, r in enumerate(COLUMNS)
-]
+] + [("cong", m, 1, i % 2 == 0, True) for i, m in enumerate(ORDERS)]
 
 
 def jax_scan(monoid, arrays, m, r, reverse, exclusive):
     """The JAX package's scan on stacked operands: its stacked blocked scan
-    at m = 5, its sequential recurrence (``lax.scan``) above, whose stacked
-    form takes minutes to compile at m = 12 and 16."""
+    at m = 5, its sequential recurrence (``lax.scan``) above and for the
+    congruence, whose stacked form takes minutes to compile at m = 12 and
+    16."""
     n = arrays[0].shape[-1]
+    if monoid == "cong":
+        A, B = (x.T.reshape(n, m, m) for x in arrays)
+        return jscan.congruence_scan(A, B, reverse=reverse, parallel=False).reshape(n, m * m).T
     if m == 5:
         if monoid == "aff":
             return jscan._affine_scan_s(*arrays, m, r, reverse=reverse, exclusive=exclusive)
@@ -136,7 +144,7 @@ def test_tiled_matches_jax(case):
     check(tiled(monoid, args, m, r, reverse, exclusive), want, 5e-7)
 
 
-@pytest.mark.parametrize("monoid", ["ric", "aff"])
+@pytest.mark.parametrize("monoid", ["ric", "aff", "cong"])
 @pytest.mark.parametrize("m", [5, 16])
 def test_tiled_at_the_edges_of_tiles(monoid, m):
     """N of one element, one below a tile, one tile and one more, in
@@ -171,8 +179,7 @@ def test_tiled_matches_pallas_interpret(monkeypatch):
 def test_schedule_of_the_one_launch_generic_scans():
     """4 teams a tile, the most elements a team (32 down to 1) whose staged
     tile fits beside the block's maps, the look-back in groups of 16 tiles
-    folded in runs of 4;
-    the congruence scan and orders above 16 keep the three-phase engine."""
+    folded in runs of 4; orders above 16 keep the three-phase engine."""
     f32, f64 = torch.float32, torch.float64
     assert cuda_scan.b3_schedule("ric", 8, 1, f64) == (128, 32, (4, 16))
     assert cuda_scan.b3_schedule("ric", 12, 1, f64) == (64, 16, (4, 16))
@@ -181,8 +188,12 @@ def test_schedule_of_the_one_launch_generic_scans():
     assert cuda_scan.b3_schedule("aff", 8, 16, f64) == (64, 16, (4, 16))
     assert cuda_scan.b3_schedule("aff", 16, 1, f64) == (32, 8, (4, 16))
     assert cuda_scan.b3_schedule("aff", 16, 16, f64) == (16, 4, (4, 16))
-    assert cuda_scan.b3_schedule("cong", 8, 1, f64) is None
-    for monoid in ("ric", "aff"):
+    assert cuda_scan.b3_schedule("cong", 5, 1, f32) == (128, 32, (4, 16))
+    assert cuda_scan.b3_schedule("cong", 8, 1, f64) == (64, 16, (4, 16))
+    assert cuda_scan.b3_schedule("cong", 12, 1, f64) == (32, 8, (4, 16))
+    assert cuda_scan.b3_schedule("cong", 16, 1, f64) == (16, 4, (4, 16))
+    assert cuda_scan.b3_schedule("cong", 16, 1, f32) == (32, 8, (4, 16))
+    for monoid in ("ric", "aff", "cong"):
         assert cuda_scan.b3_schedule(monoid, 17, 1, f64) is None
 
 

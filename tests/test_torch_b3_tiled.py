@@ -182,9 +182,9 @@ def test_schedule_covers_the_one_launch_scans():
     """m <= 4: 64 teams a tile, 8, 4 or 2 elements a thread by the staged
     bytes, the warp-parallel fold; the coupling up to order 8: 4 teams a
     tile, 32, 16 or 8 elements a team by the staged bytes, the look-back in
-    runs of 8 tiles; the Riccati flow and the affine scan at m = 5..16
-    likewise (tests/test_torch_b3_generic_tiled.py); every other scan: the
-    three-phase engine (None)."""
+    runs of 8 tiles; the Riccati flow, the affine and the congruence scans
+    at m = 5..16 likewise (tests/test_torch_b3_generic_tiled.py); every
+    other scan: the three-phase engine (None)."""
     f32, f64 = torch.float32, torch.float64
     assert cuda_scan.b3_schedule("aff", 2, 1, f32) == (512, 8, "warp")
     assert cuda_scan.b3_schedule("aff", 2, 16, f64) == (256, 4, "warp")
@@ -195,8 +195,8 @@ def test_schedule_covers_the_one_launch_scans():
     assert cuda_scan.b3_schedule("cpl", 8, 1, f32, 8) == (32, 8, 8)
     assert cuda_scan.b3_schedule("cpl", 8, 1, f64, 8) == (32, 8, 8)
     assert cuda_scan.b3_schedule("cpl", 2, 1, f64, 4) == (128, 32, 8)
-    assert cuda_scan.b3_schedule("cong", 5, 1, f32) is None
-    for monoid in ("aff", "ric"):
+    assert cuda_scan.b3_schedule("cpl", 9, 1, f32) is None
+    for monoid in ("aff", "ric", "cong"):
         assert cuda_scan.b3_schedule(monoid, 5, 1, f32) == (128, 32, (4, 16))
         assert cuda_scan.b3_schedule(monoid, 17, 1, f32) is None
     assert cuda_scan.b3_schedule("cpl", 4, 1, f32, 9) is None

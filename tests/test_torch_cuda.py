@@ -1143,18 +1143,19 @@ def test_generic_riccati_fold_on_the_card(cuda_device, m, dtype):
 # Kernel B2 in one launch: tiles by a ticket and a deterministic look-back.
 # ---------------------------------------------------------------------------
 
-B2_ORDERS = [1, 2, 3, 4, 5, 6, 7, 8]
+B2_ORDERS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("m", B2_ORDERS)
 def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
-    """B2 at N of one tile, a ragged many-tile N and 1e6, against its plain
-    version (rtol 1e-8 in float64; 5e-4 against float64 in float32, per
-    output relative to its largest magnitude); a second launch on the same
-    inputs gives the same bits; one launch counted per call; the library's
-    schedule is the plain tiled version's."""
+    """B2 at N of one tile, a ragged many-tile N and 1e6 (1e5 above m = 8,
+    where the plain version's float64 temporaries at 1e6 take tens of GB),
+    against its plain version (rtol 1e-8 in float64; 5e-4 against float64
+    in float32, per output relative to its largest magnitude); a second
+    launch on the same inputs gives the same bits; one launch counted per
+    call; the library's schedule is the plain tiled version's."""
     import ctypes
 
     tile, sub = cuda_loglik.b2_schedule(m, dtype)
@@ -1164,7 +1165,7 @@ def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
     assert lib.qsl_bwd_schedule(m, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
     assert (t.value, s.value) == (tile, sub)
     rtol = 1e-8 if dtype == torch.float64 else 5e-4
-    for n in (tile, N, 1_000_000):
+    for n in (tile, N, 1_000_000 if m <= 8 else 100_000):
         args = operands(m, n, dtype, cuda_device, seed=m + n)
         res = cuda_loglik.fused_loglik_res(*args)
         qbar, lbar = (torch.tensor(v, dtype=dtype, device=cuda_device) for v in (0.8, -1.1))
@@ -1297,8 +1298,9 @@ def test_b3_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype)
 
 
 # ---------------------------------------------------------------------------
-# Kernel B3's generic Riccati flow and affine scan at m = 5..16 in one launch
-# (``ric_tile_kernel``, ``aff_tile_kernel``).
+# Kernel B3's generic Riccati flow, affine and congruence scans at m = 5..16
+# in one launch (``ric_tile_kernel``, ``aff_tile_kernel``,
+# ``cong_tile_kernel``).
 # ---------------------------------------------------------------------------
 
 # (monoid, m, r, reverse, exclusive)
@@ -1307,16 +1309,16 @@ B3_GENERIC_ONE_LAUNCH = [("ric", m, 1, False, True) for m in (5, 8, 12, 16)] + [
     for m in (5, 8, 12, 16)
     for r, reverse, exclusive in ((1, False, True), (3, True, False), (16, False, True),
                                   (16, True, False))
-]
+] + [("cong", m, 1, reverse, True) for m in (5, 8, 12, 16) for reverse in (False, True)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", B3_GENERIC_ONE_LAUNCH, ids=lambda c: "-".join(map(str, c)))
 def test_b3_generic_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype):
-    """The one-launch Riccati flow and affine scan at N of one tile and a
-    ragged N across a look-back group (and 1e5 in float64), against
-    ``plain_scan_tiled`` (1e-12 relative to the output's largest magnitude
+    """The one-launch Riccati flow, affine and congruence scans at N of one
+    tile and a ragged N across a look-back group (and 1e5 in float64),
+    against ``plain_scan_tiled`` (1e-12 relative to the output's largest magnitude
     in float64: the tensor cores sum in another order; 5e-4 in float32,
     where it stores in float32) and the plain blocked scan in float64
     (1e-8 / 5e-4); a second launch gives the same bits; one launch counted
@@ -1356,7 +1358,7 @@ def test_b3_generic_one_launch_matches_tiled_plain_and_repeats(cuda_device, case
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("monoid", ["ric", "aff"])
+@pytest.mark.parametrize("monoid", ["ric", "aff", "cong"])
 def test_b3_generic_scan_raises_above_order_32(cuda_device, monoid):
     operands, m, r = scan_case(monoid, 33, 300, 1, torch.float64, cuda_device, seed=2)
     with pytest.raises(NotImplementedError, match="N10"):

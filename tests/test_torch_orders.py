@@ -2,7 +2,9 @@
 
 - the m = 5 sum ``1.2 * SHO(1.5, 3.0) + 1.5 * Matern52(2.5)``: its log
   probability and its gradient in four hyperparameters, in float64 at the
-  tolerance table's 5e-7 and in float32 at 5e-4;
+  tolerance table's 5e-7 and in float32 at 5e-4; the same with the 2-term
+  celerite added (m = 9, where B2 runs its tensor-core kernel on the
+  card), its gradient in six;
 - the posterior process at the training points (order 4m: 8 for SHO, 12
   for Matern52, 16 for the 2-term celerite): its ``log_probability`` and
   ``sample`` against a dense numpy posterior built from the JAX package's
@@ -81,6 +83,45 @@ def test_sum_of_order_5_value_and_gradient_match_jax(dtype):
     kernel = sum_kernel(tq, leaves)
     gp = GaussianProcess(kernel, torch.as_tensor(X), diag=0.1, assume_sorted=True, device="cpu")
     assert gp.solver.ssm[1].shape == (5, N_SUM)
+    value = gp.log_probability(torch.as_tensor(y))
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    assert value.dtype == tdtype and torch.isfinite(value)
+    assert_allclose(value.detach(), want_value)
+    for name, g in zip(leaves, grads):
+        assert torch.isfinite(g), name
+        assert_allclose(g, want_grad[name])
+
+
+SUM9_PARAMS = {**SUM_PARAMS, "a1": 1.0, "a2": 0.5}
+
+
+def sum9_kernel(q, p):
+    """The m = 5 sum plus ``bench.py:331-345``'s 2-term celerite with its
+    two amplitudes free: order 2 + 3 + 4 = 9."""
+    return (sum_kernel(q, p) + q.Celerite(a=p["a1"], b=0.1, c=0.5, d=1.0)
+            + q.Celerite(a=p["a2"], b=0.05, c=1.5, d=3.0))
+
+
+@functools.cache
+def jax_sum9_value_and_grad():
+    def logprob(params, X, y):
+        gp = JaxGP(sum9_kernel(jq, params), X, diag=0.1, assume_sorted=True, parallel=False)
+        return gp.log_probability(y)
+
+    return jax.jit(jax.value_and_grad(logprob))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sum_of_order_9_value_and_gradient_match_jax(dtype):
+    X, y = (a.astype(dtype) for a in data(N_SUM, seed=9))
+    params = {k: jnp.asarray(v, dtype) for k, v in SUM9_PARAMS.items()}
+    want_value, want_grad = jax_sum9_value_and_grad()(params, jnp.asarray(X), jnp.asarray(y))
+
+    tdtype = getattr(torch, dtype)
+    leaves = {k: torch.tensor(v, dtype=tdtype, requires_grad=True) for k, v in SUM9_PARAMS.items()}
+    gp = GaussianProcess(sum9_kernel(tq, leaves), torch.as_tensor(X), diag=0.1,
+                         assume_sorted=True, device="cpu")
+    assert gp.solver.ssm[1].shape == (9, N_SUM)
     value = gp.log_probability(torch.as_tensor(y))
     grads = torch.autograd.grad(value, list(leaves.values()))
     assert value.dtype == tdtype and torch.isfinite(value)

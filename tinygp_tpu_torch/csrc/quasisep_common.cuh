@@ -2,8 +2,8 @@
 // algebra with closed-form inverses, the Riccati and affine monoids and the
 // Riccati element's sequential step; cp.async, the in-tile scan and the
 // one-launch look-back of kernels B1 and B1r (quasisep_loglik.cu), B2
-// (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..8) and
-// B3 (quasisep_scan.cu, and quasisep_generic.cu's coupling up to order 8).
+// (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..16) and
+// B3 (quasisep_scan.cu, and quasisep_generic.cu's one-launch scans).
 // Its last section, the team-cooperative algebra at any order with a
 // pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
 
@@ -305,9 +305,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //
 // Kernels B1 and B1r run their two forward scans in one launch at m <= 4
 // (quasisep_loglik.cu), B2 its two reverse scans (quasisep_loglik_bwd.cu
-// for m <= 4, quasisep_loglik_generic.cu for m = 5..8), and B3 its one scan
-// (quasisep_scan.cu for m <= 4, quasisep_generic.cu's coupling up to order
-// 8). Each block takes a tile of consecutive (for a reverse scan mirrored)
+// for m <= 4, quasisep_loglik_generic.cu for m = 5..16), and B3 its one
+// scan (quasisep_scan.cu for m <= 4, quasisep_generic.cu's one-launch
+// scans above; those at m = 5..16 and B2 above 8 fold a group's tiles in
+// runs, quasisep_tc.cuh: mono_lookback). Each block takes a tile of consecutive (for a reverse scan mirrored)
 // elements by a ticket, so it waits
 // only on tiles that running blocks took before it. The tiles form groups of
 // kLookGroup. Per scan, a tile publishes its aggregate map (flag 1) for

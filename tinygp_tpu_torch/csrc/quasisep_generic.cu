@@ -21,15 +21,17 @@
 //     (6, 6) and the 2-term celerite's (8, 8) on the conditioning path):
 //     cpl_tile_kernel below, B2's warp design (quasisep_loglik_generic.cu:
 //     b2_warp_kernel) run forwards;
-//   - the Riccati flow and the affine scan (any columns, either direction
-//     and output) at 5 <= m <= 16 (the posterior processes of order 8, 12
-//     and 16, the m = 5 sums): ric_tile_kernel and aff_tile_kernel, the
-//     same skeleton with every element's product on the float64 tensor
-//     cores (their section below).
+//   - the Riccati flow, the affine scan (any columns) and the congruence
+//     scan, either direction and output, at 5 <= m <= 16 (the posterior
+//     processes of order 8, 12 and 16 and their gradients' reverse
+//     congruence scans, the m = 5 sums): ric_tile_kernel, aff_tile_kernel
+//     and cong_tile_kernel, the same skeleton with every element's product
+//     on the float64 tensor cores (their section below; the Ops shared
+//     with B2 above m = 8 are in quasisep_tc.cuh).
 // The rest runs quasisep_generic.cuh's three-phase engine, by rule and not
-// as a fallback: the Riccati flow and the affine scan at 17 <= m <= 32 (no
-// model on a path goes past 16), the congruence scan, and couplings above
-// order 8. This file's C interface is B3's generic entry for all of them.
+// as a fallback: every monoid but the coupling at 17 <= m <= 32 (no model
+// on a path goes past 16) and couplings above order 8. This file's C
+// interface is B3's generic entry for all of them.
 //
 // cpl_tile_kernel. Each block takes a tile of kCplTeams * sub consecutive
 // (for a reverse scan mirrored) positions by a ticket (quasisep_common.cuh:
@@ -68,7 +70,7 @@
 // through shared memory with a barrier per product, and its look-back's
 // merges of full maps (about half of a tile, PERF.md).
 
-#include "quasisep_generic.cuh"
+#include "quasisep_tc.cuh"
 
 namespace {
 
@@ -242,15 +244,6 @@ __device__ __forceinline__ void cpl_identity(int m1, int m2, Acc* v) {
   __syncwarp();
 }
 
-// By warp 0: publish `size` values of src at dst, then set *flag to v.
-__device__ __forceinline__ void cpl_publish(const Acc* src, Acc* dst, int size, unsigned* flag,
-                                            unsigned v) {
-  for (int c = threadIdx.x; c < size; c += 32) dst[c] = src[c];
-  __threadfence();
-  __syncwarp();
-  if (threadIdx.x == 0) st_release(flag, v);
-}
-
 // By the block, once the tile's aggregate agg (shared memory) is final:
 // the state before tile b into st, publishing what later tiles need
 // (quasisep_common.cuh: the one-launch look-back). Q, the composition of
@@ -273,7 +266,7 @@ __device__ void cpl_lookback(const CplLane& ln, int m1, int m2, long long b, lon
   const bool end = b % kLookGroup == kLookGroup - 1, more = b + 1 < nt;
   const int cnt = (int)(b - base);
   if (w == 0) {
-    if (!end && more) cpl_publish(agg, sl.tile_agg + b * kCplMap, kCplMap, sl.tile_flag + b, 1u);
+    if (!end && more) publish_values(agg, sl.tile_agg + b * kCplMap, kCplMap, sl.tile_flag + b, 1u);
     if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
   }
   __syncthreads();
@@ -321,7 +314,7 @@ __device__ void cpl_lookback(const CplLane& ln, int m1, int m2, long long b, lon
     Q = const_cast<Acc*>(R0);
   if (end && more) {
     ln.merge(Q, agg, GA, tmp);
-    cpl_publish(GA, sl.group_agg + g * kCplMap, kCplMap, sl.group_flag + g, 1u);
+    publish_values(GA, sl.group_agg + g * kCplMap, kCplMap, sl.group_flag + g, 1u);
   }
   // S(g - 1): from the nearest group whose end state is published.
   const long long j = lookback_find(g, sl.group_flag);
@@ -336,7 +329,7 @@ __device__ void cpl_lookback(const CplLane& ln, int m1, int m2, long long b, lon
   ln.apply(Q, s, tmp, st);
   if (end && more) {
     ln.apply(GA, s, tmp, s);
-    cpl_publish(s, sl.group_state + g * kCplPad, kCplPad, sl.group_flag + g, 2u);
+    publish_values(s, sl.group_state + g * kCplPad, kCplPad, sl.group_flag + g, 2u);
   }
 }
 
@@ -457,11 +450,11 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
                   cpl_sub(s.m, s.m2, (int)sizeof(S)));
 }
 
-// ------------------------- the Riccati flow and the affine scan, one launch
+// ---------- the Riccati flow, the affine and the congruence scan, one launch
 //
-// ric_tile_kernel and aff_tile_kernel replace the TPU kernel B3
-// (pallas_scan.py: _scan_kernel) for the Riccati flow and the affine scan
-// at m = 5..16: the skeleton of cpl_tile_kernel (tiles of kMonoTeams warp
+// ric_tile_kernel, aff_tile_kernel and cong_tile_kernel replace the TPU
+// kernel B3 (pallas_scan.py: _scan_kernel) for the Riccati flow, the
+// affine scan and the congruence scan at m = 5..16: the skeleton of cpl_tile_kernel (tiles of kMonoTeams warp
 // teams by a ticket, staged once, an in-tile Kogge-Stone scan of the teams'
 // maps, the grouped look-back, in groups of kMonoGroup tiles folded in
 // runs of kMonoRun, the walk, the states written out from shared memory),
@@ -470,8 +463,9 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 // every product keeps. Staging and write-out copy each component's run of
 // the tile with the fewest requests the alignment allows (mono_tile).
 //
-// Per element a warp's running value stays in registers, in the layout of
-// the mma's accumulator (Frag): lane (g, t) holds entries (8 h + g,
+// Their Ops, Frag and the products are in quasisep_tc.cuh. Per element a
+// warp's running value stays in registers, in the layout of the mma's
+// accumulator (Frag): lane (g, t) holds entries (8 h + g,
 // 8 k + 2 t + j). The contraction of every product runs through each
 // k-tile in the order (0, 2, 4, 6, 1, 3, 5, 7) for both operands, so an
 // accumulator feeds the next product as its A operand as it is, and a Frag
@@ -486,7 +480,10 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 //     G' = G - w w^T / c;
 //   the walk F' = (a F^T) a^T + u u^T / c2 (F is symmetric: F^T for F);
 //   affine, with rc columns of B: [A^T; B^T]' = [A^T; B^T] a^T + [0; b^T],
-//   the walk s^T' = s^T a^T + b^T.
+//   the walk s^T' = s^T a^T + b^T;
+//   congruence: A^T' = A^T a^T, B' = a (a B^T)^T + b, three products an
+//   element, and the walk g' = a (a g^T)^T + b; B and g are not taken to
+//   be symmetric (the Riccati adjoint's loads are not).
 //
 // The matrix-vector products are dot products over a lane's entries and
 // two shuffles within its quad. The merges of whole maps (the in-tile
@@ -494,7 +491,12 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 // each, with the products on the tensor cores too (smm) and, for the
 // Riccati flow's Moebius merge and its application to a state, a
 // Gauss-Jordan elimination with partial pivoting in registers (warp_gj: a
-// lane a column of [M | R]). No inverse is taken per element. The affine
+// lane a column of [M | R]). No inverse is taken per element; the
+// congruence's merge (A_l A_e, (A_l B_e) A_l^T + B_l) and application
+// (A g) A^T + B take none at all, three and two products; its look-back's
+// merges of runs of tiles are compensated dot products on the CUDA cores
+// (CongOp: composed over long spans, its maps' terms cancel by orders of
+// magnitude on the posterior processes' Riccati adjoint). The affine
 // columns go in groups of kAffCols8 (r <= 8) or kAffCols16 on the ticket
 // (ticket = tile * groups + group), each group a chain of its own.
 //
@@ -503,173 +505,19 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 // inputs agree bit for bit; cuda_scan.plain_scan_tiled is this association
 // in plain PyTorch. What bounds them: bytes (the Riccati flow reads
 // 1 + 2m + m^2 values an element and writes m^2; the affine scan m^2 + m r
-// and m r); the float64 tensor cores' 67 TFLOP/s are far from binding.
+// and m r; the congruence 2 m^2 and m^2); the float64 tensor cores' 67 TFLOP/s are far from binding.
 // The cost against the bound is latency, with one block a multiprocessor
 // at P = 16: the look-back's merges and applications on one warp (a
 // 16 x 16 pivoted inverse and six products, about 5 us each for the
 // Riccati flow), the copy requests of staging and write-out, and a warp's
 // chain of dependent products and shuffles per element (PERF.md).
 
-constexpr int kMonoTeams = 4;                       // warp teams a tile
-constexpr int kMonoRun = 4;                         // look-back aggregates a warp folds
-constexpr int kMonoGroup = kMonoTeams * kMonoRun;   // tiles a look-back group
 constexpr int kMonoMinM = 5, kMonoMaxM = 16;        // orders of the one-launch scans
 constexpr int kAffCols8 = 8, kAffCols16 = 16;       // affine columns a group
 constexpr long long kMonoStageCap = 104 * 1024;     // most bytes of a staged tile
 
 inline bool mono_one_launch(const GSpec& s) {
-  return (s.kind == gRic || s.kind == gAff) && s.m >= kMonoMinM && s.m <= kMonoMaxM;
-}
-
-// A warp's share of an R x C matrix (R and C multiples of 8) in the layout
-// of the mma's accumulator: lane (g, t) = (lane / 4, lane % 4) holds entry
-// (8 h + g, 8 k + 2 t + j) as v[k][h][j].
-template <int R, int C>
-struct Frag {
-  Acc v[C / 8][R / 8][2];
-};
-
-__device__ __forceinline__ void mma884(Acc (&c)[4], Acc a0, Acc a1, Acc a2, Acc a3, Acc b0,
-                                       Acc b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
-}
-
-// D = X Z^T for X (R x K) and Z (N x K), all Frags; D aliases neither. A
-// 16-row tile of the mma takes two row halves of X (the second zero past
-// R).
-template <int R, int K, int N>
-__device__ __forceinline__ void xzt(const Frag<R, K>& X, const Frag<N, K>& Z, Frag<R, N>& D) {
-  constexpr int H = R / 8;
-#pragma unroll
-  for (int mt = 0; mt < (H + 1) / 2; ++mt) {
-    constexpr int kLast = H - 1;
-    const int h0 = 2 * mt, h1 = 2 * mt + 1 < H ? 2 * mt + 1 : kLast;
-    const bool hi = 2 * mt + 1 < H;
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      Acc c[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
-#pragma unroll
-      for (int kt = 0; kt < K / 8; ++kt)
-        mma884(c, X.v[kt][h0][0], hi ? X.v[kt][h1][0] : Acc(0), X.v[kt][h0][1],
-               hi ? X.v[kt][h1][1] : Acc(0), Z.v[kt][nt][0], Z.v[kt][nt][1]);
-      D.v[nt][h0][0] = c[0];
-      D.v[nt][h0][1] = c[1];
-      if (hi) {
-        D.v[nt][h1][0] = c[2];
-        D.v[nt][h1][1] = c[3];
-      }
-    }
-  }
-}
-
-// y = X v for X (R x C) and v given at the lane's columns (vc[k][j] =
-// v[8 k + 2 t + j]); y at the lane's rows (y[h] = y_{8 h + g}), the same
-// on the four lanes of a quad.
-template <int R, int C>
-__device__ __forceinline__ void rowdot(const Frag<R, C>& X, const Acc (&vc)[C / 8][2],
-                                       Acc (&y)[R / 8]) {
-#pragma unroll
-  for (int h = 0; h < R / 8; ++h) {
-    Acc acc = Acc(0);
-#pragma unroll
-    for (int k = 0; k < C / 8; ++k) acc += X.v[k][h][0] * vc[k][0] + X.v[k][h][1] * vc[k][1];
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    y[h] = acc;
-  }
-}
-
-// A vector at the lane's rows (vr[h] = v_{8 h + g}) to its columns.
-template <int C>
-__device__ __forceinline__ void to_cols(const Acc (&vr)[C / 8], Acc (&vc)[C / 8][2]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int k = 0; k < C / 8; ++k)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) vc[k][j] = __shfl_sync(0xffffffffu, vr[k], 4 * (2 * t + j));
-}
-
-// sum_r x_r y_r of two vectors at the lane's rows, the same on every lane
-// (butterflies over the quads, whose lanes hold equal values).
-template <int P>
-__device__ __forceinline__ Acc row_sum(const Acc (&x)[P / 8], const Acc (&y)[P / 8]) {
-  Acc acc = Acc(0);
-#pragma unroll
-  for (int h = 0; h < P / 8; ++h) acc += x[h] * y[h];
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-// Loads through a pointer into shared memory, or through L2 (ld.cg) from a
-// map another block published.
-struct SmemRd {
-  const Acc* p;
-  __device__ Acc operator[](int i) const { return p[i]; }
-  __device__ SmemRd at(int off) const { return SmemRd{p + off}; }
-};
-struct L2Rd {
-  const Acc* p;
-  __device__ Acc operator[](int i) const { return __ldcg(p + i); }
-  __device__ L2Rd at(int off) const { return L2Rd{p + off}; }
-};
-
-// By one warp: D (R x N) = X Y [+ E] [+ I] on the tensor cores, with X
-// (R x K) read at X[r * xr + k * xk], Y (K x N) at Y[k * yk + n * yn], E
-// (columns e0 and on) at E[r * le + n - e0] and D at D[r * ld + n]. Every
-// operand is read before any entry is written, so D may alias X, Y or E.
-// Ends with the warp's barrier.
-template <int R, int N, int K, class XR, class YR, class ER = SmemRd>
-__device__ __forceinline__ void smm(XR X, int xr, int xk, YR Y, int yk, int yn, Acc* D, int ld,
-                                    const ER* E = nullptr, int le = 0, bool eye = false,
-                                    int e0 = 0) {
-  constexpr int MT = (R + 15) / 16, NT = N / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  Acc c[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[mt][nt][i] = Acc(0);
-#pragma unroll
-  for (int kt = 0; kt < K / 8; ++kt) {
-    Acc b[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) b[nt][i] = Y[(8 * kt + t + 4 * i) * yk + (8 * nt + g) * yn];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      Acc a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 16 * mt + g + 8 * (i & 1);
-        a[i] = r < R ? X[r * xr + (8 * kt + t + 4 * (i >> 1)) * xk] : Acc(0);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma884(c[mt][nt], a[0], a[1], a[2], a[3], b[nt][0], b[nt][1]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 16 * mt + g + 8 * (i >> 1), col = 8 * nt + 2 * t + (i & 1);
-        if (r < R) {
-          Acc v = c[mt][nt][i];
-          if (E && col >= e0) v += (*E)[r * le + col - e0];
-          if (eye && r == col) v += Acc(1);
-          D[r * ld + col] = v;
-        }
-      }
-  __syncwarp();
+  return s.kind != gCpl && s.m >= kMonoMinM && s.m <= kMonoMaxM;
 }
 
 // By one warp: [M | R] (P x 2P, row stride ld) to [. | M^-1 R] by
@@ -728,7 +576,7 @@ template <int P>
 struct RicOp {
   static constexpr int H = P / 8, LM = 3 * P + 4, LS = P + 4, LW = 2 * P + 4;
   static constexpr int kMap = P * LM, kState = P * LS, kScratch = P * LW;
-  static constexpr bool kAff = false;
+  static constexpr int kKind = gRic;
 
   // A team's running value: A^T, F, G.
   struct Run {
@@ -918,6 +766,10 @@ struct RicOp {
     smm<P, P, P>(SmemRd{Wb + P}, LW, 1, es, LM, 1, out + 2 * P, LM, &Ge, LM);  // G
   }
 
+  // The look-back's merge of runs of tiles (mono_lookback): the same.
+  template <class LR>
+  __device__ void merge_lb(const Acc* e, LR l, Acc* out, Acc* Wb) const { merge(e, l, out, Wb); }
+
   // out = the state X after the map (cuda_loglik._ric_apply):
   // F + A ((I + X G)^-1 X) A^T. out may alias X, not map; Wb: kScratch.
   __device__ void apply(const Acc* map, const Acc* X, Acc* out, Acc* Wb) const {
@@ -932,150 +784,7 @@ struct RicOp {
   }
 };
 
-// The affine scan at padded order P with RC columns a group: a map is
-// P x (P + RC), [A | B], row stride LM; a state P x RC, stride LS.
-template <int P, int RC>
-struct AffOp {
-  static constexpr int H = P / 8, HX = (P + RC) / 8, HS = RC / 8;
-  static constexpr int LM = P + RC + 4, LS = RC + 4;
-  static constexpr int kMap = P * LM, kState = P * LS, kScratch = 0;
-  static constexpr bool kAff = true;
-
-  // A team's running value [A^T; B^T] ((P + RC) x P).
-  struct Run {
-    Frag<P + RC, P> X;
-  };
-  // An element: a, and b^T at the lanes' entries of rows P.. of Run::X.
-  struct El {
-    Frag<P, P> a;
-    Frag<RC, P> bt;
-  };
-
-  int m, cols;  // the order and this group's columns (<= RC)
-  __device__ static int comps(int m, int cols) { return m * m + m * cols; }
-
-  template <typename S>
-  __device__ __forceinline__ void load(const S* st, int LD, int i, El& e) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
-          e.a.v[k][h][jj] = r < m && c < m ? Acc(st[(r * m + c) * LD + i]) : Acc(0);
-        }
-#pragma unroll
-      for (int h = 0; h < HS; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int col = 8 * h + g, r = 8 * k + 2 * t + jj;
-          e.bt.v[k][h][jj] =
-              col < cols && r < m ? Acc(st[(m * m + r * cols + col) * LD + i]) : Acc(0);
-        }
-    }
-  }
-
-  __device__ static void identity(Run& x) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < HX; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.X.v[k][h][jj] = 8 * h + g == 8 * k + 2 * t + jj ? Acc(1) : Acc(0);
-  }
-
-  __device__ static void fold(Run& x, const El& e) {
-    Frag<P + RC, P> T;
-    xzt(x.X, e.a, T);
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.X.v[k][h][jj] = T.v[k][h][jj];
-#pragma unroll
-      for (int h = 0; h < HS; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.X.v[k][H + h][jj] = T.v[k][H + h][jj] + e.bt.v[k][h][jj];
-    }
-  }
-
-  // [A | B] = X^T into map.
-  __device__ static void store(const Run& x, Acc* map) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < HX; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) map[(8 * k + 2 * t + jj) * LM + 8 * h + g] = x.X.v[k][h][jj];
-    __syncwarp();
-  }
-
-  // The walk's state s^T (RC x P).
-  struct State {
-    Frag<RC, P> s;
-  };
-  __device__ static void load_state(const Acc* s, State& x) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < HS; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.s.v[k][h][jj] = s[(8 * k + 2 * t + jj) * LS + 8 * h + g];
-  }
-  __device__ static void walk(State& x, const El& e) {
-    Frag<RC, P> T;
-    xzt(x.s, e.a, T);
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < HS; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.s.v[k][h][jj] = T.v[k][h][jj] + e.bt.v[k][h][jj];
-  }
-  // The state as element i's output, over its staged b (the lane's own).
-  template <typename S>
-  __device__ __forceinline__ void put(const State& x, S* st, int LD, int i) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < HS; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int col = 8 * h + g, r = 8 * k + 2 * t + jj;
-          if (col < cols && r < m) st[(m * m + r * cols + col) * LD + i] = S(x.s.v[k][h][jj]);
-        }
-  }
-  __device__ int out_comp(int q) const { return m * m + q; }
-  __device__ int out_rows() const { return m * cols; }
-
-  __device__ static void identity_map(Acc* map) {
-    for (int p = threadIdx.x & 31; p < kMap; p += 32) {
-      const int r = p / LM, c = p % LM;
-      map[p] = c == r ? Acc(1) : Acc(0);
-    }
-    __syncwarp();
-  }
-  // out = (A_l A_e, A_l B_e + B_l); out aliases neither.
-  template <class LR>
-  __device__ void merge(const Acc* e, LR l, Acc* out, Acc*) const {
-    const LR Bl = l.at(P);
-    smm<P, P + RC, P>(l, LM, 1, SmemRd{e}, LM, 1, out, LM, &Bl, LM, false, P);
-  }
-  // out = A s + B; out may alias s.
-  __device__ void apply(const Acc* map, const Acc* s, Acc* out, Acc*) const {
-    const SmemRd Bm{map + P};
-    smm<P, RC, P>(SmemRd{map}, LM, 1, SmemRd{s}, LS, 1, out, LS, &Bm, LM);
-  }
-};
-
-// Shared memory of a one-launch Riccati or affine block, in bytes: per
+// Shared memory of a one-launch Riccati, affine or congruence block, in bytes: per
 // team three maps, the merge's scratch and a state; the look-back's Q, GA
 // and a window map; the tile's start and two states; then the staged tile
 // of `comps` components.
@@ -1096,86 +805,6 @@ inline int mono_sub(int comps, int bytes) {
   int sub = 32;
   while (sub > 1 && (long long)comps * (kMonoTeams * sub * bytes + 16) > room) sub /= 2;
   return sub;
-}
-
-// The block's part of the look-back (cpl_lookback's association over Op's
-// maps, in groups of kMonoGroup tiles): Q folded in runs of kMonoRun
-// tiles, warp r folding run r in order, reading each aggregate through
-// L2; the runs composed as (run 0 . run 1) . (run 2 . run 3); warp 0 finds
-// the state after the group before, publishes, and leaves the state before
-// tile b in st. A merge costs a few microseconds here (a pivoted inverse
-// on one warp), so groups are 16 tiles and not 32: the fold's depth is
-// 3 + 2 merges, against a longer chain over groups (PERF.md).
-template <class Op, class Buf, class Scr>
-__device__ void mono_lookback(const Op& op, long long b, long long nt, const LookSlots& sl,
-                              const Acc* agg, Acc* lk, Acc* st, Acc* s, Buf buf, Scr scr) {
-  constexpr int MAP = Op::kMap, ST = Op::kState;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long g = b / kMonoGroup, base = g * kMonoGroup;
-  const bool end = b % kMonoGroup == kMonoGroup - 1, more = b + 1 < nt;
-  const int cnt = (int)(b - base);
-  if (w == 0) {
-    if (!end && more) cpl_publish(agg, sl.tile_agg + b * MAP, MAP, sl.tile_flag + b, 1u);
-    if (lane < cnt) wait_nonzero(sl.tile_flag + base + lane);
-  }
-  __syncthreads();
-  __threadfence();
-  const auto len = [&](int r) { return max(0, min(kMonoRun, cnt - kMonoRun * r)); };
-  const auto run_map = [&](int r) { return buf(r, 1 + ((len(r) - 1) & 1)); };
-  if (len(w) > 0) {
-    const Acc* src = sl.tile_agg + (base + kMonoRun * w) * MAP;
-    Acc* P = buf(w, 1);
-    Acc* Pn = buf(w, 2);
-    for (int c = lane; c < MAP; c += 32) P[c] = __ldcg(src + c);
-    __syncwarp();
-    for (int i = 1; i < len(w); ++i) {
-      op.merge(P, L2Rd{src + i * MAP}, Pn, scr(w));
-      Acc* swap = P;
-      P = Pn;
-      Pn = swap;
-    }
-  }
-  __syncthreads();
-  Acc *Q = lk, *GA = lk + MAP, *win = lk + 2 * MAP;  // R0 . R1 goes to win
-  const Acc* R0 = run_map(0);
-  const Acc* R2 = run_map(2);
-  if (len(1) > 0) {
-    if (w == 0) op.merge(R0, SmemRd{run_map(1)}, win, scr(0));
-    R0 = win;
-  }
-  if (len(3) > 0) {
-    Acc* out = buf(2, 2 - ((len(2) - 1) & 1));
-    if (w == 2) op.merge(R2, SmemRd{run_map(3)}, out, scr(2));
-    R2 = out;
-  }
-  __syncthreads();
-  if (w != 0) return;
-  if (cnt == 0) {
-    Op::identity_map(Q);
-  } else if (len(2) > 0) {
-    op.merge(R0, SmemRd{R2}, Q, scr(0));
-  } else {
-    for (int c = lane; c < MAP; c += 32) Q[c] = R0[c];
-    __syncwarp();
-  }
-  if (end && more) {
-    op.merge(Q, SmemRd{agg}, GA, scr(0));
-    cpl_publish(GA, sl.group_agg + g * MAP, MAP, sl.group_flag + g, 1u);
-  }
-  // S(g - 1): from the nearest group whose end state is published, the
-  // groups after it applied one at a time through the window.
-  const long long j = lookback_find(g, sl.group_flag);
-  for (int c = lane; c < ST; c += 32) s[c] = j >= 0 ? __ldcg(sl.group_state + j * ST + c) : Acc(0);
-  __syncwarp();
-  for (long long i = j + 1; i < g; ++i) {
-    lookback_window(sl.group_agg, i, 1, MAP, win);
-    op.apply(win, s, s, scr(0));
-  }
-  op.apply(Q, s, st, scr(0));
-  if (end && more) {
-    op.apply(GA, s, s, scr(0));
-    cpl_publish(s, sl.group_state + g * ST, ST, sl.group_flag + g, 2u);
-  }
 }
 
 // Bulk copies between global and shared memory (the Tensor Memory
@@ -1259,7 +888,7 @@ __device__ __forceinline__ void bulk_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-// One tile of a one-launch Riccati or affine scan (the block's part of
+// One tile of a one-launch Riccati, affine or congruence scan (the block's part of
 // cpl_tile_kernel's design, over Op): the ticket, staging, the teams'
 // folds in registers, the in-tile scan, the look-back, the walk from each
 // team's start, and the coalesced write-out of the states.
@@ -1289,7 +918,7 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
   __syncthreads();
   const long long b = ticket_of_block / groups, p0 = b * T;
   const int grp = (int)(ticket_of_block % groups), col0 = grp * cols;
-  if constexpr (Op::kAff) op.cols = min(cols, r - col0);
+  if constexpr (Op::kKind == gAff) op.cols = min(cols, r - col0);
   const int comps = Op::comps(m, op.cols);
   const int cnt = (int)(n - p0 < T ? n - p0 : T);
 
@@ -1307,10 +936,12 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
   const int lpc = T < 32 ? T : 32, lsh = __ffs(lpc) - 1;
   const auto pos = [&](int i) { return reverse ? n - 1 - p0 - i : p0 + i; };
   const auto comp_src = [&](int c) {
-    if constexpr (Op::kAff) {
+    if constexpr (Op::kKind == gAff) {
       const int mm = m * m, q = c - mm;
       return c < mm ? in.x0 + (long long)c * n
                     : in.x1 + ((long long)(q / op.cols) * r + col0 + q % op.cols) * n;
+    } else if constexpr (Op::kKind == gCong) {
+      return c < m * m ? in.x0 + (long long)c * n : in.x1 + (long long)(c - m * m) * n;
     } else {
       return c == 0       ? in.x0
              : c <= m     ? in.x1 + (long long)(c - 1) * n
@@ -1369,19 +1000,7 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
     Op::store(x, buf(w, 0));
   }
 
-  // The in-tile scan of the teams' maps (Kogge-Stone): team w's inclusive
-  // value ends in buffer 0.
-  static_assert(kMonoTeams == 4, "two rounds of merges");
-  __syncthreads();
-  for (int off = 1, k = 0; off < kMonoTeams; off <<= 1, k ^= 1) {
-    if (w >= off) {
-      op.merge(buf(w - off, k), SmemRd{buf(w, k)}, buf(w, k ^ 1), scr(w));
-    } else {
-      for (int e = lane; e < MAP; e += 32) buf(w, k ^ 1)[e] = buf(w, k)[e];
-      __syncwarp();
-    }
-    __syncthreads();
-  }
+  mono_team_scan(op, buf, scr);
   mono_lookback(op, b, lay.nt, lay.slots(work, grp, MAP), buf(kMonoTeams - 1, 0), lk, start, ls,
                 buf, scr);
   __syncthreads();
@@ -1389,12 +1008,7 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
   // The walk from the team's start, the state after the teams before it,
   // each element's state over its staged components.
   if (mine > 0) {
-    if (w > 0) {
-      op.apply(buf(w - 1, 0), start, mine_state, scr(w));
-    } else {
-      for (int c = lane; c < ST; c += 32) mine_state[c] = start[c];
-      __syncwarp();
-    }
+    mono_team_start(op, buf, scr, start, mine_state);
     typename Op::State x;
     Op::load_state(mine_state, x);
     typename Op::El e, next;
@@ -1411,7 +1025,7 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
   __syncthreads();
   const int rows = op.out_rows();
   const auto out_row = [&](int q) {
-    return Op::kAff ? (long long)(q / op.cols) * r + col0 + q % op.cols : (long long)q;
+    return Op::kKind == gAff ? (long long)(q / op.cols) * r + col0 + q % op.cols : (long long)q;
   };
   if (bulk) {
     // Each row's run from shared memory by one bulk copy, its last values
@@ -1455,16 +1069,29 @@ aff_tile_kernel(int m, long long n, int r, int reverse, int inclusive, int group
   mono_tile(op, n, r, reverse, inclusive, groups, RC, in, out, work, lay, sub);
 }
 
+// B3's congruence scan at 5 <= m <= 16 (padded to P), forward or reverse,
+// exclusive or inclusive: (A, B) in, (m^2, n) out.
+template <int P, typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+cong_tile_kernel(int m, long long n, int reverse, int inclusive, GIn<S> in, S* out, Acc* work,
+                 ChainLayout lay, int sub) {
+  CongOp<P, true> op;
+  op.m = m;
+  mono_tile(op, n, 1, reverse, inclusive, 1, 1, in, out, work, lay, sub);
+}
+
 // A one-launch scan's plan: padded order, columns a group, groups, the
-// elements of a team, its layout and its shared memory.
+// elements of a team, its maps' and states' sizes and its shared memory.
 struct MonoPlan {
-  int P, rc, groups, sub;
+  int P, rc, groups, sub, map, state;
   long long smem;
 };
 
 template <class Op>
 inline void mono_fill(MonoPlan& p, int comps, int bytes) {
   p.sub = mono_sub<Op>(comps, bytes);
+  p.map = Op::kMap;
+  p.state = Op::kState;
   p.smem = mono_fixed_bytes<Op>() + (long long)comps * (kMonoTeams * p.sub * bytes + 16) + 16;
 }
 
@@ -1477,6 +1104,9 @@ inline MonoPlan mono_plan(const GSpec& s, int bytes) {
   if (s.kind == gRic) {
     if (p.P == 8) mono_fill<RicOp<8>>(p, 1 + 2 * m + m * m, bytes);
     else mono_fill<RicOp<16>>(p, 1 + 2 * m + m * m, bytes);
+  } else if (s.kind == gCong) {
+    if (p.P == 8) mono_fill<CongOp<8, true>>(p, 2 * m * m, bytes);
+    else mono_fill<CongOp<16, true>>(p, 2 * m * m, bytes);
   } else {
     const int comps = m * m + m * cols;
     if (p.P == 8 && p.rc == 8) mono_fill<AffOp<8, 8>>(p, comps, bytes);
@@ -1490,10 +1120,7 @@ inline MonoPlan mono_plan(const GSpec& s, int bytes) {
 inline ChainLayout mono_layout(const GSpec& s, long long n, int bytes) {
   const MonoPlan p = mono_plan(s, bytes);
   const long long tile = kMonoTeams * p.sub;
-  const int P = p.P;
-  const int map = s.kind == gRic ? P * (3 * P + 4) : P * (P + p.rc + 4);
-  const int state = s.kind == gRic ? P * (P + 4) : P * (p.rc + 4);
-  return ChainLayout((n + tile - 1) / tile, p.groups, map, state, kMonoGroup);
+  return ChainLayout((n + tile - 1) / tile, p.groups, p.map, p.state, kMonoGroup);
 }
 
 // One memset (the ticket and the flags) and one launch, on stream st.
@@ -1511,6 +1138,11 @@ cudaError_t mono_run(const GSpec& s, long long n, int reverse, int inclusive, co
                                work, lay, p.sub)
                     : g_launch(ric_tile_kernel<16, S>, grid, threads, p.smem, st, s.m, n, in, out,
                                work, lay, p.sub);
+  if (s.kind == gCong)
+    return p.P == 8 ? g_launch(cong_tile_kernel<8, S>, grid, threads, p.smem, st, s.m, n, reverse,
+                               inclusive, in, out, work, lay, p.sub)
+                    : g_launch(cong_tile_kernel<16, S>, grid, threads, p.smem, st, s.m, n, reverse,
+                               inclusive, in, out, work, lay, p.sub);
 #define AFF_RUN(P, RC)                                                                       \
   return g_launch(aff_tile_kernel<P, RC, S>, grid, threads, p.smem, st, s.m, n, s.r, reverse, \
                   inclusive, p.groups, in, out, work, lay, p.sub)
@@ -1581,7 +1213,7 @@ int qsg_cpl_schedule(int m, int m2, int bytes, int* tile, int* sub) {
   return 0;
 }
 
-// The one-launch Riccati or affine scan's association for operands of
+// The one-launch Riccati, affine or congruence scan's association for operands of
 // `bytes` bytes: elements per tile, per team and affine columns per group
 // into tile[0], sub[0], cols[0]; returns 0, or -1 where the scan runs the
 // three-phase engine.

@@ -1,12 +1,13 @@
 // The generic-order monoid scan engine on Hopper (sm_90a): the scans of B1
-// and B1r above m = 4, those of B2 above m = 8, and of kernel B3 its
-// congruence scan above m = 4, its couplings above order 8 and its Riccati
-// flow and affine scan at 17 <= m <= 32. The rest of B3 above the templated
-// orders runs in one launch in quasisep_generic.cu: the couplings up to
-// order 8 (cpl_tile_kernel) and the Riccati flow and affine scan at
-// m = 5..16 (ric_tile_kernel, aff_tile_kernel, on the float64 tensor
-// cores); B2 up to m = 8 in quasisep_loglik_generic.cu (b2_warp_kernel).
-// Included by quasisep_generic.cu (B3's entries) and
+// and B1r above m = 4, those of B2 above m = 16, and of kernel B3 its
+// couplings above order 8 and its Riccati flow, affine and congruence
+// scans at 17 <= m <= 32. The rest of B3 above the templated orders runs in
+// one launch in quasisep_generic.cu: the couplings up to order 8
+// (cpl_tile_kernel) and the Riccati flow, affine and congruence scans at
+// m = 5..16 (ric_tile_kernel, aff_tile_kernel, cong_tile_kernel, on the
+// float64 tensor cores); B2 up to m = 16 in quasisep_loglik_generic.cu
+// (b2_warp_kernel to m = 8, b2_tc_kernel above). Included by
+// quasisep_tc.cuh, and so by quasisep_generic.cu (B3's entries) and
 // quasisep_loglik_generic.cu.
 //
 // Why not quasisep_scan.cu's kernel at a larger m. There each thread keeps

@@ -8,9 +8,12 @@
 // quasisep_loglik.cu's and quasisep_loglik_bwd.cu's, symbol for symbol, so
 // one binding serves both libraries.
 //
-// The math is theirs (see those files). Each entry runs as a short
-// sequence on one stream instead of one fused kernel, since a fused chunk
-// would hold several m x m matrices per thread:
+// The math is theirs (see those files). B2 is one launch up to m = 16:
+// b2_warp_kernel (a warp a team, m = 5..8) and b2_tc_kernel (m = 9..16, the
+// float64 tensor cores and the one-launch scans' Ops of quasisep_tc.cuh).
+// B1, B1r and B2 above 16 run as a short sequence on one stream instead of
+// one fused kernel, since a fused chunk would hold several m x m matrices
+// per thread:
 //
 //   B1, B1r: the Riccati flow by the generic engine (quasisep_generic.cuh),
 //            whose finish pass emits, from the same step, the Cholesky
@@ -21,7 +24,7 @@
 //            (y - p.e) / c and per-block sums of alpha^2 and log c (B1r
 //            also writes e and 1/c); g_reduce: the two sums in a fixed
 //            order, so the result is deterministic.
-//   B2:      up to m = 8 one launch (b2_warp_kernel below); above, a
+//   B2:      above m = 16 (no model on a path goes past 16), a
 //            sequence: bwd_pre_pass: the emissions again from the residuals, the
 //            transposed transitions A^T and the adjoint loads
 //            ebar = -alphabar p / c; the reverse exclusive affine scan of
@@ -41,7 +44,7 @@
 // m^2 + 2m + 2. The sequence moves more: the whitening elements and the
 // adjoints make round trips through device memory in float64.
 
-#include "quasisep_generic.cuh"
+#include "quasisep_tc.cuh"
 
 namespace {
 
@@ -341,12 +344,12 @@ struct BwdArgs {
 // only step the recurrences. The in-tile scan over the teams is
 // Kogge-Stone (two rounds of warp merges, quasisep_generic.cuh:
 // g_combine); the look-back stages kB2GenWindow aggregates at a time and
-// folds or applies them with the warp. Above m = 8 B2 runs the sequence
-// below.
+// folds or applies them with the warp. Above m = 8 B2 runs b2_tc_kernel
+// (below), above 16 the sequence after it.
 
 constexpr int kB2Teams = 4;      // warp teams per tile
 constexpr int kB2GenWindow = 8;  // aggregates a look-back stages at once
-constexpr int kB2MaxM = 8;       // the one-launch kernel's largest order
+constexpr int kB2WarpMaxM = 8;   // b2_warp_kernel's largest order
 
 // Elements per team: 32 (tiles of 128), fewer where a block would then
 // take more than half a multiprocessor's shared memory (b2g_smem: 16 at
@@ -813,6 +816,424 @@ b2_warp_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
   }
 }
 
+// ------------------------------------- backward (B2) at m = 9..16: one launch
+//
+// b2_warp_kernel's design (tiles taken by a ticket over mirrored
+// positions, staged once, each element's emissions computed once per tile,
+// two scans and their look-backs, the cotangents formed in the tile) with
+// maps padded to 16 x 16 and every m x m product on the float64 tensor
+// cores (mma.sync m16n8k8), each team's running value in registers: B3's
+// one-launch skeleton (quasisep_generic.cu: mono_tile) run over AffOp<16, 8>
+// and then CongOp<16> (quasisep_tc.cuh) in one tile.
+//
+//   staging:   [y | ic | p | q | e | a | F] of each mirrored position, one
+//              cp.async a value, component c at st[c * LD + i] (LD = T + 1,
+//              odd, so that lanes reading different components of one
+//              element hit different banks);
+//   emissions: Fp, u, wd and six scalars, one thread an element;
+//   phase A:   the affine adjoint, transitions A^T = a^T - p wd^T and loads
+//              ebar = -alphabar ic p: each team folds its elements, the
+//              teams' maps are scanned in the tile (mono_team_scan), the
+//              grouped look-back (mono_lookback) gives the tile's start,
+//              and each team walks its elements from its prefix, keeping
+//              each element's mu (the state before it);
+//   glue:      c2bar and Fpbar = -c2bar p - r ic^2 a^T mu, one thread an
+//              element;
+//   phase B:   the congruence adjoint, transitions A^T and loads
+//              Fpbar p^T + p Fpbar^T: fold, in-tile scan and look-back as
+//              in phase A. It scans S = Gbar + Gbar^T, the only form of
+//              Gbar the cotangents read (bwd_out_pass), and the scan is
+//              linear in its loads, so S's loads are Gbar's symmetrized;
+//   phase C:   each team walks S from its prefix and forms its elements'
+//              cotangents, S a F on the tensor cores and the vectors as
+//              dot products within a lane's quad, over the staged inputs;
+//              the block writes them out.
+//
+// Each scan has its own chain in the workspace (ChainLayout, groups of
+// kMonoGroup tiles), its merges and applications on the tensor cores (the
+// whitening transitions do not need B3's compensated congruence look-back,
+// quasisep_tc.cuh: CongOp). Every product runs in float64 whatever the storage
+// type and the look-backs compose in one fixed order, so two launches on
+// the same inputs agree bit for bit; cuda_loglik.plain_loglik_bwd_tiled
+// is this association in plain PyTorch. What bounds it: bytes, as for
+// b2_warp_kernel; the float64 tensor cores (about 8 m^3 multiply-adds an
+// element) are far from binding. Shared memory bounds a tile: an element
+// stages 2 m^2 + 3 m + 2 values (562 at m = 16) beside its emissions, so a
+// tile holds 24 elements at m = 16 in float64 and 44 in float32, and its
+// two look-backs and in-tile scans, a few microseconds each on one warp,
+// are a larger share of it than at m = 8.
+
+using B2Aff = AffOp<16, 8>;   // phase A: one column in a group of 8
+using B2Cong = CongOp<16, false>;  // phase B: the plain look-back (see CongOp)
+constexpr int kB2MaxM = 16;   // the one-launch kernels' largest order
+// Both scans' maps and states in the larger (the congruence's) slots.
+constexpr int kB2TcMap = B2Cong::kMap, kB2TcState = B2Cong::kState;
+constexpr int kB2TcTeam = 3 * kB2TcMap + B2Cong::kScratch + kB2TcState;
+static_assert(B2Aff::kMap <= kB2TcMap && B2Aff::kState <= kB2TcState &&
+                  B2Aff::kScratch <= B2Cong::kScratch,
+              "the affine scan's values fit the congruence's slots");
+
+// Shared memory of a block beside its tile, in bytes: the look-back's three
+// maps, the tile's start and a state, and per team three maps, the merge's
+// scratch and a state.
+constexpr long long kB2TcFixed =
+    (long long)(3 * kB2TcMap + 2 * kB2TcState + kMonoTeams * kB2TcTeam) * sizeof(Acc);
+
+// Components staged an element, and its values kept in Acc:
+// [Fp | u | wd | mu | Fpbar] and ic, ic^2, r, alpha, alphabar, k0, c2bar.
+__host__ __device__ constexpr int b2t_in(int m) { return 2 + 3 * m + 2 * m * m; }
+__host__ __device__ constexpr int b2t_emit(int m) { return 5 * m + 7; }
+
+inline long long b2t_smem(int m, int bytes, int sub) {
+  const long long tile = kMonoTeams * sub;
+  return kB2TcFixed + tile * b2t_emit(m) * (long long)sizeof(Acc) +
+         (long long)b2t_in(m) * (tile + 1) * bytes + 16;
+}
+
+// Elements per team: the most, up to 32, whose block fits 1 KB short of a
+// block's shared memory. cuda_loglik._B2_SCHEDULE repeats it.
+inline int b2t_sub(int m, int bytes) {
+  int sub = 32;
+  while (sub > 1 && b2t_smem(m, bytes, sub) > kGenSharedBlock - 1024) --sub;
+  return sub;
+}
+
+// The workspace: two chains of look-back slots, the affine scan's and the
+// congruence scan's.
+inline ChainLayout b2t_layout(int m, int bytes, long long n) {
+  const long long tile = kMonoTeams * b2t_sub(m, bytes);
+  return ChainLayout((n + tile - 1) / tile, 2, kB2TcMap, kB2TcState, kMonoGroup);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+b2_tc_kernel(int m, long long n, BwdArgs<S> x, Acc* work, ChainLayout lay, int sub) {
+  constexpr int P = 16, H = P / 8, MAP = kB2TcMap, ST = kB2TcState, TEAM = kB2TcTeam;
+  const int mm = m * m, T = kMonoTeams * sub, LD = T + 1, DS = b2t_emit(m);
+  // Staged components [y | ic | p | q | e | a | F] and outputs
+  // [dbar | ybar | psbar | qsbar | asbar] (over the inputs, as in
+  // b2_warp_kernel).
+  const int OP = 2, OQ = 2 + m, OE = 2 + 2 * m, OA = 2 + 3 * m, OF = OA + mm, IN = OF + mm,
+            OUT = 2 + 2 * m + mm;
+  // An element's kept values at D[pos * DS]: [Fp | u | wd | mu | Fpbar |
+  // ic, ic^2, r, alpha, alphabar, k0, c2bar], k0 = -lbar / ic + alphabar
+  // alpha / ic (the part of icbar without mu).
+  const int DU = m, DW = 2 * m, DMU = 3 * m, DFB = 4 * m, DSC = 5 * m;
+  __shared__ long long tile_of_block;
+  Acc* lk = reinterpret_cast<Acc*>(qsl_smem);
+  Acc* start = lk + 3 * MAP;
+  Acc* ls = start + ST;
+  Acc* teams = ls + ST;
+  Acc* D = teams + kMonoTeams * TEAM;
+  S* st = reinterpret_cast<S*>(D + T * DS);
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, g = lane >> 2, tq = lane & 3;
+  const auto buf = [&](int v, int k) { return teams + v * TEAM + k * MAP; };
+  const auto scr = [&](int v) { return teams + v * TEAM + 3 * MAP; };
+  Acc* const mine_state = teams + w * TEAM + 3 * MAP + B2Cong::kScratch;
+
+  if (t == 0) tile_of_block = atomicAdd(lay.ticket(work), 1u);
+  __syncthreads();
+  const long long b = tile_of_block, p0 = b * T;
+  const int cnt = (int)(n - p0 < T ? n - p0 : T);
+
+  // Stage the tile: position i (element n - 1 - p0 - i) of component c at
+  // st[c * LD + i].
+  for (int idx = t; idx < IN * cnt; idx += 32 * kMonoTeams) {
+    const int c = idx / cnt, i = idx - c * cnt;
+    const S* src = c == 0    ? x.y
+                   : c == 1  ? x.ics
+                   : c < OQ  ? x.ps + (long long)(c - OP) * n
+                   : c < OE  ? x.qs + (long long)(c - OQ) * n
+                   : c < OA  ? x.es + (long long)(c - OE) * n
+                   : c < OF  ? x.as + (long long)(c - OA) * n
+                             : x.Fs + (long long)(c - OF) * n;
+    cp_async_elem(st + c * LD + i, src + (n - 1 - p0 - i));
+  }
+  cp_async_commit();
+  const Acc qb = Acc(*x.qbar), lb = Acc(*x.lbar);
+  cp_async_wait_all();
+  __syncthreads();
+  const auto in = [&](int c, int pos) { return Acc(st[c * LD + pos]); };
+  const auto Dv = [&](int pos, int c) { return D[pos * DS + c]; };
+
+  // Each element's emissions, one thread an element.
+  for (int pos = t; pos < cnt; pos += 32 * kMonoTeams) {
+    Acc* d = D + pos * DS;
+    Acc p[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) p[i] = i < m ? in(OP + i, pos) : Acc(0);
+    const Acc ic = in(1, pos), ic2 = ic * ic;
+    Acc pe = Acc(0);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i >= m) break;
+      Acc acc = Acc(0);
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        if (j < m) acc += in(OF + i * m + j, pos) * p[j];
+      d[i] = acc;
+      pe += p[i] * in(OE + i, pos);
+    }
+    for (int i = 0; i < m; ++i) {
+      Acc acc = in(OQ + i, pos);
+      for (int j = 0; j < m; ++j) acc -= in(OA + i * m + j, pos) * d[j];
+      d[DU + i] = acc;
+      d[DW + i] = acc * ic2;
+    }
+    const Acc r = in(0, pos) - pe, alpha = r * ic, alphabar = Acc(2) * qb * alpha;
+    d[DSC] = ic;
+    d[DSC + 1] = ic2;
+    d[DSC + 2] = r;
+    d[DSC + 3] = alpha;
+    d[DSC + 4] = alphabar;
+    d[DSC + 5] = -lb / ic + alphabar * alpha / ic;
+  }
+  __syncthreads();
+
+  // The element's transition A^T (i, l) = a (l, i) - wd_l p_i, padded, in
+  // the lane's entries.
+  const auto transition = [&](int pos, Frag<P, P>& E) {
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * tq + jj;
+          E.v[k][h][jj] = r < m && c < m
+                              ? in(OA + c * m + r, pos) - Dv(pos, DW + c) * in(OP + r, pos)
+                              : Acc(0);
+        }
+  };
+  const int lo = w * sub, mine = max(0, min(sub, cnt - lo));
+
+  // Phase A: the affine adjoint (A^T, ebar); its loads are column 0 of
+  // the group of 8 (B2Aff's b^T, row 0).
+  B2Aff aop;
+  aop.m = m;
+  aop.cols = 1;
+  const auto aff_element = [&](int pos, B2Aff::El& e) {
+    transition(pos, e.a);
+    const Acc f = -(Dv(pos, DSC + 4) * Dv(pos, DSC));
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 8 * k + 2 * tq + jj;
+        e.bt.v[k][0][jj] = g == 0 && c < m ? f * in(OP + c, pos) : Acc(0);
+      }
+  };
+  {
+    B2Aff::Run xr;
+    B2Aff::identity(xr);
+    for (int jj = 0; jj < mine; ++jj) {
+      B2Aff::El e;
+      aff_element(lo + jj, e);
+      B2Aff::fold(xr, e);
+    }
+    B2Aff::store(xr, buf(w, 0));
+  }
+  mono_team_scan(aop, buf, scr);
+  mono_lookback(aop, b, lay.nt, lay.slots(work, 0, B2Aff::kMap), buf(kMonoTeams - 1, 0), lk,
+                start, ls, buf, scr);
+  __syncthreads();
+  if (mine > 0) {
+    mono_team_start(aop, buf, scr, start, mine_state);
+    B2Aff::State s;
+    B2Aff::load_state(mine_state, s);
+    for (int jj = 0; jj < mine; ++jj) {
+      const int pos = lo + jj;
+      B2Aff::El e;
+      aff_element(pos, e);
+      if (g == 0)
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+#pragma unroll
+          for (int j2 = 0; j2 < 2; ++j2) {
+            const int c = 8 * k + 2 * tq + j2;
+            if (c < m) D[pos * DS + DMU + c] = s.s.v[k][0][j2];
+          }
+      B2Aff::walk(s, e);
+    }
+  }
+  __syncthreads();
+
+  // The glue from mu: c2bar and Fpbar, one thread an element.
+  for (int pos = t; pos < cnt; pos += 32 * kMonoTeams) {
+    Acc* d = D + pos * DS;
+    const Acc ic = d[DSC], ic2 = d[DSC + 1], r = d[DSC + 2];
+    Acc uw = Acc(0);
+    for (int i = 0; i < m; ++i) uw += d[DU + i] * (d[DMU + i] * r);
+    const Acc c2bar = Acc(-0.5) * (d[DSC + 5] + Acc(2) * ic * uw) * ic * ic2;
+    d[DSC + 6] = c2bar;
+    for (int j = 0; j < m; ++j) {
+      Acc acc = -c2bar * in(OP + j, pos);
+      for (int i = 0; i < m; ++i) acc -= in(OA + i * m + j, pos) * (d[DMU + i] * r * ic2);
+      d[DFB + j] = acc;
+    }
+  }
+  __syncthreads();
+
+  // Phase B: the congruence adjoint (A^T, Fpbar p^T + p Fpbar^T).
+  B2Cong cop;
+  cop.m = m;
+  const auto cong_element = [&](int pos, B2Cong::El& e) {
+    transition(pos, e.a);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int r = 8 * h + g, c = 8 * k + 2 * tq + jj;
+          e.b.v[k][h][jj] = r < m && c < m ? Dv(pos, DFB + r) * in(OP + c, pos) +
+                                                 in(OP + r, pos) * Dv(pos, DFB + c)
+                                           : Acc(0);
+        }
+  };
+  {
+    B2Cong::Run xr;
+    B2Cong::identity(xr);
+    for (int jj = 0; jj < mine; ++jj) {
+      B2Cong::El e;
+      cong_element(lo + jj, e);
+      B2Cong::fold(xr, e);
+    }
+    B2Cong::store(xr, buf(w, 0));
+  }
+  mono_team_scan(cop, buf, scr);
+  mono_lookback(cop, b, lay.nt, lay.slots(work, 1, B2Cong::kMap), buf(kMonoTeams - 1, 0), lk,
+                start, ls, buf, scr);
+  __syncthreads();
+
+  // Phase C: each team walks S from its prefix; the cotangents over the
+  // inputs. Vectors at the lane's rows (v[h] = v_{8 h + g}, the same on a
+  // quad's lanes) or columns (v[k][j] = v_{8 k + 2 tq + j}).
+  if (mine > 0) {
+    mono_team_start(cop, buf, scr, start, mine_state);
+    B2Cong::State sS;
+    B2Cong::load_state(mine_state, sS);
+    for (int jj = 0; jj < mine; ++jj) {
+      const int pos = lo + jj;
+      const Acc* d = D + pos * DS;
+      const Acc ic = d[DSC], ic2 = d[DSC + 1], r = d[DSC + 2], alphabar = d[DSC + 4],
+                c2bar = d[DSC + 6], ic4 = ic2 * ic2;
+      Acc ur[H], mur[H], wr[H], er[H], fpr[H], fbr[H], pr[H];
+      Acc uc[H][2], ec[H][2], fpc[H][2], fbc[H][2], pc[H][2];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int i = 8 * h + g;
+        const bool ok = i < m;
+        ur[h] = ok ? d[DU + i] : Acc(0);
+        mur[h] = ok ? d[DMU + i] : Acc(0);
+        wr[h] = ok ? d[DW + i] : Acc(0);
+        fpr[h] = ok ? d[i] : Acc(0);
+        fbr[h] = ok ? d[DFB + i] : Acc(0);
+        er[h] = ok ? in(OE + i, pos) : Acc(0);
+        pr[h] = ok ? in(OP + i, pos) : Acc(0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 8 * h + 2 * tq + j;
+          const bool okc = c < m;
+          uc[h][j] = okc ? d[DU + c] : Acc(0);
+          fpc[h][j] = okc ? d[c] : Acc(0);
+          fbc[h][j] = okc ? d[DFB + c] : Acc(0);
+          ec[h][j] = okc ? in(OE + c, pos) : Acc(0);
+          pc[h][j] = okc ? in(OP + c, pos) : Acc(0);
+        }
+      }
+      // a^T and F^T, F in the lane's entries.
+      Frag<P, P> aT, FT, Fm;
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int i = 8 * h + g, c = 8 * k + 2 * tq + j;
+            const bool ok = i < m && c < m;
+            aT.v[k][h][j] = ok ? in(OA + c * m + i, pos) : Acc(0);
+            FT.v[k][h][j] = ok ? in(OF + c * m + i, pos) : Acc(0);
+            Fm.v[k][h][j] = ok ? in(OF + i * m + c, pos) : Acc(0);
+          }
+      // Su = S u, u^T S u, wd^T mu, a^T Su, F^T Fpbar, F a^T Su.
+      Acc Su[H], Suc[H][2], aTSu[H], aTSuc[H][2], FTfb[H], FaTSu[H];
+      rowdot(sS.g, uc, Su);
+      const Acc uSu = row_sum<P>(ur, Su), wmu = row_sum<P>(wr, mur);
+      to_cols<P>(Su, Suc);
+      rowdot(aT, Suc, aTSu);
+      to_cols<P>(aTSu, aTSuc);
+      rowdot(FT, fbc, FTfb);
+      rowdot(Fm, aTSuc, FaTSu);
+      // asbar = S a F + mu (e - r ic^2 Fp)^T - ic^2 Su Fp^T.
+      Frag<P, P> Sa, asb;
+      xzt(sS.g, aT, Sa);
+      xzt(Sa, FT, asb);
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            asb.v[k][h][j] += mur[h] * (ec[k][j] - r * ic2 * fpc[k][j]) - ic2 * Su[h] * fpc[k][j];
+      Acc psb[H], qsb[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        psb[h] = -(alphabar * ic + wmu) * er[h] - c2bar * fpr[h] + uSu * ic4 * fpr[h] + FTfb[h] -
+                 ic2 * FaTSu[h];
+        qsb[h] = (mur[h] * r + Su[h]) * ic2;
+      }
+      const Acc o_d = c2bar - Acc(0.5) * uSu * ic4, o_y = alphabar * ic + wmu;
+      // S's step over the element.
+      {
+        B2Cong::El e;
+        transition(pos, e.a);
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) e.b.v[k][h][j] = fbr[h] * pc[k][j] + pr[h] * fbc[k][j];
+        B2Cong::walk(sS, e);
+      }
+      __syncwarp();
+      // Every read of the element's inputs is done: its outputs go over them.
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int i = 8 * h + g, c = 8 * k + 2 * tq + j;
+            if (i < m && c < m) st[(2 + 2 * m + i * m + c) * LD + pos] = S(asb.v[k][h][j]);
+          }
+      if (tq == 0)
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int i = 8 * h + g;
+          if (i < m) {
+            st[(OP + i) * LD + pos] = S(psb[h]);
+            st[(OQ + i) * LD + pos] = S(qsb[h]);
+          }
+        }
+      if (lane == 0) {
+        st[pos] = S(o_d);
+        st[LD + pos] = S(o_y);
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = t; idx < OUT * cnt; idx += 32 * kMonoTeams) {
+    const int c = idx / cnt, i = idx - c * cnt;
+    S* dst = c == 0           ? x.dbar
+             : c == 1         ? x.ybar
+             : c < 2 + m      ? x.psbar + (long long)(c - 2) * n
+             : c < 2 + 2 * m  ? x.qsbar + (long long)(c - 2 - m) * n
+                              : x.asbar + (long long)(c - 2 - 2 * m) * n;
+    dst[n - 1 - p0 - i] = st[c * LD + i];
+  }
+}
+
 // Backward workspace, in Acc: A^T (m^2 n), ebar (m n), mu (m n),
 // Ybar (m^2 n), Gbar (m^2 n) and one engine workspace.
 struct BwdLayout {
@@ -879,7 +1300,8 @@ int loglik(int m, long long n, const S* d, const S* ps, const S* qs,
 // storage type (the float64 tiles may be smaller), above the sequence's.
 long long bwd_workspace(int m, long long n) {
   if (m > kB2MaxM) return BwdLayout(m, n).total;
-  const long long f32 = b2g_layout(m, 4, n).total, f64 = b2g_layout(m, 8, n).total;
+  const long long f32 = m > kB2WarpMaxM ? b2t_layout(m, 4, n).total : b2g_layout(m, 4, n).total;
+  const long long f64 = m > kB2WarpMaxM ? b2t_layout(m, 8, n).total : b2g_layout(m, 8, n).total;
   return f32 > f64 ? f32 : f64;
 }
 
@@ -891,6 +1313,18 @@ cudaError_t run_b2_warp(long long n, const BwdArgs<S>& x, Acc* work, cudaStream_
   if (e != cudaSuccess) return e;
   return g_launch(b2_warp_kernel<S, M>, dim3((unsigned)L.nt), 32 * kB2Teams,
                   b2g_smem(M, sizeof(S)), st, n, x, work, L);
+}
+
+// At m = 9..16: one memset (the ticket and the flags) and one launch.
+template <typename S>
+cudaError_t run_b2_tc(int m, long long n, const BwdArgs<S>& x, Acc* work, cudaStream_t st) {
+  const int sub = b2t_sub(m, sizeof(S));
+  const ChainLayout L = b2t_layout(m, sizeof(S), n);
+  if (L.nt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaMemsetAsync(work + L.flags, 0, L.flag_words * sizeof(unsigned), st);
+  if (e != cudaSuccess) return e;
+  return g_launch(b2_tc_kernel<S>, dim3((unsigned)L.nt), 32 * kMonoTeams,
+                  b2t_smem(m, sizeof(S), sub), st, m, n, x, work, L, sub);
 }
 
 template <typename S>
@@ -905,7 +1339,7 @@ int loglik_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work,
     case 7: return (int)run_b2_warp<S, 7>(n, x, work, st);
     case 8: return (int)run_b2_warp<S, 8>(n, x, work, st);
   }
-  if (m <= 16) return (int)run_bwd<S, 16>(m, n, x, work, st);
+  if (m <= kB2MaxM) return (int)run_b2_tc<S>(m, n, x, work, st);
   return (int)run_bwd<S, 32>(m, n, x, work, st);
 }
 
@@ -923,13 +1357,13 @@ long long qsl_bwd_workspace_elems(int m, int n) {
   return order_ok(m, n) ? bwd_workspace(m, n) : -1;
 }
 
-// B2's association at m = 5..8 (the one-launch kernel) for operands of
+// B2's association at m = 5..16 (the one-launch kernels) for operands of
 // `bytes` bytes: elements per tile and per team (one warp) into tile[0],
-// sub[0]; returns 0, or -1 where B2 runs the sequence instead (m > 8).
+// sub[0]; returns 0, or -1 where B2 runs the sequence instead (m > 16).
 int qsl_bwd_schedule(int m, int bytes, int* tile, int* sub) {
   if (m <= 4 || m > kB2MaxM || (bytes != 4 && bytes != 8)) return -1;
-  *sub = b2g_sub(m, bytes);
-  *tile = kB2Teams * b2g_sub(m, bytes);
+  *sub = m > kB2WarpMaxM ? b2t_sub(m, bytes) : b2g_sub(m, bytes);
+  *tile = kB2Teams * *sub;
   return 0;
 }
 

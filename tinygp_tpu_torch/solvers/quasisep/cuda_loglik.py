@@ -22,17 +22,18 @@ Three kernels replace the TPU's:
 - **B2** (``csrc/quasisep_loglik_bwd.cu``) replaces
   ``pallas_loglik._bwd_kernel``: from the residuals and the two scalar
   cotangents, the cotangents of ``(d, ps, qs, as_, y)``, through a reverse
-  affine-adjoint scan and a reverse congruence scan. Up to m = 8 it is one
-  launch, in the same design run backwards;
+  affine-adjoint scan and a reverse congruence scan. Up to m = 16 it is
+  one launch, in the same design run backwards;
   :func:`plain_loglik_bwd_tiled` is its association in plain PyTorch,
   :func:`b2_schedule` its tiles.
 
 Those sources are templated for m = 1..4. For 4 < m <= 32 the same three
 entry points run ``csrc/quasisep_loglik_generic.cu``, which has the same C
-interface: B1 and B1r, and B2 above m = 8, as a short sequence of the
+interface: B1 and B1r, and B2 above m = 16, as a short sequence of the
 generic-order scan engine and hand-written elementwise and reduction
-kernels, with the same arithmetic; B2 at m = 5..8 as the one launch with a
-warp for a team. Above 32 a CUDA operand raises (ROADMAP item N10).
+kernels, with the same arithmetic; B2 at m = 5..16 as the one launch with a
+warp for a team (at m = 9..16 every product on the float64 tensor cores).
+Above 32 a CUDA operand raises (ROADMAP item N10).
 
 Every scan runs in float64 for float32 operands too: composed in float32,
 the Riccati maps of long spans lose the state (see the note in the
@@ -424,18 +425,40 @@ def plain_loglik_bwd_chains(
     return torch.func.vmap(plain_loglik_bwd, in_dims=dims)(*ops)
 
 
+_SMEM_BLOCK = 232448  # 227 KB, a block's shared memory on sm_90
+
+
+def _b2_tc_sub(m: int, nbytes: int) -> int:
+    """Elements per team of B2's tensor-core kernel at m = 9..16
+    (csrc/quasisep_loglik_generic.cu: b2t_sub): the most, up to 32, whose
+    block fits 1 KB short of a block's shared memory beside its look-back
+    maps and states (maps padded to 16 x 16)."""
+    mp, st = 16 * (2 * 16 + 4), 16 * (16 + 4)
+    fixed = 8 * (3 * mp + 2 * st + 4 * (3 * mp + 2 * st))
+    sub = 32
+    while sub > 1 and (fixed + 4 * sub * (5 * m + 7) * 8
+                       + (2 + 3 * m + 2 * m * m) * (4 * sub + 1) * nbytes + 16
+                       > _SMEM_BLOCK - 1024):
+        sub -= 1
+    return sub
+
+
 # B2's association on the card, (tile, sub) by (m, bytes per value): the
 # elements of a tile and of a team's run (csrc/quasisep_loglik_bwd.cu:
 # b2_sub, one thread a team, 64 a tile; csrc/quasisep_loglik_generic.cu:
-# b2g_sub, one warp a team, 4 a tile). Above m = 8 B2 runs the generic
-# sequence, with no tiles.
+# b2g_sub and b2t_sub, one warp a team, 4 a tile). Above m = 16 B2 runs the
+# generic sequence, with no tiles.
 _B2_SCHEDULE = {
     (m, nbytes): (64 * sub, sub) if m <= 4 else (4 * sub, sub)
-    for m in range(1, 9) for nbytes in (4, 8)
+    for m in range(1, 17) for nbytes in (4, 8)
     for sub in [(8 if m <= 2 else 2) if m <= 4
+                else _b2_tc_sub(m, nbytes) if m > 8
                 else (8 if nbytes == 8 else 16) if m == 8
                 else 16 if m == 7 or (nbytes == 8 and m == 6) else 32]
 }
+# Above m = 8 (the tensor-core kernel) the look-back folds a group of 16
+# tiles in runs of 4 (csrc/quasisep_tc.cuh: mono_lookback).
+_B2_TC_LOOK = {"runs": 4, "group": 16}
 
 
 # B1 and B1r's association on the card at m <= 4, (tile, sub) by (m, bytes
@@ -456,7 +479,7 @@ def b1_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
 
 def b2_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
     """``(tile, sub)`` of B2's one-launch kernel for order ``m`` and
-    operands of ``dtype``, or None where B2 runs the sequence (m > 8)."""
+    operands of ``dtype``, or None where B2 runs the sequence (m > 16)."""
     return _B2_SCHEDULE.get((m, torch.empty((), dtype=dtype).element_size()))
 
 
@@ -721,6 +744,11 @@ def plain_loglik_bwd_tiled(
     recurrences from its prefix. The
     outputs are elementwise in mu and Gbar (the kernel's phase C). The
     ragged end is padded with identity elements, which the kernel masks.
+
+    Above m = 8 (the tensor-core kernel) the look-back folds a group of 16
+    tiles in runs of 4, and the congruence adjoint scans ``Gbar +
+    Gbar^T``, the only form of Gbar the outputs read, with the loads
+    symmetrized to match (the scan is linear in its loads).
     """
     m, n = ps.shape
     dtype = ps.dtype
@@ -740,6 +768,8 @@ def plain_loglik_bwd_tiled(
     icv = torch.cat([torch.flip(ic.to(f64), (0,)), ic.new_ones(pad, dtype=f64)])
     valid = torch.arange(nt * tile) < n
     qb, lb = qbar.to(f64), lbar.to(f64)
+    tc = m > 8
+    look = _B2_TC_LOOK if tc else {}
 
     # The elements' emissions (padding: A^T = I, every load 0).
     ic2 = icv * icv
@@ -782,8 +812,12 @@ def plain_loglik_bwd_tiled(
     incl = _team_scan([TA, TB], _aff_combine)
     pre_A, pre_B = _exclusive(incl, [eye, torch.zeros(m, dtype=f64)])
     start = _group_chain([t[:, -1] for t in incl], _aff_combine, _aff_apply,
-                         torch.zeros(m, dtype=f64))
+                         torch.zeros(m, dtype=f64), **look)
     lam = (pre_A @ start[:, None, :, None])[..., 0] + pre_B
+
+    def load(jj, k):  # the congruence loads of the teams' element jj
+        Y = Fpbar[:, :, jj, :, None] * p[k][..., None, :]
+        return Y + Y.transpose(-1, -2) if tc else Y
 
     # Phase B: the mu recurrence, the congruence loads and folds.
     mu = torch.empty(nt, teams, sub, m, dtype=f64)
@@ -796,12 +830,13 @@ def plain_loglik_bwd_tiled(
         mu[:, :, jj] = lam
         Fpbar[:, :, jj] = glue(k, lam)[0]
         CT = E @ CT
-        CB = E @ CB @ E.transpose(-1, -2) + Fpbar[:, :, jj, :, None] * p[k][..., None, :]
+        CB = E @ CB @ E.transpose(-1, -2) + load(jj, k)
         lam = (E @ lam[..., None])[..., 0] + ebar_t[:, :, jj]
     incl = _team_scan([CT, CB], cong_combine)
     pre_T, pre_B = _exclusive(incl, [eye, torch.zeros(m, m, dtype=f64)])
     start = _group_chain([t[:, -1] for t in incl], cong_combine,
-                         lambda T, B, G: T @ G @ T.T + B, torch.zeros(m, m, dtype=f64))
+                         lambda T, B, G: T @ G @ T.T + B, torch.zeros(m, m, dtype=f64),
+                         **look)
     G = pre_T @ start[:, None] @ pre_T.transpose(-1, -2) + pre_B
 
     # Phase C: Gbar at each element, then the outputs elementwise.
@@ -810,10 +845,10 @@ def plain_loglik_bwd_tiled(
         k = idx[:, :, jj]
         E = At_t[:, :, jj]
         Gbar[:, :, jj] = G
-        G = E @ G @ E.transpose(-1, -2) + Fpbar[:, :, jj, :, None] * p[k][..., None, :]
+        G = E @ G @ E.transpose(-1, -2) + load(jj, k)
     mu, Fpbar, Gbar = (x.reshape(nt * tile, *x.shape[3:]) for x in (mu, Fpbar, Gbar))
     _, ubar, c2bar = glue(slice(None), mu)
-    Sm = Gbar + Gbar.transpose(-1, -2)
+    Sm = Gbar if tc else Gbar + Gbar.transpose(-1, -2)
     Su = torch.einsum("kij,kj->ki", Sm, u)
     uSu = torch.sum(u * Su, dim=-1)
     wmu = torch.sum(wd * mu, dim=-1)

@@ -36,13 +36,12 @@ they run their float32 products in full float32
 batch (one launch each on the card).
 
 Up to m = 4 (the coupling's two equal orders), for the coupling of any
-two orders up to 8, and for the Riccati flow and the affine scan at
-m = 5..16, a scan is one kernel and one memset of its flags: tiles taken
-by a ticket, a deterministic look-back. :func:`b3_schedule` gives its
-tiles, and :func:`plain_scan_tiled` repeats its association in plain
-PyTorch. The congruence scan above m = 4, couplings above order 8 and the
-Riccati flow and affine scan above 16 run the generic source's
-three-phase engine.
+two orders up to 8, and for the Riccati flow, the affine scan and the
+congruence scan at m = 5..16, a scan is one kernel and one memset of its
+flags: tiles taken by a ticket, a deterministic look-back.
+:func:`b3_schedule` gives its tiles, and :func:`plain_scan_tiled` repeats
+its association in plain PyTorch. Couplings above order 8 and every other
+monoid above 16 run the generic source's three-phase engine.
 
 Every launch adds one to :data:`LAUNCHES` under its monoid's name, and a
 launch of the generic engine also to :data:`LAUNCHES_GENERIC`.
@@ -144,7 +143,7 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
     coupling's second order. Orders up to 4 (the coupling's equal) go to
     the templated kernel, the rest to the generic-order source (whose C
     entry runs the couplings up to order 8, and the Riccati flow and the
-    affine scan at m = 5..16, in one launch)."""
+    affine and congruence scans at m = 5..16, in one launch)."""
     m2 = m if m2 is None else m2
     ref = operands[0]
     n = ref.shape[-1]
@@ -428,11 +427,11 @@ _AFF_COLS = 8  # affine columns a block of the templated kernel takes (r > 1)
 _CPL_TEAMS = 4  # warp teams a tile of the one-launch coupling
 _CPL_STAGE_BYTES = 32 * 1024
 _CPL_RUN = 8  # look-back aggregates a warp of the coupling folds
-# The generic source's one-launch Riccati flow and affine scan (m = 5..16):
-# 4 warp teams a tile, maps padded to 8 x 8 or 16 x 16, the affine columns
-# in groups of 8 (r <= 8) or 16; a staged tile (each component's row its
-# values and 16 bytes) of at most _MONO_STAGE_CAP bytes and what a block's
-# 227 KB of shared memory leaves beside its maps.
+# The generic source's one-launch Riccati flow, affine and congruence scans
+# (m = 5..16): 4 warp teams a tile, maps padded to 8 x 8 or 16 x 16, the
+# affine columns in groups of 8 (r <= 8) or 16; a staged tile (each
+# component's row its values and 16 bytes) of at most _MONO_STAGE_CAP bytes
+# and what a block's 227 KB of shared memory leaves beside its maps.
 _MONO_M = (5, 16)
 _MONO_FOLD = (4, 16)  # look-back runs of 4 tiles, 4 warps a group of 16
 _MONO_STAGE_CAP = 104 * 1024
@@ -440,12 +439,14 @@ _SMEM_BLOCK = 232448
 
 
 def _mono_fixed_bytes(monoid: str, pad: int, cols: int) -> int:
-    """Shared memory of a one-launch Riccati or affine block beside its
-    staged tile (``csrc/quasisep_generic.cu``: ``mono_fixed_bytes``): per
-    team three maps, the merge's scratch and a state; three maps and three
-    states for the tile."""
+    """Shared memory of a one-launch Riccati, affine or congruence block
+    beside its staged tile (``csrc/quasisep_generic.cu``:
+    ``mono_fixed_bytes``): per team three maps, the merge's scratch and a
+    state; three maps and three states for the tile."""
     if monoid == "ric":
         mp, st, scr = pad * (3 * pad + 4), pad * (pad + 4), pad * (2 * pad + 4)
+    elif monoid == "cong":
+        mp, st, scr = pad * (2 * pad + 4), pad * (pad + 4), pad * (pad + 4)
     else:
         mp, st, scr = pad * (pad + cols + 4), pad * (cols + 4), 0
     return 8 * (_CPL_TEAMS * (3 * mp + scr + st) + 3 * mp + 3 * st)
@@ -469,9 +470,9 @@ def b3_schedule(
     coupling of ``csrc/quasisep_generic.cu``: a warp a team, 4 a tile, the
     largest of 32, 16, 8 whose tile fits 32 KB, a warp a run of 8, four
     runs a look-back group of 32 tiles), or as ``(runs, group)`` (its
-    Riccati flow and affine scan at m = 5..16: the same, the largest of 32
-    down to 1 whose tile fits beside the block's maps, four warps folding
-    runs of 4 tiles, a group of 16). None where the scan runs the
+    Riccati flow, affine and congruence scans at m = 5..16: the same, the
+    largest of 32 down to 1 whose tile fits beside the block's maps, four
+    warps folding runs of 4 tiles, a group of 16). None where the scan runs the
     three-phase engine. The C entries ``qss_schedule``,
     ``qsg_cpl_schedule`` and ``qsg_scan_schedule`` report the tiles."""
     m2 = m if m2 is None else m2
@@ -486,10 +487,11 @@ def b3_schedule(
         while sub > 8 and comps * (_CPL_TEAMS * sub + 1) * nbytes > _CPL_STAGE_BYTES:
             sub //= 2
         return _CPL_TEAMS * sub, sub, _CPL_RUN
-    if monoid in ("ric", "aff") and _MONO_M[0] <= m <= _MONO_M[1]:
+    if monoid != "cpl" and _MONO_M[0] <= m <= _MONO_M[1]:
         pad = 8 if m <= 8 else 16
         cols = 8 if r <= 8 else 16
-        comps = 1 + 2 * m + m * m if monoid == "ric" else m * m + m * min(r, cols)
+        comps = {"ric": 1 + 2 * m + m * m, "cong": 2 * m * m,
+                 "aff": m * m + m * min(r, cols)}[monoid]
         room = min(_MONO_STAGE_CAP, _SMEM_BLOCK - _mono_fixed_bytes(monoid, pad, cols) - 1024)
         sub = 32
         while sub > 1 and comps * (_CPL_TEAMS * sub * nbytes + 16) > room:
@@ -544,8 +546,9 @@ def plain_scan_tiled(
     exclusive: bool = True,
     schedule: tuple[int, int, str | int | tuple[int, int]],
 ) -> torch.Tensor:
-    """B3's scan in the association of its one-launch kernels, in float64,
-    stored in the operands' dtype: the same operands and output as the
+    """B3's scan in the association of its one-launch kernels, in float64
+    (the kernels' congruence look-back sums its merges of runs compensated,
+    in about twice that precision), stored in the operands' dtype: the same operands and output as the
     wrapper of ``monoid`` (:func:`affine` with ``r`` columns,
     :func:`congruence`, :func:`riccati`, :func:`coupling` with orders
     ``(m, m2)``), ``schedule`` from :func:`b3_schedule`.
