@@ -254,9 +254,12 @@ for B3: the Matern32 conditioning path's scans at N = 1e5, the m = 2
 scans at 1e6, Matern52's and the celerite's couplings (6, 6) and (8, 8),
 the couplings (2, 2) and (4, 4) through either source, and the whole
 Matern32, Matern52 and celerite ``condition`` calls.
-``python3 chip_smoke.py --b3-times engine`` times the scans of phase 7 that
-still run the three-phase engine (the couplings above order 8) and every
-monoid at m = 24 and 32, beside their bounds.
+``python3 chip_smoke.py --b3-times generic`` times B3's generic-order
+sources alone: the posterior processes' Riccati and affine scans (orders
+8-20), the order-5 and order-9 sums' conditioning couplings, and the
+shapes the three-phase engine ran before these kernels (the couplings (12, 12) and
+(16, 16), every monoid at m = 24 and 32), beside their bounds; copied into
+a parent commit's checkout it times the parent at the same shapes.
 ``python3 chip_smoke.py --sampler`` runs phase 1 and then only phases 17
 to 20, the NUTS run at ``nuts_throughput.py``'s full 100 warmup steps and
 100 samples and ADVI at ``smc_vi_rate.py``'s 1000 steps, and prints the
@@ -536,8 +539,7 @@ def phase_kernel_vs_plain():
     # tensor-core kernel above), 24 its sequence.
     cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
     cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
-    cases += [(m, 100_000, dtype, rtol) for m in (1, 2, 3, 4)
-              for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4))]
+    cases += [(m, 100_000, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
     # At 1e6 the headline order only (m = 1, 3 and 4 at 1e6 took about a
     # minute of plain versions; they are held at 1e5 and N_LONG above).
     cases += [(2, 1_000_000, dtype, rtol)
@@ -988,7 +990,7 @@ def b2_launch_checks(bwd_args, bars):
 # one-launch checks look for (a second launch, another kernel) raise them,
 # so only a trace short of the expected counts, with nothing unexpected in
 # it, is taken again.
-TRACE_TRIES = 3
+TRACE_TRIES = 5
 
 
 def trace_lost_events(got, want):
@@ -1064,35 +1066,47 @@ def phase_b1_launches():
 # reverse, inclusive) at each m = 1..4, and the generic couplings.
 B3_TRACED = (("aff", 1, False, False), ("aff", 16, True, True), ("cong", 1, True, False),
              ("ric", 1, False, False), ("cpl", 1, False, False))
-B3_TRACED_COUPLINGS = ((2, 4), (4, 8), (6, 6), (8, 8))
-# The generic source's one-launch Riccati flow, affine and congruence
+# The generic sources' couplings, (kernel, pairs of orders, N), each pair
+# in both directions: a warp a team to order 8, on the tensor cores to 16,
+# a block a team above.
+B3_TRACED_COUPLINGS = ((("cpl_tile_kernel",), ((2, 4), (4, 8), (6, 6), (8, 8)), 100_000),
+                       (("cpl_tc_tile_kernel", "cpl_wide_kernel"),
+                        ((9, 9), (10, 10), (16, 16), (18, 18), (32, 32)), N_LONG))
+# The generic sources' one-launch Riccati flow, affine and congruence
 # scans: (kernel, (monoid, r, reverse, inclusive) ..., orders, N): the
-# congruence at every order it takes, in both directions, at N_LONG.
+# congruence at every order to 16, in both directions, at N_LONG; above 16
+# each at N_LONG.
 B3_TRACED_GENERIC_ORDERS = (5, 8, 12, 16)
-B3_TRACED_GENERIC = (("ric_tile_kernel", (("ric", 1, False, False),), B3_TRACED_GENERIC_ORDERS,
-                      100_000),
-                     ("aff_tile_kernel", (("aff", 1, False, False), ("aff", 16, True, True)),
+B3_TRACED_WIDE_ORDERS = (17, 20, 24, 32)
+B3_TRACED_GENERIC = ((("ric_tile_kernel",), (("ric", 1, False, False),),
                       B3_TRACED_GENERIC_ORDERS, 100_000),
-                     ("cong_tile_kernel", (("cong", 1, True, False), ("cong", 1, False, False)),
-                      tuple(range(5, 17)), N_LONG))
+                     (("aff_tile_kernel",), (("aff", 1, False, False), ("aff", 16, True, True)),
+                      B3_TRACED_GENERIC_ORDERS, 100_000),
+                     (("cong_tile_kernel",), (("cong", 1, True, False), ("cong", 1, False, False)),
+                      tuple(range(5, 17)), N_LONG),
+                     (("ric_wide_kernel", "aff_wide_kernel", "cong_wide_kernel"),
+                      (("ric", 1, False, False), ("aff", 1, False, False), ("aff", 16, True, True),
+                       ("cong", 1, True, False), ("cong", 1, False, False)),
+                      B3_TRACED_WIDE_ORDERS, N_LONG))
 
 
-def b3_one_launch(calls, name):
+def b3_one_launch(calls, names):
     """From a ``torch.profiler`` trace of the scans ``calls`` (each
     ``(monoid, m, m2, r, reverse, inclusive, operands)``): whether each is
-    one launch of a kernel whose name holds ``name`` and one memset, and
-    nothing else runs; and the trace's report. A trace short of those
+    one launch of a kernel whose name holds one of ``names`` and one
+    memset, and nothing else runs; and the trace's report. A trace short of those
     counts with nothing else in it lost events and is taken again (at most
     ``TRACE_TRIES`` traces)."""
     for attempt in range(TRACE_TRIES):
         split, per_call = kernel_split(lambda: [
             scan_kernel(monoid, m, r, reverse, inclusive, ops, m2=m2)
-            for monoid, m, m2, r, reverse, inclusive, ops in calls])
+            for monoid, m, m2, r, reverse, inclusive, ops in calls], calls=2)
         if split is None:
             continue
-        kernels = sum(per for k, (_, per) in split.items() if name in k)
+        ours = [k for k in split if any(name in k for name in names)]
+        kernels = sum(split[k][1] for k in ours)
         memsets = sum(per for k, (_, per) in split.items() if k.startswith("Memset"))
-        others = [k for k in split if name not in k and not k.startswith("Memset")]
+        others = [k for k in split if k not in ours and not k.startswith("Memset")]
         ok = kernels == memsets == len(calls) == per_call / 2 and not others
         if ok or others or kernels > len(calls) or memsets > len(calls):
             break
@@ -1108,11 +1122,14 @@ def phase_b3_launches():
     float64: at each m = 1..4 the affine scan with 1 and 16 columns, the
     congruence, the Riccati flow and the coupling (``b3_tile_kernel``), and
     the couplings (2, 4), (4, 8), (6, 6) and (8, 8) (``cpl_tile_kernel``),
-    at m = 5, 8, 12 and 16 the Riccati flow (``ric_tile_kernel``) and the
-    affine scan with 1 and 16 columns (``aff_tile_kernel``), and at every
-    m = 5..16 the congruence scan in both directions
-    (``cong_tile_kernel``, at N = 17,161): in a ``torch.profiler`` trace
-    each scan is one kernel and one memset. Eight traces, run first with
+    (9, 9), (10, 10) and (16, 16) (``cpl_tc_tile_kernel``), (18, 18) and
+    (32, 32) (``cpl_wide_kernel``) in both directions at N = 17,161, at m = 5, 8, 12 and
+    16 the Riccati flow (``ric_tile_kernel``) and the affine scan with 1
+    and 16 columns (``aff_tile_kernel``), and at every m = 5..16 the
+    congruence scan in both directions (``cong_tile_kernel``, at N =
+    17,161), and at N = 17,161 at m = 17, 20, 24 and 32 the same
+    (``ric_wide_kernel``, ``aff_wide_kernel``, ``cong_wide_kernel``): in a
+    ``torch.profiler`` trace each scan is one kernel and one memset. The traces run first with
     B1's, while the process's traces still hold every event; each set's
     operands are made just before its trace and freed after it (with
     several GB of operands allocated, traces lost the first launches of
@@ -1120,27 +1137,29 @@ def phase_b3_launches():
     import torch
 
     n, failures = 100_000, []
-    sets = [(f"m={m}", "b3_tile_kernel", n, lambda m=m: [
+    sets = [(f"m={m}", ("b3_tile_kernel",), n, lambda m=m: [
         (monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
         for dtype in (torch.float32, torch.float64)
         for monoid, r, rev, incl in B3_TRACED]) for m in (1, 2, 3, 4)]
-    sets.append(("couplings " + ", ".join(f"{a}x{b}" for a, b in B3_TRACED_COUPLINGS),
-                 "cpl_tile_kernel", n, lambda: [
-                     ("cpl", a, b, 1, rev, rev,
-                      scan_operands("cpl", a, n, 1, dtype, seed=a + b, m2=b))
-                     for dtype in (torch.float32, torch.float64)
-                     for (a, b), rev in zip(B3_TRACED_COUPLINGS, (False, True, False, True))]))
-    for name, variants, orders, n_set in B3_TRACED_GENERIC:
-        sets.append((name.split("_")[0] + " m=" + ", ".join(map(str, orders)), name, n_set,
+    for names, pairs, n_set in B3_TRACED_COUPLINGS:
+        sets.append(("couplings " + ", ".join(f"{a}x{b}" for a, b in pairs), names, n_set,
+                     lambda pairs=pairs, n_set=n_set: [
+                         ("cpl", a, b, 1, rev, rev,
+                          scan_operands("cpl", a, n_set, 1, dtype, seed=a + b, m2=b))
+                         for dtype in (torch.float32, torch.float64)
+                         for a, b in pairs for rev in (False, True)]))
+    for names, variants, orders, n_set in B3_TRACED_GENERIC:
+        sets.append(("/".join(name.split("_")[0] for name in names) + " m="
+                     + ", ".join(map(str, orders)), names, n_set,
                      lambda variants=variants, orders=orders, n_set=n_set: [
                          (monoid, m, m, r, rev, incl,
                           scan_operands(monoid, m, n_set, r, dtype, seed=m))
                          for dtype in (torch.float32, torch.float64)
                          for m in orders
                          for monoid, r, rev, incl in variants]))
-    for label, name, n_set, make in sets:
+    for label, names, n_set, make in sets:
         calls = make()
-        ok, report = b3_one_launch(calls, name)
+        ok, report = b3_one_launch(calls, names)
         log(f"b3-launches {label} N={n_set} float32 and float64: {report} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1424,6 +1443,11 @@ GENERIC_SCAN_VARIANTS = [
     ("cpl", True, True, 1),
 ]
 COUPLING_PAIRS = ((2, 4), (4, 8), (6, 6))
+# Above the generic source's one-warp orders: every monoid at m = 17..32
+# (either padding), and the couplings whose larger order is 9..32, equal and
+# unequal (phase 16 holds the path's (9, 9), (10, 10) and (18, 18)).
+WIDE_ORDERS = (20, 32)
+WIDE_COUPLING_PAIRS = ((16, 16), (5, 16), (16, 5), (20, 9), (32, 32))
 
 
 def scan_operands(monoid, m, n, r, dtype, seed, m2=None):
@@ -1500,7 +1524,7 @@ def phase_scan_vs_plain():
 
     cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4)]
     cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
-    cases += [(2, 1_000_000, torch.float64, 1e-8), (2, 1_000_000, torch.float32, 5e-4)]
+    cases += [(2, 1_000_000, torch.float32, 5e-4)]
     failures = []
     for m, n, dtype, rtol in cases:
         parts = []
@@ -1519,18 +1543,20 @@ def phase_scan_vs_plain():
             f"(rtol {rtol:g}): {', '.join(parts)}"
         )
 
-    # The generic-order source, at N_LONG: every order of the slice's path,
-    # the congruence scan at every order of its one launch in both
-    # directions, and the couplings of unequal orders, with its launches
-    # counted; a one-launch kernel's second launch equal bit for bit.
+    # The generic-order sources, at N_LONG: every order of the slice's path,
+    # the congruence scan at every order to 16 in both directions, every
+    # monoid at m = 17, 20, 24 and 32, and the couplings of unequal orders
+    # and above order 8, with their launches counted; each second launch
+    # equal bit for bit.
     from tinygp_tpu_torch.solvers.quasisep import cuda_scan
 
     t0 = time.perf_counter()
     for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
         cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
-        cases += [(m, m, ("cong", rev, False, 1)) for m in range(5, 17) for rev in (False, True)
-                  if m not in GENERIC_ORDERS or not rev]
-        cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
+        cases += [(m, m, ("cong", m not in GENERIC_ORDERS, False, 1)) for m in range(5, 17)]
+        cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS + WIDE_COUPLING_PAIRS
+                  for rev in (False, True)]
+        cases += [(m, m, v) for m in WIDE_ORDERS for v in GENERIC_SCAN_VARIANTS]
         for m, m2, (monoid, reverse, inclusive, r) in cases:
             operands = scan_operands(monoid, m, N_LONG, r, dtype, seed=10 * m + m2, m2=m2)
             before = cuda_scan.LAUNCHES_GENERIC[monoid]
@@ -1825,14 +1851,18 @@ def celerite2():
     )
 
 
-def sum5_gp(X, p):
+def sum5_kernel(p):
     """``1.2 * SHO(omega=1.5, quality=3.0) + 1.5 * Matern52(scale=2.5)``
     (order 5), its four hyperparameters ``p = (amp1, omega, amp2, scale)``."""
-    from tinygp_tpu_torch import GaussianProcess
     from tinygp_tpu_torch.kernels import quasisep
 
-    kernel = p[0] * quasisep.SHO(omega=p[1], quality=3.0) + p[2] * quasisep.Matern52(scale=p[3])
-    return GaussianProcess(kernel, X, diag=0.1, assume_sorted=True, device=X.device.type)
+    return p[0] * quasisep.SHO(omega=p[1], quality=3.0) + p[2] * quasisep.Matern52(scale=p[3])
+
+
+def sum5_gp(X, p):
+    from tinygp_tpu_torch import GaussianProcess
+
+    return GaussianProcess(sum5_kernel(p), X, diag=0.1, assume_sorted=True, device=X.device.type)
 
 
 SUM5_PARAMS = (1.2, 1.5, 1.5, 2.5)
@@ -1871,10 +1901,69 @@ def sum9_value_and_grad(X, y):
     return lp.detach(), torch.autograd.grad(lp, p)
 
 
+# B3's launches of the sums' condition(y), by (monoid, m, m2, reverse): the
+# prior's Riccati flow, the mean's affine scans, the forward couplings of
+# order m and the reverse coupling of order 2m that (L^-1 M).gram() runs
+# (solvers/quasisep/solver.py: QuasisepSolver.condition).
+SUM_CONDITION_LAUNCHES = {
+    name: {("ric", m, m, False): 1, ("aff", m, m, False): 1, ("aff", m, m, True): 1,
+           ("cpl", m, m, False): 2, ("cpl", 2 * m, 2 * m, True): 1}
+    for name, m in (("sum5", 5), ("sum9", 9))
+}
+
+
+def b3_launches_of(fn):
+    """``fn()`` and the B3 launches it made, by ``(monoid, m, m2,
+    reverse)``."""
+    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
+
+    seen = {}
+    launch = cuda_scan._launch
+
+    def counting(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
+        key = (monoid, m, m if m2 is None else m2, bool(reverse))
+        seen[key] = seen.get(key, 0) + 1
+        return launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=m2)
+
+    cuda_scan._launch = counting
+    try:
+        return fn(), seen
+    finally:
+        cuda_scan._launch = launch
+
+
+def raises_n10(fn):
+    """Whether ``fn()`` raises ``NotImplementedError`` naming ROADMAP N10
+    (orders above 32 on the card); any other error propagates."""
+    try:
+        fn()
+    except NotImplementedError as err:
+        return "N10" in str(err)
+    return False
+
+
+def dense_condition(kernel, X, y, diag):
+    """``condition(y)``'s log probability, posterior mean and variance at
+    X (with the posterior's default jitter) by dense float64 algebra on X's
+    device."""
+    import torch
+
+    K = kernel(X, X)
+    n = X.shape[0]
+    L = torch.linalg.cholesky(K + diag * torch.eye(n, dtype=X.dtype, device=X.device))
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    logp = (-0.5 * (y @ alpha) - torch.sum(torch.log(torch.diagonal(L)))
+            - 0.5 * n * math.log(2 * math.pi))
+    V = torch.linalg.solve_triangular(L, K, upper=False)
+    var = torch.diagonal(K) + math.sqrt(np.finfo(np.float64).eps) - torch.sum(V * V, dim=0)
+    return logp.item(), (K @ alpha).cpu(), var.cpu()
+
+
 def orders_path(X, y, X_test, generator):
     """The slice's float32 entry points at orders above 4, in the order a
-    user calls them; returns every output by name, and the generic B1, B1r
-    and B2 launches of the m = 9 sum's gradient call."""
+    user calls them; returns every output by name, the generic B1, B1r
+    and B2 launches of the m = 9 sum's gradient call, and the B3 launches
+    of the m = 5 and m = 9 sums' ``condition(y)``."""
     import torch
 
     from tinygp_tpu_torch import GaussianProcess, fit_map
@@ -1889,6 +1978,13 @@ def orders_path(X, y, X_test, generator):
     gp = GaussianProcess(celerite2(), X, diag=0.1, assume_sorted=True, device=dev)
     lp, post = gp.condition(y)
     out["celerite2"] = (lp, post.loc, post.variance)
+    # The sums after a fit, conditioned (a light curve's detrending):
+    # couplings of order 5, 9, 10 and 18.
+    condition_launches = {}
+    for name, gp_of, params in (("sum5", sum5_gp, SUM5_PARAMS), ("sum9", sum9_gp, SUM9_PARAMS)):
+        (lp, post), condition_launches[name] = b3_launches_of(
+            lambda: gp_of(X, params).condition(y))
+        out[f"{name}_condition"] = (lp, post.loc, post.variance)
     with torch.no_grad():
         value = sum5_gp(X, SUM5_PARAMS).log_probability(y)
     out["sum5"] = (value, *sum5_value_and_grad(X, y)[1])
@@ -1905,7 +2001,7 @@ def orders_path(X, y, X_test, generator):
     init = {k: math.log(v) for k, v in zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)}
     res = fit_map(loss_fn, init, num_steps=20, learning_rate=0.05, dtype=X.dtype, device=dev)
     out["sum5_fit"] = (res.losses, res.loss)
-    return out, grad9_launches
+    return out, grad9_launches, condition_launches
 
 
 def matern32_kernel():
@@ -1921,12 +2017,12 @@ def matern52_kernel():
 
 
 POSTERIOR_MODELS = {"matern32": matern32_kernel, "matern52": matern52_kernel,
-                    "celerite2": celerite2}
+                    "celerite2": celerite2, "sum5": lambda: sum5_kernel(SUM5_PARAMS)}
 
 
 def posterior_path(X, y, post_diag, generator=None, noise=None):
     """Each model's posterior process at the training points (order 4m: 8,
-    12, 16): its log probability, and a sample of 16 draws through
+    12, 16, 20): its log probability, and a sample of 16 draws through
     ``generator`` or the factor times ``noise``."""
     from tinygp_tpu_torch import GaussianProcess
 
@@ -1995,8 +2091,8 @@ def phase_orders_path():
     cuda_loglik._launch = recording_loglik
     try:
         reset_counts()
-        out, grad9_launches = orders_path(X, y, X_test,
-                                          torch.Generator(device="cuda").manual_seed(0))
+        out, grad9_launches, condition_launches = orders_path(
+            X, y, X_test, torch.Generator(device="cuda").manual_seed(0))
         with torch.no_grad():
             out["sum5_n1e6"] = (sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),)
         jittered = posterior_path(X64, y64, None, torch.Generator(device="cuda").manual_seed(1))
@@ -2009,15 +2105,24 @@ def phase_orders_path():
         cuda_scan._launch = launch
         cuda_loglik._launch = loglik_launch
     path_s = time.perf_counter() - t0
+    # The order-9 sum's posterior is of order 36: above the card's 32.
+    post36 = sum9_gp(X, SUM9_PARAMS).condition(y)[1]
+    order36_raises = raises_n10(lambda: post36.log_probability(y))
 
     finite = {k: all(bool(torch.isfinite(x).all()) for x in v) for k, v in out.items()}
     finite.update({f"{k} posterior diag=1e-3": all(bool(torch.isfinite(x).all()) for x in v)
                    for k, v in noisy.items()})
     shapes = (
         [tuple(x.shape) for x in out["matern52"]] == [(), (n,), (n,), (1000,), (1000,), (16, n)]
-        and [tuple(x.shape) for x in out["celerite2"]] == [(), (n,), (n,)]
+        and all([tuple(x.shape) for x in out[k]] == [(), (n,), (n,)]
+                for k in ("celerite2", "sum5_condition", "sum9_condition"))
         and all([tuple(x.shape) for x in v] == [(), (16, n)] for v in jittered.values())
     )
+    # Each launch of the sums' condition(y) is one of B3's one-launch
+    # kernels, and they are the launches SUM_CONDITION_LAUNCHES lists.
+    one_launch = all(cuda_scan.b3_schedule(mo, m, 1, torch.float32, m2=m2) is not None
+                     for seen in condition_launches.values() for mo, m, m2, _ in seen)
+    condition_ok = condition_launches == SUM_CONDITION_LAUNCHES and one_launch
     losses = [float(x) for x in out["sum5_fit"][0]]
     moved = (
         all(scan_counts[k] > 0 for k in ("aff", "ric", "cpl"))
@@ -2025,7 +2130,8 @@ def phase_orders_path():
         and grad9_launches == {"b1r": 1, "b2": 1}
         and loglik_calls.get(("qsl_loglik_bwd", 9)) == 1
     )
-    path_ok = all(finite.values()) and shapes and moved and float(out["sum5_fit"][1]) < losses[0]
+    path_ok = (all(finite.values()) and shapes and moved and condition_ok and order36_raises
+               and float(out["sum5_fit"][1]) < losses[0])
     jitter_report = {
         k: f"log prob {v[0].item()!r}, draws finite {bool(torch.isfinite(v[1]).all())}"
         for k, v in jittered.items()
@@ -2039,7 +2145,14 @@ def phase_orders_path():
         f"gradient {[float(g) for g in out['sum5'][1:]]}, fit_map losses {losses[0]!r} -> "
         f"{losses[-1]!r}, value at N=1e6 {out['sum5_n1e6'][0].item()!r}; sum9 (m = 9) value "
         f"{out['sum9'][0].item()!r}, gradient {[float(g) for g in out['sum9'][1:]]} "
-        f"(generic launches of the gradient call {grad9_launches}); posteriors given "
+        f"(generic launches of the gradient call {grad9_launches}); condition(y) of sum5 and "
+        f"sum9: log prob {out['sum5_condition'][0].item()!r} / "
+        f"{out['sum9_condition'][0].item()!r}, min variance "
+        f"{float(out['sum5_condition'][2].min())!r} / {float(out['sum9_condition'][2].min())!r}, "
+        f"B3 launches (monoid, m, m2, reverse) {condition_launches} (expected "
+        f"{SUM_CONDITION_LAUNCHES}), each a one-launch kernel {one_launch}; sum9's posterior "
+        f"(order 36) log_probability raises NotImplementedError naming N10 {order36_raises}; "
+        f"posteriors given "
         f"diag=1e-3 at N={Xs.shape[0]} float64 log prob "
         f"{ {k: v[0].item() for k, v in noisy.items()} }; finite {finite}, shapes {shapes}; "
         f"generic launches B3 {scan_counts}, B1/B1r/B2 {loglik_counts}, by order "
@@ -2117,6 +2230,26 @@ def phase_orders_path():
     )
     f64_ok = f64_ok and dense_ok
 
+    # The sums' condition(y) in float64 at N = 5000 against a dense
+    # posterior (the log probability within 1e-9, mean and variance within
+    # 1e-8 of the largest magnitude).
+    t1 = time.perf_counter()
+    cond_errs = {}
+    for name, gp_of, params in (("sum5", sum5_gp, SUM5_PARAMS), ("sum9", sum9_gp, SUM9_PARAMS)):
+        gp = gp_of(Xs, params)
+        lp, post = gp.condition(ys)
+        want = dense_condition(gp.kernel, Xs, ys, 0.1)
+        cond_errs[name] = (rel_err(lp.item(), want[0]), rel_max(post.loc.cpu(), want[1]),
+                           rel_max(post.variance.cpu(), want[2]))
+    cond_ok = all(e[0] <= 1e-9 and max(e[1:]) <= 1e-8 for e in cond_errs.values())
+    log(
+        f"orders-path condition(y) of sum5 and sum9 at N={Xs.shape[0]} float64 against a dense "
+        f"posterior ({time.perf_counter() - t1:.1f} s): (log prob, mean, variance) "
+        f"{ {k: [f'{e:.2e}' for e in v] for k, v in cond_errs.items()} } (limits 1e-9, 1e-8, "
+        f"1e-8) {'ok' if cond_ok else 'FAIL'}"
+    )
+    f64_ok = f64_ok and cond_ok
+
     # Each generic B3 instantiation of the path, at the shape and type the
     # path gives it, against its plain version on random well-conditioned
     # operands (as phase 7; the path's own posterior operands are
@@ -2149,10 +2282,9 @@ def phase_orders_path():
             f"{abs_err:.3e} {'ok' if ok else 'FAIL'}"
         )
         records.append({
-            "name": f"quasisep_generic_scan_{monoid}_m{m}" + (f"x{m2}" if monoid == "cpl" else "")
-            + (f"_r{r}" if r > 1 else ""),
+            "name": b3_name(monoid, m, m2, r),
             "route": "cuda",
-            "source": "tinygp_tpu_torch/csrc/quasisep_generic.cu",
+            "source": b3_source(m, m2),
             "replaces": "tinygp_tpu/solvers/quasisep/pallas_scan.py:331",
             "launches": len(group),
             "max_abs_err": abs_err,
@@ -2283,10 +2415,16 @@ def phase_orders_path():
         "sum5 value N=1e6": lambda: sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),
         "sum5 gradient": lambda: sum5_value_and_grad(X, y),
         "sum9 value": lambda: sum9_gp(X, SUM9_PARAMS).log_probability(y),
+        "sum5 condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(
+            sum5_gp(X, SUM5_PARAMS).condition(y)),
+        "sum9 condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(
+            sum9_gp(X, SUM9_PARAMS).condition(y)),
         "sum9 gradient": lambda: sum9_value_and_grad(X, y),
         "celerite2 posterior (order 16, diag=1e-3, N=5000) log_probability": lambda: (
             GaussianProcess(celerite2(), Xs, diag=0.1, assume_sorted=True)
             .condition(ys, diag=1e-3)[1].log_probability(ys)),
+        "sum5 posterior (order 20, diag=1e-3, N=5000) log_probability": lambda: (
+            sum5_gp(Xs, SUM5_PARAMS).condition(ys, diag=1e-3)[1].log_probability(ys)),
         "matern32 posterior (order 8, N=1e5) sample 16": lambda: (
             GaussianProcess(matern32_kernel(), X64, diag=0.1, assume_sorted=True)
             .condition(y64)[1].sample(gen.manual_seed(0), (16,))),
@@ -3328,8 +3466,11 @@ def kernel_split(fn, calls=5):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # A trace can lose the first launches it should hold (seen on an
         # H100 with several GB of operands allocated: the first scan of a
-        # set missing from one call in five), so three spin kernels open
-        # the window and only what starts after the last of them counts.
+        # set missing from one call in five; and late in a long process),
+        # so a call that is not counted and then three spin kernels open
+        # the window, and only what starts after the last of them counts.
+        fn()
+        torch.cuda.synchronize()
         for _ in range(3):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -3616,52 +3757,11 @@ def b3_times():
     b3_generic_times()
 
 
+# The shapes whose engine times PERF.md keeps (the three-phase engine ran them before):
+# every monoid at m = 24 and 32 at N_LONG, (monoid, reverse, inclusive, r).
 ENGINE_ORDERS = (24, 32)
 ENGINE_VARIANTS = [("aff", False, False, 1), ("cong", True, False, 1), ("ric", False, False, 1),
                    ("cpl", False, False, 1)]
-
-
-def engine_scan_times():
-    """``--b3-times engine``: the scans of phase 7's generic-order set at
-    N = 17,161 (``N_LONG``) that still run the three-phase engine
-    (``cuda_scan.b3_schedule`` is None: the couplings above order 8), and
-    the affine, congruence, Riccati and coupling scans at m = 24 and 32,
-    which only it takes, in float64 and float32: CUDA events
-    first, then the device time and launches per call from a
-    ``torch.profiler`` trace, beside ``scan_bound_ms``; each result held to
-    its plain version with phase 7's limits."""
-    import torch
-
-    from tinygp_tpu_torch.solvers.quasisep import cuda_scan
-
-    cases = [(m, m, v) for m in GENERIC_ORDERS for v in GENERIC_SCAN_VARIANTS]
-    cases += [(m1, m2, ("cpl", rev, rev, 1)) for m1, m2 in COUPLING_PAIRS for rev in (False, True)]
-    cases += [(m, m, v) for m in ENGINE_ORDERS for v in ENGINE_VARIANTS]
-    runs = {}
-    for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 5e-4)):
-        for m, m2, (monoid, reverse, inclusive, r) in cases:
-            if cuda_scan.b3_schedule(monoid, m, r, dtype, m2=m2) is not None:
-                continue
-            ops = scan_operands(monoid, m, N_LONG, r, dtype, seed=10 * m + m2, m2=m2)
-            tag = (f"{monoid}{'-rev' if reverse else ''}{'-incl' if inclusive else ''}-r{r} "
-                   f"m={m}" + (f"x{m2}" if monoid == "cpl" else "") + f" {str(dtype)[6:]}")
-            runs[tag] = (monoid, m, m2, r, reverse, inclusive, ops, rtol, lambda a=(
-                monoid, m, r, reverse, inclusive, ops, m2): scan_kernel(*a[:6], m2=a[6]))
-    # The clocks first: no trace has run in this process yet.
-    event_ms = {tag: cuda_ms(run[-1], reps=20, warmup=3) for tag, run in runs.items()}
-    for tag, (monoid, m, m2, r, reverse, inclusive, ops, rtol, fn) in runs.items():
-        got = fn()
-        want = scan_plain(monoid, m, r, reverse, inclusive, ops, m2=m2)
-        (err, _), = stream_errors([got], [want])
-        if not (err <= rtol and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"B3 engine {tag} disagrees with its plain version: {err:.3e}")
-        split, per_call = kernel_split(fn)
-        device = ("not measured (no device time in the trace)" if split is None else
-                  f"{sum(ms * per for ms, per in split.values()):.4f} ms")
-        bound, by = scan_bound_ms(monoid, m, r, N_LONG, ops[0].element_size(), m2=m2)
-        log(f"b3-times engine {tag} N={N_LONG} [{CARD}]: events {event_ms[tag]:.4f} ms, device "
-            f"{device} in {per_call:g} device operations a call (bound {bound:.4f} ms, {by}); "
-            f"against plain rel {err:.2e} (rtol {rtol:g}) ok")
 
 
 def posterior_scan_shapes():
@@ -3696,29 +3796,48 @@ def posterior_scan_shapes():
 
 def b3_generic_times():
     """B3's generic-order Riccati flow and affine scan at the posterior
-    processes' shapes (order 8, 12 and 16; the affine scan with 1 and 16
-    columns, in the directions the path takes) on random float64 operands
-    at N = 1e5 and 5000: CUDA-event times of every case first, and of the
-    whole posterior calls (``condition`` then ``log_probability`` or
-    ``sample``, at N = 1e5 with the default jitter and at 5000 given
-    ``diag=1e-3``), then each case's device time and device operations per
-    call from a ``torch.profiler`` trace (pass by pass), two launches
-    compared bit for bit and the result held to the float64 plain version
-    (1e-8). Also the registers and spills of the generic source's kernels.
-    Run alone by ``--b3-times generic``; through entry points that older
-    trees share."""
+    processes' shapes (order 8, 12, 16 and 20; the affine scan with 1 and
+    16 columns, in the directions the path takes) on random float64
+    operands at N = 1e5 and 5000; the order-5 and order-9 sums'
+    conditioning couplings (9, 9), (10, 10) and (18, 18) at 1e5 in float32
+    and the order-20 posterior's reverse congruence at 5000 in float64; and
+    at N = 17,161 in float64 and float32 the couplings (12, 12) and
+    (16, 16) and every monoid at m = 24 and 32 (ENGINE_ORDERS, the shapes
+    the three-phase engine ran before these kernels): CUDA-event times of every case
+    first, and of the whole posterior calls (``condition`` then
+    ``log_probability`` or ``sample``, at N = 1e5 with the default jitter
+    and at 5000 given ``diag=1e-3``), then each case's device time and
+    device operations per call from a ``torch.profiler`` trace (pass by
+    pass), two launches compared bit for bit and the result held to the
+    float64 plain version (1e-8, float32 5e-4). Also the registers and
+    spills of the generic sources' kernels. Run alone by ``--b3-times
+    generic``; through entry points that older trees share, so that one
+    chip call can time this tree and its parent in turns."""
     import torch
 
-    log_ptxas("quasisep_generic", only=r"^(ric|aff)_")
+    from tinygp_tpu_torch import cuda_build
+
+    log_ptxas("quasisep_generic", only=r"^(ric|aff|cong|cpl)_")
+    if "quasisep_wide" in cuda_build.build_all():
+        log_ptxas("quasisep_wide")
+    f32, f64 = torch.float32, torch.float64
+    shapes = [(monoid, m, r, reverse, inclusive, n, f64)
+              for monoid, m, r, reverse, inclusive in posterior_scan_shapes()
+              for n in (100_000, 5000)]
+    shapes += [("cpl", 9, 1, False, False, 100_000, f32), ("cpl", 10, 1, True, False, 100_000, f32),
+               ("cpl", 18, 1, True, False, 100_000, f32), ("cong", 20, 1, True, False, 5000, f64)]
+    shapes += [("cpl", m, 1, False, False, N_LONG, dtype) for m in (12, 16) for dtype in (f64, f32)]
+    shapes += [(monoid, m, r, reverse, inclusive, N_LONG, dtype) for m in ENGINE_ORDERS
+               for monoid, reverse, inclusive, r in ENGINE_VARIANTS for dtype in (f64, f32)]
     cases = {}
-    for monoid, m, r, reverse, inclusive in posterior_scan_shapes():
-        for n in (100_000, 5000):
-            label = (f"{monoid} m={m}" + (f" r={r}" if r > 1 else "")
-                     + f" N={n} ({'reverse' if reverse else 'forward'} "
-                     f"{'inclusive' if inclusive else 'exclusive'})")
-            ops = scan_operands(monoid, m, n, r, torch.float64, seed=m + r)
-            cases[label] = ((monoid, m, r, reverse, inclusive, ops),
-                            lambda c=(monoid, m, r, reverse, inclusive, ops): scan_kernel(*c))
+    for monoid, m, r, reverse, inclusive, n, dtype in shapes:
+        label = (f"{monoid} m={m}" + (f"x{m}" if monoid == "cpl" else "")
+                 + (f" r={r}" if r > 1 else "") + f" N={n} {str(dtype)[6:]} "
+                 f"({'reverse' if reverse else 'forward'} "
+                 f"{'inclusive' if inclusive else 'exclusive'})")
+        ops = scan_operands(monoid, m, n, r, dtype, seed=m + r)
+        cases[label] = ((monoid, m, r, reverse, inclusive, ops),
+                        lambda c=(monoid, m, r, reverse, inclusive, ops): scan_kernel(*c))
     from tinygp_tpu_torch import GaussianProcess
 
     (X5, y5), _ = bench_data()
@@ -3743,9 +3862,10 @@ def b3_generic_times():
     for label, ((monoid, m, r, reverse, inclusive, ops), fn) in cases.items():
         got, again = fn(), fn()
         same = torch.equal(got, again)
-        want = scan_plain(monoid, m, r, reverse, inclusive, ops)
+        want = scan_plain(monoid, m, r, reverse, inclusive, [x.double() for x in ops])
         (err, _), = stream_errors([got], [want])
-        if not (err <= 1e-8 and bool(torch.isfinite(got).all())):
+        rtol = 1e-8 if ops[0].dtype == torch.float64 else 5e-4
+        if not (err <= rtol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"B3 generic {label} disagrees with the plain version: "
                                  f"{err:.3e}")
         del got, again, want
@@ -3754,10 +3874,10 @@ def b3_generic_times():
                   f"{sum(ms * per for ms, per in split.values()):.4f} ms")
         shown = ("" if split is None else
                  ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
-        bound, by = scan_bound_ms(monoid, m, r, ops[0].shape[-1], 8)
-        log(f"b3-generic-times {label} float64 [{CARD}]: events {event_ms[label]:.4f} ms, "
+        bound, by = scan_bound_ms(monoid, m, r, ops[0].shape[-1], ops[0].element_size())
+        log(f"b3-generic-times {label} [{CARD}]: events {event_ms[label]:.4f} ms, "
             f"device {device} (bound {bound:.4f} ms, {by}); two launches equal bit for bit "
-            f"{same}; against the plain version rel {err:.2e} (limit 1e-8) ok")
+            f"{same}; against the float64 plain version rel {err:.2e} (limit {rtol:g}) ok")
         log(f"b3-generic-times {label} trace: {per_call:g} device operations per call; ms per "
             f"launch x launches per call: {shown}")
 
@@ -5106,6 +5226,13 @@ def b3_name(monoid, m, m2, r):
             + (f"_r{r}" if r > 1 else ""))
 
 
+def b3_source(m, m2):
+    """B3's CUDA source at these orders."""
+    stem = ("quasisep_scan" if m == m2 and m <= 4
+            else "quasisep_wide" if max(m, m2) > 16 else "quasisep_generic")
+    return f"tinygp_tpu_torch/csrc/{stem}.cu"
+
+
 def b3_records(watch, tag):
     """A JSON record for each shape the watch saw: B3 against its plain
     version in float64 on random operands of the first launch's shape (the
@@ -5144,8 +5271,7 @@ def b3_records(watch, tag):
         records[name] = {
             "name": name,
             "route": "cuda",
-            "source": "tinygp_tpu_torch/csrc/"
-            + ("quasisep_scan.cu" if name.startswith("quasisep_scan") else "quasisep_generic.cu"),
+            "source": b3_source(m, m2),
             "replaces": "tinygp_tpu/solvers/quasisep/pallas_scan.py:331",
             "launches": count,
             "max_abs_err": abs_err,
@@ -5181,9 +5307,14 @@ def predict_loss(th, X, y, X_test, w, var=True):
 def posterior_kernel(name, th):
     """The posterior models of phase 16 with an amplitude and a time scale
     to differentiate: Matern32 and Matern52 at (amp, scale) = (1.5, 2.5);
-    the 2-term celerite with its rates divided by the scale, at (1, 1)."""
+    the 2-term celerite with its rates divided by the scale, at (1, 1);
+    phase 16's order-5 sum with its frequency divided and its scale
+    multiplied by the scale, at (1, 1)."""
     from tinygp_tpu_torch.kernels import quasisep
 
+    if name == "sum5":
+        return th[0] * sum5_kernel((SUM5_PARAMS[0], SUM5_PARAMS[1] / th[1], SUM5_PARAMS[2],
+                                    SUM5_PARAMS[3] * th[1]))
     if name == "matern32":
         return th[0] * quasisep.Matern32(scale=th[1])
     if name == "matern52":
@@ -5193,11 +5324,12 @@ def posterior_kernel(name, th):
 
 
 POSTERIOR_THETA = {"matern32": (1.5, 2.5), "matern52": (1.5, 2.5), "celerite2": (1.0, 1.0)}
+ORDER20_THETA = (1.0, 1.0)  # the order-5 sum's posterior (order 20): amplitude, time scale
 
 
 def posterior_log_prob(name, th, X, y, post_diag):
     """``condition(y, diag=post_diag)``'s process, its ``log_probability(y)``
-    (order 4m: 8, 12, 16)."""
+    (order 4m: 8, 12, 16, 20)."""
     from tinygp_tpu_torch import GaussianProcess
 
     gp = GaussianProcess(posterior_kernel(name, th), X, diag=0.1, assume_sorted=True,
@@ -5390,6 +5522,42 @@ def phase_condition_gradient(tf32=False):
             f"{grad_err(cpu, dense):.3e}); {text} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"posterior {name} N={len(Xk)}")
+
+    # The order-20 posterior (phase 16's order-5 sum) at N = 1000, float64,
+    # diag=0.1, its launches recorded with the runs at size: backward a
+    # reverse congruence at m = 20 (the Riccati adjoint), a reverse affine
+    # scan and the couplings. Held to 1e-7 of the CPU plain path, or, where
+    # the CPU plain path is more than 1e-8 off a dense float64 gradient, to
+    # ten times that distance (PERF.md section 2's rule for generic-order
+    # posteriors).
+    with watch.active():
+        before = watch.snapshot()
+        th = torch.tensor(ORDER20_THETA, dtype=torch.float64, device="cuda", requires_grad=True)
+        value = posterior_log_prob("sum5", th, Xkc, ykc, 0.1)
+        torch.cuda.synchronize()
+        mid = watch.snapshot()
+        (g,) = torch.autograd.grad(value, th)
+        torch.cuda.synchronize()
+        after = watch.snapshot()
+    bwd, bwd_rev = count_diff(after[0], mid[0]), count_diff(after[1], mid[1])
+    launch_ok = (bwd.get(("cong", 20, 20, 1), 0) > 0 and bwd_rev.get("cong", 0) > 0
+                 and bwd_rev.get("aff", 0) > 0 and by_monoid(bwd).get("cpl", 0) > 0
+                 and watch.plain_on_card == 0)
+    cpu = value_and_grad(lambda t: posterior_log_prob("sum5", t, Xkh, ykh, 0.1), ORDER20_THETA,
+                         torch.float64, "cpu")[1]
+    dense = value_and_grad(lambda t: dense_posterior_log_prob("sum5", t, Xkc, ykc, 0.1),
+                           ORDER20_THETA, torch.float64, "cuda")[1]
+    err, cpu_dense = grad_err(g, cpu), grad_err(cpu, dense)
+    limit = 1e-7 if cpu_dense <= 1e-8 else 10 * cpu_dense
+    ok = launch_ok and err <= limit and bool(torch.isfinite(g).all())
+    log(f"{tag} posterior sum5 (order 20) N={len(Xk)} float64 diag=0.1: gradient "
+        f"{[float(v) for v in g]!r}, against the CPU plain path {err:.3e} of the largest entry "
+        f"(limit {limit:.3e}: the CPU plain path against dense {cpu_dense:.3e}), the card "
+        f"against dense {grad_err(g, dense):.3e}; B3 launches forward "
+        f"{count_diff(mid[0], before[0])}, backward {bwd} (reverse {bwd_rev}), plain scans on "
+        f"the card {watch.plain_on_card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"posterior sum5 N={len(Xk)}")
 
     # Float64 posteriors at size: N = 5000, posterior diag=1e-3 (ill-
     # conditioned, ROADMAP N11), launches held, errors printed.
@@ -5641,7 +5809,7 @@ def phase_kalman():
 # run_mcmc holds at any depth; at depth 6 each of the two runs took about a
 # minute on an NVIDIA H100 80GB HBM3 at 700.00 W), and a 64-chain run that
 # the two-rank group repeats.
-PARALLEL_NUTS = dict(num_chains=1024, num_warmup=25, num_samples=25, max_tree_depth=4,
+PARALLEL_NUTS = dict(num_chains=1024, num_warmup=15, num_samples=15, max_tree_depth=4,
                      jitter_init=0.1)
 PARALLEL_NUTS_64 = dict(PARALLEL_NUTS, num_chains=64, num_warmup=5, num_samples=5)
 CHOLESKY_TP_N, CHOLESKY_TP_BLOCK = 8192, 256
@@ -6008,9 +6176,6 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--b3-times", "generic"]:
         b3_generic_times()
-        return 0
-    if sys.argv[1:] == ["--b3-times", "engine"]:
-        engine_scan_times()
         return 0
     if sys.argv[1:] == ["--gram-times"]:
         gram_times()

@@ -1,8 +1,11 @@
 """Kernel B3's one-launch Riccati flow, affine and congruence scans at
-m = 5..16 (``csrc/quasisep_generic.cu``: ``ric_tile_kernel``,
-``aff_tile_kernel``, ``cong_tile_kernel``) in plain PyTorch:
-``cuda_scan.plain_scan_tiled`` under ``cuda_scan.b3_schedule`` (4 warp teams
-a tile, look-back groups of 16 tiles folded in runs of 4). Held against
+m = 5..16 and couplings whose larger order is 9..16
+(``csrc/quasisep_generic.cu``: ``ric_tile_kernel``, ``aff_tile_kernel``,
+``cong_tile_kernel``, ``cpl_tc_tile_kernel``), and every monoid above 16
+(``csrc/quasisep_wide.cu``: a tile of 32 elements one team), in plain
+PyTorch: ``cuda_scan.plain_scan_tiled`` under ``cuda_scan.b3_schedule`` (4
+warp teams a tile to 16, look-back groups of 16 tiles folded in runs of
+4). Held against
 the JAX package's stacked scans (``scan.py``) through XLA, the port's plain
 blocked scans across several look-back groups and at the edges of tiles,
 the TPU kernel in interpret mode (an affine scan at m = 8), and, for the
@@ -23,7 +26,10 @@ from tinygp_tpu_torch.solvers.quasisep import cuda_scan, scan
 from tinygp_tpu_torch.test_utils import random_qsm_operands
 
 ORDERS = (5, 8, 12, 16)
+WIDE_ORDERS = (17, 20, 32)
 COLUMNS = (1, 3, 16)
+# The couplings above order 8: (m, m2), equal and unequal, either side of 16.
+COUPLINGS = ((9, 9), (10, 10), (16, 16), (18, 18), (32, 32), (5, 16), (16, 5))
 
 
 @pytest.fixture(autouse=True)
@@ -36,33 +42,39 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def operands(monoid, m, n, r, seed, dtype=torch.float64):
+def operands(monoid, m, n, r, seed, dtype=torch.float64, m2=None):
     """Numpy operands of one scan (the Riccati flow's of a positive definite
-    K, contracting transitions and normal loads for the affine scan and the
-    congruence, whose loads are not symmetric) and the same as tensors."""
+    K, contracting transitions and normal loads for the affine scan, the
+    congruence, whose loads are not symmetric, and the coupling of orders
+    m and m2) and the same as tensors."""
     d, ps, qs, as_, _ = random_qsm_operands(m, n, seed)
     if monoid == "aff":
         arrays = (as_, np.random.default_rng(seed + 1).normal(size=(m * r, n)))
     elif monoid == "cong":
         arrays = (as_, np.random.default_rng(seed + 1).normal(size=(m * m, n)))
+    elif monoid == "cpl":
+        arrays = (as_, random_qsm_operands(m2, n, seed + 2)[3],
+                  np.random.default_rng(seed + 1).normal(size=(m * m2, n)))
     else:
         arrays = (d, ps, qs, as_)
     arrays = tuple(np.ascontiguousarray(x) for x in arrays)
     return arrays, [torch.tensor(x, dtype=dtype) for x in arrays]
 
 
-def tiled(monoid, args, m, r, reverse, exclusive):
-    schedule = cuda_scan.b3_schedule(monoid, m, r, args[0].dtype)
-    return cuda_scan.plain_scan_tiled(monoid, args, m, r=r, reverse=reverse,
+def tiled(monoid, args, m, r, reverse, exclusive, m2=None):
+    schedule = cuda_scan.b3_schedule(monoid, m, r, args[0].dtype, m2=m2)
+    return cuda_scan.plain_scan_tiled(monoid, args, m, r=r, m2=m2, reverse=reverse,
                                       exclusive=exclusive, schedule=schedule)
 
 
-def plain(monoid, args, m, r, reverse, exclusive):
+def plain(monoid, args, m, r, reverse, exclusive, m2=None):
     """The port's plain B3: the stacked blocked scans."""
     if monoid == "aff":
         return scan._affine_scan_s(*args, m, r, reverse=reverse, exclusive=exclusive)
     if monoid == "cong":
         return scan._congruence_scan_s(*args, m, reverse=reverse)
+    if monoid == "cpl":
+        return scan._coupling_scan_s(*args, m, m2, reverse=reverse, exclusive=exclusive)
     return scan._riccati_scan_s(*args, m)
 
 
@@ -79,11 +91,19 @@ def check(got, want, tol):
 
 # (monoid, m, r, reverse, exclusive): the Riccati flow (forward, exclusive)
 # at each order, the affine scan at each order, column count, direction
-# and output, and the congruence scan (exclusive) in either direction.
+# and output, and the congruence scan (exclusive) in either direction; above
+# 16 the affine scan in either direction (exclusive forward, inclusive
+# reverse); the coupling (the third entry its second order m2) in either
+# direction.
 CASES = [("ric", m, 1, False, True) for m in ORDERS] + [
     ("aff", m, r, reverse, exclusive)
     for m in ORDERS for r in COLUMNS for reverse in (False, True) for exclusive in (True, False)
-] + [("cong", m, 1, reverse, True) for m in ORDERS for reverse in (False, True)]
+] + [("cong", m, 1, reverse, True) for m in ORDERS for reverse in (False, True)] + [
+    ("ric", m, 1, False, True) for m in WIDE_ORDERS] + [
+    ("aff", m, r, reverse, not reverse) for m in WIDE_ORDERS for r in COLUMNS
+    for reverse in (False, True)
+] + [("cong", m, 1, reverse, True) for m in WIDE_ORDERS for reverse in (False, True)] + [
+    ("cpl", m, m2, reverse, not reverse) for m, m2 in COUPLINGS for reverse in (False, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
@@ -94,11 +114,12 @@ def test_tiled_across_look_back_groups_matches_plain(case, dtype):
     port's plain scan on the same values (1e-12 in float64; 5e-4 in
     float32, where the plain version scans in float32)."""
     monoid, m, r, reverse, exclusive = case
-    tile = cuda_scan.b3_schedule(monoid, m, r, dtype)[0]
-    _, args = operands(monoid, m, 33 * tile + 5, r, seed=m + r, dtype=dtype)
-    got = tiled(monoid, args, m, r, reverse, exclusive)
+    m2, r = (r, 1) if monoid == "cpl" else (None, r)
+    tile = cuda_scan.b3_schedule(monoid, m, r, dtype, m2=m2)[0]
+    _, args = operands(monoid, m, 33 * tile + 5, r, seed=m + r, dtype=dtype, m2=m2)
+    got = tiled(monoid, args, m, r, reverse, exclusive, m2=m2)
     assert got.dtype == dtype
-    check(got, plain(monoid, args, m, r, reverse, exclusive),
+    check(got, plain(monoid, args, m, r, reverse, exclusive, m2=m2),
           1e-12 if dtype == torch.float64 else 5e-4)
 
 
@@ -107,7 +128,8 @@ def test_tiled_across_look_back_groups_matches_plain(case, dtype):
 JAX_CASES = [("ric", m, 1, False, True) for m in ORDERS] + [
     ("aff", m, r, (i + j) % 2 == 1, (i + 2 * j) % 3 != 1)
     for i, m in enumerate(ORDERS) for j, r in enumerate(COLUMNS)
-] + [("cong", m, 1, i % 2 == 0, True) for i, m in enumerate(ORDERS)]
+] + [("cong", m, 1, i % 2 == 0, True) for i, m in enumerate(ORDERS)] + [
+    ("ric", 20, 1, False, True), ("aff", 20, 3, True, False), ("cong", 20, 1, True, True)]
 
 
 def jax_scan(monoid, arrays, m, r, reverse, exclusive):
@@ -145,7 +167,7 @@ def test_tiled_matches_jax(case):
 
 
 @pytest.mark.parametrize("monoid", ["ric", "aff", "cong"])
-@pytest.mark.parametrize("m", [5, 16])
+@pytest.mark.parametrize("m", [5, 16, 20])
 def test_tiled_at_the_edges_of_tiles(monoid, m):
     """N of one element, one below a tile, one tile and one more, in
     float64, against the port's plain scan (1e-12); an exclusive scan's
@@ -179,7 +201,9 @@ def test_tiled_matches_pallas_interpret(monkeypatch):
 def test_schedule_of_the_one_launch_generic_scans():
     """4 teams a tile, the most elements a team (32 down to 1) whose staged
     tile fits beside the block's maps, the look-back in groups of 16 tiles
-    folded in runs of 4; orders above 16 keep the three-phase engine."""
+    folded in runs of 4; the couplings whose larger order is 9..16 the same
+    (padded to 16); above 16 a tile of 32 elements one team (the Riccati
+    flow's 64), the same look-back; nothing above 32."""
     f32, f64 = torch.float32, torch.float64
     assert cuda_scan.b3_schedule("ric", 8, 1, f64) == (128, 32, (4, 16))
     assert cuda_scan.b3_schedule("ric", 12, 1, f64) == (64, 16, (4, 16))
@@ -193,8 +217,17 @@ def test_schedule_of_the_one_launch_generic_scans():
     assert cuda_scan.b3_schedule("cong", 12, 1, f64) == (32, 8, (4, 16))
     assert cuda_scan.b3_schedule("cong", 16, 1, f64) == (16, 4, (4, 16))
     assert cuda_scan.b3_schedule("cong", 16, 1, f32) == (32, 8, (4, 16))
-    for monoid in ("ric", "aff", "cong"):
-        assert cuda_scan.b3_schedule(monoid, 17, 1, f64) is None
+    assert cuda_scan.b3_schedule("cpl", 9, 1, f32) == (64, 16, (4, 16))
+    assert cuda_scan.b3_schedule("cpl", 10, 1, f32) == (64, 16, (4, 16))
+    assert cuda_scan.b3_schedule("cpl", 16, 1, f64) == (8, 2, (4, 16))
+    assert cuda_scan.b3_schedule("cpl", 5, 1, f64, 16) == (32, 8, (4, 16))
+    for monoid in ("ric", "aff", "cong", "cpl"):
+        tile = 64 if monoid == "ric" else 32
+        for m in (17, 20, 32):
+            for dtype in (f32, f64):
+                assert cuda_scan.b3_schedule(monoid, m, 1, dtype) == (tile, tile, (4, 16))
+        assert cuda_scan.b3_schedule(monoid, 33, 1, f64) is None
+    assert cuda_scan.b3_schedule("cpl", 4, 1, f32, 18) == (32, 32, (4, 16))
 
 
 def celerite2():

@@ -183,8 +183,9 @@ def test_schedule_covers_the_one_launch_scans():
     bytes, the warp-parallel fold; the coupling up to order 8: 4 teams a
     tile, 32, 16 or 8 elements a team by the staged bytes, the look-back in
     runs of 8 tiles; the Riccati flow, the affine and the congruence scans
-    at m = 5..16 likewise (tests/test_torch_b3_generic_tiled.py); every
-    other scan: the three-phase engine (None)."""
+    at m = 5..16, the couplings above order 8 and every monoid above 16 in
+    their own tiles (tests/test_torch_b3_generic_tiled.py); nothing above
+    order 32 (None)."""
     f32, f64 = torch.float32, torch.float64
     assert cuda_scan.b3_schedule("aff", 2, 1, f32) == (512, 8, "warp")
     assert cuda_scan.b3_schedule("aff", 2, 16, f64) == (256, 4, "warp")
@@ -195,8 +196,10 @@ def test_schedule_covers_the_one_launch_scans():
     assert cuda_scan.b3_schedule("cpl", 8, 1, f32, 8) == (32, 8, 8)
     assert cuda_scan.b3_schedule("cpl", 8, 1, f64, 8) == (32, 8, 8)
     assert cuda_scan.b3_schedule("cpl", 2, 1, f64, 4) == (128, 32, 8)
-    assert cuda_scan.b3_schedule("cpl", 9, 1, f32) is None
+    assert cuda_scan.b3_schedule("cpl", 9, 1, f32) == (64, 16, (4, 16))
     for monoid in ("aff", "ric", "cong"):
         assert cuda_scan.b3_schedule(monoid, 5, 1, f32) == (128, 32, (4, 16))
-        assert cuda_scan.b3_schedule(monoid, 17, 1, f32) is None
-    assert cuda_scan.b3_schedule("cpl", 4, 1, f32, 9) is None
+        tile = 64 if monoid == "ric" else 32
+        assert cuda_scan.b3_schedule(monoid, 17, 1, f32) == (tile, tile, (4, 16))
+        assert cuda_scan.b3_schedule(monoid, 33, 1, f32) is None
+    assert cuda_scan.b3_schedule("cpl", 4, 1, f32, 9) == (128, 32, (4, 16))

@@ -1235,7 +1235,9 @@ def test_b1_one_launch_matches_tiled_plain_and_repeats(cuda_device, m, dtype):
 
 # ---------------------------------------------------------------------------
 # Kernel B3 in one launch: the templated scan at m <= 4 and the coupling of
-# orders up to 8, tiles by a ticket and a deterministic look-back.
+# any orders up to 32 (``cpl_tile_kernel`` up to 8, ``cpl_tc_tile_kernel``
+# to 16, ``cpl_wide_kernel`` above), tiles by a ticket and a deterministic
+# look-back.
 # ---------------------------------------------------------------------------
 
 # (monoid, m, m2, r, reverse, exclusive)
@@ -1245,7 +1247,9 @@ B3_ONE_LAUNCH = [
     for monoid, r, reverse, exclusive in (
         ("aff", 1, False, True), ("aff", 16, True, False), ("cong", 1, True, True),
         ("ric", 1, False, True), ("cpl", 1, False, True), ("cpl", 1, True, False))
-] + [("cpl", m, m2, 1, reverse, not reverse) for m, m2 in ((2, 4), (4, 8), (6, 6), (8, 8))
+] + [("cpl", m, m2, 1, reverse, not reverse)
+     for m, m2 in ((2, 4), (4, 8), (6, 6), (8, 8), (9, 9), (10, 10), (16, 16), (5, 16), (16, 5),
+                   (18, 18), (20, 9), (32, 32))
      for reverse in (False, True)]
 
 
@@ -1269,7 +1273,11 @@ def test_b3_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype)
     schedule = cuda_scan.b3_schedule(monoid, m, r, dtype, m2)
     nbytes = torch.empty((), dtype=dtype).element_size()
     t, s, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if generic:
+    if max(m, m2) > 16:
+        lib = cuda_scan._wide_library()
+        assert lib.qsw_schedule(3, m, m2, 1, nbytes, ctypes.byref(t), ctypes.byref(s),
+                                ctypes.byref(c)) == 0
+    elif generic:
         lib = cuda_scan._generic_library()
         assert lib.qsg_cpl_schedule(m, m2, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
     else:
@@ -1298,18 +1306,20 @@ def test_b3_one_launch_matches_tiled_plain_and_repeats(cuda_device, case, dtype)
 
 
 # ---------------------------------------------------------------------------
-# Kernel B3's generic Riccati flow, affine and congruence scans at m = 5..16
-# in one launch (``ric_tile_kernel``, ``aff_tile_kernel``,
-# ``cong_tile_kernel``).
+# Kernel B3's generic Riccati flow, affine and congruence scans in one
+# launch: at m = 5..16 ``ric_tile_kernel``, ``aff_tile_kernel``,
+# ``cong_tile_kernel``; at m = 17..32 ``ric_wide_kernel``,
+# ``aff_wide_kernel``, ``cong_wide_kernel``.
 # ---------------------------------------------------------------------------
 
+B3_GENERIC_ORDERS = (5, 8, 12, 16, 17, 20, 24, 32)
 # (monoid, m, r, reverse, exclusive)
-B3_GENERIC_ONE_LAUNCH = [("ric", m, 1, False, True) for m in (5, 8, 12, 16)] + [
+B3_GENERIC_ONE_LAUNCH = [("ric", m, 1, False, True) for m in B3_GENERIC_ORDERS] + [
     ("aff", m, r, reverse, exclusive)
-    for m in (5, 8, 12, 16)
+    for m in B3_GENERIC_ORDERS
     for r, reverse, exclusive in ((1, False, True), (3, True, False), (16, False, True),
                                   (16, True, False))
-] + [("cong", m, 1, reverse, True) for m in (5, 8, 12, 16) for reverse in (False, True)]
+] + [("cong", m, 1, reverse, True) for m in B3_GENERIC_ORDERS for reverse in (False, True)]
 
 
 @pytest.mark.cuda
@@ -1331,9 +1341,11 @@ def test_b3_generic_one_launch_matches_tiled_plain_and_repeats(cuda_device, case
     schedule = cuda_scan.b3_schedule(monoid, m, r, dtype)
     nbytes = torch.empty((), dtype=dtype).element_size()
     t, s, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib = cuda_scan._generic_library()
-    assert lib.qsg_scan_schedule(cuda_scan._KIND[monoid], m, r, nbytes, ctypes.byref(t),
-                                 ctypes.byref(s), ctypes.byref(c)) == 0
+    kind, refs = cuda_scan._KIND[monoid], (ctypes.byref(t), ctypes.byref(s), ctypes.byref(c))
+    if m > 16:
+        assert cuda_scan._wide_library().qsw_schedule(kind, m, m, r, nbytes, *refs) == 0
+    else:
+        assert cuda_scan._generic_library().qsg_scan_schedule(kind, m, r, nbytes, *refs) == 0
     assert (t.value, s.value) == schedule[:2]
     f64 = dtype == torch.float64
     tile = schedule[0]

@@ -10,6 +10,12 @@
   ``sample`` against a dense numpy posterior built from the JAX package's
   kernel matrix and its ``condition`` mean (the JAX package's own order-4m
   process takes minutes to compile);
+- the m = 5 and m = 9 sums conditioned (``condition(y)``: its log
+  probability, the posterior's mean and variance; couplings of order 5, 9,
+  10 and 18) in float64 against the JAX package at 5e-7, and the m = 5
+  sum's posterior process (order 20) given ``diag=1e-3``: its
+  ``log_probability`` against the JAX package's sequential solver and a
+  dense Cholesky;
 - products of QSMs of unequal orders, (2, 4) and (3, 6), whose coupling
   scans pair two orders, against the dense product;
 - the wrappers of kernels B1, B1r, B2 and B3 at m = 5 and 8 on CPU tensors:
@@ -30,7 +36,9 @@ import pytest
 import torch
 
 from tinygp_tpu import GaussianProcess as JaxGP
+from tinygp_tpu import noise as jnoise
 from tinygp_tpu.kernels import quasisep as jq
+from tinygp_tpu.solvers.quasisep.solver import QuasisepSolver as JaxQuasisepSolver
 from tinygp_tpu_torch import GaussianProcess
 from tinygp_tpu_torch.convert import qsm_from_tree
 from tinygp_tpu_torch.kernels import quasisep as tq
@@ -129,6 +137,77 @@ def test_sum_of_order_9_value_and_gradient_match_jax(dtype):
     for name, g in zip(leaves, grads):
         assert torch.isfinite(g), name
         assert_allclose(g, want_grad[name])
+
+
+# ---------------------------------------------------------------------------
+# The sums conditioned, and the m = 5 sum's posterior process (order 20).
+# ---------------------------------------------------------------------------
+
+SUMS = {"sum5": (sum_kernel, SUM_PARAMS), "sum9": (sum9_kernel, SUM9_PARAMS)}
+
+
+@functools.cache
+def jax_sum_condition(name):
+    """The JAX package's ``condition(y)`` of a sum, where its ``condition``
+    takes them: the log probability and mean of ``_condition``, the
+    variance as the diagonal of ``solver.condition`` with the posterior's
+    default jitter; sequential scans."""
+    kernel_of, params = SUMS[name]
+
+    @jax.jit
+    def run(X, y):
+        gp = JaxGP(kernel_of(jq, params), X, diag=0.1, assume_sorted=True, parallel=False)
+        _, log_prob, loc = gp._condition(y, None, True)
+        noise = jnoise.Diagonal(diag=jnp.full(X.shape, jnp.sqrt(jnp.finfo(X.dtype).eps)))
+        return log_prob, loc, gp.solver.condition(gp.kernel, None, noise).diag.d
+
+    X, y = data(N_SUM, seed=20)
+    return X, y, [np.asarray(a) for a in run(jnp.asarray(X), jnp.asarray(y))]
+
+
+@pytest.mark.parametrize("name", sorted(SUMS))
+def test_sum_condition_matches_jax(name):
+    """The couplings of order m and 2m (5 and 10, 9 and 18) under the
+    posterior's mean and variance, float64, at the tolerance table's 5e-7."""
+    X, y, want = jax_sum_condition(name)
+    kernel_of, params = SUMS[name]
+    gp = GaussianProcess(kernel_of(tq, params), torch.as_tensor(X), diag=0.1,
+                         assume_sorted=True, device="cpu")
+    log_prob, post = gp.condition(torch.as_tensor(y))
+    for got, ref in zip((log_prob, post.loc, post.variance), want):
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        assert_allclose(got, ref)
+
+
+def test_order_20_posterior_log_probability_matches_jax_and_dense():
+    """The m = 5 sum's posterior process given ``diag=1e-3`` (order 20):
+    its ``log_probability`` against the JAX package's, built as its
+    ``condition`` builds it with a sequential solver, at 5e-7, and against
+    a dense Cholesky of the same posterior at 1e-8."""
+    X, y = data(N_SUM, seed=21)
+    Xj, yj = jnp.asarray(X), jnp.asarray(y)
+
+    @jax.jit
+    def jax_log_prob(X, y):
+        gp = JaxGP(sum_kernel(jq, SUM_PARAMS), X, diag=0.1, assume_sorted=True, parallel=False)
+        _, _, loc = gp._condition(y, None, True)
+        noise = jnoise.Diagonal(diag=jnp.full(X.shape, 1e-3))
+        cov = gp.solver.condition(gp.kernel, None, noise)
+        post = JaxQuasisepSolver(None, X, noise, covariance=cov, parallel=False)
+        return post.log_likelihood(y - loc)
+
+    gp = GaussianProcess(sum_kernel(tq, SUM_PARAMS), torch.as_tensor(X), diag=0.1,
+                         assume_sorted=True, device="cpu")
+    post = gp.condition(torch.as_tensor(y), diag=1e-3)[1]
+    assert post.solver.matrix.lower.p.shape == (N_SUM, 20)
+    got = post.log_probability(torch.as_tensor(y))
+    assert torch.isfinite(got)
+    assert_allclose(got, jax_log_prob(Xj, yj))
+    L = torch.linalg.cholesky(post.solver.matrix.to_dense())
+    z = torch.linalg.solve_triangular(L, (torch.as_tensor(y) - post.loc)[:, None], upper=False)
+    dense = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(L)))
+             - 0.5 * N_SUM * np.log(2 * np.pi))
+    np.testing.assert_allclose(float(got), float(dense), rtol=1e-8)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-// Kernel B3, the generic monoid scan, at every order on Hopper (sm_90a).
+// Kernel B3, the generic monoid scan, up to order 16 on Hopper (sm_90a).
 //
 // Replaces the TPU kernel tinygp_tpu/solvers/quasisep/pallas_scan.py:
 // _scan_kernel (line 331), launched by pallas_monoid_scan (line 405), for
-// the orders quasisep_scan.cu's templates do not take: the affine,
-// congruence and Riccati monoids with 4 < m <= 32 and the coupling of any
-// pair of orders up to 32 other than two equal orders up to 4. The TPU
+// the orders quasisep_scan.cu's templates do not take, up to 16: the
+// affine, congruence and Riccati monoids with 4 < m <= 16 and the coupling
+// of any pair of orders up to 16 other than two equal orders up to 4
+// (above 16, quasisep_wide.cu). The TPU
 // kernel takes any order (pallas_scan.py:82-124, supports); the JAX
 // package sends every monoid with combine_lists to it (scan.py:195-201).
 //
@@ -24,14 +25,15 @@
 //   - the Riccati flow, the affine scan (any columns) and the congruence
 //     scan, either direction and output, at 5 <= m <= 16 (the posterior
 //     processes of order 8, 12 and 16 and their gradients' reverse
-//     congruence scans, the m = 5 sums): ric_tile_kernel, aff_tile_kernel
-//     and cong_tile_kernel, the same skeleton with every element's product
-//     on the float64 tensor cores (their section below; the Ops shared
-//     with B2 above m = 8 are in quasisep_tc.cuh).
-// The rest runs quasisep_generic.cuh's three-phase engine, by rule and not
-// as a fallback: every monoid but the coupling at 17 <= m <= 32 (no model
-// on a path goes past 16) and couplings above order 8. This file's C
-// interface is B3's generic entry for all of them.
+//     congruence scans, the m = 5 sums), and the coupling whose larger
+//     order is 9..16 (the order-5 and order-9 sums' conditioning):
+//     ric_tile_kernel, aff_tile_kernel, cong_tile_kernel and
+//     cpl_tc_tile_kernel, the same skeleton with every element's product
+//     on the float64 tensor cores (their section below; the Ops, shared
+//     with B2 above m = 8 and with quasisep_wide.cu, are in
+//     quasisep_tc.cuh).
+// No B3 scan runs quasisep_generic.cuh's three-phase engine: that serves
+// B1/B1r above m = 4 and B2 above m = 16 (quasisep_loglik_generic.cu).
 //
 // cpl_tile_kernel. Each block takes a tile of kCplTeams * sub consecutive
 // (for a reverse scan mirrored) positions by a ticket (quasisep_common.cuh:
@@ -452,9 +454,10 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 
 // ---------- the Riccati flow, the affine and the congruence scan, one launch
 //
-// ric_tile_kernel, aff_tile_kernel and cong_tile_kernel replace the TPU
-// kernel B3 (pallas_scan.py: _scan_kernel) for the Riccati flow, the
-// affine scan and the congruence scan at m = 5..16: the skeleton of cpl_tile_kernel (tiles of kMonoTeams warp
+// ric_tile_kernel, aff_tile_kernel, cong_tile_kernel and cpl_tc_tile_kernel
+// replace the TPU kernel B3 (pallas_scan.py: _scan_kernel) for the Riccati
+// flow, the affine scan and the congruence scan at m = 5..16 and the
+// coupling whose larger order is 9..16: the skeleton of cpl_tile_kernel (tiles of kMonoTeams warp
 // teams by a ticket, staged once, an in-tile Kogge-Stone scan of the teams'
 // maps, the grouped look-back, in groups of kMonoGroup tiles folded in
 // runs of kMonoRun, the walk, the states written out from shared memory),
@@ -483,7 +486,11 @@ cudaError_t cpl_run(const GSpec& s, long long n, int reverse, int inclusive, con
 //   the walk s^T' = s^T a^T + b^T;
 //   congruence: A^T' = A^T a^T, B' = a (a B^T)^T + b, three products an
 //   element, and the walk g' = a (a g^T)^T + b; B and g are not taken to
-//   be symmetric (the Riccati adjoint's loads are not).
+//   be symmetric (the Riccati adjoint's loads are not);
+//   coupling (CplOp, both orders padded to 16): A^T' = A^T a^T,
+//   B^T' = B^T b^T, C' = a (b C^T)^T + c, four products an element, and the
+//   walk g' = a (b g^T)^T + c; its look-back's merges of runs compensated
+//   as the congruence's.
 //
 // The matrix-vector products are dot products over a lane's entries and
 // two shuffles within its quad. The merges of whole maps (the in-tile
@@ -516,275 +523,17 @@ constexpr int kMonoMinM = 5, kMonoMaxM = 16;        // orders of the one-launch 
 constexpr int kAffCols8 = 8, kAffCols16 = 16;       // affine columns a group
 constexpr long long kMonoStageCap = 104 * 1024;     // most bytes of a staged tile
 
+// The Riccati flow, the affine and the congruence scan at m = 5..16, and
+// the couplings whose larger order is 9..16 (both padded to 16).
 inline bool mono_one_launch(const GSpec& s) {
-  return s.kind != gCpl && s.m >= kMonoMinM && s.m <= kMonoMaxM;
+  if (s.kind == gCpl) {
+    const int big = s.m > s.m2 ? s.m : s.m2;
+    return big > kCplMaxM && big <= kMonoMaxM;
+  }
+  return s.m >= kMonoMinM && s.m <= kMonoMaxM;
 }
 
-// By one warp: [M | R] (P x 2P, row stride ld) to [. | M^-1 R] by
-// Gauss-Jordan elimination with partial pivoting (the first largest
-// pivot), lane j holding column j in registers. At the orders here the
-// merges' I + F G is not reliably near the identity (ginverse). Columns
-// m..P-1 are the padding's identity, whose steps change nothing, so they
-// are skipped. Ends with the warp's barrier.
-template <int P>
-__device__ __noinline__ void warp_gj(Acc* W, int ld, int m) {
-  const int lane = threadIdx.x & 31, j = lane % (2 * P);
-  Acc w[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) w[i] = W[i * ld + j];
-#pragma unroll
-  for (int col = 0; col < P; ++col) {
-    if (col >= m) break;
-    int p = col;
-    Acc best = fabs(w[col]);
-#pragma unroll
-    for (int i = col + 1; i < P; ++i)
-      if (fabs(w[i]) > best) {
-        best = fabs(w[i]);
-        p = i;
-      }
-    p = __shfl_sync(0xffffffffu, p, col);
-    Acc fac[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) fac[i] = __shfl_sync(0xffffffffu, w[i], col);
-    Acc wp = w[col], fp = fac[col];
-#pragma unroll
-    for (int i = col + 1; i < P; ++i)
-      if (i == p) {
-        wp = w[i];
-        fp = fac[i];
-        w[i] = w[col];
-        fac[i] = fac[col];
-      }
-    w[col] = wp * __drcp_rn(fp);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-      if (i != col) w[i] -= fac[i] * w[col];
-  }
-  __syncwarp();
-  if (lane >= P && lane < 2 * P)
-#pragma unroll
-    for (int i = 0; i < P; ++i) W[i * ld + lane] = w[i];
-  __syncwarp();
-}
-
-// The Riccati flow at padded order P. A map in shared memory is P x 3P,
-// [A | F | G], row stride LM; a state P x P, stride LS; the merge's
-// scratch P x 2P, stride LW (each stride 4 mod 16 doubles apart from a
-// multiple of 16: a warp's fragment loads fall in distinct banks).
-template <int P>
-struct RicOp {
-  static constexpr int H = P / 8, LM = 3 * P + 4, LS = P + 4, LW = 2 * P + 4;
-  static constexpr int kMap = P * LM, kState = P * LS, kScratch = P * LW;
-  static constexpr int kKind = gRic;
-
-  // A team's running value: A^T, F, G.
-  struct Run {
-    Frag<P, P> At, F, G;
-  };
-  // An element: d, p and q at the lane's rows, p at its columns, a.
-  struct El {
-    Acc d, pr[H], pc[H][2], qr[H];
-    Frag<P, P> a;
-  };
-
-  int m, cols;  // the order; cols is unused (one chain)
-  __device__ static int comps(int m, int) { return 1 + 2 * m + m * m; }
-
-  // Element i of the staged tile (component c at st[c * LD + i]).
-  template <typename S>
-  __device__ __forceinline__ void load(const S* st, int LD, int i, El& e) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    e.d = Acc(st[i]);
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int r = 8 * h + g;
-      e.pr[h] = r < m ? Acc(st[(1 + r) * LD + i]) : Acc(0);
-      e.qr[h] = r < m ? Acc(st[(1 + m + r) * LD + i]) : Acc(0);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = 8 * h + 2 * t + jj;
-        e.pc[h][jj] = c < m ? Acc(st[(1 + c) * LD + i]) : Acc(0);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
-          e.a.v[k][h][jj] =
-              r < m && c < m ? Acc(st[(1 + 2 * m + r * m + c) * LD + i]) : Acc(0);
-        }
-  }
-
-  __device__ static void identity(Run& x) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          x.At.v[k][h][jj] = 8 * h + g == 8 * k + 2 * t + jj ? Acc(1) : Acc(0);
-          x.F.v[k][h][jj] = x.G.v[k][h][jj] = Acc(0);
-        }
-  }
-
-  // f = F p, c = d - p^T f and u = q - a f (u at the lane's rows and
-  // columns).
-  __device__ static Acc emit(const Frag<P, P>& F, const El& e, Acc (&ur)[H], Acc (&uc)[H][2]) {
-    Acc f[H], fc[H][2], af[H];
-    rowdot(F, e.pc, f);
-    const Acc c = e.d - row_sum<P>(e.pr, f);
-    to_cols<P>(f, fc);
-    rowdot(e.a, fc, af);
-#pragma unroll
-    for (int h = 0; h < H; ++h) ur[h] = e.qr[h] - af[h];
-    to_cols<P>(ur, uc);
-    return c;
-  }
-
-  // F <- (a F^T) a^T + u u^T / c, ic = 1 / c.
-  __device__ static void step_f(Frag<P, P>& F, const El& e, const Acc (&ur)[H],
-                                const Acc (&uc)[H][2], Acc ic) {
-    Frag<P, P> Z;
-    xzt(e.a, F, Z);
-    xzt(Z, e.a, F);
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) F.v[k][h][jj] += ur[h] * uc[k][jj] * ic;
-  }
-
-  // The element folded after the running value (the rank-one step).
-  __device__ static void fold(Run& x, const El& e) {
-    Acc ur[H], uc[H][2], w[H], wc[H][2];
-    const Acc ic = Acc(1) / emit(x.F, e, ur, uc);
-    rowdot(x.At, e.pc, w);  // w = A^T p
-    to_cols<P>(w, wc);
-    Frag<P, P> T;
-    xzt(x.At, e.a, T);
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          x.At.v[k][h][jj] = T.v[k][h][jj] - w[h] * uc[k][jj] * ic;
-          x.G.v[k][h][jj] -= w[h] * wc[k][jj] * ic;
-        }
-    step_f(x.F, e, ur, uc, ic);
-  }
-
-  // The running value into a map in shared memory.
-  __device__ static void store(const Run& x, Acc* map) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
-          map[c * LM + r] = x.At.v[k][h][jj];
-          map[r * LM + P + c] = x.F.v[k][h][jj];
-          map[r * LM + 2 * P + c] = x.G.v[k][h][jj];
-        }
-    __syncwarp();
-  }
-
-  // The walk's state F from shared memory, and one step of the walk.
-  struct State {
-    Frag<P, P> F;
-  };
-  __device__ static void load_state(const Acc* s, State& x) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) x.F.v[k][h][jj] = s[(8 * h + g) * LS + 8 * k + 2 * t + jj];
-  }
-  __device__ static void walk(State& x, const El& e) {
-    Acc ur[H], uc[H][2];
-    const Acc ic2 = Acc(1) / emit(x.F, e, ur, uc);
-    step_f(x.F, e, ur, uc, ic2);
-  }
-  // The state as element i's output, over its staged a (the lane's own
-  // entries of a, which it has read).
-  template <typename S>
-  __device__ __forceinline__ void put(const State& x, S* st, int LD, int i) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < H; ++k)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int r = 8 * h + g, c = 8 * k + 2 * t + jj;
-          if (r < m && c < m) st[(1 + 2 * m + r * m + c) * LD + i] = S(x.F.v[k][h][jj]);
-        }
-  }
-  // Output row q of the tile's staged component: the state entry q.
-  __device__ int out_comp(int q) const { return 1 + 2 * m + q; }
-  __device__ int out_rows() const { return m * m; }
-
-  // The identity map, by one warp.
-  __device__ static void identity_map(Acc* map) {
-    for (int p = threadIdx.x & 31; p < kMap; p += 32) {
-      const int r = p / LM, c = p % LM;
-      map[p] = c == r ? Acc(1) : Acc(0);
-    }
-    __syncwarp();
-  }
-
-  // out = the Moebius merge of the earlier map e and the later l
-  // (cuda_loglik._ric_combine): with W = (I + F_e G_l)^-1,
-  //   A = A_l (W A_e),  F = F_l + (A_l (W F_e)) A_l^T,
-  //   G = G_e + (A_e^T (W^T G_l)) A_e.
-  // out aliases neither e nor l; Wb: kScratch values.
-  template <class LR>
-  __device__ void merge(const Acc* e, LR l, Acc* out, Acc* Wb) const {
-    const SmemRd es{e};
-    smm<P, P, P>(es.at(P), LM, 1, l.at(2 * P), LM, 1, Wb, LW, (const SmemRd*)nullptr, 0, true);
-    for (int p = threadIdx.x & 31; p < P * P; p += 32) Wb[(p / P) * LW + P + p % P] = p / P == p % P;
-    __syncwarp();
-    warp_gj<P>(Wb, LW, m);
-    const SmemRd W{Wb + P};
-    smm<P, P, P>(W, 1, LW, l.at(2 * P), LM, 1, out + 2 * P, LM);      // W^T G_l
-    smm<P, 2 * P, P>(W, LW, 1, es, LM, 1, out, LM);                    // W [A_e | F_e]
-    smm<P, 2 * P, P>(l, LM, 1, SmemRd{out}, LM, 1, out, LM);           // [A | A_l W F_e]
-    smm<P, P, P>(es, 1, LM, SmemRd{out + 2 * P}, LM, 1, Wb + P, LW);  // A_e^T W^T G_l
-    const LR Fl = l.at(P);
-    smm<P, P, P>(SmemRd{out + P}, LM, 1, l, 1, LM, out + P, LM, &Fl, LM);  // F
-    const SmemRd Ge = es.at(2 * P);
-    smm<P, P, P>(SmemRd{Wb + P}, LW, 1, es, LM, 1, out + 2 * P, LM, &Ge, LM);  // G
-  }
-
-  // The look-back's merge of runs of tiles (mono_lookback): the same.
-  template <class LR>
-  __device__ void merge_lb(const Acc* e, LR l, Acc* out, Acc* Wb) const { merge(e, l, out, Wb); }
-
-  // out = the state X after the map (cuda_loglik._ric_apply):
-  // F + A ((I + X G)^-1 X) A^T. out may alias X, not map; Wb: kScratch.
-  __device__ void apply(const Acc* map, const Acc* X, Acc* out, Acc* Wb) const {
-    const SmemRd mp{map};
-    smm<P, P, P>(SmemRd{X}, LS, 1, mp.at(2 * P), LM, 1, Wb, LW, (const SmemRd*)nullptr, 0, true);
-    for (int p = threadIdx.x & 31; p < P * P; p += 32) Wb[(p / P) * LW + P + p % P] = X[(p / P) * LS + p % P];
-    __syncwarp();
-    warp_gj<P>(Wb, LW, m);
-    smm<P, P, P>(mp, LM, 1, SmemRd{Wb + P}, LW, 1, Wb, LW);  // A Y
-    const SmemRd F = mp.at(P);
-    smm<P, P, P>(SmemRd{Wb}, LW, 1, mp, 1, LM, out, LS, &F, LM);
-  }
-};
-
-// Shared memory of a one-launch Riccati, affine or congruence block, in bytes: per
+// Shared memory of a one-launch Riccati, affine, congruence or coupling block, in bytes: per
 // team three maps, the merge's scratch and a state; the look-back's Q, GA
 // and a window map; the tile's start and two states; then the staged tile
 // of `comps` components.
@@ -809,25 +558,8 @@ inline int mono_sub(int comps, int bytes) {
 
 // Bulk copies between global and shared memory (the Tensor Memory
 // Accelerator's non-tensor form), for the one-launch scans' staging and
-// write-out, and 16-byte cp.async.
+// write-out (16-byte cp.async is in quasisep_tc.cuh).
 constexpr int kBulkRowBytes = 512;  // the shortest staged row copied in bulk
-
-template <typename T>
-__device__ __forceinline__ bool aligned16(const T* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 bytes (both addresses 16-byte aligned) from device to shared
-// memory asynchronously, through L2 only.
-template <typename S>
-__device__ __forceinline__ void cp_async16(S* dst, const S* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
 
 __device__ __forceinline__ void bulk_bar_init(unsigned long long* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
@@ -888,7 +620,7 @@ __device__ __forceinline__ void bulk_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-// One tile of a one-launch Riccati, affine or congruence scan (the block's part of
+// One tile of a one-launch Riccati, affine, congruence or coupling scan (the block's part of
 // cpl_tile_kernel's design, over Op): the ticket, staging, the teams'
 // folds in registers, the in-tile scan, the look-back, the walk from each
 // team's start, and the coalesced write-out of the states.
@@ -942,6 +674,11 @@ __device__ __forceinline__ void mono_tile(Op op, long long n, int r, int reverse
                     : in.x1 + ((long long)(q / op.cols) * r + col0 + q % op.cols) * n;
     } else if constexpr (Op::kKind == gCong) {
       return c < m * m ? in.x0 + (long long)c * n : in.x1 + (long long)(c - m * m) * n;
+    } else if constexpr (Op::kKind == gCpl) {
+      const int ob = m * m, oc = ob + op.cols * op.cols;
+      return c < ob   ? in.x0 + (long long)c * n
+             : c < oc ? in.x1 + (long long)(c - ob) * n
+                      : in.x2 + (long long)(c - oc) * n;
     } else {
       return c == 0       ? in.x0
              : c <= m     ? in.x1 + (long long)(c - 1) * n
@@ -1080,6 +817,18 @@ cong_tile_kernel(int m, long long n, int reverse, int inclusive, GIn<S> in, S* o
   mono_tile(op, n, 1, reverse, inclusive, 1, 1, in, out, work, lay, sub);
 }
 
+// B3's coupling whose larger order is 9..16 (both padded to 16), forward or
+// reverse, exclusive or inclusive: (A, B, C) in, (m m2, n) out.
+template <typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+cpl_tc_tile_kernel(int m, int m2, long long n, int reverse, int inclusive, GIn<S> in, S* out,
+                   Acc* work, ChainLayout lay, int sub) {
+  CplOp<16, true> op;
+  op.m = m;
+  op.cols = m2;
+  mono_tile(op, n, 1, reverse, inclusive, 1, 1, in, out, work, lay, sub);
+}
+
 // A one-launch scan's plan: padded order, columns a group, groups, the
 // elements of a team, its maps' and states' sizes and its shared memory.
 struct MonoPlan {
@@ -1097,11 +846,13 @@ inline void mono_fill(MonoPlan& p, int comps, int bytes) {
 
 inline MonoPlan mono_plan(const GSpec& s, int bytes) {
   MonoPlan p;
-  p.P = s.m <= 8 ? 8 : 16;
+  p.P = s.kind == gCpl || s.m > 8 ? 16 : 8;
   p.rc = s.kind == gAff ? (s.r <= kAffCols8 ? kAffCols8 : kAffCols16) : 1;
   p.groups = (s.r + p.rc - 1) / p.rc;
   const int cols = s.r < p.rc ? s.r : p.rc, m = s.m;
-  if (s.kind == gRic) {
+  if (s.kind == gCpl) {
+    mono_fill<CplOp<16, true>>(p, m * m + s.m2 * s.m2 + m * s.m2, bytes);
+  } else if (s.kind == gRic) {
     if (p.P == 8) mono_fill<RicOp<8>>(p, 1 + 2 * m + m * m, bytes);
     else mono_fill<RicOp<16>>(p, 1 + 2 * m + m * m, bytes);
   } else if (s.kind == gCong) {
@@ -1133,6 +884,9 @@ cudaError_t mono_run(const GSpec& s, long long n, int reverse, int inclusive, co
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)(lay.nt * p.groups));
   const int threads = 32 * kMonoTeams;
+  if (s.kind == gCpl)
+    return g_launch(cpl_tc_tile_kernel<S>, grid, threads, p.smem, st, s.m, s.m2, n, reverse,
+                    inclusive, in, out, work, lay, p.sub);
   if (s.kind == gRic)
     return p.P == 8 ? g_launch(ric_tile_kernel<8, S>, grid, threads, p.smem, st, s.m, n, in, out,
                                work, lay, p.sub)
@@ -1153,8 +907,9 @@ cudaError_t mono_run(const GSpec& s, long long n, int reverse, int inclusive, co
 #undef AFF_RUN
 }
 
-// Workspace of a scan, in Acc; for the one-launch coupling the larger of
-// the two storage types' layouts (their tiles differ).
+// Workspace of a scan, in Acc: the larger of the two storage types' layouts
+// (their tiles differ); -1 for what no kernel here takes (the orders that
+// quasisep_scan.cu's templates and quasisep_wide.cu take).
 inline long long workspace_elems(const GSpec& s, long long n) {
   long long a, b;
   if (cpl_one_launch(s)) {
@@ -1164,7 +919,7 @@ inline long long workspace_elems(const GSpec& s, long long n) {
     a = mono_layout(s, n, 4).total;
     b = mono_layout(s, n, 8).total;
   } else {
-    return g_workspace_elems(s, n);
+    return -1;
   }
   return a > b ? a : b;
 }
@@ -1175,7 +930,8 @@ int scan(int kind, int m, int m2, long long n, int r, int reverse, int inclusive
          long long work_elems, void* stream) {
   if (!g_valid(kind, m, m2, n, r)) return (int)cudaErrorInvalidValue;
   const GSpec s = g_spec(kind, m, m2, r);
-  if (work_elems < workspace_elems(s, n)) return (int)cudaErrorInvalidValue;
+  const long long need = workspace_elems(s, n);
+  if (need < 0 || work_elems < need) return (int)cudaErrorInvalidValue;
   const GIn<S> in{x0, x1, x2, x3};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cpl_one_launch(s)) {
@@ -1183,45 +939,50 @@ int scan(int kind, int m, int m2, long long n, int r, int reverse, int inclusive
     if (lay.nt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     return (int)cpl_run<S>(s, n, reverse, inclusive, in, out, work, lay, st);
   }
-  if (mono_one_launch(s))
-    return (int)mono_run<S>(s, n, reverse, inclusive, in, out, work,
-                            mono_layout(s, n, (int)sizeof(S)), st);
-  return (int)g_run<S, S>(s, n, reverse, inclusive, in, out, work, st);
+  return (int)mono_run<S>(s, n, reverse, inclusive, in, out, work, mono_layout(s, n, (int)sizeof(S)),
+                          st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace of a scan, in float64 elements; -1 for what the engine does not
-// take. kind: 0 affine, 1 congruence, 2 Riccati, 3 coupling; m2 is the
-// coupling's second order (m for the other kinds); r the affine columns.
+// Workspace of a scan, in float64 elements; -1 for what this source does not
+// take (quasisep_scan.cu's orders). kind: 0 affine, 1 congruence, 2 Riccati,
+// 3 coupling; m2 is the coupling's second order (m for the other kinds); r
+// the affine columns.
 long long qsg_workspace_elems(int kind, int m, int m2, long long n, int r) {
   if (!g_valid(kind, m, m2, n, r)) return -1;
   return workspace_elems(g_spec(kind, m, m2, r), n);
 }
 
-// The one-launch coupling's association for operands of `bytes` bytes:
-// elements per tile and per team into tile[0], sub[0]; returns 0, or -1
-// where the orders run the three-phase engine.
+// A coupling's association for operands of `bytes` bytes: elements per
+// tile and per team into tile[0], sub[0]; returns 0, or -1 where this
+// source does not take the orders.
 int qsg_cpl_schedule(int m, int m2, int bytes, int* tile, int* sub) {
-  if (!g_valid(gCpl, m, m2, 1, 1) || !cpl_one_launch(g_spec(gCpl, m, m2, 1)) ||
-      (bytes != 4 && bytes != 8))
+  if (!g_valid(gCpl, m, m2, 1, 1) || (bytes != 4 && bytes != 8)) return -1;
+  const GSpec s = g_spec(gCpl, m, m2, 1);
+  if (cpl_one_launch(s)) {
+    *sub = cpl_sub(m, m2, bytes);
+    *tile = kCplTeams * *sub;
+  } else if (mono_one_launch(s)) {
+    *sub = mono_plan(s, bytes).sub;
+    *tile = kMonoTeams * *sub;
+  } else {
     return -1;
-  *sub = cpl_sub(m, m2, bytes);
-  *tile = kCplTeams * *sub;
+  }
   return 0;
 }
 
-// The one-launch Riccati, affine or congruence scan's association for operands of
-// `bytes` bytes: elements per tile, per team and affine columns per group
-// into tile[0], sub[0], cols[0]; returns 0, or -1 where the scan runs the
-// three-phase engine.
+// The Riccati, affine or congruence scan's association above m = 4 for
+// operands of `bytes` bytes: elements per tile, per team and affine columns
+// per group into tile[0], sub[0], cols[0]; returns 0, or -1 where this
+// source does not take the scan.
 int qsg_scan_schedule(int kind, int m, int r, int bytes, int* tile, int* sub, int* cols) {
-  if (!g_valid(kind, m, m, 1, r) || !mono_one_launch(g_spec(kind, m, m, r)) ||
-      (bytes != 4 && bytes != 8))
-    return -1;
-  const MonoPlan p = mono_plan(g_spec(kind, m, m, r), bytes);
+  if (!g_valid(kind, m, m, 1, r) || kind == gCpl || (bytes != 4 && bytes != 8)) return -1;
+  const GSpec s = g_spec(kind, m, m, r);
+  if (!mono_one_launch(s)) return -1;
+  const MonoPlan p = mono_plan(s, bytes);
   *sub = p.sub;
   *tile = kMonoTeams * p.sub;
   *cols = p.rc;

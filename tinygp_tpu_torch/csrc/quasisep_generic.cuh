@@ -1,14 +1,12 @@
 // The generic-order monoid scan engine on Hopper (sm_90a): the scans of B1
-// and B1r above m = 4, those of B2 above m = 16, and of kernel B3 its
-// couplings above order 8 and its Riccati flow, affine and congruence
-// scans at 17 <= m <= 32. The rest of B3 above the templated orders runs in
-// one launch in quasisep_generic.cu: the couplings up to order 8
-// (cpl_tile_kernel) and the Riccati flow, affine and congruence scans at
-// m = 5..16 (ric_tile_kernel, aff_tile_kernel, cong_tile_kernel, on the
-// float64 tensor cores); B2 up to m = 16 in quasisep_loglik_generic.cu
-// (b2_warp_kernel to m = 8, b2_tc_kernel above). Included by
-// quasisep_tc.cuh, and so by quasisep_generic.cu (B3's entries) and
-// quasisep_loglik_generic.cu.
+// and B1r above m = 4 and those of B2 above m = 16
+// (quasisep_loglik_generic.cu). Kernel B3 no longer runs it: above the
+// templated orders every B3 scan is one launch, in quasisep_generic.cu up
+// to order 16 and quasisep_wide.cu above; B2 up to m = 16 is one launch in
+// quasisep_loglik_generic.cu (b2_warp_kernel to m = 8, b2_tc_kernel
+// above). Also the generic sources' shared pieces (GSpec, GIn, g_spec,
+// g_valid, g_launch). Included by quasisep_tc.cuh, and so by
+// quasisep_generic.cu, quasisep_wide.cu and quasisep_loglik_generic.cu.
 //
 // Why not quasisep_scan.cu's kernel at a larger m. There each thread keeps
 // one monoid value in registers and a Kogge-Stone pass runs over a shared

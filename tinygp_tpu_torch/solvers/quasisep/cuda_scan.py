@@ -5,9 +5,10 @@ Counterpart of ``tinygp_tpu/solvers/quasisep/pallas_scan.py``. Kernel B3
 replaces ``pallas_scan._scan_kernel``, the TPU's exclusive monoid scan,
 forward or reverse, with pruned outputs, at any order. It has two CUDA
 sources: ``csrc/quasisep_scan.cu``, templated for m = 1..4 (the coupling
-for two equal orders up to 4), and the generic-order engine
-``csrc/quasisep_generic.cu``, which takes the order at run time, for every
-other order up to 32 and any pair of coupling orders. One
+for two equal orders up to 4), and the generic-order sources, which take
+the order at run time: ``csrc/quasisep_generic.cu`` for every other order
+up to 16 and ``csrc/quasisep_wide.cu`` for the orders 17..32 (the
+coupling's larger order). One
 wrapper per monoid, each on stacked operands (components first, the data
 axis last, as :mod:`~tinygp_tpu_torch.solvers.quasisep.scan` lays them
 out):
@@ -35,16 +36,17 @@ they run their float32 products in full float32
 ``torch.func.vmap`` each ``Function`` runs once for each element of the
 batch (one launch each on the card).
 
-Up to m = 4 (the coupling's two equal orders), for the coupling of any
-two orders up to 8, and for the Riccati flow, the affine scan and the
-congruence scan at m = 5..16, a scan is one kernel and one memset of its
-flags: tiles taken by a ticket, a deterministic look-back.
-:func:`b3_schedule` gives its tiles, and :func:`plain_scan_tiled` repeats
-its association in plain PyTorch. Couplings above order 8 and every other
-monoid above 16 run the generic source's three-phase engine.
+Every scan up to order 32 is one kernel and one memset of its flags: tiles
+taken by a ticket, a deterministic look-back. Up to m = 4 (the coupling's
+two equal orders) the templated kernel; the coupling of any two orders up
+to 8 a warp a team; the Riccati flow, the affine and the congruence scans
+at m = 5..16 and the couplings whose larger order is 9..16 a warp a team on
+the float64 tensor cores; every monoid at m = 17..32 (the coupling's
+larger order) a block a team on them. :func:`b3_schedule` gives the tiles,
+and :func:`plain_scan_tiled` repeats the association in plain PyTorch.
 
 Every launch adds one to :data:`LAUNCHES` under its monoid's name, and a
-launch of the generic engine also to :data:`LAUNCHES_GENERIC`.
+launch of the generic-order source also to :data:`LAUNCHES_GENERIC`.
 """
 
 from __future__ import annotations
@@ -74,11 +76,11 @@ LAUNCHES = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Calls that launched kernel B3, by monoid (one per call of its C entry,
 which enqueues one kernel and a memset, or the engine's passes)."""
 LAUNCHES_GENERIC = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
-"""Of those, the calls that went to the generic-order engine."""
+"""Of those, the calls that went to the generic-order source."""
 
 _KIND = {"aff": 0, "cong": 1, "ric": 2, "cpl": 3}
 _MAX_M = 4  # the templated kernel's orders
-_MAX_CPL_M = 8  # the generic source's one-launch coupling
+_MAX_CPL_M = 8  # the coupling a warp a team (cpl_tile_kernel) takes
 _MAX_GENERIC_M = 32
 _MAX_COLUMNS = 65535
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -111,7 +113,7 @@ def _library() -> ctypes.CDLL:
 
 @functools.cache
 def _generic_library() -> ctypes.CDLL:
-    """The generic-order engine's library, built at first use."""
+    """The generic-order source's library, built at first use."""
     lib = cuda_build.library("quasisep_generic")
     lib.qsg_workspace_elems.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
     lib.qsg_workspace_elems.restype = ctypes.c_longlong
@@ -132,6 +134,26 @@ def _generic_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _wide_library() -> ctypes.CDLL:
+    """The generic-order source above order 16, built at first use."""
+    lib = cuda_build.library("quasisep_wide")
+    lib.qsw_workspace_elems.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
+    lib.qsw_workspace_elems.restype = ctypes.c_longlong
+    for suffix in _DTYPES.values():
+        fn = getattr(lib, f"qsw_scan_{suffix}")
+        fn.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    lib.qsw_schedule.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.qsw_schedule.restype = ctypes.c_int
+    lib.qsw_error_string.argtypes = [ctypes.c_int]
+    lib.qsw_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
 
@@ -141,9 +163,8 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
     stream with a float64 workspace, and return the ``(out_rows, N)``
     output; raise on anything the kernel does not take. ``m2`` is the
     coupling's second order. Orders up to 4 (the coupling's equal) go to
-    the templated kernel, the rest to the generic-order source (whose C
-    entry runs the couplings up to order 8, and the Riccati flow and the
-    affine and congruence scans at m = 5..16, in one launch)."""
+    the templated kernel, the rest up to 16 to ``quasisep_generic.cu`` and
+    above to ``quasisep_wide.cu``; each is one launch."""
     m2 = m if m2 is None else m2
     ref = operands[0]
     n = ref.shape[-1]
@@ -174,7 +195,11 @@ def _launch(monoid, m, r, reverse, inclusive, operands, out_rows, m2=None):
     out = ref.new_empty(out_rows, n)
     ptrs = [x.data_ptr() for x in operands] + [None] * (4 - len(operands))
     with torch.cuda.device(ref.device):
-        if generic:
+        if max(m, m2) > _MONO_M[1]:
+            lib, prefix = _wide_library(), "qsw"
+            head = (kind, m, m2)
+            work_elems = lib.qsw_workspace_elems(kind, m, m2, n, r)
+        elif generic:
             lib, prefix = _generic_library(), "qsg"
             head = (kind, m, m2)
             work_elems = lib.qsg_workspace_elems(kind, m, m2, n, r)
@@ -428,23 +453,29 @@ _CPL_TEAMS = 4  # warp teams a tile of the one-launch coupling
 _CPL_STAGE_BYTES = 32 * 1024
 _CPL_RUN = 8  # look-back aggregates a warp of the coupling folds
 # The generic source's one-launch Riccati flow, affine and congruence scans
-# (m = 5..16): 4 warp teams a tile, maps padded to 8 x 8 or 16 x 16, the
-# affine columns in groups of 8 (r <= 8) or 16; a staged tile (each
-# component's row its values and 16 bytes) of at most _MONO_STAGE_CAP bytes
-# and what a block's 227 KB of shared memory leaves beside its maps.
+# (m = 5..16) and couplings (larger order 9..16): 4 warp teams a tile, maps
+# padded to 8 x 8 or 16 x 16 (the coupling's always 16), the affine columns
+# in groups of 8 (r <= 8) or 16; a staged tile (each component's row its
+# values and 16 bytes) of at most _MONO_STAGE_CAP bytes and what a block's
+# 227 KB of shared memory leaves beside its maps. Above order 16 (m = 17..32,
+# the coupling's larger order): a tile of _WIDE_TILE elements (the Riccati
+# flow's twice that), one team.
 _MONO_M = (5, 16)
 _MONO_FOLD = (4, 16)  # look-back runs of 4 tiles, 4 warps a group of 16
 _MONO_STAGE_CAP = 104 * 1024
 _SMEM_BLOCK = 232448
+_WIDE_TILE = 32
 
 
 def _mono_fixed_bytes(monoid: str, pad: int, cols: int) -> int:
-    """Shared memory of a one-launch Riccati, affine or congruence block
-    beside its staged tile (``csrc/quasisep_generic.cu``:
+    """Shared memory of a one-launch Riccati, affine, congruence or coupling
+    block beside its staged tile (``csrc/quasisep_generic.cu``:
     ``mono_fixed_bytes``): per team three maps, the merge's scratch and a
     state; three maps and three states for the tile."""
     if monoid == "ric":
         mp, st, scr = pad * (3 * pad + 4), pad * (pad + 4), pad * (2 * pad + 4)
+    elif monoid == "cpl":
+        mp, st, scr = pad * (3 * pad + 4), pad * (pad + 4), pad * (pad + 4)
     elif monoid == "cong":
         mp, st, scr = pad * (2 * pad + 4), pad * (pad + 4), pad * (pad + 4)
     else:
@@ -470,11 +501,13 @@ def b3_schedule(
     coupling of ``csrc/quasisep_generic.cu``: a warp a team, 4 a tile, the
     largest of 32, 16, 8 whose tile fits 32 KB, a warp a run of 8, four
     runs a look-back group of 32 tiles), or as ``(runs, group)`` (its
-    Riccati flow, affine and congruence scans at m = 5..16: the same, the
-    largest of 32 down to 1 whose tile fits beside the block's maps, four
-    warps folding runs of 4 tiles, a group of 16). None where the scan runs the
-    three-phase engine. The C entries ``qss_schedule``,
-    ``qsg_cpl_schedule`` and ``qsg_scan_schedule`` report the tiles."""
+    Riccati flow, affine and congruence scans at m = 5..16 and couplings
+    whose larger order is 9..16: the same, the largest of 32 down to 1
+    whose tile fits beside the block's maps, four warps folding runs of 4
+    tiles, a group of 16; above order 16 a team of the whole tile, 32
+    elements or the Riccati flow's 64, the same fold). None above order 32.
+    The C entries ``qss_schedule``, ``qsg_cpl_schedule``,
+    ``qsg_scan_schedule`` and ``qsw_schedule`` report the tiles."""
     m2 = m if m2 is None else m2
     nbytes = torch.empty((), dtype=dtype).element_size()
     if m == m2 and m <= _MAX_M:
@@ -487,16 +520,20 @@ def b3_schedule(
         while sub > 8 and comps * (_CPL_TEAMS * sub + 1) * nbytes > _CPL_STAGE_BYTES:
             sub //= 2
         return _CPL_TEAMS * sub, sub, _CPL_RUN
-    if monoid != "cpl" and _MONO_M[0] <= m <= _MONO_M[1]:
-        pad = 8 if m <= 8 else 16
+    big = max(m, m2)
+    if _MONO_M[0] <= big <= _MONO_M[1]:
+        pad = 16 if monoid == "cpl" or m > 8 else 8
         cols = 8 if r <= 8 else 16
         comps = {"ric": 1 + 2 * m + m * m, "cong": 2 * m * m,
-                 "aff": m * m + m * min(r, cols)}[monoid]
+                 "aff": m * m + m * min(r, cols), "cpl": m * m + m2 * m2 + m * m2}[monoid]
         room = min(_MONO_STAGE_CAP, _SMEM_BLOCK - _mono_fixed_bytes(monoid, pad, cols) - 1024)
         sub = 32
         while sub > 1 and comps * (_CPL_TEAMS * sub * nbytes + 16) > room:
             sub //= 2
         return _CPL_TEAMS * sub, sub, _MONO_FOLD
+    if _MONO_M[1] < big <= _MAX_GENERIC_M:
+        tile = 2 * _WIDE_TILE if monoid == "ric" else _WIDE_TILE
+        return tile, tile, _MONO_FOLD
     return None
 
 
