@@ -11,22 +11,25 @@ Phases, each printing its numbers on lines of its own:
    ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
    kernel of ``csrc/dense_tc.cu`` (with its GEMM's tiles, stages and
    dynamic shared memory), ``dense_syrk.cu`` and the B1-B2 sources
-   ``quasisep_loglik_bwd.cu`` and ``quasisep_loglik_generic.cu``;
+   ``quasisep_loglik_bwd.cu``, ``quasisep_loglik_generic.cu`` and
+   ``quasisep_loglik_wide.cu``;
 2. each kernel against its plain PyTorch version on random operands
-   (m = 1..4, and 5, 8, 16 and 24 through the generic-order source, at
-   N = 17,161 in float64 and float32; m = 1..4 at N = 1e5 in both; m = 2
-   at N = 1e6 in both): B1 (the log-likelihood),
+   (m = 1..4, and 5, 8, 9, 16, 20, 24 and 32 through the generic-order
+   sources, at N = 17,161 in float64 and float32; m = 1..4 at N = 1e5 in
+   both; m = 2 at N = 1e6 in both): B1 (the log-likelihood),
    B1r (with the residuals a gradient needs) and B2 (the backward, on
    B1r's residuals, with random scalar cotangents; a second launch equal
-   bit for bit); at m <= 4 also B1 and B1r against their one launch's
-   association in plain PyTorch, each repeated bit for bit. Before it, the
-   process's first ``torch.profiler`` traces: a B1 and a B1r call at
-   m = 1..4 (N = 1e5, float32 and float64) are one kernel and one memset
-   each, and so is each B3 scan at m = 1..4 (the affine scan with 1 and
-   16 columns, the congruence, the Riccati flow, the coupling), each
-   coupling (2, 4), (4, 8), (6, 6), (8, 8), and at m = 5, 8, 12 and 16 the
-   Riccati flow, the affine scan with 1 and 16 columns and the reverse
-   congruence scan, and a B2 call at m = 9, 12 and 16; the main path's,
+   bit for bit); at m <= 4, 5 and 9 also B1 and B1r against their one
+   launch's association in plain PyTorch, each repeated bit for bit.
+   Before it, the process's first ``torch.profiler`` traces: a B1 and a
+   B1r call at m = 1..4 and 5, 9, 16, 20, 32 (N = 1e5, above 16
+   N = 17,161; float32 and float64) are one kernel and one memset each,
+   and so is each B3 scan at
+   m = 1..4 (N = 17,161: the affine scan with 1 and 16 columns, the
+   congruence, the Riccati flow, the coupling), each coupling (2, 4),
+   (4, 8), (6, 6), (8, 8), and at m = 5, 8, 12 and 16 the Riccati flow,
+   the affine scan with 1 and 16 columns and the reverse congruence scan,
+   and a B2 call at m = 9, 12, 16, 20 and 32; the main path's,
    gradient path's and trainer's calls below are traced too (no other
    kernel, no more than one launch a call);
 3. the kernel path's ``log_probability`` and its float64 gradient against
@@ -54,7 +57,7 @@ Phases, each printing its numbers on lines of its own:
    inclusive, with 1 and 8 columns; congruence forward and reverse; the
    Riccati flow; the coupling forward and reverse), m = 1..4 at N = 17,161
    in float64 and float32 and m = 2 at N = 1e6; and the generic-order
-   source at m = 5, 6, 8, 12 and 16 (every monoid, both directions and
+   source at m = 5, 8, 12 and 16 (every monoid, both directions and
    outputs, 1 and 8 columns), the congruence at every m = 5..16 in both
    directions and the couplings (2, 4), (4, 8) and (6, 6), at N = 17,161
    in float64 and float32, with its launches counted and each one-launch
@@ -70,7 +73,9 @@ Phases, each printing its numbers on lines of its own:
    at 1000 points and ``sample(generator, (16,))``, with B3's launches by
    monoid counted over the run and no plain scan on the card; the log
    probability against B1's; the float64 variance on the card against the
-   float64 plain version on the CPU; CUDA-event times of each entry point,
+   float64 plain version on the CPU; the float32 mean and variance (the
+   float64 twin's, C8) within 5e-4 of the card's float64 ones, none
+   negative; CUDA-event times of each entry point,
    and of B3 per monoid at the path's shapes beside its bound and its
    plain version;
 10. the dense path's kernels against their plain versions in float64 on
@@ -127,7 +132,10 @@ Phases, each printing its numbers on lines of its own:
     its gradient in four hyperparameters and 20 ``fit_map`` steps; the
     same sum with the 2-term celerite (m = 9): its value and its gradient
     in six hyperparameters, one B1r and one B2 launch (B2's tensor-core
-    kernel) a gradient, timed; in
+    kernel) a gradient, timed; the order-20 asteroseismic model (two
+    granulation terms and a comb of eight modes, ``sum20_kernel``): its
+    value, its gradient in six hyperparameters and 5 ``fit_map`` steps,
+    one B1r and one B2 launch (the block-a-team kernels) a gradient; in
     float64 the posterior processes (order 8, 12 and 16) of Matern32,
     Matern52 and the 2-term celerite, ``log_probability`` and ``sample``,
     with their default jitter at N = 1e5 (reported: the reference's O(N)
@@ -135,12 +143,10 @@ Phases, each printing its numbers on lines of its own:
     generic-order launches counted over the path, each held to its plain
     version on the path's well-posed operands and timed beside its bound
     (B2 repeated bit for bit, one launch a call); B1, B1r and B2 at
-    m = 8, 9, 12 and 16 on random operands against their plain versions,
-    timed beside their bounds; the float64 entry points (the m = 5 and
-    m = 9 sums' values and gradients) against the CPU's plain version; then the
-    generic B1 and B1r at m = 5 (N = 1e5 and 1e6) whole and pass by pass
-    (a ``torch.profiler`` trace) and B3's generic Riccati flow at m = 5, 8
-    and 16;
+    m = 8, 9, 12, 16 and 32 on random operands against their plain
+    versions, timed beside their bounds; the float64 entry points (the
+    m = 5, 9 and 20 models' values and gradients at N = 5000, the order-20
+    model's within 1e-9 and 1e-6) against the CPU's plain version;
 17. B1, B1r and B2 with a chain axis (one launch for every chain): at
     (chains, N, m) = (1024, 512, 2) in float32 with the data shared by every
     chain and not, (64, 1e5, 2) in float32 and (16, 4096, 4) in float64,
@@ -223,7 +229,7 @@ The line before the last is a JSON record of every kernel (B3 with one
 record per monoid and shape of the conditioning path; B4 with and without
 its side products, B5 at either order and B6 each summed over the shapes of
 the dense main path; B7 at 1e4; one record per generic-order instantiation
-of phase 16, and B1, B1r and B2 at m = 5 and 9; B1, B1r and B2 with a chain
+of phase 16, and B1, B1r and B2 at m = 5, 9 and 20; B1, B1r and B2 with a chain
 axis at the sampler's shape, with their launches on phases 18-20's and 25's
 paths;
 B1, B1r, B2 and B3 with CARMA's launches added, and B3 with phase 22's,
@@ -239,9 +245,8 @@ calls, through entry points older trees share: copied into a parent
 commit's checkout, it times the parent's kernels in the same chip call.
 ``python3 chip_smoke.py --riccati-panel-times`` does the same for B5's
 3-term order per panel shape (beside a float64 ``matmul``), the
-generic-order B1/B1r at m = 5 whole and pass by pass, B3's generic
-Riccati flow, and the ill-conditioned dense ``log_probability`` at
-N = 1e4. ``python3 chip_smoke.py --b2-times`` does the same for B2 (the
+generic-order B1, B1r and B2 (as ``--b1-times generic``), and the
+ill-conditioned dense ``log_probability`` at N = 1e4. ``python3 chip_smoke.py --b2-times`` does the same for B2 (the
 Matern32 gradient's operands at N = 1e5 and 1e6, the m = 5 sum's at 1e5,
 random m = 8 operands at 1e5): CUDA-event times, the passes of a
 ``torch.profiler`` trace, two launches compared bit for bit, B1 and B1r
@@ -249,7 +254,9 @@ on the same operands, and the whole gradient calls.
 ``python3 chip_smoke.py --b1-times`` does the same for B1 and B1r at
 m <= 4 (Matern32 at N = 1e5 and 1e6, SHO and the 2-term celerite at 1e5)
 and the whole Matern32 value and gradient calls, every CUDA-event time
-taken before any trace. ``python3 chip_smoke.py --b3-times`` does the same
+taken before any trace; ``--b1-times generic`` for B1, B1r and B2 above
+m = 4 (the m = 5, 9 and 20 models' operands, random ones at m = 8, 16 and
+32, N = 1e5). ``python3 chip_smoke.py --b3-times`` does the same
 for B3: the Matern32 conditioning path's scans at N = 1e5, the m = 2
 scans at 1e6, Matern52's and the celerite's couplings (6, 6) and (8, 8),
 the couplings (2, 2) and (4, 4) through either source, and the whole
@@ -424,8 +431,9 @@ def phase_build():
     libs = cuda_build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for stem in ("dense_tc", "dense_syrk", "quasisep_loglik", "quasisep_loglik_bwd",
-                 "quasisep_loglik_generic", "gram"):
-        log_ptxas(stem)
+                 "quasisep_loglik_generic", "quasisep_loglik_wide", "gram"):
+        if stem in libs:  # a parent tree, timed with this script, may lack one
+            log_ptxas(stem)
 
 
 def log_ptxas(stem, only=None):
@@ -534,11 +542,13 @@ def phase_kernel_vs_plain():
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
-    # m = 1..4 run the templated kernels, 5, 8 and 16 the generic-order
-    # source (B2 there in one launch: its warp kernel up to 8, its
-    # tensor-core kernel above), 24 its sequence.
-    cases = [(m, N_LONG, torch.float64, 1e-8) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
-    cases += [(m, N_LONG, torch.float32, 5e-4) for m in (1, 2, 3, 4, 5, 8, 16, 24)]
+    # m = 1..4 run the templated kernels, 5..16 the generic-order source
+    # (B1 and B1r on the float64 tensor cores, B2's warp kernel up to 8 and
+    # its tensor-core kernel above), 17..32 the block-a-team source; each in
+    # one launch.
+    orders = (1, 2, 3, 4, 5, 8, 9, 16, 20, 24, 32)
+    cases = [(m, N_LONG, torch.float64, 1e-8) for m in orders]
+    cases += [(m, N_LONG, torch.float32, 5e-4) for m in orders]
     cases += [(m, 100_000, torch.float32, 5e-4) for m in (1, 2, 3, 4)]
     # At 1e6 the headline order only (m = 1, 3 and 4 at 1e6 took about a
     # minute of plain versions; they are held at 1e5 and N_LONG above).
@@ -560,22 +570,27 @@ def phase_kernel_vs_plain():
         if not ok:
             failures.append(("B1", m, n, dtype))
 
-        # B1r: the same sums as B1, and residuals that match the plain ones.
+        # B1r: the same sums as B1, and residuals that match the plain ones;
+        # a second launch of each equal bit for bit.
         res = cuda_loglik.fused_loglik_res(*args)
         plain_res = cuda_loglik.plain_loglik_terms_res(*args)
         same = [float(x) for x in res[:2]] == got
+        repeats = all(torch.equal(a, b) for a, b in zip(
+            (*cuda_loglik.fused_loglik_terms(*args), *cuda_loglik.fused_loglik_res(*args)),
+            (*got_t, *res)))
         errs = stream_errors(res, plain_res)
-        ok = same and max(e for e, _ in errs) <= rtol and all(
+        ok = same and repeats and max(e for e, _ in errs) <= rtol and all(
             bool(torch.isfinite(x).all()) for x in res
         )
         log(
             f"kernel-vs-plain B1r m={m} N={n} {str(dtype)[6:]}: sums equal B1's "
             f"{same}, rel err per stream (quad, logdet, F, e, 1/c) "
-            f"{[f'{e:.2e}' for e, _ in errs]} (rtol {rtol:g}) {'ok' if ok else 'FAIL'}"
+            f"{[f'{e:.2e}' for e, _ in errs]} (rtol {rtol:g}), a second launch of B1 and "
+            f"B1r equal bit for bit {repeats} {'ok' if ok else 'FAIL'}"
         )
         if not ok:
             failures.append(("B1r", m, n, dtype))
-        if m <= 4:
+        if m <= 4 or m in (5, 9):
             # The one launch: B1 and B1r against their association in plain
             # PyTorch, in float64 on the same values; repeated bit for bit.
             tile, sub = cuda_loglik.b1_schedule(m, dtype)
@@ -588,7 +603,7 @@ def phase_kernel_vs_plain():
             ok = max(e for e, _ in terrs) <= rtol and same
             log(
                 f"kernel-vs-plain one-launch B1/B1r m={m} N={n} {str(dtype)[6:]}: against the "
-                f"tiled plain version in float64 (tile {tile}, {sub} a thread) rel err per "
+                f"tiled plain version in float64 (tile {tile}, {sub} a team) rel err per "
                 f"stream {[f'{e:.2e}' for e, _ in terrs]} (rtol {rtol:g}); a second launch of "
                 f"each equal bit for bit {same} {'ok' if ok else 'FAIL'}"
             )
@@ -964,9 +979,9 @@ def matern32_grad_f64_kernels(X, y):
 
 
 def b2_launch_checks(bwd_args, bars):
-    """B2 launched again on ``bwd_args`` gives ``bars`` bit for bit; and at
-    m <= 16, from a ``torch.profiler`` trace, one call is one kernel launch
-    and at most one memset. Returns (same bits, (one launch, report))."""
+    """B2 launched again on ``bwd_args`` gives ``bars`` bit for bit; and,
+    from a ``torch.profiler`` trace, one call is one kernel launch and at
+    most one memset. Returns (same bits, (one launch, report))."""
     import torch
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
@@ -977,8 +992,7 @@ def b2_launch_checks(bwd_args, bars):
         return same, (True, "device operations per call not measured (no device time "
                             "in the trace)")
     kernels = [k for k in split if not k.startswith("Memset")]
-    one = bwd_args[0].shape[0] > 16 or (
-        len(kernels) == 1 and all(per <= 1 for _, per in split.values()))
+    one = len(kernels) == 1 and all(per <= 1 for _, per in split.values())
     return same, (one, f"{per_call:g} device operations per call ("
                        + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items())
                        + ")")
@@ -1008,10 +1022,9 @@ def b1_one_launch(fn, alone=True):
     """From a ``torch.profiler`` trace of calls of ``fn``: whether no call
     launches the one-launch B1/B1r kernel (``b1_tile_kernel``) more than
     once and, alone (a B1 or B1r call), nothing but it and at most one
-    memset; or, for a call that does more (a fit step), none of the old
-    multi-pass forward's kernels. Returns that and the trace's report. A
-    trace taken late in a long process drops events (seen: 1 of 5 calls'),
-    so this is the check after :func:`phase_b1_launches`'s exact counts."""
+    memset. Returns that and the trace's report. A trace taken late in a
+    long process drops events (seen: 1 of 5 calls'), so this is the check
+    after :func:`phase_b1_launches`'s exact counts."""
     split, per_call = kernel_split(fn)
     if split is None:
         return True, "device operations per call not measured (no device time in the trace)"
@@ -1019,18 +1032,33 @@ def b1_one_launch(fn, alone=True):
     one = all(per <= 1 for k, (_, per) in split.items() if "b1_tile_kernel" in k)
     if alone:
         one = one and all(k.startswith("Memset") and split[k][1] <= 1 for k in rest)
-    else:
-        one = one and not any(old in k for k in rest for old in (
-            "ric_chunk", "aff_chunk", "finish_chunk", "reduce_partials"))
     return one, (f"{per_call:g} device operations per call ("
                  + ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()) + ")")
 
 
+# B1 and B1r's one-launch kernels above m = 4 (quasisep_loglik_generic.cu
+# up to 16, quasisep_loglik_wide.cu above), as phase_b1_launches traces
+# them: their names by order and storage type.
+B1_TRACED_GENERIC_ORDERS = (5, 9, 16, 20, 32)
+
+
+def b1_kernel_name(m, dtype):
+    import torch
+
+    t = "float" if dtype == torch.float32 else "double"
+    if m <= 16:
+        return f"b1_tc_kernel<{8 if m <= 8 else 16}, {t}>"
+    return f"b1_wide_kernel<{24 if m <= 24 else 32}, {t}>"
+
+
 def phase_b1_launches():
-    """B1 and B1r at m = 1..4 in float32 and float64 (random operands,
-    N = 1e5): one call of each is exactly one ``b1_tile_kernel`` launch
-    and one memset in a ``torch.profiler`` trace. Run first, in eight
-    traces, while the process's traces still hold every event; a
+    """B1 and B1r at m = 1..4 and 5, 9, 16, 20, 32 in float32 and float64
+    (random operands, N = 1e5; above m = 16 N = 17,161, as B3's traces
+    above 16: with GB of operands allocated a trace lost launches five times
+    running): one call of each is exactly one kernel launch
+    (``b1_tile_kernel`` at m <= 4, ``b1_tc_kernel`` to 16,
+    ``b1_wide_kernel`` above) and one memset in a ``torch.profiler``
+    trace. Run first, while the process's traces still hold every event; a
     trace short of the counts with nothing else in it is taken again (at
     most ``TRACE_TRIES`` traces)."""
     import torch
@@ -1039,10 +1067,14 @@ def phase_b1_launches():
 
     failures = []
     for dtype in (torch.float32, torch.float64):
-        for m in (1, 2, 3, 4):
-            args = random_operands(m, 100_000, dtype, seed=m)
-            want = {f"b1_tile_kernel<{'float' if dtype == torch.float32 else 'double'}, {m}, "
-                    f"{res}>": 1.0 for res in ("false", "true")}
+        for m in (1, 2, 3, 4) + B1_TRACED_GENERIC_ORDERS:
+            n = 100_000 if m <= 16 else N_LONG
+            args = random_operands(m, n, dtype, seed=m)
+            if m <= 4:
+                want = {f"b1_tile_kernel<{'float' if dtype == torch.float32 else 'double'}, "
+                        f"{m}, {res}>": 1.0 for res in ("false", "true")}
+            else:
+                want = {b1_kernel_name(m, dtype): 2.0}
             want["Memset"] = 2.0
             for attempt in range(TRACE_TRIES):
                 split, per_call = kernel_split(lambda: (cuda_loglik.fused_loglik_terms(*args),
@@ -1053,11 +1085,13 @@ def phase_b1_launches():
                     break
             shown = ("no device time in the trace" if split is None else
                      ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()))
-            log(f"b1-launches m={m} N=100000 {str(dtype)[6:]}: a B1 call and a B1r call, "
+            log(f"b1-launches m={m} N={n} {str(dtype)[6:]}: a B1 call and a B1r call, "
                 f"{per_call:g} device operations ({shown}){retraced(attempt)} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append((m, dtype))
+            del args
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"B1/B1r is not one kernel and one memset a call: {failures}")
 
@@ -1136,7 +1170,9 @@ def phase_b3_launches():
     every set)."""
     import torch
 
-    n, failures = 100_000, []
+    # The templated sets at N_LONG, to leave the script's time to the
+    # generic orders' traces.
+    n, failures = N_LONG, []
     sets = [(f"m={m}", ("b3_tile_kernel",), n, lambda m=m: [
         (monoid, m, m, r, rev, incl, scan_operands(monoid, m, n, r, dtype, seed=m))
         for dtype in (torch.float32, torch.float64)
@@ -1170,15 +1206,16 @@ def phase_b3_launches():
         raise AssertionError(f"B3 is not one kernel and one memset a scan: {failures}")
 
 
-B2_TRACED_ORDERS = (9, 12, 16)
+B2_TRACED_ORDERS = (9, 12, 16, 20, 32)
 
 
 def phase_b2_launches():
-    """B2 at m = 9, 12 and 16 in float32 and float64 (random operands and
-    B1r's residuals, N = 1e5): one call is exactly one ``b2_tc_kernel``
-    launch and one memset in a ``torch.profiler`` trace, as
-    :func:`phase_b1_launches` traces B1 (a trace short of the counts with
-    nothing else in it is taken again)."""
+    """B2 at m = 9, 12, 16, 20 and 32 in float32 and float64 (random
+    operands and B1r's residuals, N = 1e5; N = 17,161 above 16, as
+    :func:`phase_b1_launches`): one call is exactly one ``b2_tc_kernel``
+    launch (``b2_wide_kernel`` above 16) and one memset in a
+    ``torch.profiler`` trace, as :func:`phase_b1_launches` traces B1 (a
+    trace short of the counts with nothing else in it is taken again)."""
     import torch
 
     from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
@@ -1186,12 +1223,14 @@ def phase_b2_launches():
     failures = []
     for dtype in (torch.float32, torch.float64):
         for m in B2_TRACED_ORDERS:
-            args = random_operands(m, 100_000, dtype, seed=m)
+            n = 100_000 if m <= 16 else N_LONG
+            args = random_operands(m, n, dtype, seed=m)
             res = cuda_loglik.fused_loglik_res(*args)
             qbar, lbar = (torch.tensor(v, dtype=dtype, device="cuda") for v in (-0.5, -1.0))
             bwd_args = (*args[1:], *res[2:], qbar, lbar)
-            want = {f"b2_tc_kernel<{'float' if dtype == torch.float32 else 'double'}>": 1.0,
-                    "Memset": 1.0}
+            t = "float" if dtype == torch.float32 else "double"
+            want = {(f"b2_tc_kernel<{t}>" if m <= 16 else
+                     f"b2_wide_kernel<{24 if m <= 24 else 32}, {t}>"): 1.0, "Memset": 1.0}
             for attempt in range(TRACE_TRIES):
                 split, per_call = kernel_split(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args))
                 got = None if split is None else {k: per for k, (_, per) in split.items()}
@@ -1200,7 +1239,7 @@ def phase_b2_launches():
                     break
             shown = ("no device time in the trace" if split is None else
                      ", ".join(f"{k} {ms:.4f} ms x {per:g}" for k, (ms, per) in split.items()))
-            log(f"b2-launches m={m} N=100000 {str(dtype)[6:]}: a B2 call, {per_call:g} device "
+            log(f"b2-launches m={m} N={n} {str(dtype)[6:]}: a B2 call, {per_call:g} device "
                 f"operations ({shown}){retraced(attempt)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append((m, dtype))
@@ -1430,10 +1469,10 @@ SCAN_VARIANTS = [
 ]
 
 
-# The generic-order engine: a subset of the variants above at each order
+# The generic-order sources: a subset of the variants above at each order
 # (every monoid, both directions, both outputs, 1 and 8 columns), and the
 # coupling of unequal orders.
-GENERIC_ORDERS = (5, 6, 8, 12, 16)
+GENERIC_ORDERS = (5, 8, 12, 16)
 GENERIC_SCAN_VARIANTS = [
     ("aff", False, False, 1),
     ("aff", True, True, 8),
@@ -1761,16 +1800,24 @@ def phase_condition_path():
     var_own = rel_max(var_card, var_cpu)
     loc_err = rel_max(card[1].loc.cpu(), cpu[1].loc)
     lp64_err = rel_err(card[0].item(), cpu[0].item())
-    f32_err = rel_max(var32.double().cpu(), var_card)
-    f64_ok = max(var_err, loc_err, lp64_err) <= 1e-8 and float(var_card.min()) > 0
+    # C8: the float32 process conditions through its float64 twin, so its
+    # mean and variance at the training points hold to the card's float64
+    # ones within 5e-4 of their largest magnitudes, and no variance is
+    # negative (in float32 arithmetic the variance was 0.60 off at 1e4).
+    f32_var = rel_max(var32.double().cpu(), var_card)
+    f32_loc = rel_max(loc.double().cpu(), card[1].loc.cpu())
+    f32_ok = max(f32_var, f32_loc) <= 5e-4 and float(var32.min()) > 0
+    f64_ok = (max(var_err, loc_err, lp64_err) <= 1e-8 and float(var_card.min()) > 0
+              and f32_ok)
     log(
         f"condition-path matern32 N={n} float64: card against the plain version on "
         f"the CPU: variance {var_err:.2e} of the largest prior variance {scale!r} "
         f"({var_own:.2e} of its own largest magnitude {float(np.max(np.abs(var_cpu)))!r}), "
         f"loc {loc_err:.2e}, log prob {lp64_err:.2e} (limit 1e-8); posterior variance "
-        f"in [{float(var_card.min())!r}, {float(var_card.max())!r}]; the float32 "
-        f"variance against the float64 one {f32_err:.2e} of its largest magnitude "
-        f"{'ok' if f64_ok else 'FAIL'}"
+        f"in [{float(var_card.min())!r}, {float(var_card.max())!r}]; C8: the float32 "
+        f"variance and mean against the card's float64 ones {f32_var:.2e}, {f32_loc:.2e} of "
+        f"their largest magnitudes (limit 5e-4), smallest float32 variance "
+        f"{float(var32.min())!r} {'ok' if f64_ok else 'FAIL'}"
     )
 
     # Each entry point alone: its B3 launches and its CUDA-event time.
@@ -1901,6 +1948,44 @@ def sum9_value_and_grad(X, y):
     return lp.detach(), torch.autograd.grad(lp, p)
 
 
+def sum20_kernel(p):
+    """The asteroseismic background-plus-modes model of the celerite paper
+    (Foreman-Mackey et al. 2017, AJ 154, 220), as tests/test_torch_orders.py
+    builds it: two granulation terms ``SHO(quality=1/sqrt(2))`` (the second
+    at three times the first's frequency and half its amplitude) and a comb
+    of eight modes ``SHO(omega0 + k domega, Q)``, k = 0..7, their
+    amplitudes under a Gaussian envelope: order 20. ``p = (gran_amp,
+    gran_omega, height, omega0, domega, Q)``."""
+    from tinygp_tpu_torch.kernels import quasisep
+
+    gran = 1.0 / math.sqrt(2.0)
+    kernel = (p[0] * quasisep.SHO(omega=p[1], quality=gran)
+              + (0.5 * p[0]) * quasisep.SHO(omega=3.0 * p[1], quality=gran))
+    for k in range(8):
+        envelope = math.exp(-0.5 * ((k - 3.5) / 2.0) ** 2)
+        kernel = kernel + (p[2] * envelope) * quasisep.SHO(omega=p[3] + k * p[4], quality=p[5])
+    return kernel
+
+
+def sum20_gp(X, p):
+    from tinygp_tpu_torch import GaussianProcess
+
+    return GaussianProcess(sum20_kernel(p), X, diag=0.1, assume_sorted=True, device=X.device.type)
+
+
+SUM20_PARAMS = (0.8, 1.2, 0.6, 12.0, 1.4, 15.0)
+SUM20_NAMES = ("gran_amp", "gran_omega", "height", "omega0", "domega", "quality")
+
+
+def sum20_value_and_grad(X, y):
+    import torch
+
+    p = [torch.tensor(v, dtype=X.dtype, device=X.device, requires_grad=True)
+         for v in SUM20_PARAMS]
+    lp = sum20_gp(X, p).log_probability(y)
+    return lp.detach(), torch.autograd.grad(lp, p)
+
+
 # B3's launches of the sums' condition(y), by (monoid, m, m2, reverse): the
 # prior's Riccati flow, the mean's affine scans, the forward couplings of
 # order m and the reverse coupling of order 2m that (L^-1 M).gram() runs
@@ -1962,8 +2047,8 @@ def dense_condition(kernel, X, y, diag):
 def orders_path(X, y, X_test, generator):
     """The slice's float32 entry points at orders above 4, in the order a
     user calls them; returns every output by name, the generic B1, B1r
-    and B2 launches of the m = 9 sum's gradient call, and the B3 launches
-    of the m = 5 and m = 9 sums' ``condition(y)``."""
+    and B2 launches of the m = 9 and m = 20 models' gradient calls, and
+    the B3 launches of the m = 5 and m = 9 sums' ``condition(y)``."""
     import torch
 
     from tinygp_tpu_torch import GaussianProcess, fit_map
@@ -1993,6 +2078,20 @@ def orders_path(X, y, X_test, generator):
     before = dict(cuda_loglik.LAUNCHES_GENERIC)
     out["sum9"] = (value, *sum9_value_and_grad(X, y)[1])
     grad9_launches = count_diff(cuda_loglik.LAUNCHES_GENERIC, before)
+    # The order-20 model: value, gradient in six hyperparameters, 5 fit_map
+    # steps (B1r and B2 through the block-a-team kernels).
+    with torch.no_grad():
+        value = sum20_gp(X, SUM20_PARAMS).log_probability(y)
+    before = dict(cuda_loglik.LAUNCHES_GENERIC)
+    out["sum20"] = (value, *sum20_value_and_grad(X, y)[1])
+    grad_launches = {9: grad9_launches, 20: count_diff(cuda_loglik.LAUNCHES_GENERIC, before)}
+
+    def loss20(params):
+        return -sum20_gp(X, [torch.exp(params[k]) for k in SUM20_NAMES]).log_probability(y)
+
+    res = fit_map(loss20, {k: math.log(v) for k, v in zip(SUM20_NAMES, SUM20_PARAMS)},
+                  num_steps=5, learning_rate=0.01, dtype=X.dtype, device=dev)
+    out["sum20_fit"] = (res.losses, res.loss)
 
     def loss_fn(params):
         return -sum5_gp(X, [torch.exp(params[k]) for k in ("amp1", "omega", "amp2", "scale")]
@@ -2001,7 +2100,7 @@ def orders_path(X, y, X_test, generator):
     init = {k: math.log(v) for k, v in zip(("amp1", "omega", "amp2", "scale"), SUM5_PARAMS)}
     res = fit_map(loss_fn, init, num_steps=20, learning_rate=0.05, dtype=X.dtype, device=dev)
     out["sum5_fit"] = (res.losses, res.loss)
-    return out, grad9_launches, condition_launches
+    return out, grad_launches, condition_launches
 
 
 def matern32_kernel():
@@ -2043,7 +2142,10 @@ def phase_orders_path():
     ``condition``; ``1.2 * SHO + 1.5 * Matern52`` (m = 5): value, gradient
     in its four hyperparameters, 20 ``fit_map`` steps, and the value at
     N = 1e6; the same sum with the 2-term celerite (m = 9): value and
-    gradient in six hyperparameters. Float64: the posterior processes of Matern32, Matern52 and the
+    gradient in six hyperparameters; the order-20 asteroseismic model
+    (``sum20_kernel``): value, gradient in six hyperparameters and 5
+    ``fit_map`` steps, and in float64 at N = 5000 against the CPU's plain
+    path (value 1e-9, gradient 1e-6). Float64: the posterior processes of Matern32, Matern52 and the
     2-term celerite (order 8, 12 and 16), ``log_probability`` and
     ``sample``, with their default 1.49e-8 jitter at N = 1e5, and given
     ``diag=1e-3`` at N = 5000 (every 20th point), where the O(N) algorithm
@@ -2070,8 +2172,8 @@ def phase_orders_path():
     n = X.shape[0]
     t0 = time.perf_counter()
 
-    # The path, once, with the generic engine's launches recorded with their
-    # operands.
+    # The path, once, with the generic-order kernels' launches recorded with
+    # their operands.
     calls = {}
     launch = cuda_scan._launch
     loglik_calls = {}  # B1 ("qsl_loglik"), B1r and B2 launches by (prefix, m)
@@ -2091,7 +2193,7 @@ def phase_orders_path():
     cuda_loglik._launch = recording_loglik
     try:
         reset_counts()
-        out, grad9_launches, condition_launches = orders_path(
+        out, grad_launches, condition_launches = orders_path(
             X, y, X_test, torch.Generator(device="cuda").manual_seed(0))
         with torch.no_grad():
             out["sum5_n1e6"] = (sum5_gp(X_1e6, SUM5_PARAMS).log_probability(y_1e6),)
@@ -2124,14 +2226,21 @@ def phase_orders_path():
                      for seen in condition_launches.values() for mo, m, m2, _ in seen)
     condition_ok = condition_launches == SUM_CONDITION_LAUNCHES and one_launch
     losses = [float(x) for x in out["sum5_fit"][0]]
+    losses20 = [float(x) for x in out["sum20_fit"][0]]
+    # Order 20: one B1 (the value), and one B1r and one B2 a gradient (the
+    # gradient call and the 5 fit_map steps).
+    calls20 = {prefix: loglik_calls.get((prefix, 20), 0)
+               for prefix in ("qsl_loglik", "qsl_loglik_res", "qsl_loglik_bwd")}
     moved = (
         all(scan_counts[k] > 0 for k in ("aff", "ric", "cpl"))
-        and loglik_counts["b1"] == 3 and loglik_counts["b1r"] >= 22 and loglik_counts["b2"] >= 22
-        and grad9_launches == {"b1r": 1, "b2": 1}
+        and loglik_counts["b1"] == 4 and loglik_counts["b1r"] >= 28 and loglik_counts["b2"] >= 28
+        and grad_launches[9] == {"b1r": 1, "b2": 1} and grad_launches[20] == {"b1r": 1, "b2": 1}
         and loglik_calls.get(("qsl_loglik_bwd", 9)) == 1
+        and calls20 == {"qsl_loglik": 1, "qsl_loglik_res": 6, "qsl_loglik_bwd": 6}
     )
     path_ok = (all(finite.values()) and shapes and moved and condition_ok and order36_raises
-               and float(out["sum5_fit"][1]) < losses[0])
+               and float(out["sum5_fit"][1]) < losses[0]
+               and float(out["sum20_fit"][1]) < losses20[0])
     jitter_report = {
         k: f"log prob {v[0].item()!r}, draws finite {bool(torch.isfinite(v[1]).all())}"
         for k, v in jittered.items()
@@ -2145,7 +2254,10 @@ def phase_orders_path():
         f"gradient {[float(g) for g in out['sum5'][1:]]}, fit_map losses {losses[0]!r} -> "
         f"{losses[-1]!r}, value at N=1e6 {out['sum5_n1e6'][0].item()!r}; sum9 (m = 9) value "
         f"{out['sum9'][0].item()!r}, gradient {[float(g) for g in out['sum9'][1:]]} "
-        f"(generic launches of the gradient call {grad9_launches}); condition(y) of sum5 and "
+        f"(generic launches of the gradient call {grad_launches[9]}); sum20 (m = 20) value "
+        f"{out['sum20'][0].item()!r}, gradient {[float(g) for g in out['sum20'][1:]]} (generic "
+        f"launches of the gradient call {grad_launches[20]}), fit_map losses {losses20[0]!r} -> "
+        f"{losses20[-1]!r}, B1/B1r/B2 calls at m = 20 {calls20}; condition(y) of sum5 and "
         f"sum9: log prob {out['sum5_condition'][0].item()!r} / "
         f"{out['sum9_condition'][0].item()!r}, min variance "
         f"{float(out['sum5_condition'][2].min())!r} / {float(out['sum9_condition'][2].min())!r}, "
@@ -2165,16 +2277,16 @@ def phase_orders_path():
     )
 
     # The float64 entry points on the card against the CPU's plain float64
-    # path: the m = 5 and m = 9 sums' values and gradients and Matern52's
-    # posterior mean and variance at N = 1e5 (the variance within 1e-8 of
-    # the largest prior variance, as the conditioning phase holds
-    # Matern32's).
+    # path: the m = 5 and m = 9 sums' values and gradients at N = 5000
+    # (every 20th point) and Matern52's posterior mean
+    # and variance at N = 1e5 (the variance within 1e-8 of the largest
+    # prior variance, as the conditioning phase holds Matern32's).
     t1 = time.perf_counter()
     Xc, yc = X64.cpu(), y64.cpu()
     errs = {}
     for tag, value_and_grad in (("sum5", sum5_value_and_grad), ("sum9", sum9_value_and_grad)):
-        card_v, card_g = value_and_grad(X64, y64)
-        cpu_v, cpu_g = value_and_grad(Xc, yc)
+        card_v, card_g = value_and_grad(Xs, ys)
+        cpu_v, cpu_g = value_and_grad(Xs.cpu(), ys.cpu())
         errs[f"{tag} value"] = rel_err(card_v.item(), cpu_v.item())
         errs.update({f"{tag} grad {i}": rel_err(float(a), float(b))
                      for i, (a, b) in enumerate(zip(card_g, cpu_g))})
@@ -2184,18 +2296,27 @@ def phase_orders_path():
         return GaussianProcess(matern52_kernel(), X, diag=0.1, assume_sorted=True,
                                device=X.device.type)
 
+    # The order-20 model in float64 at N = 5000 (every 20th point): value
+    # within 1e-9, gradient within 1e-6 of its largest entry.
+    card_v, card_g = sum20_value_and_grad(Xs, ys)
+    cpu_v, cpu_g = sum20_value_and_grad(Xs.cpu(), ys.cpu())
+    card_g, cpu_g = (torch.stack([g.double().cpu() for g in gs]) for gs in (card_g, cpu_g))
+    sum20_errs = (rel_err(card_v.item(), cpu_v.item()),
+                  float((card_g - cpu_g).abs().max() / cpu_g.abs().max()))
+    sum20_ok = sum20_errs[0] <= 1e-9 and sum20_errs[1] <= 1e-6
     card_post = m52(X64).condition(y64)[1]
     cpu_post = m52(Xc).condition(yc)[1]
     scale = float(m52(Xc).variance.abs().max())
     errs["matern52 loc"] = rel_max(card_post.loc.cpu(), cpu_post.loc)
     errs["matern52 variance"] = float(
         (card_post.variance.cpu() - cpu_post.variance).abs().max()) / scale
-    f64_ok = max(errs.values()) <= 1e-8
+    f64_ok = max(errs.values()) <= 1e-8 and sum20_ok
     log(
         f"orders-path float64, card against the CPU's plain version "
         f"({time.perf_counter() - t1:.1f} s): "
-        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit 1e-8) "
-        f"{'ok' if f64_ok else 'FAIL'}"
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit 1e-8); sum20 (m = 20) at "
+        f"N={Xs.shape[0]}: value {sum20_errs[0]:.2e} (limit 1e-9), gradient {sum20_errs[1]:.2e} "
+        f"of its largest entry (limit 1e-6) {'ok' if f64_ok else 'FAIL'}"
     )
 
     # The posteriors given diag=1e-3 (N = 5000) against a dense Cholesky of
@@ -2296,11 +2417,12 @@ def phase_orders_path():
         })
 
     # B1, B1r and B2 on the path's operands: the m = 5 sum's (B1 at 1e6,
-    # B1r and B2 at 1e5) and the m = 9 sum's (all at 1e5, B2 through its
-    # tensor-core kernel), each with its launches on the path.
+    # B1r and B2 at 1e5), the m = 9 sum's and the m = 20 model's (all at
+    # 1e5), each with its launches on the path.
     qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
     for m, gp_of, (X1, y1) in ((5, lambda X_: sum5_gp(X_, SUM5_PARAMS), (X_1e6, y_1e6)),
-                               (9, lambda X_: sum9_gp(X_, SUM9_PARAMS), (X, y))):
+                               (9, lambda X_: sum9_gp(X_, SUM9_PARAMS), (X, y)),
+                               (20, lambda X_: sum20_gp(X_, SUM20_PARAMS), (X, y))):
         with torch.no_grad():
             gp1 = gp_of(X1)
             ops1 = (*gp1.solver.ssm, (y1 - gp1.loc).contiguous())
@@ -2333,11 +2455,13 @@ def phase_orders_path():
             "b2": bwd_bound_ms(m, n, 4),
         }
         errs = {"b1": b1_err, "b1r": res_err, "b2": bwd_err}
+        src = "wide" if m > 16 else "generic"
         for key, prefix, name, replaces in (
-            ("b1", "qsl_loglik", f"quasisep_loglik_generic_m{m}", "pallas_loglik.py:86"),
-            ("b1r", "qsl_loglik_res", f"quasisep_loglik_res_generic_m{m}",
+            ("b1", "qsl_loglik", f"quasisep_loglik_{src}_m{m}", "pallas_loglik.py:86"),
+            ("b1r", "qsl_loglik_res", f"quasisep_loglik_res_{src}_m{m}",
              "pallas_loglik.py:86 residuals=True"),
-            ("b2", "qsl_loglik_bwd", f"quasisep_loglik_bwd_{'tc' if m > 8 else 'generic'}_m{m}",
+            ("b2", "qsl_loglik_bwd",
+             f"quasisep_loglik_bwd_{'wide' if m > 16 else 'tc' if m > 8 else 'generic'}_m{m}",
              "pallas_loglik.py:414"),
         ):
             launches = loglik_calls.get((prefix, m), 0)
@@ -2358,7 +2482,7 @@ def phase_orders_path():
             records.append({
                 "name": name,
                 "route": "cuda",
-                "source": "tinygp_tpu_torch/csrc/quasisep_loglik_generic.cu",
+                "source": f"tinygp_tpu_torch/csrc/quasisep_loglik_{src}.cu",
                 "replaces": f"tinygp_tpu/solvers/quasisep/{replaces}",
                 "launches": launches,
                 "max_abs_err": max(a for _, a in errs[key]),
@@ -2369,9 +2493,9 @@ def phase_orders_path():
                 "library_ms": None,
             })
         del gp1, ops1, gp5, ops5, res, bwd_args, bars
-    # B1, B1r and B2 at m = 8, 9, 12 and 16, on random operands at N = 1e5 in
-    # float32, beside their bounds (B2's tensor-core kernel above 8).
-    for m_hi in (8, 9, 12, 16):
+    # B1, B1r and B2 at m = 8, 9, 12, 16 and 32, on random operands at
+    # N = 1e5 in float32, beside their bounds.
+    for m_hi in (8, 9, 12, 16, 32):
         args = random_operands(m_hi, n, torch.float32, seed=m_hi)
         res = cuda_loglik.fused_loglik_res(*args)
         qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
@@ -2420,6 +2544,8 @@ def phase_orders_path():
         "sum9 condition": lambda: (lambda r: (r[0], r[1].loc, r[1].variance))(
             sum9_gp(X, SUM9_PARAMS).condition(y)),
         "sum9 gradient": lambda: sum9_value_and_grad(X, y),
+        "sum20 value": lambda: sum20_gp(X, SUM20_PARAMS).log_probability(y),
+        "sum20 gradient": lambda: sum20_value_and_grad(X, y),
         "celerite2 posterior (order 16, diag=1e-3, N=5000) log_probability": lambda: (
             GaussianProcess(celerite2(), Xs, diag=0.1, assume_sorted=True)
             .condition(ys, diag=1e-3)[1].log_probability(ys)),
@@ -3262,119 +3388,77 @@ def panel_f64_times():
 # belongs to the Riccati flow until its finish pass (or, in older trees,
 # the separate emission pass) has run in the call, and to the whitening
 # affine scan after it.
-LOGLIK_STAGES = ("ric chunk", "ric totals", "ric finish", "emit_pass", "aff chunk",
-                 "aff totals", "aff finish", "terms_pass", "g_reduce", "other")
-
-
-def loglik_split(fn, calls=5):
-    """Device microseconds per call of each pass of the generic B1/B1r
-    sequence, from a ``torch.profiler`` trace of ``calls`` calls of
-    ``fn``; None where the trace holds no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted(
-        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.time_range.start)
-    split = dict.fromkeys(LOGLIK_STAGES, 0.0)
-    ric_done = False
-    for e in kernels:
-        name, us = e.name, e.time_range.elapsed_us()
-        scan = "aff" if ric_done else "ric"
-        for key, stage in (("ric_chunk_pass", "ric chunk"), ("ric_finish_pass", "ric finish"),
-                           ("aff_chunk_pass", "aff chunk"), ("aff_finish_pass", "aff finish"),
-                           ("g_chunk_pass", f"{scan} chunk"), ("g_totals_pass", f"{scan} totals"),
-                           ("g_finish_pass", f"{scan} finish"), ("emit_pass", "emit_pass"),
-                           ("terms_pass", "terms_pass"), ("g_reduce", "g_reduce")):
-            if key in name:
-                break
-        else:
-            stage = "other"
-        split[stage] += us / calls
-        if "emit_pass" in name or "ric_finish_pass" in name:
-            ric_done = True
-        if "g_reduce" in name:
-            ric_done = False
-    return split if sum(split.values()) > 0 else None
-
-
 def generic_loglik_times():
-    """The generic-order B1 and B1r at m = 5 on the m = 5 sum's operands
-    (``1.2 * SHO + 1.5 * Matern52``, float32) at N = 1e5 and 1e6: the whole
-    call by CUDA events, each pass of the sequence from a profiler trace,
-    and the Riccati flow alone through B3's generic entry; B2 at m = 5 and
-    1e5; then B3's generic Riccati flow at m = 8 and 16 and its affine scan
-    with one column at m = 8 (forward and reverse) in float64 on random
-    operands at 1e5. B1, B1r and B2 are held to their float64 plain
-    versions (5e-4, the float32 limit). Returns {label: ms}."""
+    """``--b1-times generic``: kernels B1, B1r and B2 above m = 4 alone,
+    float32 at N = 1e5: on the path's operands (the m = 5 sum's, B1 and
+    B1r also at 1e6; the m = 9 sum's; the order-20 model's) and on random
+    operands at m = 8, 16 and 32. CUDA-event times first, then each call's
+    kernels and device time from a ``torch.profiler`` trace; two launches
+    compared bit for bit and each result held to its float64 plain version
+    (5e-4). Through entry points that older trees share, so that one chip
+    call can time this tree and its parent in turns. Returns {label: ms}."""
     import torch
 
-    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik, cuda_scan
+    from tinygp_tpu_torch.solvers.quasisep import cuda_loglik
 
+    from tinygp_tpu_torch import cuda_build
+
+    for stem in ("quasisep_loglik_generic", "quasisep_loglik_wide"):
+        if stem in cuda_build.build_all():  # a parent tree may lack one
+            log_ptxas(stem, only=r"^b[12]_")
     (X5, y5), (X6, y6) = bench_data()
-    out = {}
-    for Xn, yn in ((X5, y5), (X6, y6)):
-        X, y = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (Xn, yn))
-        n = X.shape[0]
+    data = {label: tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in xy)
+            for label, xy in (("1e5", (X5, y5)), ("1e6", (X6, y6)))}
+    cases = []
+    for label, gp_of, size, bwd in (
+            ("sum5", lambda X: sum5_gp(X, SUM5_PARAMS), "1e5", True),
+            ("sum5", lambda X: sum5_gp(X, SUM5_PARAMS), "1e6", False),
+            ("sum9", lambda X: sum9_gp(X, SUM9_PARAMS), "1e5", True),
+            ("sum20", lambda X: sum20_gp(X, SUM20_PARAMS), "1e5", True)):
+        X, y = data[size]
         with torch.no_grad():
-            gp = sum5_gp(X, SUM5_PARAMS)
-            ops = (*gp.solver.ssm, (y - gp.loc).contiguous())
-        want = cuda_loglik.plain_loglik_terms(*(x.double() for x in ops))
-        for key, fn in (("B1", cuda_loglik.fused_loglik_terms),
-                        ("B1r", cuda_loglik.fused_loglik_res)):
-            (rel_q, _), (rel_l, _) = stream_errors(fn(*ops)[:2], want)
-            if not max(rel_q, rel_l) <= 5e-4:
-                raise AssertionError(f"generic {key} at m = 5, N = {n} disagrees with float64: "
-                                     f"{rel_q:.3e} / {rel_l:.3e} (limit 5e-4)")
-            ms = cuda_ms(lambda: fn(*ops), reps=10, warmup=2)
-            split = loglik_split(lambda: fn(*ops))
-            out[f"{key} m=5 N={n}"] = ms
-            shown = ("not measured (no device time in the trace)" if split is None else
-                     ", ".join(f"{k} {v / 1e3:.4f}" for k, v in split.items() if v))
-            bound = loglik_bound_ms(5, n, 4, residuals=key == "B1r")[0]
-            log(f"generic-times {key} m=5 N={n} float32 [{CARD}]: {ms:.4f} ms, bound "
-                f"{bound:.4f} ms; against float64 plain rel {rel_q:.2e} / {rel_l:.2e} (limit "
-                f"5e-4) ok; split (ms per call): {shown}")
-        ric = cuda_ms(lambda: cuda_scan.riccati(*ops[:4]), reps=10, warmup=2)
-        out[f"ric m=5 N={n}"] = ric
-        log(f"generic-times B3 Riccati flow alone m=5 N={n} float32 [{CARD}]: {ric:.4f} ms")
-        if n == 100_000:
-            # B2, whose reverse affine scan has one column.
+            gp = gp_of(X)
+            ops = tuple(x.contiguous() for x in (*gp.solver.ssm, y - gp.loc))
+        cases.append((f"{label} m={ops[1].shape[0]} N={size}", ops, bwd))
+    for m in (8, 16, 32):
+        cases.append((f"random m={m} N=1e5", tuple(random_operands(m, 100_000, torch.float32,
+                                                                   seed=m)), True))
+    out = {}
+    for label, ops, bwd in cases:
+        m, n = ops[1].shape
+        with torch.no_grad():
             res = cuda_loglik.fused_loglik_res(*ops)
-            bwd_args = (*ops[1:], *res[2:], *(torch.ones((), device="cuda") for _ in range(2)))
-            plain = cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args))
-            worst = max(rel for rel, _ in stream_errors(cuda_loglik.fused_loglik_bwd(*bwd_args),
-                                                        plain))
-            if not worst <= 5e-4:
-                raise AssertionError(f"generic B2 at m = 5 disagrees with float64: {worst:.3e}")
-            ms = cuda_ms(lambda: cuda_loglik.fused_loglik_bwd(*bwd_args), reps=10, warmup=2)
-            out[f"B2 m=5 N={n}"] = ms
-            log(f"generic-times B2 m=5 N={n} float32 [{CARD}]: {ms:.4f} ms, bound "
-                f"{bwd_bound_ms(5, n, 4)[0]:.4f} ms; against float64 plain rel {worst:.2e} "
-                f"(limit 5e-4) ok")
-            del res, bwd_args, plain
-        del X, y, gp, ops
-    for m in (8, 16):
-        args = random_operands(m, 100_000, torch.float64, seed=m)
-        ms = cuda_ms(lambda: cuda_scan.riccati(*args[:4]), reps=10, warmup=2)
-        out[f"ric m={m} N=100000 float64"] = ms
-        log(f"generic-times B3 Riccati flow m={m} N=100000 float64 [{CARD}]: {ms:.4f} ms, bound "
-            f"{scan_bound_ms('ric', m, 1, 100_000, 8)[0]:.4f} ms")
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    trans = torch.randn(64, 100_000, generator=gen, device="cuda", dtype=torch.float64) / 8
-    loads = torch.randn(8, 100_000, generator=gen, device="cuda", dtype=torch.float64)
-    for reverse in (False, True):
-        ms = cuda_ms(lambda: cuda_scan.affine(trans, loads, 8, 1, reverse=reverse, exclusive=True),
-                     reps=10, warmup=2)
-        out[f"aff m=8 r=1 reverse={reverse} N=100000 float64"] = ms
-        log(f"generic-times B3 affine m=8 r=1 reverse={reverse} N=100000 float64 [{CARD}]: "
-            f"{ms:.4f} ms, bound {scan_bound_ms('aff', 8, 1, 100_000, 8)[0]:.4f} ms")
+            qbar, lbar = (torch.tensor(v, device="cuda") for v in (-0.5, -1.0))
+            bwd_args = (*ops[1:], *res[2:], qbar, lbar)
+            calls = {"B1": lambda: cuda_loglik.fused_loglik_terms(*ops),
+                     "B1r": lambda: cuda_loglik.fused_loglik_res(*ops)}
+            if bwd:
+                calls["B2"] = lambda: cuda_loglik.fused_loglik_bwd(*bwd_args)
+            event_ms = {key: cuda_ms(fn, reps=10, warmup=2) for key, fn in calls.items()}
+            for key, fn in calls.items():
+                got, again = fn(), fn()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = (cuda_loglik.plain_loglik_bwd(*(x.double() for x in bwd_args)) if key == "B2"
+                        else cuda_loglik.plain_loglik_terms_res(*(x.double() for x in ops)))
+                worst = max(e for e, _ in stream_errors(got, want))
+                if not (worst <= 5e-4 and same):
+                    raise AssertionError(f"{key} at {label}: {worst:.3e} against float64, "
+                                         f"bit for bit {same}")
+                del got, again, want
+                split, per_call = kernel_split(fn)
+                device = ("not measured (no device time in the trace)" if split is None else
+                          f"{sum(ms * per for ms, per in split.values()):.4f} ms")
+                shown = ("" if split is None else
+                         ", ".join(f"{k} {ms:.4f} x {per:g}" for k, (ms, per) in split.items()))
+                bound = (bwd_bound_ms(m, n, 4) if key == "B2"
+                         else loglik_bound_ms(m, n, 4, residuals=key == "B1r"))[0]
+                out[f"{key} {label}"] = event_ms[key]
+                log(f"generic-times {key} {label} float32 [{CARD}]: events {event_ms[key]:.4f} ms, "
+                    f"device {device} (bound {bound:.4f} ms); {per_call:g} device operations per "
+                    f"call ({shown}); two launches equal bit for bit; against float64 plain "
+                    f"{worst:.2e} (limit 5e-4) ok")
+        del res, bwd_args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3425,8 +3509,8 @@ def ill_conditioned_errors(got, want, native):
 
 def riccati_panel_times():
     """``--riccati-panel-times``: B5's 3-term order per panel shape beside
-    float64 ``matmul``; the generic-order B1/B1r at m = 5 whole and by
-    pass, and B3's generic Riccati flow; the ill-conditioned dense
+    float64 ``matmul``; the generic-order B1, B1r and B2
+    (:func:`generic_loglik_times`); the ill-conditioned dense
     ``log_probability`` at N = 1e4 (``ExpSquared`` with the default
     jitter on ``bench.py``'s dense data, the 3-term order). Through entry
     points that older trees share, so that one chip call can time this
@@ -6171,6 +6255,9 @@ def main() -> int:
     if sys.argv[1:] == ["--b1-times"]:
         b1_times()
         return 0
+    if sys.argv[1:] == ["--b1-times", "generic"]:
+        generic_loglik_times()
+        return 0
     if sys.argv[1:] == ["--b3-times"]:
         b3_times()
         return 0
@@ -6244,7 +6331,6 @@ def main() -> int:
     phase_tf32()
     gram_record = phase_gram()
     generic_records = phase_orders_path()
-    generic_loglik_times()
     chain_records = phase_chain_kernels()
     sampler_launches = phase_sampler()
     advi_launches = phase_advi()
@@ -6263,7 +6349,9 @@ def main() -> int:
     grad_records["bwd"]["launches"] += carma_launches["b2"]
     by_name = {r["name"]: r for r in scan_records}
     for (monoid, m, r), count in carma_launches["b3"].items():
-        name = f"quasisep_scan_{monoid}_m{m}" + (f"_r{r}" if r > 1 else "")
+        # CARMA conditions in float64, as the float32 conditioning path
+        # does through its float64 twin (C7, C8).
+        name = f"quasisep_scan_{monoid}_m{m}" + (f"_r{r}" if r > 1 else "") + "_f64"
         if name not in by_name:
             raise AssertionError(f"CARMA's conditioning launched B3 {name}, which the "
                                  f"conditioning path's records do not hold")

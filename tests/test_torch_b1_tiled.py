@@ -1,4 +1,4 @@
-"""Kernels B1 and B1r's association on the card at m <= 4, in plain PyTorch
+"""Kernels B1 and B1r's association on the card, in plain PyTorch
 (``cuda_loglik.plain_loglik_terms_res_tiled``): tiles cut into teams, each
 team's rank-one Riccati fold and sequential whitening fold, the in-tile
 scans and the look-back over groups of tiles. Held against the JAX
@@ -22,6 +22,16 @@ from tinygp_tpu_torch.test_utils import assert_allclose, random_qsm_operands
 ORDERS = [1, 2, 3, 4]
 DTYPES = [torch.float64, torch.float32]
 _jax_sums = jax.jit(jops.stacked_loglik_terms)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: with several test workers, intra-op threads
+    made these loops of small products several times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def operands(m, n, seed, dtype=torch.float64):
@@ -124,10 +134,50 @@ def test_tiled_value_is_the_res_sums():
 
 
 def test_schedule_covers_the_one_launch_orders():
-    """Every order up to 4 has a schedule in both storage types, 64 teams
-    a tile; above 4 B1 and B1r run the generic sequence."""
-    for m in ORDERS:
+    """Every order up to 32 has a schedule in both storage types: 64 teams
+    a tile up to 4, four warp teams at 5..16 (up to 64 elements a team with
+    maps padded to 8, 64 at m = 5 in float32; up to 32 padded to 16, 27 at
+    m = 9 and 9 at m = 16 in float64), one team of 64 above; none above
+    32."""
+    for m in range(1, 33):
         for dtype in DTYPES:
             tile, sub = cuda_loglik.b1_schedule(m, dtype)
-            assert tile == 64 * sub and sub == (8 if m <= 2 else 4)
-    assert cuda_loglik.b1_schedule(5, torch.float32) is None
+            if m <= 4:
+                assert tile == 64 * sub and sub == (8 if m <= 2 else 4)
+            elif m <= 16:
+                assert tile == 4 * sub and 1 <= sub <= (64 if m <= 8 else 32)
+            else:
+                assert tile == sub == 64
+    assert cuda_loglik.b1_schedule(5, torch.float32) == (256, 64)
+    assert cuda_loglik.b1_schedule(9, torch.float64) == (108, 27)
+    assert cuda_loglik.b1_schedule(16, torch.float64) == (36, 9)
+    assert cuda_loglik.b1_schedule(33, torch.float32) is None
+
+
+# The one-launch kernels above m = 4: a warp a team on the float64 tensor
+# cores (m = 5, 9) and a block a team (m = 20), each chain's look-back in
+# groups of 16 tiles folded in runs of 4.
+NEW_ORDERS = [5, 9, 20]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("m", NEW_ORDERS)
+def test_generic_orders_across_look_back_groups_match_plain(m, dtype):
+    """N across a look-back group of 16 tiles (17 tiles and a ragged one)
+    at the card's schedule: every stream against the port's plain B1r
+    (1e-12 in float64; 5e-4 in float32, where the plain version scans in
+    float32)."""
+    tile = cuda_loglik.b1_schedule(m, dtype)[0]
+    _, args = operands(m, 17 * tile + 7, seed=120 + m, dtype=dtype)
+    assert_matches_plain(tiled(args, m), args, 1e-12 if dtype == torch.float64 else 5e-4)
+
+
+@pytest.mark.parametrize("m", NEW_ORDERS)
+@pytest.mark.parametrize("size", ["one", "below-tile", "tile", "tile+1"])
+def test_generic_orders_at_the_edges_of_tiles(m, size):
+    """N of one element, below one tile, one tile and one tile and one, in
+    float64 at the card's schedule, against plain B1r (1e-12)."""
+    tile = cuda_loglik.b1_schedule(m, torch.float64)[0]
+    n = {"one": 1, "below-tile": tile // 2 + 3, "tile": tile, "tile+1": tile + 1}[size]
+    _, args = operands(m, n, seed=130 + m + n)
+    assert_matches_plain(tiled(args, m), args, 1e-12)

@@ -145,14 +145,15 @@ def test_tiled_any_schedule_is_b2(tile, sub):
 
 
 def test_schedule_covers_the_one_launch_orders():
-    """Every order up to 16 has a schedule in both storage types, a whole
+    """Every order up to 32 has a schedule in both storage types, a whole
     number of teams a tile (24 elements at m = 16 in float64, 44 in
-    float32); above 16 B2 runs the generic sequence."""
-    for m in range(1, 17):
+    float32; above 16 one team of 32); none above 32."""
+    for m in range(1, 33):
         for dtype in (torch.float32, torch.float64):
             tile, sub = cuda_loglik.b2_schedule(m, dtype)
-            assert tile % sub == 0 and tile // sub in ((64,) if m <= 4 else (4,))
+            assert tile % sub == 0 and tile // sub in ((64,) if m <= 4 else (4,) if m <= 16 else (1,))
     assert cuda_loglik.b2_schedule(9, torch.float32) == (112, 28)
     assert cuda_loglik.b2_schedule(16, torch.float64) == (24, 6)
     assert cuda_loglik.b2_schedule(16, torch.float32) == (44, 11)
-    assert cuda_loglik.b2_schedule(17, torch.float32) is None
+    assert cuda_loglik.b2_schedule(17, torch.float32) == (32, 32)
+    assert cuda_loglik.b2_schedule(33, torch.float32) is None

@@ -499,7 +499,7 @@ def posterior_outputs(name, device, n=500):
 @pytest.mark.parametrize("name", sorted(HIGH_ORDER_MODELS))
 def test_posterior_factor_on_the_card_matches_cpu(cuda_device, name):
     """The posterior's own factor (order 4m) and the couplings of orders
-    above 4 run the generic engine on the card. Conditioning matches the
+    above 4 run the generic-order kernels on the card. Conditioning matches the
     CPU; the posterior's log probability and factor are held to a dense
     Cholesky of the same matrix no further than ten times the CPU's plain
     version (whose parallel composition of the order-4m maps loses digits
@@ -1131,7 +1131,7 @@ def test_generic_riccati_fold_on_the_card(cuda_device, m, dtype):
         assert all(torch.equal(a, b) for a, b in zip(value, cuda_loglik.fused_loglik_terms(*args)))
         assert all(torch.equal(a, b) for a, b in zip(res, cuda_loglik.fused_loglik_res(*args)))
         assert torch.equal(flow, cuda_scan.riccati(*args[:4]))
-        # The engine's flow against the sequential recurrence's in float64.
+        # The generic flow against the sequential recurrence's in float64.
         if n == 33:
             seq = scan.riccati_scan(*(x.double() for x in (
                 args[0], args[1].T, args[2].T, args[3].T.reshape(n, m, m))), parallel=False)
@@ -1143,7 +1143,7 @@ def test_generic_riccati_fold_on_the_card(cuda_device, m, dtype):
 # Kernel B2 in one launch: tiles by a ticket and a deterministic look-back.
 # ---------------------------------------------------------------------------
 
-B2_ORDERS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16]
+B2_ORDERS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 20, 32]
 
 
 @pytest.mark.cuda
@@ -1159,7 +1159,7 @@ def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
     import ctypes
 
     tile, sub = cuda_loglik.b2_schedule(m, dtype)
-    lib = cuda_loglik._bwd_library() if m <= 4 else cuda_loglik._generic_library()
+    lib = cuda_loglik._order_library(m, cuda_loglik._bwd_library)
     t, s = ctypes.c_int(), ctypes.c_int()
     nbytes = torch.empty((), dtype=dtype).element_size()
     assert lib.qsl_bwd_schedule(m, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0
@@ -1184,11 +1184,11 @@ def test_b2_one_launch_matches_plain_and_repeats(cuda_device, m, dtype):
 
 
 # ---------------------------------------------------------------------------
-# Kernels B1 and B1r in one launch at m <= 4: the forward's tiles by a ticket
-# and a deterministic look-back.
+# Kernels B1 and B1r in one launch at every order up to 32: the forward's
+# tiles by a ticket and a deterministic look-back.
 # ---------------------------------------------------------------------------
 
-B1_ORDERS = [1, 2, 3, 4]
+B1_ORDERS = [1, 2, 3, 4, 5, 9, 16, 20, 32]
 
 
 @pytest.mark.cuda
@@ -1206,7 +1206,7 @@ def test_b1_one_launch_matches_tiled_plain_and_repeats(cuda_device, m, dtype):
     import ctypes
 
     tile, sub = cuda_loglik.b1_schedule(m, dtype)
-    lib = cuda_loglik._library()
+    lib = cuda_loglik._order_library(m, cuda_loglik._library)
     t, s = ctypes.c_int(), ctypes.c_int()
     nbytes = torch.empty((), dtype=dtype).element_size()
     assert lib.qsl_fwd_schedule(m, nbytes, ctypes.byref(t), ctypes.byref(s)) == 0

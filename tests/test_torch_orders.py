@@ -10,6 +10,9 @@
   ``sample`` against a dense numpy posterior built from the JAX package's
   kernel matrix and its ``condition`` mean (the JAX package's own order-4m
   process takes minutes to compile);
+- the order-20 asteroseismic model (two granulation terms and a comb of
+  eight modes, ten SHOs; B1r and B2 above m = 16 on the card): its value
+  and gradient in six hyperparameters, as the m = 5 sum's;
 - the m = 5 and m = 9 sums conditioned (``condition(y)``: its log
   probability, the posterior's mean and variance; couplings of order 5, 9,
   10 and 18) in float64 against the JAX package at 5e-7, and the m = 5
@@ -130,6 +133,60 @@ def test_sum_of_order_9_value_and_gradient_match_jax(dtype):
     gp = GaussianProcess(sum9_kernel(tq, leaves), torch.as_tensor(X), diag=0.1,
                          assume_sorted=True, device="cpu")
     assert gp.solver.ssm[1].shape == (9, N_SUM)
+    value = gp.log_probability(torch.as_tensor(y))
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    assert value.dtype == tdtype and torch.isfinite(value)
+    assert_allclose(value.detach(), want_value)
+    for name, g in zip(leaves, grads):
+        assert torch.isfinite(g), name
+        assert_allclose(g, want_grad[name])
+
+
+SUM20_PARAMS = {"gran_amp": 0.8, "gran_omega": 1.2, "height": 0.6, "omega0": 12.0,
+                "domega": 1.4, "quality": 15.0}
+
+
+def sum20_kernel(q, p):
+    """The asteroseismic background-plus-modes model of the celerite paper
+    (Foreman-Mackey et al. 2017, AJ 154, 220): two granulation terms
+    ``SHO(quality=1/sqrt(2))``, the second at three times the first's
+    frequency and half its amplitude, and a comb of eight oscillation modes,
+    ``SHO(omega0 + k domega, Q)`` for k = 0..7, their amplitudes under a
+    Gaussian envelope of height ``height`` over the comb (two modes wide):
+    order 2 x 10 = 20, six hyperparameters."""
+    gran = 1.0 / np.sqrt(2.0)
+    kernel = (p["gran_amp"] * q.SHO(omega=p["gran_omega"], quality=gran)
+              + (0.5 * p["gran_amp"]) * q.SHO(omega=3.0 * p["gran_omega"], quality=gran))
+    for k in range(8):
+        envelope = float(np.exp(-0.5 * ((k - 3.5) / 2.0) ** 2))
+        kernel = kernel + (p["height"] * envelope) * q.SHO(
+            omega=p["omega0"] + k * p["domega"], quality=p["quality"])
+    return kernel
+
+
+@functools.cache
+def jax_sum20_value_and_grad():
+    def logprob(params, X, y):
+        gp = JaxGP(sum20_kernel(jq, params), X, diag=0.1, assume_sorted=True, parallel=False)
+        return gp.log_probability(y)
+
+    return jax.jit(jax.value_and_grad(logprob))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sum_of_order_20_value_and_gradient_match_jax(dtype):
+    """The order-20 model (B1r and B2 above m = 16 on the card): value and
+    gradient in its six hyperparameters at N = 128, at the tolerance
+    table's limits for the dtype."""
+    X, y = (a.astype(dtype) for a in data(N_SUM, seed=21))
+    params = {k: jnp.asarray(v, dtype) for k, v in SUM20_PARAMS.items()}
+    want_value, want_grad = jax_sum20_value_and_grad()(params, jnp.asarray(X), jnp.asarray(y))
+
+    tdtype = getattr(torch, dtype)
+    leaves = {k: torch.tensor(v, dtype=tdtype, requires_grad=True) for k, v in SUM20_PARAMS.items()}
+    gp = GaussianProcess(sum20_kernel(tq, leaves), torch.as_tensor(X), diag=0.1,
+                         assume_sorted=True, device="cpu")
+    assert gp.solver.ssm[1].shape == (20, N_SUM)
     value = gp.log_probability(torch.as_tensor(y))
     grads = torch.autograd.grad(value, list(leaves.values()))
     assert value.dtype == tdtype and torch.isfinite(value)

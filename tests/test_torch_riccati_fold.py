@@ -1,12 +1,13 @@
 """The rank-one Riccati fold and the plain versions of the generic-order
 B1/B1r and of B5's 3-term order, against the JAX package.
 
-- ``scan.riccati_fold_rank_one`` (the plain version of the generic engine's
-  chunk pass, ``csrc/quasisep_generic.cuh``) over chunks of 1-64 elements
-  at m = 5, 8, 16 and 32 on positive definite operands, against the port's
-  full Möbius merge (``scan._riccati_combine``) applied one element at a
-  time, against the merge of separately folded chunks (the engine's totals
-  pass), and its running states against the JAX package's ``riccati_scan``;
+- ``scan.riccati_fold_rank_one`` (the plain version of the one-launch
+  kernels' team fold, ``csrc/quasisep_tc.cuh``: ``RicOp``) over chunks of
+  1-64 elements at m = 5, 8, 16 and 32 on positive definite operands,
+  against the port's full Möbius merge (``scan._riccati_combine``) applied
+  one element at a time, against the merge of separately folded chunks
+  (the kernels' in-tile scan and look-back), and its running states
+  against the JAX package's ``riccati_scan``;
 - the wrappers of B1 and B1r at m = 5 and 8 on CPU tensors (their plain
   versions) against the JAX package's ``stacked_loglik_terms``;
 - ``cuda_dense.plain_panel_matmul_f64``, the 3-term panel product summed in
@@ -79,7 +80,7 @@ def test_rank_one_fold_matches_the_full_merge(m, length):
 @pytest.mark.parametrize("m", [5, 8, 16, 32])
 def test_folded_chunks_merge_to_the_scan(m):
     """Chunks folded on their own and merged with the full merge (the
-    engine's chunk and totals passes) give the flow's state at each chunk
+    kernels' team folds and their merges) give the flow's state at each chunk
     boundary: the JAX package's riccati_scan there, to 5e-7."""
     n, chunks = 64, (1, 2, 5, 8, 16, 32)
     d, ps, qs, as_, _ = operands(m, n, seed=7 * m)

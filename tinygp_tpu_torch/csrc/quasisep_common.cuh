@@ -4,8 +4,8 @@
 // one-launch look-back of kernels B1 and B1r (quasisep_loglik.cu), B2
 // (quasisep_loglik_bwd.cu, and quasisep_loglik_generic.cu at m = 5..16) and
 // B3 (quasisep_scan.cu, and quasisep_generic.cu's one-launch scans).
-// Its last section, the team-cooperative algebra at any order with a
-// pivoted inverse, serves the generic-order engine (quasisep_generic.cuh).
+// Its last section, a warp's product at any order, serves
+// quasisep_loglik_generic.cu's b2_warp_kernel.
 
 #pragma once
 
@@ -14,8 +14,6 @@
 extern __shared__ __align__(16) unsigned char qsl_smem[];
 
 namespace {
-
-constexpr int kScanThreads = 256;  // threads of the generic engine's single-block reduction
 
 // The arithmetic type of every scan (see Precision in quasisep_loglik.cu).
 using Acc = double;
@@ -616,24 +614,14 @@ __device__ void group_lookback(long long b, long long nt, const LookSlots& sl, c
 
 // ------------------------------------------- team-cooperative algebra, any m
 //
-// For the generic-order engine (quasisep_generic.cuh). A team is the set of
-// threads that shares one monoid value: a whole block (BlockTeam) or one
-// warp of it (WarpTeam, for values small enough that a warp's products
-// need no block barrier). Every thread of the team calls each function
-// with the same arguments; the matrices are row-major with a leading
-// dimension, in shared or device memory; the threads split the output
-// entries, and each function ends with the team's barrier so that its
-// result is visible to the whole team.
-
-struct BlockTeam {
-  static constexpr bool kWarp = false;
-  __device__ int rank() const { return threadIdx.x; }
-  __device__ int size() const { return blockDim.x; }
-  __device__ void sync() const { __syncthreads(); }
-};
+// For quasisep_loglik_generic.cu's b2_warp_kernel. A team is the set of
+// threads that shares one monoid value: one warp (WarpTeam). Every thread
+// of the team calls each function with the same arguments; the matrices are
+// row-major with a leading dimension, in shared or device memory; the
+// threads split the output entries, and each function ends with the team's
+// barrier so that its result is visible to the whole team.
 
 struct WarpTeam {
-  static constexpr bool kWarp = true;
   __device__ int rank() const { return threadIdx.x & 31; }
   __device__ int size() const { return 32; }
   __device__ void sync() const { __syncwarp(); }
@@ -659,60 +647,6 @@ __device__ inline void gmm(const Team& tm, int r, int k_run, int c, const Acc* A
     C[i * ldc + j] = D ? D[i * ldd + j] + acc : acc;
   }
   tm.sync();
-}
-
-// Gauss-Jordan inverse with partial pivoting. W is m x 2m (row stride 2m)
-// with the matrix in its left half; on return the right half holds the
-// inverse. scr holds 5m values (the pivot row, the displaced row and the
-// column's factors) and piv one int. At the orders of the generic engine
-// (up to 32) the scan merges' I + F G is not reliably near the identity,
-// so unlike the closed forms above this pivots.
-template <class Team>
-__device__ inline void ginverse(const Team& tm, int m, Acc* W, Acc* scr, int* piv) {
-  const int ld = 2 * m, t = tm.rank(), nt = tm.size();
-  for (int idx = t; idx < m * m; idx += nt) {
-    const int i = idx / m, j = idx - i * m;
-    W[i * ld + m + j] = i == j ? Acc(1) : Acc(0);
-  }
-  tm.sync();
-  Acc* prow = scr;          // the pivot row, scaled
-  Acc* orow = scr + ld;     // row col before the swap
-  Acc* fac = scr + 2 * ld;  // each row's entry in column col
-  for (int col = 0; col < m; ++col) {
-    if (t == 0) {
-      int p = col;
-      Acc best = fabs(W[col * ld + col]);
-      for (int i = col + 1; i < m; ++i) {
-        const Acc v = fabs(W[i * ld + col]);
-        if (v > best) {
-          best = v;
-          p = i;
-        }
-      }
-      *piv = p;
-    }
-    tm.sync();
-    const int p = *piv;
-    const Acc inv_pivot = Acc(1) / W[p * ld + col];
-    for (int j = t; j < ld; j += nt) {
-      prow[j] = W[p * ld + j] * inv_pivot;
-      orow[j] = W[col * ld + j];
-    }
-    // Row p takes the old row col, whose entry in this column is W[col][col].
-    for (int i = t; i < m; i += nt)
-      fac[i] = i == p ? W[col * ld + col] : W[i * ld + col];
-    tm.sync();
-    for (int idx = t; idx < m * ld; idx += nt) {
-      const int i = idx / ld, j = idx - i * ld;
-      if (i == col)
-        W[idx] = prow[j];
-      else if (i == p)
-        W[idx] = orow[j] - fac[i] * prow[j];
-      else
-        W[idx] -= fac[i] * prow[j];
-    }
-    tm.sync();
-  }
 }
 
 }  // namespace

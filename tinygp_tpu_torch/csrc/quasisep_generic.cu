@@ -32,9 +32,6 @@
 //     on the float64 tensor cores (their section below; the Ops, shared
 //     with B2 above m = 8 and with quasisep_wide.cu, are in
 //     quasisep_tc.cuh).
-// No B3 scan runs quasisep_generic.cuh's three-phase engine: that serves
-// B1/B1r above m = 4 and B2 above m = 16 (quasisep_loglik_generic.cu).
-//
 // cpl_tile_kernel. Each block takes a tile of kCplTeams * sub consecutive
 // (for a reverse scan mirrored) positions by a ticket (quasisep_common.cuh:
 // the one-launch look-back); each of its kCplTeams warps is a team that

@@ -1,331 +1,305 @@
-// Kernels B1, B1r and B2 above m = 4 on Hopper (sm_90a).
+// Kernels B1, B1r and B2 at m = 5..16 on Hopper (sm_90a).
 //
-// Replaces, for 4 < m <= 32, the TPU kernels of
+// Replaces, for 4 < m <= 16, the TPU kernels of
 // tinygp_tpu/solvers/quasisep/pallas_loglik.py: _loglik_kernel (line 86)
 // with residuals=False (B1) and residuals=True (B1r), and _bwd_kernel
 // (line 414, B2). The JAX package hands m > 3 to XLA (pallas_loglik.py:
 // 70-71); the port computes these orders on the card. The C interface is
 // quasisep_loglik.cu's and quasisep_loglik_bwd.cu's, symbol for symbol, so
-// one binding serves both libraries.
+// one binding serves every library; m = 17..32 is quasisep_loglik_wide.cu,
+// a library of its own so that the two build at once.
 //
-// The math is theirs (see those files). B2 is one launch up to m = 16:
-// b2_warp_kernel (a warp a team, m = 5..8) and b2_tc_kernel (m = 9..16, the
-// float64 tensor cores and the one-launch scans' Ops of quasisep_tc.cuh).
-// B1, B1r and B2 above 16 run as a short sequence on one stream instead of
-// one fused kernel, since a fused chunk would hold several m x m matrices
-// per thread:
+// The math is theirs (see those files). Each kernel is one launch and one
+// memset of its flags: b1_tc_kernel (B1 and B1r), b2_warp_kernel (B2 at
+// m = 5..8, a warp a team) and b2_tc_kernel (B2 at m = 9..16), the last two
+// and the first on the float64 tensor cores through the one-launch scans'
+// Ops (quasisep_tc.cuh).
 //
-//   B1, B1r: the Riccati flow by the generic engine (quasisep_generic.cuh),
-//            whose finish pass emits, from the same step, the Cholesky
-//            emissions c2 = d - p^T F p, u = q - a F p and the whitening
-//            elements A = a - (u / c2) p^T, B = (u / c2) y in float64 (and
-//            for B1r the residual F in the operands' type); the affine
-//            scan e of (A, B) by the engine; terms_pass: alpha =
-//            (y - p.e) / c and per-block sums of alpha^2 and log c (B1r
-//            also writes e and 1/c); g_reduce: the two sums in a fixed
-//            order, so the result is deterministic.
-//   B2:      above m = 16 (no model on a path goes past 16), a
-//            sequence: bwd_pre_pass: the emissions again from the residuals, the
-//            transposed transitions A^T and the adjoint loads
-//            ebar = -alphabar p / c; the reverse exclusive affine scan of
-//            (A^T, ebar), mu; bwd_glue_pass: the congruence loads
-//            Ybar = Fpbar p^T from mu; the reverse exclusive congruence
-//            scan of (A^T, Ybar), Gbar; bwd_out_pass: the cotangents of
-//            (d, ps, qs, as, y) from mu and Gbar.
-//
-// Every intermediate is float64 in the workspace, as in the fused kernels.
-// The elementwise passes run one thread per element, reading component c
-// of element k at [c * n + k], so a warp's loads are coalesced; their
-// vectors sit in arrays of the order's bucket (8, 16 or 32).
-//
-// What bounds it: the engine's float64 arithmetic (see
-// quasisep_generic.cuh). B1 must read (m^2 + 2m + 2) values per element
+// What bounds them: bytes. B1 must read (m^2 + 2m + 2) values per element
 // once; B1r writes m^2 + m + 1 more, B2 reads 2m^2 + 3m + 2 and writes
-// m^2 + 2m + 2. The sequence moves more: the whitening elements and the
-// adjoints make round trips through device memory in float64.
+// m^2 + 2m + 2. The float64 tensor cores (a few m^3 multiply-adds an
+// element) are far from binding; the cost against the bound is latency
+// (PERF.md).
 
 #include "quasisep_tc.cuh"
 
 namespace {
 
-constexpr int kElemThreads = 128;
+// ------------------------------------------ forward (B1, B1r) at m = 5..16
+//
+// b1_tc_kernel: the design of quasisep_loglik.cu's b1_tile_kernel (tiles
+// taken by a ticket, staged once, the Riccati flow and then the whitening
+// scan in the same tile, each with its own look-back chain, the sums in one
+// fixed order) with a warp for a team and every product on the float64
+// tensor cores: B3's one-launch skeleton (quasisep_generic.cu: mono_tile)
+// run over RicOp<P> and then AffOp<P, 8> (quasisep_tc.cuh), maps padded to
+// P = 8 (m <= 8) or 16 with zeros.
+//
+//   staging:  [d | p | q | a | y] of each element, one cp.async a value,
+//             component c at st[c * LD + i] (LD = T + 1, odd);
+//   phase A:  the Riccati flow. Each team folds its elements with the
+//             rank-one step, the teams' maps are scanned in the tile
+//             (mono_team_scan), the grouped look-back (mono_lookback) gives
+//             the tile's start, and each team walks its elements from its
+//             prefix, keeping each element's c2 = d - p^T F p and
+//             wd = (q - a F p) / c2 in shared memory (D);
+//   phase B:  the whitening scan e' = (a - wd p^T) e + wd y, one column
+//             (AffOp<P, 8>'s column 0): fold, in-tile scan and look-back as
+//             in phase A, on the second chain; its elements are formed
+//             from the staged a, p, y and D, and never stored;
+//   phase C:  each team walks e from its prefix: alpha = (y - p.e) / c,
+//             and alpha^2 and log c summed in element order. B1r puts each
+//             element's e and 1/c over its staged q and d, which the block
+//             writes out coalesced; its F, the state before the element,
+//             phase A's walk writes to device memory, a lane its entries
+//             (walking the flow again in phase C cost a fifth more at
+//             m = 5). The tile's sum adds the teams' in order; the last
+//             tile to finish sums every tile's in tile order (b1_finish).
+//
+// Every product runs in float64 whatever the storage type and the
+// look-backs compose in one fixed order, so two launches on the same inputs
+// agree bit for bit; cuda_loglik.plain_loglik_terms_res_tiled is this
+// association in plain PyTorch.
 
-long long elem_blocks(long long n) { return (n + kElemThreads - 1) / kElemThreads; }
+template <int P>
+struct B1Tc {
+  using Ric = RicOp<P>;
+  using Aff = AffOp<P, 8>;
+  static constexpr int MAP = Ric::kMap, ST = Ric::kState, SCR = Ric::kScratch;
+  static constexpr int TEAM = 3 * MAP + SCR + ST;
+  static_assert(Aff::kMap <= MAP && Aff::kState <= ST,
+                "the whitening scan's maps and states fit the Riccati flow's slots");
+  // Shared memory beside the staged tile and D, in bytes: the look-back's
+  // three maps, the tile's start and a state, and per team three maps, the
+  // merge's scratch and a state.
+  static constexpr long long kFixed = (long long)(3 * MAP + 2 * ST + kMonoTeams * TEAM) * sizeof(Acc);
+};
 
-// ------------------------------------------------------------- forward (B1)
+// Components staged an element, [d | p | q | a | y]; values kept in D:
+// wd (m) and c2.
+__host__ __device__ constexpr int b1t_in(int m) { return 2 + 2 * m + m * m; }
 
-// Sum v0 and v1 over the block into partials[2b], partials[2b + 1].
-__device__ void block_sums(Acc v0, Acc v1, Acc* partials) {
-  Acc* sm = reinterpret_cast<Acc*>(qsl_smem);
-  const int t = threadIdx.x, nt = blockDim.x;
-  sm[t] = v0;
-  sm[nt + t] = v1;
+template <int P>
+inline long long b1t_smem(int m, int bytes, int sub) {
+  const long long tile = kMonoTeams * sub;
+  return B1Tc<P>::kFixed + tile * (m + 1) * (long long)sizeof(Acc) +
+         (long long)b1t_in(m) * (tile + 1) * bytes + 16;
+}
+
+// Elements per team: at P = 8 the most, up to 64, whose block leaves two
+// blocks a multiprocessor; at P = 16, whose fixed part alone takes more
+// than half a multiprocessor's shared memory, the most, up to 32, whose
+// block fits 1 KB short of a block's. Each look-back group's end state
+// waits on the group before it (an application of its map, with a pivoted
+// inverse for the Riccati flow), so long tiles shorten that chain.
+// cuda_loglik._B1_SCHEDULE repeats it.
+template <int P>
+inline int b1t_sub(int m, int bytes) {
+  const long long room = P == 8 ? kGenSharedSM / 2 - 1024 : kGenSharedBlock - 1024;
+  int sub = P == 8 ? 64 : 32;
+  while (sub > 1 && b1t_smem<P>(m, bytes, sub) > room) --sub;
+  return sub;
+}
+
+template <int P>
+inline FwdLayout b1t_layout(int m, int bytes, long long n) {
+  const long long tile = kMonoTeams * b1t_sub<P>(m, bytes);
+  return FwdLayout((n + tile - 1) / tile, B1Tc<P>::MAP, B1Tc<P>::ST);
+}
+
+template <int P, typename S>
+__global__ void __launch_bounds__(32 * kMonoTeams)
+b1_tc_kernel(int m, long long n, FwdArgs<S> x, Acc* work, FwdLayout lay, int sub) {
+  using Ric = typename B1Tc<P>::Ric;
+  using Aff = typename B1Tc<P>::Aff;
+  constexpr int H = P / 8, MAP = B1Tc<P>::MAP, ST = B1Tc<P>::ST, SCR = B1Tc<P>::SCR,
+                TEAM = B1Tc<P>::TEAM;
+  const int mm = m * m, T = kMonoTeams * sub, LD = T + 1, DS = m + 1;
+  const int OQ = 1 + m, OA = 1 + 2 * m, OY = OA + mm, IN = OY + 1;
+  const bool res = x.Fs != nullptr;
+  __shared__ long long tile_of_block;
+  Acc* lk = reinterpret_cast<Acc*>(qsl_smem);
+  Acc* start = lk + 3 * MAP;
+  Acc* ls = start + ST;
+  Acc* teams = ls + ST;
+  Acc* D = teams + kMonoTeams * TEAM;
+  S* st = reinterpret_cast<S*>(D + T * DS);
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, g = lane >> 2, tq = lane & 3;
+  const auto buf = [&](int v, int k) { return teams + v * TEAM + k * MAP; };
+  const auto scr = [&](int v) { return teams + v * TEAM + 3 * MAP; };
+  Acc* const team_state = teams + w * TEAM + 3 * MAP + SCR;  // a team's state at its start
+
+  if (t == 0) tile_of_block = atomicAdd(lay.chain.ticket(work), 1u);
   __syncthreads();
-  for (int s = nt / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      sm[t] += sm[t + s];
-      sm[nt + t] += sm[nt + t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    partials[2 * (long long)blockIdx.x] = sm[0];
-    partials[2 * (long long)blockIdx.x + 1] = sm[nt];
-  }
-}
+  const long long b = tile_of_block, p0 = b * T;
+  const int cnt = (int)(n - p0 < T ? n - p0 : T);
 
-// kRes: also write each element's residuals e and 1/c (B1r; the Riccati
-// finish pass wrote F).
-template <typename S, int MX, bool kRes>
-__global__ void __launch_bounds__(kElemThreads)
-terms_pass(int m, long long n, const S* ps, const S* y, const Acc* e, const Acc* c2s,
-           Acc* partials, S* es, S* ics) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  Acc quad = Acc(0), logdet = Acc(0);
-  if (k < n) {
-    const Acc c = sqrt(c2s[k]);
-    Acc pe = Acc(0);
-    for (int i = 0; i < m; ++i) pe += Acc(ps[i * n + k]) * e[i * n + k];
-    const Acc alpha = (Acc(y[k]) - pe) / c;
-    quad = alpha * alpha;
-    logdet = log(c);
-    if constexpr (kRes) {
-      for (int i = 0; i < m; ++i) es[i * n + k] = S(e[i * n + k]);
-      ics[k] = S(Acc(1) / c);
-    }
+  for (int idx = t; idx < IN * cnt; idx += 32 * kMonoTeams) {
+    const int c = idx / cnt, i = idx - c * cnt;
+    const S* src = c == 0    ? x.d
+                   : c < OQ  ? x.ps + (long long)(c - 1) * n
+                   : c < OA  ? x.qs + (long long)(c - OQ) * n
+                   : c < OY  ? x.as + (long long)(c - OA) * n
+                             : x.y;
+    cp_async_elem(st + c * LD + i, src + p0 + i);
   }
-  block_sums(quad, logdet, partials);
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kScanThreads)
-g_reduce(long long nb, const Acc* partials, S* out) {
-  Acc* sm = reinterpret_cast<Acc*>(qsl_smem);
-  const int t = threadIdx.x;
-  Acc quad = Acc(0), logdet = Acc(0);
-  for (long long i = t; i < nb; i += kScanThreads) {
-    quad += partials[2 * i];
-    logdet += partials[2 * i + 1];
-  }
-  sm[t] = quad;
-  sm[kScanThreads + t] = logdet;
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  for (int s = kScanThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      sm[t] += sm[t + s];
-      sm[kScanThreads + t] += sm[kScanThreads + t + s];
+  const int lo = w * sub, mine = max(0, min(sub, cnt - lo));
+  Ric rop;
+  rop.m = m;
+  rop.cols = 1;
+
+  // Phase A: the Riccati flow.
+  {
+    typename Ric::Run xr;
+    Ric::identity(xr);
+    for (int jj = 0; jj < mine; ++jj) {
+      typename Ric::El e;
+      rop.load(st, LD, lo + jj, e);
+      Ric::fold(xr, e);
     }
-    __syncthreads();
+    Ric::store(xr, buf(w, 0));
   }
-  if (t == 0) {
-    out[0] = S(sm[0]);
-    out[1] = S(sm[kScanThreads]);
+  mono_team_scan(rop, buf, scr);
+  mono_lookback(rop, b, lay.chain.nt, lay.chain.slots(work, 0, MAP), buf(kMonoTeams - 1, 0), lk,
+                start, ls, buf, scr);
+  __syncthreads();
+  if (mine > 0) {
+    mono_team_start(rop, buf, scr, start, team_state);
+    typename Ric::State F;
+    Ric::load_state(team_state, F);
+    for (int jj = 0; jj < mine; ++jj) {
+      const int pos = lo + jj;
+      typename Ric::El e;
+      rop.load(st, LD, pos, e);
+      Acc ur[H], uc[H][2];
+      const Acc c2 = Ric::emit(F.F, e, ur, uc), ic2 = Acc(1) / c2;
+      if (res)  // B1r's F, the state before the element
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+#pragma unroll
+            for (int jj2 = 0; jj2 < 2; ++jj2) {
+              const int r = 8 * h + g, c = 8 * k + 2 * tq + jj2;
+              if (r < m && c < m) x.Fs[(long long)(r * m + c) * n + p0 + pos] = S(F.F.v[k][h][jj2]);
+            }
+      Ric::step_f(F.F, e, ur, uc, ic2);
+      if (tq == 0)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          if (8 * h + g < m) D[pos * DS + 8 * h + g] = ur[h] * ic2;
+      if (lane == 0) D[pos * DS + m] = c2;
+    }
   }
+  __syncthreads();
+
+  // Phase B: the whitening scan. The element at pos from its Riccati
+  // element re (loaded): a - wd p^T, and wd y in column 0.
+  Aff aop;
+  aop.m = m;
+  aop.cols = 1;
+  const auto aff_element = [&](int pos, const typename Ric::El& re, typename Aff::El& e) {
+    const Acc* dv = D + pos * DS;
+    const Acc yv = Acc(st[OY * LD + pos]);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int r = 8 * h + g;
+        const Acc wr = r < m ? dv[r] : Acc(0);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) e.a.v[k][h][jj] = re.a.v[k][h][jj] - wr * re.pc[k][jj];
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 8 * k + 2 * tq + jj;
+        e.bt.v[k][0][jj] = g == 0 && c < m ? dv[c] * yv : Acc(0);
+      }
+    }
+  };
+  {
+    typename Aff::Run xr;
+    Aff::identity(xr);
+    for (int jj = 0; jj < mine; ++jj) {
+      typename Ric::El re;
+      rop.load(st, LD, lo + jj, re);
+      typename Aff::El e;
+      aff_element(lo + jj, re, e);
+      Aff::fold(xr, e);
+    }
+    Aff::store(xr, buf(w, 0));
+  }
+  mono_team_scan(aop, buf, scr);
+  mono_lookback(aop, b, lay.chain.nt, lay.chain.slots(work, 1, Aff::kMap), buf(kMonoTeams - 1, 0),
+                lk, start, ls, buf, scr);
+  __syncthreads();
+
+  // Phase C: e from the team's start; the sums.
+  Acc quad = Acc(0), logdet = Acc(0);
+  if (mine > 0) {
+    mono_team_start(aop, buf, scr, start, team_state);
+    typename Aff::State es;
+    Aff::load_state(team_state, es);
+    for (int jj = 0; jj < mine; ++jj) {
+      const int pos = lo + jj;
+      typename Ric::El re;
+      rop.load(st, LD, pos, re);
+      typename Aff::El ae;
+      aff_element(pos, re, ae);
+      // p.e: e^T is row 0 of the state, on the lanes of quad 0.
+      Acc pe = Acc(0);
+      if (g == 0)
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+#pragma unroll
+          for (int jj2 = 0; jj2 < 2; ++jj2) pe += es.s.v[k][0][jj2] * re.pc[k][jj2];
+      pe += __shfl_xor_sync(0xffffffffu, pe, 1);
+      pe += __shfl_xor_sync(0xffffffffu, pe, 2);
+      pe = __shfl_sync(0xffffffffu, pe, 0);
+      const Acc c = sqrt(D[pos * DS + m]);
+      const Acc alpha = (Acc(st[OY * LD + pos]) - pe) / c;
+      quad += alpha * alpha;
+      logdet += log(c);
+      if (res) {
+        // Every lane has read the element: e and 1/c over its q and d.
+        __syncwarp();
+        if (g == 0)
+#pragma unroll
+          for (int k = 0; k < H; ++k)
+#pragma unroll
+            for (int jj2 = 0; jj2 < 2; ++jj2) {
+              const int col = 8 * k + 2 * tq + jj2;
+              if (col < m) st[(OQ + col) * LD + pos] = S(es.s.v[k][0][jj2]);
+            }
+        if (lane == 0) st[pos] = S(Acc(1) / c);
+      }
+      Aff::walk(es, ae);
+    }
+  }
+  if (lane == 0) {
+    ls[2 * w] = quad;
+    ls[2 * w + 1] = logdet;
+  }
+  __syncthreads();
+  if (res) {
+    // [1/c | e] from the d and q rows.
+    for (int idx = t; idx < (1 + m) * cnt; idx += 32 * kMonoTeams) {
+      const int q = idx / cnt, i = idx - q * cnt;
+      S* dst = q == 0 ? x.ics : x.es + (long long)(q - 1) * n;
+      dst[p0 + i] = st[(q == 0 ? 0 : OQ + q - 1) * LD + i];
+    }
+  }
+  Acc tile_quad = Acc(0), tile_logdet = Acc(0);
+  if (t == 0)
+    for (int v = 0; v < kMonoTeams; ++v) {
+      tile_quad += ls[2 * v];
+      tile_logdet += ls[2 * v + 1];
+    }
+  b1_finish(b, lay.chain.nt, tile_quad, tile_logdet, lay, work, lk, x.out);
 }
-
-// Forward workspace, in Acc: the whitening elements A (m^2 n) and B (m n),
-// e (m n), c2 (n), the block sums and one engine workspace.
-struct FwdLayout {
-  long long A, B, e, c2, partials, scan, total;
-  FwdLayout(int m, long long n) {
-    const long long mm = (long long)m * m;
-    const long long ric = g_workspace_elems(g_spec(gRic, m, m, 1), n);
-    const long long aff = g_workspace_elems(g_spec(gAff, m, m, 1), n);
-    A = 0;
-    B = A + mm * n;
-    e = B + m * n;
-    c2 = e + m * n;
-    partials = c2 + n;
-    scan = partials + 2 * elem_blocks(n);
-    total = scan + (ric > aff ? ric : aff);
-  }
-};
-
-template <typename S, int MX>
-cudaError_t run_fwd(int m, long long n, const S* d, const S* ps, const S* qs,
-                     const S* as, const S* y, S* out, S* Fs, S* es, S* ics,
-                     Acc* work, cudaStream_t st) {
-  const FwdLayout L(m, n);
-  Acc *A = work + L.A, *B = work + L.B, *e = work + L.e;
-  Acc *c2 = work + L.c2, *partials = work + L.partials, *scan = work + L.scan;
-  const long long nb = elem_blocks(n);
-  const dim3 grid((unsigned)nb);
-  cudaError_t err = g_run<S, Acc>(g_spec(gRic, m, m, 1), n, 0, 0, GIn<S>{d, ps, qs, as},
-                                  (Acc*)nullptr, scan, st, RicEmit<S>{y, A, B, c2, Fs});
-  if (err == cudaSuccess)
-    err = g_run<Acc, Acc>(g_spec(gAff, m, m, 1), n, 0, 0, GIn<Acc>{A, B, nullptr, nullptr}, e,
-                          scan, st);
-  const long long sums_smem = 2LL * kElemThreads * sizeof(Acc);
-  if (err == cudaSuccess) {
-    if (Fs)
-      err = g_launch(terms_pass<S, MX, true>, grid, kElemThreads, sums_smem, st, m,
-                     n, ps, y, (const Acc*)e, (const Acc*)c2, partials, es, ics);
-    else
-      err = g_launch(terms_pass<S, MX, false>, grid, kElemThreads, sums_smem, st,
-                     m, n, ps, y, (const Acc*)e, (const Acc*)c2, partials, es, ics);
-  }
-  if (err == cudaSuccess)
-    err = g_launch(g_reduce<S>, dim3(1), kScanThreads,
-                   2LL * kScanThreads * sizeof(Acc), st, nb,
-                   (const Acc*)partials, out);
-  return err;
-}
-
-// ------------------------------------------------------------ backward (B2)
-
-// One element's forward emissions, recomputed from the residuals
-// (quasisep_loglik_bwd.cu: BwdElem).
-template <typename S, int MX>
-struct GBwd {
-  Acc p[MX], e[MX], Fp[MX], u[MX], wd[MX];
-  Acc y, ic, ic2, r, alpha, alphabar;
-
-  __device__ GBwd(int m, long long n, long long k, const S* ps, const S* qs,
-                  const S* as, const S* y_, const S* Fs, const S* es,
-                  const S* ics, Acc qb) {
-    y = Acc(y_[k]);
-    ic = Acc(ics[k]);
-    ic2 = ic * ic;
-    for (int i = 0; i < m; ++i) {
-      p[i] = Acc(ps[i * n + k]);
-      e[i] = Acc(es[i * n + k]);
-    }
-    Acc pe = Acc(0);
-    for (int i = 0; i < m; ++i) {
-      Acc acc = Acc(0);
-      for (int j = 0; j < m; ++j) acc += Acc(Fs[(i * m + j) * n + k]) * p[j];
-      Fp[i] = acc;
-      pe += p[i] * e[i];
-    }
-    for (int i = 0; i < m; ++i) {
-      Acc acc = Acc(qs[i * n + k]);
-      for (int j = 0; j < m; ++j) acc -= Acc(as[(i * m + j) * n + k]) * Fp[j];
-      u[i] = acc;
-      wd[i] = acc * ic2;
-    }
-    r = y - pe;
-    alpha = r * ic;
-    alphabar = Acc(2) * qb * alpha;
-  }
-
-  // The cotangent glue from mu: ubar, c2bar and Fpbar (the congruence
-  // load is Ybar = Fpbar p^T); wdbar = mu (y - p.e).
-  __device__ void glue(int m, long long n, long long k, const S* as,
-                       const Acc* mu, Acc lb, Acc* ubar, Acc& c2bar,
-                       Acc* Fpbar) const {
-    Acc uw = Acc(0);
-    for (int i = 0; i < m; ++i) {
-      const Acc wdbar = mu[i] * r;
-      ubar[i] = wdbar * ic2;
-      uw += u[i] * wdbar;
-    }
-    const Acc icbar = -lb / ic + alphabar * alpha / ic + Acc(2) * ic * uw;
-    c2bar = Acc(-0.5) * icbar * ic * ic2;
-    for (int j = 0; j < m; ++j) {
-      Acc acc = -c2bar * p[j];
-      for (int i = 0; i < m; ++i) acc -= Acc(as[(i * m + j) * n + k]) * ubar[i];
-      Fpbar[j] = acc;
-    }
-  }
-};
-
-// The adjoint scans' transitions A^T = (a - wd p^T)^T and loads
-// ebar = -(alphabar / c) p.
-template <typename S, int MX>
-__global__ void __launch_bounds__(kElemThreads)
-bwd_pre_pass(int m, long long n, const S* ps, const S* qs, const S* as,
-             const S* y, const S* Fs, const S* es, const S* ics, const S* qbar,
-             Acc* At, Acc* ebar) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const GBwd<S, MX> el(m, n, k, ps, qs, as, y, Fs, es, ics, Acc(*qbar));
-  for (int i = 0; i < m; ++i) {
-    for (int j = 0; j < m; ++j)
-      At[(j * m + i) * n + k] = Acc(as[(i * m + j) * n + k]) - el.wd[i] * el.p[j];
-    ebar[i * n + k] = -(el.alphabar * el.ic) * el.p[i];
-  }
-}
-
-template <typename S, int MX>
-__global__ void __launch_bounds__(kElemThreads)
-bwd_glue_pass(int m, long long n, const S* ps, const S* qs, const S* as,
-              const S* y, const S* Fs, const S* es, const S* ics,
-              const S* qbar, const S* lbar, const Acc* mu, Acc* Ybar) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const GBwd<S, MX> el(m, n, k, ps, qs, as, y, Fs, es, ics, Acc(*qbar));
-  Acc lam[MX], ubar[MX], Fpbar[MX], c2bar;
-  for (int i = 0; i < m; ++i) lam[i] = mu[i * n + k];
-  el.glue(m, n, k, as, lam, Acc(*lbar), ubar, c2bar, Fpbar);
-  for (int i = 0; i < m; ++i)
-    for (int j = 0; j < m; ++j) Ybar[(i * m + j) * n + k] = Fpbar[i] * el.p[j];
-}
-
-// The cotangents of (d, ps, qs, as, y) from mu and Gbar
-// (quasisep_loglik_bwd.cu: out_chunk), with S = Gbar + Gbar^T.
-template <typename S, int MX>
-__global__ void __launch_bounds__(kElemThreads)
-bwd_out_pass(int m, long long n, const S* ps, const S* qs, const S* as,
-             const S* y, const S* Fs, const S* es, const S* ics, const S* qbar,
-             const S* lbar, const Acc* mu, const Acc* G, S* dbar, S* psbar,
-             S* qsbar, S* asbar, S* ybar) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const GBwd<S, MX> el(m, n, k, ps, qs, as, y, Fs, es, ics, Acc(*qbar));
-  Acc lam[MX], ubar[MX], Fpbar[MX], Su[MX], aTSu[MX], row[MX], c2bar;
-  for (int i = 0; i < m; ++i) lam[i] = mu[i * n + k];
-  el.glue(m, n, k, as, lam, Acc(*lbar), ubar, c2bar, Fpbar);
-  auto Sm = [&](int i, int j) { return G[(i * m + j) * n + k] + G[(j * m + i) * n + k]; };
-  auto a = [&](int i, int j) { return Acc(as[(i * m + j) * n + k]); };
-  auto F = [&](int i, int j) { return Acc(Fs[(i * m + j) * n + k]); };
-  Acc uSu = Acc(0), wmu = Acc(0);
-  for (int i = 0; i < m; ++i) {
-    Acc acc = Acc(0);
-    for (int j = 0; j < m; ++j) acc += Sm(i, j) * el.u[j];
-    Su[i] = acc;
-    uSu += el.u[i] * acc;
-    wmu += el.wd[i] * lam[i];
-  }
-  for (int j = 0; j < m; ++j) {
-    Acc acc = Acc(0);
-    for (int i = 0; i < m; ++i) acc += a(i, j) * Su[i];
-    aTSu[j] = acc;
-  }
-  const Acc ic2 = el.ic2, ic4 = ic2 * ic2;
-  dbar[k] = S(c2bar - Acc(0.5) * uSu * ic4);
-  for (int j = 0; j < m; ++j) {
-    Acc acc = -(el.alphabar * el.ic + wmu) * el.e[j] - c2bar * el.Fp[j] +
-              uSu * ic4 * el.Fp[j];
-    Acc fa = Acc(0);
-    for (int i = 0; i < m; ++i) {
-      acc += F(i, j) * Fpbar[i];
-      fa += F(j, i) * aTSu[i];
-    }
-    psbar[j * n + k] = S(acc - fa * ic2);
-  }
-  for (int i = 0; i < m; ++i) {
-    qsbar[i * n + k] = S(ubar[i] + Su[i] * ic2);
-    // Row i of S a, then of (S a) F.
-    for (int l = 0; l < m; ++l) {
-      Acc acc = Acc(0);
-      for (int r = 0; r < m; ++r) acc += Sm(i, r) * a(r, l);
-      row[l] = acc;
-    }
-    for (int j = 0; j < m; ++j) {
-      Acc saf = Acc(0);
-      for (int l = 0; l < m; ++l) saf += row[l] * F(l, j);
-      asbar[(i * m + j) * n + k] =
-          S(lam[i] * el.e[j] - ubar[i] * el.Fp[j] + saf - Su[i] * el.Fp[j] * ic2);
-    }
-  }
-  ybar[k] = S(el.alphabar * el.ic + wmu);
-}
-
-template <typename S>
-struct BwdArgs {
-  const S *ps, *qs, *as, *y, *Fs, *es, *ics, *qbar, *lbar;
-  S *dbar, *psbar, *qsbar, *asbar, *ybar;
-};
 
 // -------------------------------------- backward (B2) at m = 5..8: one launch
 //
@@ -345,7 +319,7 @@ struct BwdArgs {
 // Kogge-Stone (two rounds of warp merges, quasisep_generic.cuh:
 // g_combine); the look-back stages kB2GenWindow aggregates at a time and
 // folds or applies them with the warp. Above m = 8 B2 runs b2_tc_kernel
-// (below), above 16 the sequence after it.
+// (below).
 
 constexpr int kB2Teams = 4;      // warp teams per tile
 constexpr int kB2GenWindow = 8;  // aggregates a look-back stages at once
@@ -445,7 +419,7 @@ __device__ void warp_group_lookback(const WarpTeam& tm, const GSpec& spec, long 
     const int n_win = cnt - i0 < kB2GenWindow ? cnt - i0 : kB2GenWindow;
     lookback_window(sl.tile_agg, base + i0, n_win, MAP, win);
     for (int l = 0; l < n_win; ++l) {
-      g_combine<M>(tm, spec, 1, Q, win + l * MAP, Qn, tmp, nullptr);
+      g_combine<M>(tm, spec, 1, Q, win + l * MAP, Qn, tmp);
       Acc* swap = Q;
       Q = Qn;
       Qn = swap;
@@ -453,7 +427,7 @@ __device__ void warp_group_lookback(const WarpTeam& tm, const GSpec& spec, long 
   }
   tm.sync();
   if (end && more) {
-    g_combine<M>(tm, spec, 1, Q, agg, GA, tmp, nullptr);
+    g_combine<M>(tm, spec, 1, Q, agg, GA, tmp);
     warp_publish(tm, GA, sl.group_agg + g * MAP, MAP, sl.group_flag + g, 1u);
   }
   // S(g - 1): from the nearest group whose end state is published.
@@ -489,7 +463,7 @@ __device__ void team_scan(const WarpTeam& tm, const GSpec& s, Acc* sv, int size,
     Acc* out = sv + (cur ^ 1) * stride;
     if (w >= off)
       g_combine<M>(tm, s, 1, in + (w - off) * 2 * M * M, in + w * 2 * M * M, out + w * 2 * M * M,
-                   scr, nullptr);
+                   scr);
     else
       for (int c = tm.rank(); c < size; c += 32) out[w * 2 * M * M + c] = in[w * 2 * M * M + c];
     __syncthreads();
@@ -527,7 +501,7 @@ b2_warp_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
   Acc *Sa = Gn + MM, *V0 = Sa + MM, *V1 = V0 + M * W1;
   Acc* D = stmp + MM + kB2Teams * b2g_team_elems(M);
   S* st = reinterpret_cast<S*>(D + T * DS);
-  const GSpec aff_spec{gAff, M, M, 1, 1}, cong_spec{gCong, M, M, 1, 1};
+  const GSpec aff_spec{gAff, M, M, 1}, cong_spec{gCong, M, M, 1};
 
   if (t == 0) tile_of_block = atomicAdd(lay.ticket(work), 1u);
   __syncthreads();
@@ -842,7 +816,7 @@ b2_warp_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
 //   phase B:   the congruence adjoint, transitions A^T and loads
 //              Fpbar p^T + p Fpbar^T: fold, in-tile scan and look-back as
 //              in phase A. It scans S = Gbar + Gbar^T, the only form of
-//              Gbar the cotangents read (bwd_out_pass), and the scan is
+//              Gbar the cotangents read (phase C), and the scan is
 //              linear in its loads, so S's loads are Gbar's symmetrized;
 //   phase C:   each team walks S from its prefix and forms its elements'
 //              cotangents, S a F on the tensor cores and the vectors as
@@ -865,7 +839,6 @@ b2_warp_kernel(long long n, BwdArgs<S> x, Acc* work, LookLayout lay) {
 
 using B2Aff = AffOp<16, 8>;   // phase A: one column in a group of 8
 using B2Cong = CongOp<16, false>;  // phase B: the plain look-back (see CongOp)
-constexpr int kB2MaxM = 16;   // the one-launch kernels' largest order
 // Both scans' maps and states in the larger (the congruence's) slots.
 constexpr int kB2TcMap = B2Cong::kMap, kB2TcState = B2Cong::kState;
 constexpr int kB2TcTeam = 3 * kB2TcMap + B2Cong::kScratch + kB2TcState;
@@ -1234,75 +1207,50 @@ b2_tc_kernel(int m, long long n, BwdArgs<S> x, Acc* work, ChainLayout lay, int s
   }
 }
 
-// Backward workspace, in Acc: A^T (m^2 n), ebar (m n), mu (m n),
-// Ybar (m^2 n), Gbar (m^2 n) and one engine workspace.
-struct BwdLayout {
-  long long At, ebar, mu, Ybar, G, scan, total;
-  BwdLayout(int m, long long n) {
-    const long long mm = (long long)m * m;
-    const long long aff = g_workspace_elems(g_spec(gAff, m, m, 1), n);
-    const long long cong = g_workspace_elems(g_spec(gCong, m, m, 1), n);
-    At = 0;
-    ebar = At + mm * n;
-    mu = ebar + m * n;
-    Ybar = mu + m * n;
-    G = Ybar + mm * n;
-    scan = G + mm * n;
-    total = scan + (aff > cong ? aff : cong);
-  }
-};
-
-template <typename S, int MX>
-cudaError_t run_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work, cudaStream_t st) {
-  const BwdLayout L(m, n);
-  Acc *At = work + L.At, *ebar = work + L.ebar, *mu = work + L.mu;
-  Acc *Ybar = work + L.Ybar, *G = work + L.G, *scan = work + L.scan;
-  const dim3 grid((unsigned)elem_blocks(n));
-  cudaError_t err = g_launch(bwd_pre_pass<S, MX>, grid, kElemThreads, 0, st, m, n,
-                             x.ps, x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, At, ebar);
-  if (err == cudaSuccess)
-    err = g_run<Acc, Acc>(g_spec(gAff, m, m, 1), n, 1, 0,
-                          GIn<Acc>{At, ebar, nullptr, nullptr}, mu, scan, st);
-  if (err == cudaSuccess)
-    err = g_launch(bwd_glue_pass<S, MX>, grid, kElemThreads, 0, st, m, n, x.ps,
-                   x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, x.lbar,
-                   (const Acc*)mu, Ybar);
-  if (err == cudaSuccess)
-    err = g_run<Acc, Acc>(g_spec(gCong, m, m, 1), n, 1, 0,
-                          GIn<Acc>{At, Ybar, nullptr, nullptr}, G, scan, st);
-  if (err == cudaSuccess)
-    err = g_launch(bwd_out_pass<S, MX>, grid, kElemThreads, 0, st, m, n, x.ps,
-                   x.qs, x.as, x.y, x.Fs, x.es, x.ics, x.qbar, x.lbar,
-                   (const Acc*)mu, (const Acc*)G, x.dbar, x.psbar, x.qsbar,
-                   x.asbar, x.ybar);
-  return err;
-}
-
 // ---------------------------------------------------------------- dispatch
 
-bool order_ok(int m, long long n) {
-  return m > 4 && m <= kGenMaxM && n >= 1 && elem_blocks(n) <= 0x7fffffffLL;
+constexpr int kB1MaxM = 16;  // this library's largest order (quasisep_loglik_wide.cu above)
+
+bool order_ok(int m, long long n) { return m > 4 && m <= kB1MaxM && n >= 1; }
+
+// Workspaces: the larger of the two storage types' (their tiles differ).
+long long fwd_workspace(int m, long long n) {
+  long long f32, f64;
+  if (m <= 8) {
+    f32 = b1t_layout<8>(m, 4, n).total;
+    f64 = b1t_layout<8>(m, 8, n).total;
+  } else {
+    f32 = b1t_layout<16>(m, 4, n).total;
+    f64 = b1t_layout<16>(m, 8, n).total;
+  }
+  return f32 > f64 ? f32 : f64;
 }
 
-template <typename S>
-int loglik(int m, long long n, const S* d, const S* ps, const S* qs,
-           const S* as, const S* y, S* out, S* Fs, S* es, S* ics, Acc* work,
-           long long work_elems, void* stream) {
-  if (!order_ok(m, n) || work_elems < FwdLayout(m, n).total)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 8) return (int)run_fwd<S, 8>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work, st);
-  if (m <= 16) return (int)run_fwd<S, 16>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work, st);
-  return (int)run_fwd<S, 32>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work, st);
-}
-
-// B2's workspace: at m <= kB2MaxM the one-launch kernel's for either
-// storage type (the float64 tiles may be smaller), above the sequence's.
 long long bwd_workspace(int m, long long n) {
-  if (m > kB2MaxM) return BwdLayout(m, n).total;
   const long long f32 = m > kB2WarpMaxM ? b2t_layout(m, 4, n).total : b2g_layout(m, 4, n).total;
   const long long f64 = m > kB2WarpMaxM ? b2t_layout(m, 8, n).total : b2g_layout(m, 8, n).total;
   return f32 > f64 ? f32 : f64;
+}
+
+// B1 or B1r: one memset (the ticket, the flags, the finish ticket) and one
+// launch.
+template <int P, typename S>
+cudaError_t run_b1_tc(int m, long long n, const FwdArgs<S>& x, Acc* work, cudaStream_t st) {
+  const int sub = b1t_sub<P>(m, sizeof(S));
+  const FwdLayout L = b1t_layout<P>(m, sizeof(S), n);
+  if (L.chain.nt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaMemsetAsync(work + L.chain.flags, 0, L.zero_bytes(), st);
+  if (e != cudaSuccess) return e;
+  return g_launch(b1_tc_kernel<P, S>, dim3((unsigned)L.chain.nt), 32 * kMonoTeams,
+                  b1t_smem<P>(m, sizeof(S), sub), st, m, n, x, work, L, sub);
+}
+
+template <typename S>
+int loglik(int m, long long n, const FwdArgs<S>& x, Acc* work, long long work_elems,
+           void* stream) {
+  if (!order_ok(m, n) || work_elems < fwd_workspace(m, n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(m <= 8 ? run_b1_tc<8, S>(m, n, x, work, st) : run_b1_tc<16, S>(m, n, x, work, st));
 }
 
 // At m = 5..8: one memset (the ticket and the flags) and one launch.
@@ -1339,8 +1287,7 @@ int loglik_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work,
     case 7: return (int)run_b2_warp<S, 7>(n, x, work, st);
     case 8: return (int)run_b2_warp<S, 8>(n, x, work, st);
   }
-  if (m <= kB2MaxM) return (int)run_b2_tc<S>(m, n, x, work, st);
-  return (int)run_bwd<S, 32>(m, n, x, work, st);
+  return (int)run_b2_tc<S>(m, n, x, work, st);
 }
 
 }  // namespace
@@ -1348,20 +1295,30 @@ int loglik_bwd(int m, long long n, const BwdArgs<S>& x, Acc* work,
 extern "C" {
 
 // Workspaces, in float64 elements; -1 for an order this library does not
-// take (it takes 4 < m <= 32).
+// take (it takes 4 < m <= 16).
 long long qsl_workspace_elems(int m, int n) {
-  return order_ok(m, n) ? FwdLayout(m, n).total : -1;
+  return order_ok(m, n) ? fwd_workspace(m, n) : -1;
 }
 
 long long qsl_bwd_workspace_elems(int m, int n) {
   return order_ok(m, n) ? bwd_workspace(m, n) : -1;
 }
 
-// B2's association at m = 5..16 (the one-launch kernels) for operands of
-// `bytes` bytes: elements per tile and per team (one warp) into tile[0],
-// sub[0]; returns 0, or -1 where B2 runs the sequence instead (m > 16).
+// B1 and B1r's association for operands of `bytes` bytes: elements per tile
+// and per team (one warp) into tile[0], sub[0]; returns 0, or -1 for an
+// order this library does not take.
+int qsl_fwd_schedule(int m, int bytes, int* tile, int* sub) {
+  if (!order_ok(m, 1) || (bytes != 4 && bytes != 8)) return -1;
+  *sub = m <= 8 ? b1t_sub<8>(m, bytes) : b1t_sub<16>(m, bytes);
+  *tile = kMonoTeams * *sub;
+  return 0;
+}
+
+// B2's association for operands of `bytes` bytes: elements per tile and
+// per team (one warp) into tile[0], sub[0]; returns 0, or -1 for an order
+// this library does not take.
 int qsl_bwd_schedule(int m, int bytes, int* tile, int* sub) {
-  if (m <= 4 || m > kB2MaxM || (bytes != 4 && bytes != 8)) return -1;
+  if (!order_ok(m, 1) || (bytes != 4 && bytes != 8)) return -1;
   *sub = m > kB2WarpMaxM ? b2t_sub(m, bytes) : b2g_sub(m, bytes);
   *tile = kB2Teams * *sub;
   return 0;
@@ -1372,16 +1329,16 @@ int qsl_loglik_f32(int m, int n, const float* d, const float* ps,
                    const float* qs, const float* as, const float* y,
                    float* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<float>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
-                       work, work_elems, stream);
+  const FwdArgs<float> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
+  return loglik<float>(m, n, x, work, work_elems, stream);
 }
 
 int qsl_loglik_f64(int m, int n, const double* d, const double* ps,
                    const double* qs, const double* as, const double* y,
                    double* out, double* work, long long work_elems,
                    void* stream) {
-  return loglik<double>(m, n, d, ps, qs, as, y, out, nullptr, nullptr, nullptr,
-                        work, work_elems, stream);
+  const FwdArgs<double> x{d, ps, qs, as, y, out, nullptr, nullptr, nullptr};
+  return loglik<double>(m, n, x, work, work_elems, stream);
 }
 
 // B1r: as B1, and the residuals F (m*m, n), e (m, n) and 1/c (n).
@@ -1389,16 +1346,16 @@ int qsl_loglik_res_f32(int m, int n, const float* d, const float* ps,
                        const float* qs, const float* as, const float* y,
                        float* out, float* Fs, float* es, float* ics,
                        double* work, long long work_elems, void* stream) {
-  return loglik<float>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
-                       work_elems, stream);
+  const FwdArgs<float> x{d, ps, qs, as, y, out, Fs, es, ics};
+  return loglik<float>(m, n, x, work, work_elems, stream);
 }
 
 int qsl_loglik_res_f64(int m, int n, const double* d, const double* ps,
                        const double* qs, const double* as, const double* y,
                        double* out, double* Fs, double* es, double* ics,
                        double* work, long long work_elems, void* stream) {
-  return loglik<double>(m, n, d, ps, qs, as, y, out, Fs, es, ics, work,
-                        work_elems, stream);
+  const FwdArgs<double> x{d, ps, qs, as, y, out, Fs, es, ics};
+  return loglik<double>(m, n, x, work, work_elems, stream);
 }
 
 // B2: the cotangents of (d, ps, qs, as, y); qbar and lbar point to one

@@ -811,7 +811,7 @@ struct CplOp {
 // By one warp: [M | R] (P x 2P, row stride ld) to [. | M^-1 R] by
 // Gauss-Jordan elimination with partial pivoting (the first largest
 // pivot), lane j holding column j in registers. At the orders here the
-// merges' I + F G is not reliably near the identity (ginverse). Columns
+// merges' I + F G is not reliably near the identity. Columns
 // m..P-1 are the padding's identity, whose steps change nothing, so they
 // are skipped. Ends with the warp's barrier.
 template <int P>
@@ -1120,7 +1120,7 @@ struct RicOp {
   // The rank-one step on maps in shared memory (wide_tile), by a block:
   // for the element el (el_slot's places), the state F (row stride ldf)
   // and, in a fold, the running A: f = F p and w = A^T p, then
-  // u = q - a f and 1 / (d - p^T f), into vec (f, w, u, 1 / c).
+  // u = q - a f and c = d - p^T f, into vec (f, w, u, 1 / c, c).
   __device__ void emit_map(const Acc* F, int ldf, const Acc* A, const Acc* el, Acc* vec) const {
     const int t = threadIdx.x;
     if (t < P) {
@@ -1140,7 +1140,9 @@ struct RicOp {
     } else if (t == P) {
       Acc pf = Acc(0);
       for (int k = 0; k < m; ++k) pf += el[k * LM + P] * vec[k];
-      vec[3 * P] = Acc(1) / (el[P + 2] - pf);
+      const Acc c = el[P + 2] - pf;
+      vec[3 * P] = Acc(1) / c;
+      vec[3 * P + 1] = c;
     }
     MM::sync();
   }
@@ -1337,6 +1339,86 @@ __device__ void mono_lookback(const Op& op, long long b, long long nt, const Loo
   if (end && more) {
     op.apply(GA, s, s, scr(0));
     publish_values(s, sl.group_state + g * ST, ST, sl.group_flag + g, 2u);
+  }
+}
+
+// ------------------------------------------ kernels B1, B1r and B2 above m = 4
+//
+// What their one-launch kernels share (quasisep_loglik_generic.cu up to
+// m = 16, quasisep_loglik_wide.cu above): the operands, B1's workspace and
+// the finish of its two sums.
+
+// B1 and B1r: operands (d, ps, qs, as, y) and the outputs out (quad,
+// logdet) and, for B1r (Fs non-null), the residuals Fs, es, ics.
+template <typename S>
+struct FwdArgs {
+  const S *d, *ps, *qs, *as, *y;
+  S *out, *Fs, *es, *ics;
+};
+
+// B2: the residuals and cotangents in, the operands' cotangents out.
+template <typename S>
+struct BwdArgs {
+  const S *ps, *qs, *as, *y, *Fs, *es, *ics, *qbar, *lbar;
+  S *dbar, *psbar, *qsbar, *asbar, *ybar;
+};
+
+// B1's workspace, in Acc: two chains of look-back slots (the Riccati
+// flow's, then the whitening scan's, each in the larger map and state), the
+// ticket and the flags, one more 32-bit word (the finish ticket), then
+// each tile's two partial sums. One memset zeroes the words.
+struct FwdLayout {
+  ChainLayout chain;
+  long long partials, total;
+  __host__ __device__ FwdLayout(long long nt, int map, int state)
+      : chain(nt, 2, map, state, kMonoGroup) {
+    partials = chain.flags + (chain.flag_words + 2) / 2;
+    total = partials + 2 * nt;
+  }
+  __host__ __device__ long long zero_bytes() const {
+    return (chain.flag_words + 1) * (long long)sizeof(unsigned);
+  }
+  __device__ unsigned* finished(Acc* work) const { return chain.ticket(work) + chain.flag_words; }
+};
+
+// By every thread of the block, with the tile's two sums in thread 0:
+// publish them, and in the tile that finishes last (counted on the finish
+// ticket) sum every tile's in tile order, each thread a strided run and
+// then a fixed tree, into out; red holds 2 blockDim.x values. So two
+// launches on the same inputs agree bit for bit.
+template <typename S>
+__device__ void b1_finish(long long b, long long nt, Acc quad, Acc logdet, const FwdLayout& lay,
+                          Acc* work, Acc* red, S* out) {
+  __shared__ bool last;
+  const int t = threadIdx.x, nthr = blockDim.x;
+  Acc* partials = work + lay.partials;
+  if (t == 0) {
+    partials[2 * b] = quad;
+    partials[2 * b + 1] = logdet;
+    __threadfence();
+    last = atomicAdd(lay.finished(work), 1u) == (unsigned)(nt - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  Acc q = Acc(0), l = Acc(0);
+  for (long long i = t; i < nt; i += nthr) {
+    q += __ldcg(partials + 2 * i);
+    l += __ldcg(partials + 2 * i + 1);
+  }
+  red[t] = q;
+  red[nthr + t] = l;
+  __syncthreads();
+  for (int h = nthr / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      red[t] += red[t + h];
+      red[nthr + t] += red[nthr + t + h];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    out[0] = S(red[0]);
+    out[1] = S(red[nthr]);
   }
 }
 

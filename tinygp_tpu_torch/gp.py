@@ -18,16 +18,18 @@ in that dtype (``nn.Module.to``, in place). ``sample`` takes a
 differ.
 
 One exception to the single dtype: a float32 quasiseparable process
-conditions at new points in float64. Under x64 the JAX package forms the
-Matern and cosine kernels' transitions from NumPy float64 constants
-(``np.sqrt(3.0) / scale``), so its whole posterior at new points runs in
-float64 on float32 inputs; in float32 arithmetic the posterior variance
-``k(x, x) - a^T a`` cancels to a few digits and the mean loses as many
-(ROADMAP C7). :meth:`~GaussianProcess.condition` and
-:meth:`~GaussianProcess.predict` at ``X_test`` therefore run a float64
-copy of the process on the same float32 values and hand back float32
-results; the log-likelihood, sampling and conditioning at the training
-points stay in float32.
+conditions in float64. Under x64 the JAX package forms the Matern and
+cosine kernels' transitions from NumPy float64 constants
+(``np.sqrt(3.0) / scale``), so its whole posterior runs in float64 on
+float32 inputs; in float32 arithmetic the posterior variance
+``k(x, x) - a^T a`` cancels to a few digits and the mean loses as many: at
+new points (ROADMAP C7) and at the training points, where the variance
+went negative (C8). :meth:`~GaussianProcess.condition` and
+:meth:`~GaussianProcess.predict` therefore run a float64 copy of the
+process on the same float32 values and hand back float32 results, each
+rounded once (the posterior covariance at the training points a
+``SymmQSM`` of float32 parts); the log-likelihood and sampling stay in
+float32.
 """
 
 from __future__ import annotations
@@ -140,6 +142,9 @@ class GaussianProcess(nn.Module):
             solver_kwargs.pop("blocked", None)
 
         self.num_data = mean_value.shape[0]
+        # A float32 posterior's covariance in float64, set by `condition`
+        # where it ran the float64 twin: `sample` factors it.
+        self._wide_covariance = None
         self.dtype = dtype
         self.device = device
         self.kernel = kernel
@@ -206,17 +211,21 @@ class GaussianProcess(nn.Module):
         y = as_tensor(y, self.device, self.dtype)
         X_test = self._check_test_points(X_test)
         cross_kernel = self.kernel if kernel is None else kernel
-        wide = self._float64_twin(X_test)
+        wide = self._float64_twin()
         kinv_r, log_prob, post_loc = self._condition(y, X_test, include_mean, kernel, wide)
-        noise = _as_noise(noise, diag, post_loc)
+        # The default jitter is the conditioning dtype's, as in the JAX
+        # package, whose posterior mean on float32 inputs is float64.
+        noise = _as_noise(noise, diag, post_loc if wide is None else _double(post_loc))
+        wide_covariance = None
         if wide is None:
             covariance = self.solver.condition(cross_kernel, X_test, noise)
         else:
-            covariance = wide.solver.condition(
+            wide_covariance = wide.solver.condition(
                 wide.kernel if kernel is None else _float64_copy(kernel),
-                X_test.double(),
+                _double(X_test),
                 _float64_copy(noise),
-            ).to(self.dtype)
+            )
+            covariance = _cast(wide_covariance, self.dtype)
         post_mean = means.Conditioned(
             self.X, kinv_r, cross_kernel,
             include_mean=include_mean, mean_function=self.mean_function,
@@ -230,6 +239,8 @@ class GaussianProcess(nn.Module):
             covariance_value=covariance,
             device=self.device,
         )
+        if X_test is None:
+            post._wide_covariance = wide_covariance
         return ConditionResult(pin_backward(log_prob), post)
 
     @pinned
@@ -253,7 +264,7 @@ class GaussianProcess(nn.Module):
         if not (return_var or return_cov):
             y = as_tensor(y, self.device, self.dtype)
             X_test = self._check_test_points(X_test)
-            wide = self._float64_twin(X_test)
+            wide = self._float64_twin()
             return pin_backward(self._condition(y, X_test, include_mean, kernel, wide)[2])
         post = self.condition(y, X_test, kernel=kernel, include_mean=include_mean).gp
         spread = post.variance if return_var else post.covariance
@@ -267,14 +278,33 @@ class GaussianProcess(nn.Module):
     ) -> torch.Tensor:
         """Draw realizations, of shape ``shape + (N,)``: the mean plus the
         factor times white noise drawn from ``generator`` (a generator on
-        this process's device; PyTorch's default one if ``None``)."""
+        this process's device; PyTorch's default one if ``None``). A float32
+        quasiseparable process, and its posterior at the training points,
+        apply the factor in float64 to the float32 draws (C8: in float32 it
+        was 9.3e-4 of the largest value off at N = 1e5, and a posterior's
+        factor NaN)."""
         eps = torch.randn(
             (self.num_data, *(shape or ())),
             generator=generator,
             dtype=self.dtype,
             device=self.device,
         )
-        return self.mean + torch.movedim(self.solver.dot_triangular(eps), 0, -1)
+        solver = self._float64_solver()
+        if solver is None:
+            draw = self.solver.dot_triangular(eps)
+        else:
+            draw = solver.dot_triangular(eps.double()).to(self.dtype)
+        return self.mean + torch.movedim(draw, 0, -1)
+
+    def _float64_solver(self) -> Any | None:
+        """The solver whose factor `sample` applies in float64, or None."""
+        from tinygp_tpu_torch.solvers.quasisep.solver import QuasisepSolver
+
+        if self._wide_covariance is not None:
+            return QuasisepSolver(None, self.X.double(), None, covariance=self._wide_covariance,
+                                  parallel=self.solver.parallel)
+        wide = self._float64_twin()
+        return None if wide is None else wide.solver
 
     def _whiten(self, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The whitened residual ``L^-1 (y - mu)`` and the marginal log
@@ -318,7 +348,7 @@ class GaussianProcess(nn.Module):
         ``wide``, this process's float64 twin, where there is one."""
         if wide is not None:
             out = wide._condition(
-                y.double(), X_test.double(), include_mean,
+                y.double(), _double(X_test), include_mean,
                 None if kernel is None else _float64_copy(kernel),
             )
             return tuple(x.to(self.dtype) for x in out)
@@ -328,17 +358,16 @@ class GaussianProcess(nn.Module):
         mean = self._posterior_mean(kinv_r, y, X_test, include_mean, kernel)
         return kinv_r, log_prob, mean
 
-    def _float64_twin(self, X_test: torch.Tensor | None) -> GaussianProcess | None:
-        """The process that conditions this one at ``X_test``: for a
-        float32 quasiseparable process and new points, the same model in
-        float64 on the same values (see the module docstring); otherwise
-        ``None``, and this process conditions itself."""
+    def _float64_twin(self) -> GaussianProcess | None:
+        """The process that conditions this one: for a float32
+        quasiseparable process, the same model in float64 on the same
+        values (see the module docstring); otherwise ``None``, and this
+        process conditions itself."""
         from tinygp_tpu_torch.kernels.quasisep import Quasisep
         from tinygp_tpu_torch.solvers.quasisep.solver import QuasisepSolver
 
         if (
-            X_test is None
-            or self.dtype != torch.float32
+            self.dtype != torch.float32
             or type(self.solver) is not QuasisepSolver
             or not isinstance(self.kernel, Quasisep)
         ):
@@ -381,6 +410,17 @@ class ConditionResult(NamedTuple):
 def _float64_copy(module: nn.Module) -> nn.Module:
     """A copy of ``module`` in float64, ``module`` unchanged."""
     return mapped_module(module, torch.Tensor.double)
+
+
+def _double(x: torch.Tensor | None) -> torch.Tensor | None:
+    return None if x is None else x.double()
+
+
+def _cast(x: Any, dtype: torch.dtype) -> Any:
+    """A tensor, or a quasiseparable matrix part by part, in ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return x._map_parts(lambda part: _cast(part, dtype))
 
 
 def _default_diag(reference: torch.Tensor) -> float:

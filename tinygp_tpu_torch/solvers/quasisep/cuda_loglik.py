@@ -22,18 +22,17 @@ Three kernels replace the TPU's:
 - **B2** (``csrc/quasisep_loglik_bwd.cu``) replaces
   ``pallas_loglik._bwd_kernel``: from the residuals and the two scalar
   cotangents, the cotangents of ``(d, ps, qs, as_, y)``, through a reverse
-  affine-adjoint scan and a reverse congruence scan. Up to m = 16 it is
-  one launch, in the same design run backwards;
-  :func:`plain_loglik_bwd_tiled` is its association in plain PyTorch,
-  :func:`b2_schedule` its tiles.
+  affine-adjoint scan and a reverse congruence scan: one launch, in the
+  same design run backwards; :func:`plain_loglik_bwd_tiled` is its
+  association in plain PyTorch, :func:`b2_schedule` its tiles.
 
 Those sources are templated for m = 1..4. For 4 < m <= 32 the same three
-entry points run ``csrc/quasisep_loglik_generic.cu``, which has the same C
-interface: B1 and B1r, and B2 above m = 16, as a short sequence of the
-generic-order scan engine and hand-written elementwise and reduction
-kernels, with the same arithmetic; B2 at m = 5..16 as the one launch with a
-warp for a team (at m = 9..16 every product on the float64 tensor cores).
-Above 32 a CUDA operand raises (ROADMAP item N10).
+entry points run sources with the same C interface, each kernel one launch
+and one memset: ``csrc/quasisep_loglik_generic.cu`` at m = 5..16 (a warp
+a team, at m = 9..16 for B2 and at every order for B1 and B1r each
+product on the float64 tensor cores) and ``csrc/quasisep_loglik_wide.cu``
+at m = 17..32 (a block a team). Above 32 a CUDA operand raises (ROADMAP
+item N10).
 
 Every scan runs in float64 for float32 operands too: composed in float32,
 the Riccati maps of long spans lose the state (see the note in the
@@ -105,19 +104,20 @@ from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
 LAUNCHES = 0
 """Calls that launched kernel B1 (one per call of its C entry: one kernel
-launch up to m = 4, the generic sequence above)."""
+launch and one memset)."""
 LAUNCHES_RES = 0
 """Calls that launched kernel B1r, the forward with residuals."""
 LAUNCHES_BWD = 0
-"""Calls that launched kernel B2, the backward (one kernel launch each up
-to m = 8)."""
+"""Calls that launched kernel B2, the backward."""
 LAUNCHES_GENERIC = {"b1": 0, "b1r": 0, "b2": 0}
-"""Of those, the calls above m = 4 (``quasisep_loglik_generic.cu``)."""
+"""Of those, the calls above m = 4 (``quasisep_loglik_generic.cu``,
+``quasisep_loglik_wide.cu``)."""
 LAUNCHES_CHAINS = {"b1": 0, "b1r": 0, "b2": 0}
 """Of those, the launches over a chain axis (every chain in one kernel,
 m <= 4)."""
 
 _MAX_M = 4  # the templated kernels' orders
+_MAX_TC_M = 16  # quasisep_loglik_generic.cu's; quasisep_loglik_wide.cu's above
 _MAX_GENERIC_M = 32
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -426,6 +426,7 @@ def plain_loglik_bwd_chains(
 
 
 _SMEM_BLOCK = 232448  # 227 KB, a block's shared memory on sm_90
+_SMEM_SM = 233472  # 228 KB, a multiprocessor's
 
 
 def _b2_tc_sub(m: int, nbytes: int) -> int:
@@ -446,40 +447,61 @@ def _b2_tc_sub(m: int, nbytes: int) -> int:
 # B2's association on the card, (tile, sub) by (m, bytes per value): the
 # elements of a tile and of a team's run (csrc/quasisep_loglik_bwd.cu:
 # b2_sub, one thread a team, 64 a tile; csrc/quasisep_loglik_generic.cu:
-# b2g_sub and b2t_sub, one warp a team, 4 a tile). Above m = 16 B2 runs the
-# generic sequence, with no tiles.
+# b2g_sub and b2t_sub, one warp a team, 4 a tile; csrc/quasisep_loglik_wide.cu
+# above m = 16, a tile of 32 one team).
 _B2_SCHEDULE = {
-    (m, nbytes): (64 * sub, sub) if m <= 4 else (4 * sub, sub)
-    for m in range(1, 17) for nbytes in (4, 8)
+    (m, nbytes): (64 * sub, sub) if m <= 4 else (4 * sub, sub) if m <= _MAX_TC_M else (sub, sub)
+    for m in range(1, _MAX_GENERIC_M + 1) for nbytes in (4, 8)
     for sub in [(8 if m <= 2 else 2) if m <= 4
+                else 32 if m > _MAX_TC_M
                 else _b2_tc_sub(m, nbytes) if m > 8
                 else (8 if nbytes == 8 else 16) if m == 8
                 else 16 if m == 7 or (nbytes == 8 and m == 6) else 32]
 }
-# Above m = 8 (the tensor-core kernel) the look-back folds a group of 16
-# tiles in runs of 4 (csrc/quasisep_tc.cuh: mono_lookback).
+# Above m = 8 (the tensor-core kernels) and for B1 and B1r above m = 4 the
+# look-back folds a group of 16 tiles in runs of 4 (csrc/quasisep_tc.cuh:
+# mono_lookback; quasisep_wide.cuh: wide_lookback).
 _B2_TC_LOOK = {"runs": 4, "group": 16}
 
 
-# B1 and B1r's association on the card at m <= 4, (tile, sub) by (m, bytes
-# per value) (csrc/quasisep_loglik.cu: b1_sub, one thread a team, 64 a
-# tile). Above m = 4 they run the generic sequence, with no tiles.
+def _b1_tc_sub(m: int, nbytes: int) -> int:
+    """Elements per team of B1's tensor-core kernel at m = 5..16
+    (csrc/quasisep_loglik_generic.cu: b1t_sub): with maps padded to 8 the
+    most, up to 64, whose block leaves two blocks a multiprocessor; padded
+    to 16 the most, up to 32, whose block fits 1 KB short of a block's
+    shared memory beside the Riccati flow's look-back maps and states."""
+    P = 8 if m <= 8 else 16
+    mp, st, scr = P * (3 * P + 4), P * (P + 4), P * (2 * P + 4)
+    fixed = 8 * (3 * mp + 2 * st + 4 * (3 * mp + scr + st))
+    room = _SMEM_SM // 2 - 1024 if P == 8 else _SMEM_BLOCK - 1024
+    sub = 64 if P == 8 else 32
+    while sub > 1 and (fixed + 4 * sub * (m + 1) * 8
+                       + (2 + 2 * m + m * m) * (4 * sub + 1) * nbytes + 16 > room):
+        sub -= 1
+    return sub
+
+
+# B1 and B1r's association on the card, (tile, sub) by (m, bytes per value)
+# (csrc/quasisep_loglik.cu: b1_sub, one thread a team, 64 a tile, m <= 4;
+# csrc/quasisep_loglik_generic.cu: b1t_sub, one warp a team, 4 a tile,
+# m = 5..16; csrc/quasisep_loglik_wide.cu above, a tile of 64 one team).
 _B1_SCHEDULE = {
-    (m, nbytes): (64 * sub, sub)
-    for m in range(1, 5) for nbytes in (4, 8) for sub in [8 if m <= 2 else 4]
+    (m, nbytes): (64 * sub, sub) if m <= 4 else (4 * sub, sub) if m <= _MAX_TC_M else (sub, sub)
+    for m in range(1, _MAX_GENERIC_M + 1) for nbytes in (4, 8)
+    for sub in [(8 if m <= 2 else 4) if m <= 4
+                else _b1_tc_sub(m, nbytes) if m <= _MAX_TC_M else 64]
 }
 
 
 def b1_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
     """``(tile, sub)`` of the one-launch B1 and B1r for order ``m`` and
-    operands of ``dtype``, or None where they run the generic sequence
-    (m > 4)."""
+    operands of ``dtype``, or None above m = 32."""
     return _B1_SCHEDULE.get((m, torch.empty((), dtype=dtype).element_size()))
 
 
 def b2_schedule(m: int, dtype: torch.dtype) -> tuple[int, int] | None:
     """``(tile, sub)`` of B2's one-launch kernel for order ``m`` and
-    operands of ``dtype``, or None where B2 runs the sequence (m > 16)."""
+    operands of ``dtype``, or None above m = 32."""
     return _B2_SCHEDULE.get((m, torch.empty((), dtype=dtype).element_size()))
 
 
@@ -599,7 +621,7 @@ def plain_loglik_terms_res_tiled(
     sub: int,
 ) -> tuple[torch.Tensor, ...]:
     """``(quad, logdet, Fs, e, ic)``: B1r in the association of its
-    one-launch kernel at m <= 4, in float64, stored in the operands' dtype.
+    one-launch kernel, in float64, stored in the operands' dtype.
 
     The elements are cut into tiles of ``tile``, each into teams of ``sub``
     consecutive elements. Phase A: each team folds its elements' Riccati
@@ -614,6 +636,10 @@ def plain_loglik_terms_res_tiled(
     ``alpha``, ``log c`` and the residuals. The ragged end is padded with
     identity elements (``d = 1``, ``p = q = 0``, ``a = I``, ``y = 0``),
     which the kernel masks and which add nothing.
+
+    Up to m = 4 each chain's look-back folds a group of 32 tiles as a
+    warp's Kogge-Stone scan; above m = 4 (the tensor-core and block-a-team
+    kernels) a group of 16 tiles in runs of 4, each chain its own groups.
     """
     m, n = ps.shape
     dtype = ps.dtype
@@ -664,8 +690,8 @@ def plain_loglik_terms_res_tiled(
     zeros = torch.zeros(m, m, **f64)
     incl = _team_scan([A, F, G], _ric_combine)
     pre = _exclusive(incl, [eye, zeros, zeros])
-    start = _group_chain([t[:, -1] for t in incl], _ric_combine, _ric_apply, zeros,
-                         warp_fold=True)
+    look = {"warp_fold": True} if m <= _MAX_M else _B2_TC_LOOK
+    start = _group_chain([t[:, -1] for t in incl], _ric_combine, _ric_apply, zeros, **look)
     F0 = _ric_apply(*pre, start[:, None])
 
     # Phase B: the sequential flow and the whitening elements' folds.
@@ -678,7 +704,7 @@ def plain_loglik_terms_res_tiled(
     incl = _team_scan([TA, TB], _aff_combine)
     pre_A, pre_B = _exclusive(incl, [eye, torch.zeros(m, **f64)])
     start = _group_chain([t[:, -1] for t in incl], _aff_combine, _aff_apply,
-                         torch.zeros(m, **f64), warp_fold=True)
+                         torch.zeros(m, **f64), **look)
     e = _aff_apply(pre_A, pre_B, start[:, None])
 
     # Phase C: alpha, log c and the residuals at each element.
@@ -745,10 +771,10 @@ def plain_loglik_bwd_tiled(
     outputs are elementwise in mu and Gbar (the kernel's phase C). The
     ragged end is padded with identity elements, which the kernel masks.
 
-    Above m = 8 (the tensor-core kernel) the look-back folds a group of 16
-    tiles in runs of 4, and the congruence adjoint scans ``Gbar +
-    Gbar^T``, the only form of Gbar the outputs read, with the loads
-    symmetrized to match (the scan is linear in its loads).
+    Above m = 8 (the tensor-core and block-a-team kernels) the look-back
+    folds a group of 16 tiles in runs of 4, and the congruence adjoint
+    scans ``Gbar + Gbar^T``, the only form of Gbar the outputs read, with
+    the loads symmetrized to match (the scan is linear in its loads).
     """
     m, n = ps.shape
     dtype = ps.dtype
@@ -946,10 +972,11 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def _generic_library() -> ctypes.CDLL:
-    """B1, B1r and B2 for 4 < m <= 32, built at first use: the same C
-    signatures as the templated libraries."""
-    lib = cuda_build.library("quasisep_loglik_generic")
+def _generic_library(stem: str = "quasisep_loglik_generic") -> ctypes.CDLL:
+    """B1, B1r and B2 for 4 < m <= 16 (``stem`` ``quasisep_loglik_wide``:
+    16 < m <= 32), built at first use: the same C signatures as the
+    templated libraries."""
+    lib = cuda_build.library(stem)
     for name in ("qsl_workspace_elems", "qsl_bwd_workspace_elems"):
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_longlong
@@ -957,7 +984,17 @@ def _generic_library() -> ctypes.CDLL:
     _bind(lib, "qsl_loglik_res", 10)
     _bind(lib, "qsl_loglik_bwd", 15)
     _bind_schedule(lib)
+    _bind_schedule(lib, "qsl_fwd_schedule")
     return lib
+
+
+def _order_library(m: int, templated) -> ctypes.CDLL:
+    """The library of order ``m``: ``templated()`` up to m = 4, then the
+    generic and the wide sources."""
+    if m <= _MAX_M:
+        return templated()
+    return _generic_library("quasisep_loglik_generic" if m <= _MAX_TC_M
+                            else "quasisep_loglik_wide")
 
 
 def _check(**operands: torch.Tensor) -> tuple[int, int]:
@@ -1054,7 +1091,7 @@ def _loglik_b1(d, ps, qs, as_, y) -> tuple[torch.Tensor, torch.Tensor]:
     if _on_cpu(d, ps, qs, as_, y):
         return plain_loglik_terms(d, ps, qs, as_, y)
     m, n = _check(d=d, ps=ps, qs=qs, as_=as_, y=y)
-    lib = _library() if m <= _MAX_M else _generic_library()
+    lib = _order_library(m, _library)
     out = d.new_empty(2)
     _launch(lib, "qsl_loglik", lib.qsl_workspace_elems, m, n, (d, ps, qs, as_, y, out))
     LAUNCHES += 1
@@ -1075,7 +1112,7 @@ def fused_loglik_res(
     if _on_cpu(d, ps, qs, as_, y):
         return plain_loglik_terms_res(d, ps, qs, as_, y)
     m, n = _check(d=d, ps=ps, qs=qs, as_=as_, y=y)
-    lib = _library() if m <= _MAX_M else _generic_library()
+    lib = _order_library(m, _library)
     out = d.new_empty(2)
     Fs, e, ic = d.new_empty(m * m, n), d.new_empty(m, n), d.new_empty(n)
     _launch(
@@ -1108,7 +1145,7 @@ def fused_loglik_bwd(
     if _on_cpu(ps, qs, as_, y, Fs, e, ic, qbar, lbar):
         return plain_loglik_bwd(ps, qs, as_, y, Fs, e, ic, qbar, lbar)
     m, n = _check(ps=ps, qs=qs, as_=as_, y=y, Fs=Fs, e=e, ic=ic, qbar=qbar, lbar=lbar)
-    lib = _bwd_library() if m <= _MAX_M else _generic_library()
+    lib = _order_library(m, _bwd_library)
     outs = (y.new_empty(n), y.new_empty(m, n), y.new_empty(m, n),
             y.new_empty(m * m, n), y.new_empty(n))
     _launch(
@@ -1121,7 +1158,7 @@ def fused_loglik_bwd(
 
 
 def _per_chain(fn, operands, batched):
-    """``fn`` launched once for each chain (the generic engine has no chain
+    """``fn`` launched once for each chain (the generic-order kernels have no chain
     axis, ROADMAP N9b), its outputs stacked on a chain axis."""
     chains = next(x.shape[0] for x, b in zip(operands, batched) if b)
     outs = [fn(*(x[c] if b else x for x, b in zip(operands, batched))) for c in range(chains)]

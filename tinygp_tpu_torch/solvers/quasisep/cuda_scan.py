@@ -74,7 +74,7 @@ from tinygp_tpu_torch.solvers.quasisep import scan as _scan
 
 LAUNCHES = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Calls that launched kernel B3, by monoid (one per call of its C entry,
-which enqueues one kernel and a memset, or the engine's passes)."""
+which enqueues one kernel and a memset)."""
 LAUNCHES_GENERIC = {"aff": 0, "cong": 0, "ric": 0, "cpl": 0}
 """Of those, the calls that went to the generic-order source."""
 

@@ -434,8 +434,9 @@ def _riccati_scan_s(d, ps, qs, as_, m):
 
 def riccati_fold_rank_one(d, ps, qs, as_, m, init=None):
     """Fold a chunk of Riccati elements, in order, into a running value
-    ``(A, F, G)`` with the rank-one step: the plain version of the CUDA
-    engine's chunk pass (``csrc/quasisep_generic.cuh``: ``ric_fold``).
+    ``(A, F, G)`` with the rank-one step: the plain version of the
+    one-launch kernels' team fold (``csrc/quasisep_tc.cuh``:
+    ``RicOp::fold``, ``RicOp::fold_map``).
 
     Each element's map is rank-one (:func:`_riccati_elements`), so its
     merge after ``(A, F, G)`` needs no inverse: with ``f = F p``, the

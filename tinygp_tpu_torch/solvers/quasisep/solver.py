@@ -13,7 +13,7 @@ and the parallel strategy the log-likelihood takes the fused stacked route
 (kernel B1 on the card) and builds neither. The factor of a posterior
 (order 4m) is built only when something needs it, such as its
 ``log_probability`` or ``sample``; on the card its scans run the
-generic-order engine above order 4.
+generic-order kernels above order 4.
 """
 
 from __future__ import annotations
